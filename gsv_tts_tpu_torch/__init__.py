@@ -2,9 +2,11 @@
 
 The PyTorch counterpart of ``gsv_tts_tpu``: module names mirror the JAX
 package so each function has an obvious reference.  Plain tensor code is
-PyTorch; the one hand-written kernel on the single-utterance path (the whole
-B=1 decode step, ``ops/fused_step.py``) is CUDA C++ under ``csrc/``, built
-with ``nvcc`` at first use.  Nothing here imports ``jax``.
+PyTorch; the hand-written kernels of the decode paths (the whole decode
+step for one slot and for a wave of slots, ``ops/fused_step.py``, and the
+decode attention, ``ops/flash_decode.py``) are CUDA C++ under ``csrc/``,
+built with ``nvcc`` at first use.  Nothing here imports ``jax`` or loads a
+file of ``gsv_tts_tpu``.
 """
 
 __all__ = ["TTS"]

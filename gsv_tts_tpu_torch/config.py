@@ -26,7 +26,13 @@ _DTYPE_MAP = {
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card.  The engine never falls back to the CPU on its own: a
+    caller that wants the CPU (tests, debugging) says ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available (torch.cuda.is_available() is false); "
+            'pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -37,8 +43,9 @@ def default_dtype(device: torch.device) -> torch.dtype:
 class Config:
     """Per-engine configuration.
 
-    ``device`` is explicit (a ``torch.device`` or a string such as
-    ``"cuda:0"``); ``dtype`` defaults from it.  ``gpt_cache`` is the list of
+    ``device`` is a ``torch.device`` or a string such as ``"cuda:0"`` or
+    ``"cpu"``; left ``None`` it is the card, and construction raises when
+    there is none.  ``dtype`` defaults from the device.  ``gpt_cache`` is the list of
     ``(batch_size, max_seq_len)`` KV-cache buckets; ``models_dir`` keys the
     frontend's G2P engines.
     """

@@ -27,36 +27,9 @@
 // accumulation, float32 LayerNorm, float32 single-query attention with an
 // online softmax (this token's own K/V enter in float32, as in the TPU
 // kernel), filtered row values of -1e30 for removed ids.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
-typedef __nv_bfloat16 bf16;
-
-#define K1_NEG (-1e30f)
-#define K1_MAX_SUPPRESSED 8
-
-constexpr int GEMV_WARPS = 8;        // output rows per GEMV block
-constexpr int ATTN_THREADS = 128;    // 4 warps per (head, split) block
-constexpr int ATTN_ROWS = 64;        // cache rows per split
-constexpr int SAMPLE_THREADS = 1024;
-constexpr int LN_THREADS = 256;
-
-struct K1Layer {
-  const bf16* qkv_w;  // [3D, D]
-  const bf16* qkv_b;  // [3D]
-  const bf16* out_w;  // [D, D]
-  const bf16* out_b;
-  const bf16* mlp1_w;  // [M, D]
-  const bf16* mlp1_b;
-  const bf16* mlp2_w;  // [D, M]
-  const bf16* mlp2_b;
-  const float* ln1_g;
-  const float* ln1_b;
-  const float* ln2_g;
-  const float* ln2_b;
-};
+typedef LayerWeights K1Layer;
 
 struct K1Args {
   int L, D, H, M, V, S, P;
@@ -72,7 +45,7 @@ struct K1Args {
   const float* gumbel;    // [V]
   int kv_len, pe_idx, buf_len;
   int suppress, n_suppressed;
-  int suppressed[K1_MAX_SUPPRESSED];
+  int suppressed[DEC_MAX_SUPPRESSED];
   int use_prev;
   float rep_penalty, top_p, inv_temperature;
   int top_k;
@@ -86,42 +59,6 @@ struct K1Args {
   int* tok_out;    // [1]
   int* err;        // [1]  set to 1 when last_tok is out of range
 };
-
-struct K1SampleArgs {
-  float* row;
-  const float* gumbel;
-  int* tok_buf;
-  int* tok_out;
-  int V, NP, S, buf_len;
-  int suppress, n_suppressed;
-  int suppressed[K1_MAX_SUPPRESSED];
-  int use_prev;
-  float rep_penalty, top_p, inv_temperature;
-  int top_k;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum over the block; every thread gets the total.  ``red`` holds 32 floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    float t = lane < nw ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  return red[0];
-}
 
 // ---------------------------------------------------------------------------
 // x = float(bf16(audio_emb[last_tok]) + bf16(alpha * pe[pe_idx]))
@@ -182,339 +119,60 @@ k1_gemv(const bf16* __restrict__ W, const bf16* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
-// Single-query attention, split over the cache (flash-decoding): block
-// (head h, split j) reads rows [64 j, 64 j + 64) of [0, kv_len] -- cache
-// rows below kv_len plus the token itself, whose K/V
-// enter in float32 from qkv -- and writes the split's partial (max, sum,
-// unnormalised output).  A row is read by LPR = Dh/8 lanes, 16 bytes each,
-// so a warp covers 32/LPR rows per step; every (warp, row slot) keeps its
-// own online softmax, merged in shared memory at the end.  Split 0 also
-// appends the token's K/V row at kv_len (never read here, so no race).
+// Single-query attention, split over the cache (decode_common.cuh): block
+// (head h, split j) covers rows [64 j, 64 j + 64) of [0, kv_len] -- cache
+// rows below kv_len plus the token itself, whose K/V enter in float32 from
+// qkv.  Split 0 also appends the token's K/V row at kv_len (never read
+// here, so no race).
 // ---------------------------------------------------------------------------
 template <int LPR>
 __global__ void __launch_bounds__(ATTN_THREADS)
 k1_attn_partial(const float* __restrict__ qkv, bf16* __restrict__ kc, bf16* __restrict__ vc,
                 int D, int kv_len, float scale, float* __restrict__ part, int nsplit) {
   constexpr int Dh = LPR * 8;
-  constexpr int RPW = 32 / LPR;                      // rows per warp step
-  constexpr int SLOTS = (ATTN_THREADS / 32) * RPW;
-  __shared__ float s_m[SLOTS], s_l[SLOTS];
-  __shared__ float s_acc[SLOTS][Dh];
   const int h = blockIdx.x, split = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = warp * RPW + lane / LPR;
-  const int d0 = (lane % LPR) * 8;
   const size_t hoff = (size_t)h * Dh;
   const float* q = qkv + hoff;
   const float* kn = qkv + D + hoff;
   const float* vn = qkv + 2 * D + hoff;
-
   if (split == 0) {
     for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
       kc[(size_t)kv_len * D + hoff + d] = __float2bfloat16(kn[d]);
       vc[(size_t)kv_len * D + hoff + d] = __float2bfloat16(vn[d]);
     }
   }
-  float qr[8], acc[8];
+  const int d0 = (threadIdx.x & 31) % LPR * 8;
+  float qr[8];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    qr[j] = q[d0 + j];
-    acc[j] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  const int s_end = min((split + 1) * ATTN_ROWS, kv_len + 1);
-  for (int s0 = split * ATTN_ROWS + warp * RPW; s0 < s_end; s0 += (ATTN_THREADS / 32) * RPW) {
-    const int s = s0 + lane / LPR;
-    float kf[8], vf[8];
-    if (s < kv_len) {
-      const uint4 kr = *reinterpret_cast<const uint4*>(kc + (size_t)s * D + hoff + d0);
-      const uint4 vr = *reinterpret_cast<const uint4*>(vc + (size_t)s * D + hoff + d0);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kr);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vr);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 a = __bfloat1622float2(k2[j]);
-        const float2 b = __bfloat1622float2(v2[j]);
-        kf[2 * j] = a.x;
-        kf[2 * j + 1] = a.y;
-        vf[2 * j] = b.x;
-        vf[2 * j + 1] = b.y;
-      }
-    } else {  // the token itself (s == kv_len), or past this split's end
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kf[j] = s == kv_len ? kn[d0 + j] : 0.f;
-        vf[j] = s == kv_len ? vn[d0 + j] : 0.f;
-      }
-    }
-    float part_dot = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) part_dot += qr[j] * kf[j];
-#pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
-    if (s < s_end) {
-      const float score = part_dot * scale;
-      const float m_new = fmaxf(m, score);
-      const float corr = expf(m - m_new);
-      const float p = expf(score - m_new);
-      l = l * corr + p;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] * corr + p * vf[j];
-      m = m_new;
-    }
-  }
-  if (lane % LPR == 0) {
-    s_m[slot] = m;
-    s_l[slot] = l;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s_acc[slot][d0 + j] = acc[j];
-  __syncthreads();
-  float* out = part + ((size_t)h * nsplit + split) * (Dh + 2);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    float mx = -INFINITY;
-    for (int t = 0; t < SLOTS; ++t) mx = fmaxf(mx, s_m[t]);
-    float lsum = 0.f, a = 0.f;
-    for (int t = 0; t < SLOTS; ++t) {
-      if (s_l[t] > 0.f) {
-        const float c = expf(s_m[t] - mx);
-        lsum += s_l[t] * c;
-        a += s_acc[t][d] * c;
-      }
-    }
-    out[2 + d] = a;
-    if (d == 0) {
-      out[0] = mx;
-      out[1] = lsum;
-    }
-  }
+  for (int j = 0; j < 8; ++j) qr[j] = q[d0 + j];
+  attn_split_partial<LPR>(qr, kn, vn, kc + hoff, vc + hoff, D, kv_len, split, scale,
+                          part + ((size_t)h * nsplit + split) * (Dh + 2));
 }
 
 // Merge the splits' partials of head blockIdx.x into out[h*Dh : (h+1)*Dh].
 __global__ void k1_attn_combine(const float* __restrict__ part, int nsplit, int Dh,
                                 float* __restrict__ out) {
   const float* p = part + (size_t)blockIdx.x * nsplit * (Dh + 2);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    float mx = -INFINITY;
-    for (int i = 0; i < nsplit; ++i) mx = fmaxf(mx, p[(size_t)i * (Dh + 2)]);
-    float lsum = 0.f, a = 0.f;
-    for (int i = 0; i < nsplit; ++i) {
-      const float* pi = p + (size_t)i * (Dh + 2);
-      const float c = expf(pi[0] - mx);
-      lsum += pi[1] * c;
-      a += pi[2 + d] * c;
-    }
-    out[(size_t)blockIdx.x * Dh + d] = a / lsum;
-  }
+  for (int d = threadIdx.x; d < Dh; d += blockDim.x)
+    out[(size_t)blockIdx.x * Dh + d] = attn_split_combine(p, nsplit, Dh, d);
 }
 
-// ---------------------------------------------------------------------------
-// out = LayerNorm(in) * g + b over D, float32 (in place allowed: every
-// thread reads and writes only its own elements).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(LN_THREADS)
-k1_layernorm(const float* in, const float* __restrict__ g, const float* __restrict__ b,
-             float* out, int D, float eps) {
-  __shared__ float red[32];
-  float s = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) s += in[i];
-  const float mean = block_sum(s, red) / D;
-  float q = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float d = in[i] - mean;
-    q += d * d;
-  }
-  const float var = block_sum(q, red) / D;
-  const float inv = 1.f / sqrtf(var + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    out[i] = (in[i] - mean) * inv * g[i] + b[i];
-}
-
-// ---------------------------------------------------------------------------
-// Sampling, one block: suppression -> repetition penalty -> top-p on the
-// pre-temperature row -> temperature -> top-k pivot -> argmax(row + g).
-// Top-p and top-k share one bitonic sort in shared memory (value
-// descending, ties to the lowest id -- the TPU kernel peels maxima with
-// ties to the lowest lane).  The filtered row overwrites ``row``; the token
-// goes to tok_out and is appended to tok_buf[buf_len].
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ bool k1_before(float ka, int ia, float kb, int ib) {
-  return ka > kb || (ka == kb && ia < ib);
-}
-
-__global__ void __launch_bounds__(SAMPLE_THREADS) k1_sample(K1SampleArgs a) {
-  extern __shared__ float smem[];
-  const int V = a.V, NP = a.NP;
-  float* r = smem;                                   // [V]
-  float* key = r + V;                                // [NP]
-  int* idx = reinterpret_cast<int*>(key + NP);       // [NP]
-  int* flag = idx + NP;                              // [V]
-  float* scan = reinterpret_cast<float*>(flag + V);  // [SAMPLE_THREADS]
-  __shared__ float red[32];
-  __shared__ int s_first;
-  __shared__ float s_bv[32];
-  __shared__ int s_bi[32];
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  for (int i = tid; i < V; i += nt) r[i] = a.row[i];
-  __syncthreads();
-  if (a.suppress && tid < a.n_suppressed) {
-    const int sid = a.suppressed[tid];
-    if (sid >= 0 && sid < V) r[sid] = K1_NEG;
-  }
-  __syncthreads();
-
-  if (a.use_prev && a.rep_penalty != 1.f) {
-    for (int i = tid; i < V; i += nt) flag[i] = 0;
-    __syncthreads();
-    for (int j = tid; j < a.buf_len; j += nt) {
-      const int t = a.tok_buf[j];
-      if (t >= 0 && t < V) flag[t] = 1;
-    }
-    __syncthreads();
-    for (int i = tid; i < V; i += nt)
-      if (flag[i]) r[i] = r[i] < 0.f ? r[i] * a.rep_penalty : r[i] / a.rep_penalty;
-    __syncthreads();
-  }
-
-  const bool need_top_p = a.top_p < 1.f;
-  const int k = min(a.top_k, V);
-  const bool need_top_k = k < V;
-  int n_keep = V;
-  if (need_top_p || need_top_k) {
-    for (int i = tid; i < NP; i += nt) {
-      key[i] = i < V ? r[i] : -INFINITY;
-      idx[i] = i;
-    }
-    __syncthreads();
-    for (int size = 2; size <= NP; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < NP; i += nt) {
-          const int j = i ^ stride;
-          if (j > i) {
-            const bool up = (i & size) == 0;
-            const bool swap = up ? k1_before(key[j], idx[j], key[i], idx[i])
-                                 : k1_before(key[i], idx[i], key[j], idx[j]);
-            if (swap) {
-              const float tk = key[i]; key[i] = key[j]; key[j] = tk;
-              const int ti = idx[i]; idx[i] = idx[j]; idx[j] = ti;
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-
-    if (need_top_p) {
-      const float mx = key[0];
-      float zs = 0.f;
-      for (int j = tid; j < V; j += nt) zs += expf(key[j] - mx);
-      const float z = block_sum(zs, red);
-      // inclusive prefix sum of the sorted probabilities: each thread owns
-      // one contiguous run, the run totals are scanned across the block
-      const int chunk = (V + nt - 1) / nt;
-      const int lo = min(tid * chunk, V), hi = min(lo + chunk, V);
-      float local = 0.f;
-      for (int j = lo; j < hi; ++j) local += expf(key[j] - mx) / z;
-      scan[tid] = local;
-      if (tid == 0) s_first = V;
-      __syncthreads();
-      for (int off = 1; off < nt; off <<= 1) {
-        const float add = tid >= off ? scan[tid - off] : 0.f;
-        __syncthreads();
-        scan[tid] += add;
-        __syncthreads();
-      }
-      float run = tid > 0 ? scan[tid - 1] : 0.f;
-      for (int j = lo; j < hi; ++j) {
-        run += expf(key[j] - mx) / z;
-        if (j > 0 && run > a.top_p) {
-          atomicMin(&s_first, j);
-          break;
-        }
-      }
-      __syncthreads();
-      n_keep = s_first;
-      for (int j = tid; j < V; j += nt)
-        if (j >= n_keep) r[idx[j]] = K1_NEG;
-      __syncthreads();
-    }
-  }
-
-  for (int i = tid; i < V; i += nt) r[i] = r[i] * a.inv_temperature;
-  __syncthreads();
-  if (need_top_k) {
-    // the k-th largest of the filtered row: kept entries are a prefix of
-    // the sorted order, everything past it is -1e30; scaling by
-    // 1/temperature is monotone, so the scaled pivot is the scaled value
-    const float pivot = (k - 1 < n_keep ? key[k - 1] : K1_NEG) * a.inv_temperature;
-    for (int i = tid; i < V; i += nt)
-      if (r[i] < pivot) r[i] = K1_NEG;
-    __syncthreads();
-  }
-
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int i = tid; i < V; i += nt) {
-    a.row[i] = r[i];
-    const float t = r[i] + a.gumbel[i];
-    if (t > bv || (t == bv && i < bi)) {
-      bv = t;
-      bi = i;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (ov > bv || (ov == bv && oi < bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  const int lane = tid & 31, wid = tid >> 5;
-  if (lane == 0) {
-    s_bv[wid] = bv;
-    s_bi[wid] = bi;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int w = 1; w < (nt + 31) / 32; ++w)
-      if (s_bv[w] > bv || (s_bv[w] == bv && s_bi[w] < bi)) {
-        bv = s_bv[w];
-        bi = s_bi[w];
-      }
-    a.tok_out[0] = bi;
-    if (a.tok_buf != nullptr && a.buf_len < a.S) a.tok_buf[a.buf_len] = bi;
-  }
+// Sampling of the one row (decode_common.cuh: sample_row).
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+k1_sample(SampleParams p, float* row, const float* gumbel, int* tok_buf, int* tok_out,
+          int buf_len, int suppress) {
+  sample_row(p, row, gumbel, tok_buf, tok_out, buf_len, suppress != 0);
 }
 
 // ---------------------------------------------------------------------------
 // Host entry point: the whole step, launched on ``stream``.  Returns the
 // first CUDA error raised by a launch (0 when every launch was accepted).
 // ---------------------------------------------------------------------------
-static int next_pow2(int v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
-}
-
-static size_t sample_smem_bytes(int V, int NP) {
-  return sizeof(float) * (size_t)V + sizeof(float) * (size_t)NP + sizeof(int) * (size_t)NP +
-         sizeof(int) * (size_t)V + sizeof(float) * SAMPLE_THREADS;
-}
-
-#define K1_CHECK()                                   \
-  do {                                               \
-    const cudaError_t e_ = cudaGetLastError();       \
-    if (e_ != cudaSuccess) return (int)e_;           \
-  } while (0)
-
 static int launch_gemv(const bf16* W, const bf16* bias, const float* x, const float* res,
                        float* y, int N, int K, int relu, cudaStream_t st) {
   const int blocks = (N + GEMV_WARPS - 1) / GEMV_WARPS;
   k1_gemv<<<blocks, GEMV_WARPS * 32, sizeof(float) * K, st>>>(W, bias, x, res, y, N, K, relu);
-  K1_CHECK();
+  DEC_CHECK();
   return 0;
 }
 
@@ -530,9 +188,9 @@ static int launch_attention(const float* qkv, bf16* kc, bf16* vc, int D, int H, 
     case 128: k1_attn_partial<16><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  K1_CHECK();
+  DEC_CHECK();
   k1_attn_combine<<<H, 128, 0, st>>>(part, nsplit, Dh, out);
-  K1_CHECK();
+  DEC_CHECK();
   return 0;
 }
 
@@ -544,7 +202,7 @@ extern "C" int k1_decode_step(const K1Args* a, const K1Layer* layers, void* stre
 
   k1_embed<<<(D + 255) / 256, 256, 0, st>>>(a->audio_emb, a->pe, a->alpha, a->last_tok, V, D,
                                             a->pe_idx, a->x, a->err);
-  K1_CHECK();
+  DEC_CHECK();
   for (int l = 0; l < a->L; ++l) {
     const K1Layer& w = layers[l];
     bf16* kc = a->k_cache + (size_t)l * S * D;
@@ -553,33 +211,28 @@ extern "C" int k1_decode_step(const K1Args* a, const K1Layer* layers, void* stre
     if ((rc = launch_attention(a->qkv, kc, vc, D, a->H, Dh, a->kv_len, a->attn_scale,
                                a->part, a->attn, st))) return rc;
     if ((rc = launch_gemv(w.out_w, w.out_b, a->attn, a->x, a->h, D, D, 0, st))) return rc;
-    k1_layernorm<<<1, LN_THREADS, 0, st>>>(a->h, w.ln1_g, w.ln1_b, a->h, D, 1e-5f);
-    K1_CHECK();
+    layernorm_rows<<<1, LN_THREADS, 0, st>>>(a->h, w.ln1_g, w.ln1_b, a->h, D, 1e-5f);
+    DEC_CHECK();
     if ((rc = launch_gemv(w.mlp1_w, w.mlp1_b, a->h, nullptr, a->mlp, M, D, 1, st))) return rc;
     if ((rc = launch_gemv(w.mlp2_w, w.mlp2_b, a->mlp, a->h, a->x, D, M, 0, st))) return rc;
-    k1_layernorm<<<1, LN_THREADS, 0, st>>>(a->x, w.ln2_g, w.ln2_b, a->x, D, 1e-5f);
-    K1_CHECK();
+    layernorm_rows<<<1, LN_THREADS, 0, st>>>(a->x, w.ln2_g, w.ln2_b, a->x, D, 1e-5f);
+    DEC_CHECK();
   }
   if ((rc = launch_gemv(a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0, st))) return rc;
 
-  K1SampleArgs s;
-  s.row = a->row_out;
-  s.gumbel = a->gumbel;
-  s.tok_buf = a->tok_buf;
-  s.tok_out = a->tok_out;
+  SampleParams s;
   s.V = V;
   s.NP = next_pow2(V);
   s.S = S;
-  s.buf_len = a->buf_len;
-  s.suppress = a->suppress;
   s.n_suppressed = a->n_suppressed;
-  for (int i = 0; i < K1_MAX_SUPPRESSED; ++i) s.suppressed[i] = a->suppressed[i];
+  for (int i = 0; i < DEC_MAX_SUPPRESSED; ++i) s.suppressed[i] = a->suppressed[i];
   s.use_prev = a->use_prev;
   s.rep_penalty = a->rep_penalty;
   s.top_p = a->top_p;
   s.inv_temperature = a->inv_temperature;
   s.top_k = a->top_k;
-  k1_sample<<<1, SAMPLE_THREADS, sample_smem_bytes(V, s.NP), st>>>(s);
-  K1_CHECK();
+  k1_sample<<<1, SAMPLE_THREADS, sample_smem_bytes(V, s.NP), st>>>(
+      s, a->row_out, a->gumbel, a->tok_buf, a->tok_out, a->buf_len, a->suppress);
+  DEC_CHECK();
   return 0;
 }

@@ -1,20 +1,11 @@
-"""Text frontend, reused from the JAX package without importing it.
+"""Text frontend (host code): language segmentation, text processing,
+English normalisation and G2P.
 
-The host code under ``gsv_tts_tpu/frontend`` (language segmentation, text
-processing, English normalisation and G2P) is pure Python, but importing it
-as ``gsv_tts_tpu.frontend`` would execute ``gsv_tts_tpu/__init__.py``, which
-reaches ``jax``.  So this package appends that directory to its own
-``__path__``: its modules load here, as ``gsv_tts_tpu_torch.frontend.*``,
-and only the two modules that reach outside the frontend are shadowed by
-files of this package — ``symbols.py`` (reads the symbol table by path) and
-``g2p/__init__.py`` (uses this package's ``config.global_config`` and raises
-for Chinese and Japanese, which are not ported yet).
+The English subset is this package's own copy of the modules under
+``gsv_tts_tpu/frontend`` (``lang_segment``, ``pause``, ``text_processor``,
+``g2p/english``, ``g2p/en_norm``, ``g2p/en_oov``, ``g2p/en_pos``), kept
+verbatim; ``symbols.py`` reads this package's ``assets/symbols.json`` and
+``g2p/__init__.py`` binds the dispatcher to this package's ``global_config``
+and raises for Chinese and Japanese, which are not ported yet.  Nothing here
+loads a file of the JAX package.
 """
-import os
-
-JAX_FRONTEND_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "gsv_tts_tpu", "frontend")
-if not os.path.isdir(JAX_FRONTEND_DIR):
-    raise ImportError(f"the shared frontend sources are missing: {JAX_FRONTEND_DIR}")
-__path__.append(JAX_FRONTEND_DIR)

@@ -1,26 +1,22 @@
-"""G2P dispatcher (shadows ``gsv_tts_tpu/frontend/g2p/__init__.py``).
+"""G2P dispatcher (counterpart of ``gsv_tts_tpu/frontend/g2p/__init__.py``).
 
 Same contract as the JAX package's dispatcher — per-``models_dir`` cached
 engines, ellipsis collapse, pause-symbol mapping, UNK filtering and
 consecutive-punctuation dedup with the word2ph repair — but bound to this
 package's ``global_config``.  The English engine and its helpers
-(``english``, ``en_norm``, ``en_oov``, ``en_pos``) load from the JAX
-package's ``frontend/g2p`` directory, appended to this package's path.
+(``english``, ``en_norm``, ``en_oov``, ``en_pos``) are this package's own
+copies, beside this file.
 Chinese and Japanese raise ``NotImplementedError``: their BERT and
 OpenJTalk paths are not ported yet (ROADMAP Queue 1: zh BERT, ja).
 """
 from __future__ import annotations
 
-import os
 import re
 from typing import Dict, List, Tuple
 
-from .. import JAX_FRONTEND_DIR
 from .. import pause as Pause
 from .. import symbols as Symbols
 from ...config import global_config
-
-__path__.append(os.path.join(JAX_FRONTEND_DIR, "g2p"))
 
 symbol_to_id = Symbols.symbol_to_id
 _PUNCT_SET = set(Symbols.punctuation)

@@ -1,6 +1,6 @@
-"""Phoneme symbol table (732 symbols) and id mapping, read by path from the
-JAX package's ``assets/symbols.json`` (shadows ``gsv_tts_tpu/frontend/symbols.py``,
-which locates the asset by importing ``gsv_tts_tpu``)."""
+"""Phoneme symbol table (732 symbols) and id mapping, read from this
+package's ``assets/symbols.json`` (counterpart of
+``gsv_tts_tpu/frontend/symbols.py``)."""
 from __future__ import annotations
 
 import json
@@ -8,8 +8,7 @@ import os
 from typing import Dict, List
 
 SYMBOLS_JSON = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "gsv_tts_tpu", "assets", "symbols.json")
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "symbols.json")
 
 with open(SYMBOLS_JSON, encoding="utf-8") as _f:
     _data = json.load(_f)

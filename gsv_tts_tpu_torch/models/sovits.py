@@ -20,8 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.convs import (conv1d, conv_transpose1d, fold_weight_norm, interpolate_nearest,
-                         interpolate_nearest_2x, leaky_relu, linear, mish)
+from ..ops.convs import (conv1d, conv_transpose1d, fold_weight_norm, interpolate_nearest_2x,
+                         leaky_relu, linear, mish)
 
 F32 = torch.float32
 LRELU_SLOPE = 0.1
@@ -186,9 +186,18 @@ def vits_encoder(p, pfx, x, x_mask, n_layers: int, n_heads: int, kernel_size: in
     return x * x_mask
 
 
-def mrte(p, pfx, ssl_enc, ssl_mask, text, text_mask, ge):
-    """Cross-attention fusion; returns (out, attn)."""
-    attn_mask = text_mask[:, :, None, :] * ssl_mask[:, :, :, None]
+def mrte(p, pfx, ssl_enc, ssl_mask, text, text_mask, ge, slice_indices=None):
+    """Cross-attention fusion; returns (out, attn).  ``slice_indices`` [T, 2]
+    (packed batches): frame t attends only text columns [start_t, end_t) —
+    a block-diagonal mask — plus the last column, the always-attendable
+    null key."""
+    if slice_indices is None:
+        attn_mask = text_mask[:, :, None, :] * ssl_mask[:, :, :, None]
+    else:
+        text_range = torch.arange(text.shape[-1], device=text.device)[None, :]
+        attn_mask = ((text_range >= slice_indices[:, :1]) & (text_range < slice_indices[:, 1:]))
+        attn_mask[:, -1] = True
+        attn_mask = attn_mask[None, None]
     ssl_h = conv1d(ssl_enc * ssl_mask, p[pfx + "c_pre.weight"], p[pfx + "c_pre.bias"])
     text_h = conv1d(text * text_mask, p[pfx + "text_pre.weight"], p[pfx + "text_pre.bias"])
     x, attn = vits_attention(p, pfx + "cross_attention.", ssl_h * ssl_mask,
@@ -337,11 +346,12 @@ def extract_latent(p, x):
 # TextEncoder + synthesizer
 # ---------------------------------------------------------------------------
 
-def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge):
+def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge, slice_indices=None):
     """``TextEncoder.infer`` core (``models.py:196-224``) at the exact shape
     (all-ones masks): y [B, 768, T] upsampled quantized latent, text [B, N]
-    phone ids, ge [B, 512, 1].  Returns (y_latent [B, H, T], y_mask,
-    attn [B, 4, T, N])."""
+    phone ids, ge [B, 512, 1 or T], ``slice_indices`` [T, 2] the per-frame
+    text span of a packed batch (see :func:`mrte`).  Returns
+    (y_latent [B, H, T], y_mask, attn [B, 4, T, N])."""
     pfx = "enc_p."
     y_mask = torch.ones((y.shape[0], 1, y.shape[2]), dtype=y.dtype, device=y.device)
     text_mask = torch.ones((text.shape[0], 1, text.shape[1]), dtype=y.dtype,
@@ -352,7 +362,7 @@ def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge):
     t = p[pfx + "text_embedding.weight"][text.long()].to(h.dtype).transpose(1, 2)
     t = vits_encoder(p, pfx + "encoder_text.", t * text_mask, text_mask, cfg.n_layers,
                      cfg.n_heads, cfg.kernel_size, cfg.window_size)
-    h, attn = mrte(p, pfx + "mrte.", h, y_mask, t, text_mask, ge)
+    h, attn = mrte(p, pfx + "mrte.", h, y_mask, t, text_mask, ge, slice_indices)
     h = vits_encoder(p, pfx + "encoder2.", h * y_mask, y_mask, cfg.n_layers // 2,
                      cfg.n_heads, cfg.kernel_size, cfg.window_size)
     return h, y_mask, attn
@@ -379,14 +389,18 @@ def flow_dec(p, cfg: SovitsConfig, z_p, y_mask, ge):
     return generator(p, cfg, z * y_mask, g=ge)
 
 
-def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise):
+def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None):
     """Latent pipeline of ``SynthesizerTrn.decode`` (``models.py:385-404``)
     up to ``z_p``, at the exact shape and speed 1.  ``codes`` [n_q, B, T],
-    ``text`` [B, N], ``ge`` [B, gin, 1], ``noise`` [B, inter, 2T] standard
-    normal already scaled by ``noise_scale``.
-    Returns (z_p, y_mask, attn, ge)."""
+    ``text`` [B, N], ``ge`` [B, gin, 1] or per code frame [B, gin, T] (a
+    packed batch of several speakers; upsampled 2x to the latent rate here),
+    ``noise`` [B, inter, 2T] standard normal already scaled by
+    ``noise_scale``, ``slice_indices`` [2T, 2] each latent frame's text span
+    in a packed batch.  Returns (z_p, y_mask, attn, ge at the latent rate)."""
     quantized = interpolate_nearest_2x(quantizer_decode(p, codes, cfg.quantizer_n_q))
-    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge)
+    if ge.shape[-1] != 1:
+        ge = interpolate_nearest_2x(ge)
+    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge, slice_indices)
     m, logs = project_latent(p, cfg, y_latent, y_mask)
     z_p = m + noise.to(m.dtype) * torch.exp(logs)
     return z_p, y_mask, attn, ge

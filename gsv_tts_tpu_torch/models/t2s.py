@@ -9,9 +9,11 @@ loading is a key lookup and ``F.linear`` applies them.  LayerNorm affines,
 the positional ``alpha`` scalars and the sine table stay float32, as in the
 JAX package.
 
-The KV cache is ``[L, B, S, H, Dh]``, the JAX layout; the decode step here is
-the plain (JAX "xla") path.  The B=1 engine hot path is the whole-step
-kernel in ``ops/fused_step.py``.
+The KV cache is ``[L, B, S, H, Dh]``, the JAX layout.  The decode step here
+is the generic one (plain PyTorch products and LayerNorms around the decode
+attention of ``ops/flash_decode.py``: kernel K3b on the card, its twin on
+the CPU), which waves larger than the whole-step kernels take; the engine's
+hot paths for 1 and 2..8 slots are those kernels, ``ops/fused_step.py``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.flash_decode import flash_decode_attention_layered
 from ..ops.norms import layer_norm
 
 F32 = torch.float32
@@ -213,26 +216,22 @@ def transformer_prefill(params, cfg: T2SConfig, xy_pos: torch.Tensor,
     return x, torch.stack(ks), torch.stack(vs)
 
 
-def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, num_heads):
-    """One token through one block.  x [B, D]; caches [L, B, S, H, Dh] are
-    updated IN PLACE at row ``kv_len[b]`` of layer ``layer_idx``."""
+def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_heads):
+    """One token per slot through one block.  x [B, D]; caches
+    [L, B, S, H, Dh] are updated IN PLACE at row ``rows[b]`` (= ``kv_len[b]``
+    as int64; ``bidx`` = arange(B)) of layer ``layer_idx``.  Each slot
+    attends its rows ``s <= kv_len[b]`` through
+    ``flash_decode_attention_layered``."""
     B, D = x.shape
     H = num_heads
     Dh = D // H
-    bidx = torch.arange(B, device=x.device)
     residual = x
     qkv = F.linear(x, lp["qkv_w"], lp["qkv_b"])
     q, k, v = qkv.split(D, dim=-1)
-    k_cache[layer_idx, bidx, kv_len] = k.reshape(B, H, Dh).to(k_cache.dtype)
-    v_cache[layer_idx, bidx, kv_len] = v.reshape(B, H, Dh).to(v_cache.dtype)
-    kc, vc = k_cache[layer_idx], v_cache[layer_idx]  # [B, S, H, Dh]
-    S = kc.shape[1]
-    scores = torch.einsum("bhd,bshd->bhs", q.reshape(B, H, Dh).float(), kc.float())
-    scores = scores / math.sqrt(Dh)
-    valid = torch.arange(S, device=x.device)[None, :] <= kv_len[:, None]
-    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    attn = torch.einsum("bhs,bshd->bhd", probs, vc.to(x.dtype)).reshape(B, D)
+    k_cache[layer_idx, bidx, rows] = k.reshape(B, H, Dh).to(k_cache.dtype)
+    v_cache[layer_idx, bidx, rows] = v.reshape(B, H, Dh).to(v_cache.dtype)
+    attn = flash_decode_attention_layered(q.reshape(B, H, Dh).contiguous(), k_cache, v_cache,
+                                          kv_len, layer_idx).reshape(B, D)
     x = residual + F.linear(attn, lp["out_w"], lp["out_b"])
     x = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     residual = x
@@ -242,11 +241,14 @@ def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, num_heads):
 
 
 def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len):
-    """One token through all layers (the JAX ``attn_impl="xla"`` path).
-    ``kv_len`` [B] long: valid entries before this token.  Caches are
-    updated in place and returned for symmetry with the JAX signature."""
+    """One token per slot through all layers (the JAX generic step, whose
+    attention is ``flash_decode_attention_layered``).  ``kv_len`` [B] int32:
+    valid entries before this token.  Caches are updated in place and
+    returned for symmetry with the JAX signature."""
+    bidx = torch.arange(x.shape[0], device=x.device)
+    rows = kv_len.long()
     for i, lp in enumerate(params["layers"]):
-        x = _block_decode(x, lp, i, k_cache, v_cache, kv_len, cfg.num_heads)
+        x = _block_decode(x, lp, i, k_cache, v_cache, kv_len, bidx, rows, cfg.num_heads)
     return x, k_cache, v_cache
 
 

@@ -1,27 +1,37 @@
-"""K1: the whole B=1 decode step — embedding, every layer with the K/V row
-appended in place, the logits head and the sampling chain — as one call
-(counterpart of ``gsv_tts_tpu/ops/fused_step.py:fused_decode_step_sample``,
-TPU kernel ``_kernel_sample``).
+"""K1 and K2: the whole t2s decode step — embedding, every layer with the
+K/V row appended in place, the logits head and the sampling chain — as one
+call (counterpart of ``gsv_tts_tpu/ops/fused_step.py``).
 
-On CUDA tensors :func:`fused_decode_step_sample` launches the hand-written
-Hopper kernels of ``csrc/k1_decode_step.cu`` (built with ``nvcc`` at first
-use); on CPU tensors it runs the plain PyTorch twin
-:func:`fused_decode_step_sample_ref`, which is also what the card's kernel
-is held against.  There is no fallback between the two.
+* K1, :func:`fused_decode_step_sample`: one slot (TPU kernel
+  ``_kernel_sample``), CUDA source ``csrc/k1_decode_step.cu``.
+* K2, :func:`fused_decode_step_sample_batched`: a wave of ``B`` slots with
+  per-slot counters (TPU kernel ``_kernel_sample_b``), CUDA source
+  ``csrc/k2_decode_step_batched.cu``; every layer's weights cross device
+  memory once per step for all ``B`` rows.
 
-Semantics follow the TPU kernel, not the XLA path, where they differ:
-removed ids carry -1e30 instead of -inf, this token's own K/V enter the
+On CUDA tensors the wrappers launch the hand-written Hopper kernels (built
+with ``nvcc`` at first use); on CPU tensors they run the plain PyTorch twins
+(``*_ref``), which are also what the card's kernels are held against.  There
+is no fallback between the two.
+
+Semantics follow the TPU kernels, not the XLA path, where they differ:
+removed ids carry -1e30 instead of -inf, a token's own K/V enter the
 attention in float32, and top-p keeps a prefix of the order (value
-descending, ties to the lowest id).  Differences from the TPU kernel's
-interface: the scalars are Python ints (B=1 counters advance by one per
-step, so the host never reads them back), the vocabulary is not padded to a
-lane multiple, indices are bounds-checked instead of clamped (any cache
-length S is accepted), and the sampled token is also appended to
-``tok_buf[buf_len]`` in place.
+descending, ties to the lowest id).  Differences from the TPU kernels'
+interface: K1's scalars are Python ints, K2's stay ``[B]`` int32 tensors on
+the device (the kernel's blocks read their own slot's entries; nothing is
+read back per step); the vocabulary is not padded to a lane multiple; any
+cache length ``S`` is accepted; indices are bounds-checked instead of
+clamped (on the card a bad device-side value sets a flag that
+``K1Table.check`` raises on); and the sampled token is also appended to
+``tok_buf[b, buf_len[b]]`` in place.  The TPU kernel's three softmax modes
+(``rows``, ``vec``, ``shared``) are one function in exact arithmetic, so K2
+has one: the exact per-row online softmax.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -36,6 +46,13 @@ MAX_SUPPRESSED = 8
 HEAD_DIMS = (8, 16, 32, 64, 128)  # a cache row is read by Dh/8 lanes of a warp
 ATTN_ROWS = 64  # cache rows per attention split (csrc ATTN_ROWS)
 MAX_VOCAB = 2048  # the sampling block keeps the row and its sort in shared memory
+#: slots K2 takes: row accumulators its weight-streaming GEMV keeps per warp
+#: (csrc K2_MAX_B); larger waves decode through the generic step
+MAX_FUSED_B = 8
+GEMV_SMEM = 48 * 1024  # K2 keeps its B activation rows in static-limit shared memory
+#: (library name, sources) for ``cuda_build``
+K1_LIBRARY = ("gsv_k1", ["k1_decode_step.cu"])
+K2_LIBRARY = ("gsv_k2", ["k2_decode_step_batched.cu"])
 
 _LAYER_FIELDS = ("qkv_w", "qkv_b", "out_w", "out_b", "mlp1_w", "mlp1_b",
                  "mlp2_w", "mlp2_b", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
@@ -51,67 +68,86 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x.to(w.dtype).float(), w.float())
 
 
-def filter_row_ref(logits: torch.Tensor, tok_buf: torch.Tensor, buf_len: int,
-                   suppress: bool, suppressed: Sequence[int], sa) -> torch.Tensor:
-    """The sampling chain's filtered row [1, V] (float32): suppression →
-    repetition penalty → top-p on the pre-temperature row → temperature →
-    top-k pivot; removed ids hold -1e30 (scaled by 1/temperature when the
-    top-p cut removed them, as in the TPU kernel)."""
+def _as_counter(v, B: int, dev) -> torch.Tensor:
+    """A host int (B=1) or a [B] tensor → [B] int64 tensor on ``dev``."""
+    t = torch.as_tensor(v, device=dev).reshape(-1).long()
+    if t.numel() != B:
+        raise ValueError(f"counter of {t.numel()} entries for {B} slots")
+    return t
+
+
+def filter_row_ref(logits: torch.Tensor, tok_buf: torch.Tensor, buf_len, suppress,
+                    suppressed: Sequence[int], sa) -> torch.Tensor:
+    """The sampling chain's filtered rows [B, V] (float32): per-row
+    suppression → repetition penalty over ``tok_buf[b, :buf_len[b]]`` → top-p
+    on the pre-temperature row → temperature → top-k pivot; removed ids hold
+    -1e30 (scaled by 1/temperature when the top-p cut removed them, as in
+    the TPU kernels).  ``buf_len`` [B] ints, ``suppress`` [B] bools."""
     row = logits.float().clone()
-    V = row.shape[-1]
+    B, V = row.shape
     dev = row.device
-    if suppress and suppressed:
-        ids = [s for s in suppressed if 0 <= s < V]
-        row[:, ids] = NEG
+    ids = [s for s in suppressed if 0 <= s < V]
+    if ids:
+        sup = torch.as_tensor(suppress, device=dev).reshape(B, 1)
+        row[:, ids] = torch.where(sup, torch.full_like(row[:, ids], NEG), row[:, ids])
     if sa.use_prev and sa.repetition_penalty != 1.0:
-        prev = tok_buf[0, :buf_len].long()
-        prev = prev[(prev >= 0) & (prev < V)]
-        member = torch.zeros(V, dtype=torch.bool, device=dev)
-        member[prev] = True
+        prev = tok_buf.long()
+        valid = ((torch.arange(prev.shape[1], device=dev)[None, :]
+                  < _as_counter(buf_len, B, dev)[:, None]) & (prev >= 0) & (prev < V))
+        member = torch.zeros((B, V + 1), dtype=torch.bool, device=dev)
+        member = member.scatter_(1, torch.where(valid, prev, V), True)[:, :V]
         rp = sa.repetition_penalty
         row = torch.where(member, torch.where(row < 0, row * rp, row / rp), row)
     k = min(sa.top_k, V)
-    n_keep = V
+    pos = torch.arange(V, device=dev)[None, :]
+    n_keep = torch.full((B, 1), V, device=dev)
     if sa.top_p < 1.0 or k < V:
-        key, order = torch.sort(row[0], descending=True, stable=True)
+        key, order = torch.sort(row, dim=-1, descending=True, stable=True)
     if sa.top_p < 1.0:
-        e = torch.exp(key - key[0])
-        cum = torch.cumsum(e / e.sum(), 0)
-        over = torch.nonzero((cum > sa.top_p) & (torch.arange(V, device=dev) > 0))
-        n_keep = int(over[0, 0]) if over.numel() else V
-        row[0, order[n_keep:]] = NEG
+        e = torch.exp(key - key[:, :1])
+        cum = torch.cumsum(e / e.sum(-1, keepdim=True), -1)
+        over = (cum > sa.top_p) & (pos > 0)
+        n_keep = torch.where(over.any(-1, keepdim=True),
+                             over.int().argmax(-1, keepdim=True), n_keep)
+        row = row.scatter(1, order, torch.where(pos >= n_keep, torch.full_like(key, NEG), key))
     inv_t = torch.tensor(1.0 / max(sa.temperature, 1e-5), dtype=torch.float32, device=dev)
     row = row * inv_t
     if k < V:
-        pivot = (key[k - 1] if k - 1 < n_keep else torch.tensor(NEG, device=dev)) * inv_t
-        row = torch.where(row < pivot, torch.full_like(row, NEG), row)
+        pivot = torch.where(k - 1 < n_keep, key[:, k - 1:k], torch.full_like(key[:, :1], NEG))
+        row = torch.where(row < pivot * inv_t, torch.full_like(row, NEG), row)
     return row
 
 
-def decode_hidden_ref(params, k_cache, v_cache, kv_len: int, x_len: int, last_tok):
-    """The twin's model half: embedding, every layer (K/V row written in
-    place at ``kv_len``) and the head.  Returns (final hidden [1, D],
-    logits [1, V]), both float32."""
+def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
+    """The twins' model half for B slots: embedding with the positional
+    entry ``max(kv_len - x_len, 0)`` (the clamp serves frozen slots, whose
+    ``kv_len < x_len``), every layer (each slot's K/V row written in place
+    at ``kv_len[b]``; attention over the cache rows below it plus the
+    token's own float32 K/V) and the head.  ``kv_len``/``x_len``: host ints
+    (B=1) or [B] tensors.  Returns (final hidden [B, D], logits [B, V]),
+    both float32."""
     L, B, S, H, Dh = k_cache.shape
     D = H * Dh
     cd = k_cache.dtype
+    dev = k_cache.device
     scale = 1.0 / math.sqrt(Dh)
-    pe_idx = kv_len - x_len
+    kv = _as_counter(kv_len, B, dev)
+    pe_idx = (kv - _as_counter(x_len, B, dev)).clamp_min(0)
+    bidx = torch.arange(B, device=dev)
+    below = (torch.arange(S, device=dev)[None, :] < kv[:, None])[:, :, None]  # [B, S, 1]
     emb = params["audio_emb"][last_tok.long()].to(cd)
-    pe_q = (params["audio_pos_alpha"].float()
-            * params["pe"][pe_idx:pe_idx + 1].float()).to(cd)
+    pe_q = (params["audio_pos_alpha"].float() * params["pe"][pe_idx].float()).to(cd)
     x = (emb + pe_q).float()
     for i, lp in enumerate(params["layers"]):
         qkv = _mm(x, lp["qkv_w"]) + lp["qkv_b"].float()
-        q, k_new, v_new = qkv.split(D, dim=-1)
-        k_cache[i, 0, kv_len] = k_new.reshape(H, Dh).to(cd)
-        v_cache[i, 0, kv_len] = v_new.reshape(H, Dh).to(cd)
-        q3 = q.reshape(H, Dh)
-        scores = torch.cat([(k_cache[i, 0, :kv_len].float() * q3).sum(-1),
-                            (k_new.reshape(1, H, Dh) * q3).sum(-1)], 0) * scale
-        p = torch.softmax(scores, dim=0)  # [kv_len + 1, H]
-        vals = torch.cat([v_cache[i, 0, :kv_len].float(), v_new.reshape(1, H, Dh)], 0)
-        attn = (p[:, :, None] * vals).sum(0).reshape(1, D)
+        q, k_new, v_new = (t.reshape(B, H, Dh) for t in qkv.split(D, dim=-1))
+        k_cache[i, bidx, kv] = k_new.to(cd)
+        v_cache[i, bidx, kv] = v_new.to(cd)
+        scores = (k_cache[i].float() * q[:, None]).sum(-1).masked_fill(~below, float("-inf"))
+        scores = torch.cat([scores, (k_new * q).sum(-1)[:, None]], 1) * scale  # [B, S+1, H]
+        p = torch.softmax(scores, dim=1)
+        attn = ((p[:, :S, :, None] * v_cache[i].float()).sum(1)
+                + p[:, S, :, None] * v_new).reshape(B, D)
         h = x + _mm(attn, lp["out_w"]) + lp["out_b"].float()
         h = layer_norm(h, lp["ln1_g"], lp["ln1_b"])
         m1 = torch.relu(_mm(h, lp["mlp1_w"]) + lp["mlp1_b"].float())
@@ -120,19 +156,25 @@ def decode_hidden_ref(params, k_cache, v_cache, kv_len: int, x_len: int, last_to
     return x, _mm(x, params["predict_w"])
 
 
-def fused_decode_step_sample_ref(params, k_cache, v_cache, tok_buf, kv_len: int,
-                                 x_len: int, last_tok, buf_len: int, step_idx: int,
-                                 gumbel, *, sa, suppress_until: int = 0,
-                                 suppressed=(), tok_out=None, row_out=None):
-    """Plain PyTorch twin of the kernel (same signature and effects): the
-    K/V row at ``kv_len`` and ``tok_buf[0, buf_len]`` are written in place.
-    Returns ``(tok [1] int32, row [1, V] float32, k_cache, v_cache)``."""
+def fused_decode_step_sample_batched_ref(params, k_cache, v_cache, tok_buf, kv_len, x_len,
+                                         last_tok, buf_len, step_idx, gumbel, *, sa,
+                                         suppress_until: int = 0, suppressed=(),
+                                         tok_out=None, row_out=None):
+    """Plain PyTorch twin of both kernels (same effects): each slot's K/V
+    row is written at ``kv_len[b]`` and its token at
+    ``tok_buf[b, buf_len[b]]`` in place.  Counters are host ints (B=1) or
+    [B] tensors.  Returns ``(tok [B] int32, row [B, V] float32, k_cache,
+    v_cache)``."""
+    B, S = tok_buf.shape
+    dev = tok_buf.device
     _, logits = decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok)
     sup = tuple(suppressed) if suppress_until else ()
-    row = filter_row_ref(logits, tok_buf, buf_len, step_idx < suppress_until, sup, sa)
+    row = filter_row_ref(logits, tok_buf, buf_len,
+                          _as_counter(step_idx, B, dev) < suppress_until, sup, sa)
     tok = torch.argmax(row + gumbel.float(), dim=-1).to(torch.int32)
-    if buf_len < tok_buf.shape[1]:
-        tok_buf[0, buf_len] = tok[0]
+    bl = _as_counter(buf_len, B, dev)
+    fits = bl < S
+    tok_buf[torch.arange(B, device=dev)[fits], bl[fits]] = tok[fits]
     if tok_out is not None:
         tok_out.copy_(tok)
         tok = tok_out
@@ -142,12 +184,24 @@ def fused_decode_step_sample_ref(params, k_cache, v_cache, tok_buf, kv_len: int,
     return tok, row, k_cache, v_cache
 
 
+#: K1's twin is the batched twin at B=1 with host-int counters
+fused_decode_step_sample_ref = fused_decode_step_sample_batched_ref
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel binding
 # ---------------------------------------------------------------------------
 
-class _K1Layer(ctypes.Structure):
+class _LayerWeights(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _LAYER_FIELDS]
+
+
+_SAMPLE_FIELDS = ([("n_suppressed", ctypes.c_int),
+                   ("suppressed", ctypes.c_int * MAX_SUPPRESSED), ("use_prev", ctypes.c_int)]
+                  + [(n, ctypes.c_float) for n in ("rep_penalty", "top_p", "inv_temperature")]
+                  + [("top_k", ctypes.c_int)])
+_WORK_FIELDS = [(n, ctypes.c_void_p) for n in ("x", "h", "qkv", "attn", "mlp", "part",
+                                               "row_out", "tok_out", "err")]
 
 
 class _K1Args(ctypes.Structure):
@@ -156,22 +210,40 @@ class _K1Args(ctypes.Structure):
         + [("alpha", ctypes.c_float), ("attn_scale", ctypes.c_float)]
         + [(n, ctypes.c_void_p) for n in ("audio_emb", "pe", "predict_w", "k_cache",
                                           "v_cache", "tok_buf", "last_tok", "gumbel")]
-        + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress",
-                                       "n_suppressed")]
-        + [("suppressed", ctypes.c_int * MAX_SUPPRESSED), ("use_prev", ctypes.c_int)]
-        + [(n, ctypes.c_float) for n in ("rep_penalty", "top_p", "inv_temperature")]
-        + [("top_k", ctypes.c_int)]
-        + [(n, ctypes.c_void_p) for n in ("x", "h", "qkv", "attn", "mlp", "part",
-                                          "row_out", "tok_out", "err")]
+        + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress")]
+        + _SAMPLE_FIELDS + _WORK_FIELDS
     )
 
 
+class _K2Args(ctypes.Structure):
+    _fields_ = (
+        [(n, ctypes.c_int) for n in ("B", "L", "D", "H", "M", "V", "S", "P")]
+        + [("alpha", ctypes.c_float), ("attn_scale", ctypes.c_float)]
+        + [(n, ctypes.c_void_p) for n in ("audio_emb", "pe", "predict_w", "k_cache",
+                                          "v_cache", "tok_buf", "kv_len", "x_len",
+                                          "last_tok", "buf_len", "step_idx", "gumbel")]
+        + [("suppress_until", ctypes.c_int)]
+        + _SAMPLE_FIELDS + _WORK_FIELDS
+    )
+
+
+@functools.lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k1_decode_step.cu``."""
-    lib = cuda_build.load_library("gsv_k1", ["k1_decode_step.cu"])
-    lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.POINTER(_K1Layer),
+    lib = cuda_build.load_library(*K1_LIBRARY)
+    lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.POINTER(_LayerWeights),
                                    ctypes.c_void_p]
     lib.k1_decode_step.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_batched_kernels() -> ctypes.CDLL:
+    """Build (first call only) and bind ``csrc/k2_decode_step_batched.cu``."""
+    lib = cuda_build.load_library(*K2_LIBRARY)
+    lib.k2_decode_step_batched.argtypes = [ctypes.POINTER(_K2Args),
+                                           ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
+    lib.k2_decode_step_batched.restype = ctypes.c_int
     return lib
 
 
@@ -181,11 +253,12 @@ def _need(cond: bool, msg: str):
 
 
 class K1Table:
-    """What the CUDA kernel reads besides the per-step tensors: a host
-    table of every layer's weight pointers and a float32 workspace on the
-    card.  Build it once per parameter set (the engine keeps it under
-    ``params["k1_table"]``); it holds the parameters alive.  One table
-    serves one decode at a time — its workspace is shared."""
+    """What the CUDA kernels (K1 and K2) read besides the per-step tensors:
+    a host table of every layer's weight pointers and a float32 workspace on
+    the card for up to ``MAX_FUSED_B`` rows.  Build it once per parameter
+    set (the engine keeps it under ``params["k1_table"]``); it holds the
+    parameters alive.  One table serves one decode at a time — its
+    workspace is shared."""
 
     def __init__(self, params):
         layers = params["layers"]
@@ -210,42 +283,94 @@ class K1Table:
             return t.data_ptr()
 
         bf = torch.bfloat16
-        self.layers = (_K1Layer * self.L)(*[
-            _K1Layer(*[ptr(lp[n], shapes[n], torch.float32 if n.startswith("ln") else bf)
-                       for n in _LAYER_FIELDS]) for lp in layers])
+        self.layers = (_LayerWeights * self.L)(*[
+            _LayerWeights(*[ptr(lp[n], shapes[n], torch.float32 if n.startswith("ln") else bf)
+                            for n in _LAYER_FIELDS]) for lp in layers])
         self.audio_emb = ptr(params["audio_emb"], (self.V, D), bf)
         self.predict_w = ptr(pw, (self.V, D), bf)
         pe = params["pe"]
         self.P = pe.shape[0]
         self.pe = ptr(pe, (self.P, D), torch.float32)
         self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
-        ws = torch.empty(6 * D + M, dtype=torch.float32, device=self.device)
-        self.x, self.h, self.qkv, self.attn, self.mlp = (
-            ws[:D], ws[D:2 * D], ws[2 * D:5 * D], ws[5 * D:6 * D], ws[6 * D:])
+        # [rows, D | D | 3D | D | M]: K1 uses row 0, K2 rows [0, B)
+        R = MAX_FUSED_B
+        ws = torch.empty(R * (6 * D + M), dtype=torch.float32, device=self.device)
+        self.x, self.h, self.qkv, self.attn, self.mlp = torch.split(
+            ws, [R * D, R * D, 3 * R * D, R * D, R * M])
         self.err = torch.zeros(1, dtype=torch.int32, device=self.device)
         self.part = torch.empty(0, dtype=torch.float32, device=self.device)
         self.params = params
 
-    def attention_partials(self, S: int, H: int, Dh: int) -> torch.Tensor:
+    def attention_partials(self, B: int, S: int, H: int, Dh: int) -> torch.Tensor:
         """Workspace for the split attention's per-split partials (max, sum,
-        Dh outputs per head and 64-row split), grown to fit an S-row cache."""
-        n = H * -(-S // ATTN_ROWS) * (Dh + 2)
+        Dh outputs per slot, head and 64-row split), grown to fit B slots of
+        an S-row cache."""
+        n = B * H * -(-S // ATTN_ROWS) * (Dh + 2)
         if self.part.numel() < n:
             self.part = torch.empty(n, dtype=torch.float32, device=self.device)
         return self.part
 
+    def fill(self, a, sa, sup):
+        """The fields both argument structs share: widths, weights, the
+        sampling settings and the workspace."""
+        a.L, a.D, a.M, a.V, a.P = self.L, self.D, self.M, self.V, self.P
+        a.alpha = self.alpha
+        a.audio_emb, a.pe, a.predict_w = self.audio_emb, self.pe, self.predict_w
+        a.n_suppressed = len(sup)
+        for i, s in enumerate(sup):
+            a.suppressed[i] = s
+        a.use_prev = int(bool(sa.use_prev))
+        a.rep_penalty = sa.repetition_penalty
+        a.top_p = sa.top_p
+        a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
+        a.top_k = sa.top_k
+        a.x, a.h, a.qkv = self.x.data_ptr(), self.h.data_ptr(), self.qkv.data_ptr()
+        a.attn, a.mlp, a.err = self.attn.data_ptr(), self.mlp.data_ptr(), self.err.data_ptr()
+
     def check(self):
-        """Raise if a launch found its ``last_tok`` out of range (reads one
-        int from the card; call where the host synchronises anyway)."""
-        if int(self.err.item()):
-            raise RuntimeError("K1: last_tok out of [0, V) in a decode step")
+        """Raise if a launch found a device-side value out of range (reads
+        one int from the card; call where the host synchronises anyway)."""
+        bits = int(self.err.item())
+        if bits:
+            self.err.zero_()
+            what = [name for bit, name in ((1, "last_tok outside [0, V)"),
+                                           (2, "kv_len outside the cache"),
+                                           (4, "positional index outside the table"))
+                    if bits & bit]
+            raise RuntimeError("decode step kernel: " + ", ".join(what))
+
+
+def _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa, suppress_until, suppressed):
+    """Host-side checks K1 and K2 share; returns (suppressed ids, V, P)."""
+    L, B, S, H, Dh = k_cache.shape
+    V = params["predict_w"].shape[0]
+    _need(v_cache.shape == k_cache.shape, "k/v cache shapes differ")
+    _need(tuple(tok_buf.shape) == (B, S), f"tok_buf {tuple(tok_buf.shape)} is not ({B}, {S})")
+    _need(tuple(gumbel.shape) == (B, V), f"gumbel {tuple(gumbel.shape)} is not ({B}, {V})")
+    sup = tuple(int(s) for s in suppressed) if suppress_until else ()
+    _need(len(sup) <= MAX_SUPPRESSED, f"at most {MAX_SUPPRESSED} suppressed ids")
+    _need(sa.top_k >= 1, f"top_k={sa.top_k} must be at least 1")
+    return sup, V, params["pe"].shape[0]
+
+
+def _check_cuda_tensors(dev, table, k_cache, named):
+    """Device, dtype, contiguity and alignment of the per-step tensors."""
+    L, B, S, H, Dh = k_cache.shape
+    _need(table.L == L and table.D == H * Dh and Dh in HEAD_DIMS,
+          f"cache [{L}, {B}, {S}, {H}, {Dh}] does not match the weights "
+          f"(head dim must be one of {HEAD_DIMS})")
+    for name, t, dtype in named:
+        _need(t.device == dev and t.dtype == dtype and t.is_contiguous()
+              and t.data_ptr() % 4 == 0, f"{name} must be a contiguous {dtype} tensor on {dev}")
+    _need(k_cache.data_ptr() % 16 == 0 and named[1][1].data_ptr() % 16 == 0,
+          "the caches must be 16-byte aligned")
 
 
 def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
                              x_len: int, last_tok, buf_len: int, step_idx: int,
                              gumbel, *, sa, suppress_until: int = 0,
                              suppressed=(), tok_out=None, row_out=None):
-    """One full decode step at B=1.
+    """K1: one full decode step at B=1.
 
     ``k_cache``/``v_cache`` [L, 1, S, H, Dh] (updated in place at row
     ``kv_len``); ``tok_buf`` [1, S] int32 (token appended at ``buf_len``);
@@ -255,18 +380,12 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     Returns ``(tok, row, k_cache, v_cache)``.
     """
     L, B, S, H, Dh = k_cache.shape
-    V = params["predict_w"].shape[0]
-    P = params["pe"].shape[0]
     _need(B == 1, f"batch {B}: this kernel is B=1")
-    _need(v_cache.shape == k_cache.shape, "k/v cache shapes differ")
+    sup, V, P = _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa,
+                                 suppress_until, suppressed)
     _need(0 <= kv_len < S, f"kv_len={kv_len} outside the cache [0, {S})")
     _need(0 <= kv_len - x_len < P, f"positional index {kv_len - x_len} outside [0, {P})")
-    _need(0 <= buf_len <= S and tuple(tok_buf.shape) == (1, S),
-          f"tok_buf {tuple(tok_buf.shape)} / buf_len {buf_len} do not fit S={S}")
-    _need(tuple(gumbel.shape) == (1, V), f"gumbel {tuple(gumbel.shape)} is not (1, {V})")
-    sup = tuple(int(s) for s in suppressed) if suppress_until else ()
-    _need(len(sup) <= MAX_SUPPRESSED, f"at most {MAX_SUPPRESSED} suppressed ids")
-    _need(sa.top_k >= 1, f"top_k={sa.top_k} must be at least 1")
+    _need(0 <= buf_len <= S, f"buf_len {buf_len} does not fit S={S}")
     dev = k_cache.device
     if dev.type == "cpu":
         return fused_decode_step_sample_ref(
@@ -278,57 +397,109 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     table = params.get("k1_table")
     if table is None:
         table = K1Table(params)
-    _need(table.L == L and table.D == H * Dh and Dh in HEAD_DIMS,
-          f"cache [{L}, 1, {S}, {H}, {Dh}] does not match the weights "
-          f"(head dim must be one of {HEAD_DIMS})")
     if tok_out is None:
         tok_out = torch.empty(1, dtype=torch.int32, device=dev)
     if row_out is None:
         row_out = torch.empty((1, V), dtype=torch.float32, device=dev)
-    for name, t, dtype in (("k_cache", k_cache, torch.bfloat16),
-                           ("v_cache", v_cache, torch.bfloat16),
-                           ("tok_buf", tok_buf, torch.int32),
-                           ("last_tok", last_tok, torch.int32),
-                           ("gumbel", gumbel, torch.float32),
-                           ("tok_out", tok_out, torch.int32),
-                           ("row_out", row_out, torch.float32)):
-        _need(t.device == dev and t.dtype == dtype and t.is_contiguous()
-              and t.data_ptr() % 4 == 0, f"{name} must be a contiguous {dtype} tensor on {dev}")
-    _need(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
-          "the caches must be 16-byte aligned")
+    _check_cuda_tensors(dev, table, k_cache, (
+        ("k_cache", k_cache, torch.bfloat16), ("v_cache", v_cache, torch.bfloat16),
+        ("tok_buf", tok_buf, torch.int32), ("last_tok", last_tok, torch.int32),
+        ("gumbel", gumbel, torch.float32), ("tok_out", tok_out, torch.int32),
+        ("row_out", row_out, torch.float32)))
     _need(last_tok.numel() == 1 and tok_out.numel() == 1
           and tuple(row_out.shape) == (1, V), "last_tok/tok_out/row_out shapes")
 
     a = _K1Args()
-    a.L, a.D, a.H, a.M, a.V, a.S, a.P = L, table.D, H, table.M, V, S, table.P
-    a.alpha = table.alpha
+    table.fill(a, sa, sup)
+    a.H, a.S = H, S
     a.attn_scale = 1.0 / math.sqrt(Dh)
-    a.audio_emb, a.pe, a.predict_w = table.audio_emb, table.pe, table.predict_w
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
     a.tok_buf, a.last_tok, a.gumbel = tok_buf.data_ptr(), last_tok.data_ptr(), gumbel.data_ptr()
     a.kv_len, a.pe_idx, a.buf_len = kv_len, kv_len - x_len, buf_len
     a.suppress = int(step_idx < suppress_until)
-    a.n_suppressed = len(sup)
-    for i, s in enumerate(sup):
-        a.suppressed[i] = s
-    a.use_prev = int(bool(sa.use_prev))
-    a.rep_penalty = sa.repetition_penalty
-    a.top_p = sa.top_p
-    a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
-    a.top_k = sa.top_k
-    a.x, a.h, a.qkv = table.x.data_ptr(), table.h.data_ptr(), table.qkv.data_ptr()
-    a.attn, a.mlp = table.attn.data_ptr(), table.mlp.data_ptr()
-    a.part = table.attention_partials(S, H, Dh).data_ptr()
-    a.row_out, a.tok_out, a.err = row_out.data_ptr(), tok_out.data_ptr(), table.err.data_ptr()
+    a.part = table.attention_partials(1, S, H, Dh).data_ptr()
+    a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
 
-    lib = load_kernels()
-    rc = lib.k1_decode_step(ctypes.byref(a), table.layers,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    rc = load_kernels().k1_decode_step(ctypes.byref(a), table.layers,
+                                       torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
     fused_decode_step_sample.launches += 1
     return tok_out, row_out, k_cache, v_cache
 
 
-#: kernel launches (whole steps) since the last reset; the twin never counts
+def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, x_len,
+                                     last_tok, buf_len, step_idx, gumbel, *, sa,
+                                     suppress_until: int = 0, suppressed=(),
+                                     tok_out=None, row_out=None):
+    """K2: one full decode step for a wave of ``B <= MAX_FUSED_B`` slots.
+
+    ``k_cache``/``v_cache`` [L, B, S, H, Dh] (slot b updated in place at row
+    ``kv_len[b]``); ``tok_buf`` [B, S] int32 (slot b's token appended at
+    ``buf_len[b]``); ``kv_len``/``x_len``/``last_tok``/``buf_len``/
+    ``step_idx`` [B] int32 on the tensors' device — nothing is read back;
+    ``gumbel`` [B, V] float32 noise.  A frozen slot (``kv_len < x_len``)
+    takes positional entry 0; slot b is suppressed while ``step_idx[b] <
+    suppress_until``.  ``tok_out`` [B] int32 / ``row_out`` [B, V] float32
+    receive the results when given.  Returns ``(tok, row, k_cache,
+    v_cache)``.
+    """
+    L, B, S, H, Dh = k_cache.shape
+    _need(1 <= B <= MAX_FUSED_B, f"batch {B}: this kernel takes 1..{MAX_FUSED_B} slots")
+    sup, V, P = _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa,
+                                 suppress_until, suppressed)
+    counters = (("kv_len", kv_len), ("x_len", x_len), ("last_tok", last_tok),
+                ("buf_len", buf_len), ("step_idx", step_idx))
+    for name, t in counters:
+        _need(isinstance(t, torch.Tensor) and tuple(t.shape) == (B,),
+              f"{name} must be a [{B}] tensor")
+    dev = k_cache.device
+    if dev.type == "cpu":
+        _need(bool(((kv_len >= 0) & (kv_len < S)).all()), f"kv_len outside the cache [0, {S})")
+        _need(bool((kv_len - x_len < P).all()), f"positional index outside [0, {P})")
+        return fused_decode_step_sample_batched_ref(
+            params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
+            step_idx, gumbel, sa=sa, suppress_until=suppress_until,
+            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+    _need(dev.type == "cuda", f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
+
+    table = params.get("k1_table")
+    if table is None:
+        table = K1Table(params)
+    _need(2 * B * max(table.D, table.M) <= GEMV_SMEM,
+          f"{B} activation rows of {max(table.D, table.M)} bf16 exceed {GEMV_SMEM} bytes")
+    if tok_out is None:
+        tok_out = torch.empty(B, dtype=torch.int32, device=dev)
+    if row_out is None:
+        row_out = torch.empty((B, V), dtype=torch.float32, device=dev)
+    _check_cuda_tensors(dev, table, k_cache, (
+        ("k_cache", k_cache, torch.bfloat16), ("v_cache", v_cache, torch.bfloat16),
+        ("tok_buf", tok_buf, torch.int32), ("gumbel", gumbel, torch.float32),
+        ("tok_out", tok_out, torch.int32), ("row_out", row_out, torch.float32))
+        + tuple((n, t, torch.int32) for n, t in counters))
+    _need(tuple(tok_out.shape) == (B,) and tuple(row_out.shape) == (B, V),
+          "tok_out/row_out shapes")
+
+    a = _K2Args()
+    table.fill(a, sa, sup)
+    a.B, a.H, a.S = B, H, S
+    a.attn_scale = 1.0 / math.sqrt(Dh)
+    a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
+    a.tok_buf, a.gumbel = tok_buf.data_ptr(), gumbel.data_ptr()
+    for name, t in counters:
+        setattr(a, name, t.data_ptr())
+    a.suppress_until = suppress_until
+    a.part = table.attention_partials(B, S, H, Dh).data_ptr()
+    a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
+
+    rc = load_batched_kernels().k2_decode_step_batched(
+        ctypes.byref(a), table.layers, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
+    fused_decode_step_sample_batched.launches += 1
+    return tok_out, row_out, k_cache, v_cache
+
+
+#: kernel launches (whole steps) since the last reset; the twins never count
 fused_decode_step_sample.launches = 0
+fused_decode_step_sample_batched.launches = 0

@@ -20,8 +20,10 @@ def apply_repetition_penalty(logits: torch.Tensor, previous_tokens: torch.Tensor
     V = logits.shape[-1]
     prev = previous_tokens.long()
     valid = (prev >= 0) & (prev < V)
-    member = torch.zeros(logits.shape, dtype=torch.bool, device=logits.device)
-    member.scatter_(1, torch.where(valid, prev, 0), valid)
+    # empty entries land in a spare column V, so they cannot clear a real
+    # token's mark (scatter keeps one of several writes to the same index)
+    member = torch.zeros((logits.shape[0], V + 1), dtype=torch.bool, device=logits.device)
+    member = member.scatter_(1, torch.where(valid, prev, V), True)[:, :V]
     penalized = torch.where(logits < 0, logits * repetition_penalty,
                             logits / repetition_penalty)
     return torch.where(member, penalized, logits)

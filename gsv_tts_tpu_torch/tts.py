@@ -1,10 +1,13 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
-registry, speaker/prompt audio caches and single-utterance ``infer``.
+registry, speaker/prompt audio caches, single-utterance ``infer`` and
+batched ``infer_batched``.
 
 Pipeline: text → English frontend (host) → t2s engine (plain-PyTorch
-prefill, then one whole-step kernel K1 per decoded token) → SoVITS decode at
-the exact shape → host trim.  Not ported yet (ROADMAP Queue 1): subtitles,
-speed != 1, streaming, batched inference, voice conversion, Chinese and
+prefill, then one whole-step kernel per decode step: K1 for one utterance,
+K2 for a continuous-batched wave, the generic step with K3b for waves above
+K2's limit) → SoVITS decode at the exact shape (packed, with block-diagonal
+MRTE masks, in the batched mode) → host trim.  Not ported yet (ROADMAP
+Queue 1): subtitles, speed != 1, streaming, voice conversion, Chinese and
 Japanese text, v2Pro speaker verification.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from . import dsp
 from .config import Config, global_config
 from .frontend.pause import pause_map
-from .frontend.text_processor import get_phones_and_bert
+from .frontend.text_processor import cut_text, get_phones_and_bert
 from .loader import Gpt, Sovits, get_gpt_weights, get_sovits_weights
 from .models import sovits as sovits_model
 from .ops import stft
@@ -29,10 +32,16 @@ from .utils.audio_io import load_audio
 
 logger = logging.getLogger(__name__)
 
+DEFAULT_MUTE_SCALE = {"…": 2.0, ".": 1.5, "。": 1.5, "?": 1.5, "？": 1.5,
+                      "!": 1.5, "！": 1.5, ",": 1.0, "，": 1.0, ":": 1.0,
+                      "：": 1.0, ";": 1.0, "；": 1.0, "~": 1.0, "、": 0.8,
+                      "・": 0.8}
+
 
 class TTS:
-    """Engine facade.  ``device`` and ``dtype`` follow ``Config``'s policy
-    (CUDA → bf16, CPU → f32); ``seed`` seeds the explicit generator every
+    """Engine facade.  ``device`` and ``dtype`` follow ``Config``'s policy:
+    the engine runs on the card in bf16 and raises when there is none, unless
+    the caller asks for ``device="cpu"`` (then f32).  ``seed`` seeds the explicit generator every
     random draw (Gumbel noise, SoVITS latent noise) comes from."""
 
     def __init__(self, gpt_cache: List[tuple] = ((1, 512), (1, 768), (1, 1024)),
@@ -62,7 +71,8 @@ class TTS:
         self.cnhubert_model = None
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
-        #: stage wall times (s) and decode counts of the last ``infer``
+        #: stage wall times (s) and decode counts of the last ``infer`` or
+        #: ``infer_batched``
         self.last_timings: Dict[str, float] = {}
         logger.info("Device: %s, dtype: %s", self.device, self.tts_config.dtype)
 
@@ -134,13 +144,7 @@ class TTS:
         if not self._check_pause(text):
             text += "."
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
-        if sovits_model not in self.sovits_models:
-            self.load_sovits_model(sovits_model)
-        sovits = self.sovits_models[sovits_model]
-        if (spk_audio_path not in self.spk_audio_cache
-                or sovits_model not in self.spk_audio_cache[spk_audio_path]["ge"]):
-            self.cache_spk_audio(spk_audio_path, sovits_model=sovits_model)
-        ge = self.spk_audio_cache[spk_audio_path]["ge"][sovits_model]
+        sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
         if gpt_model not in self.gpt_models:
             self.load_gpt_model(gpt_model)
         gpt = self.gpt_models[gpt_model]
@@ -176,6 +180,163 @@ class TTS:
         return AudioClip(audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, [], text)
 
+    def _prepare_batched_inputs(self, spk_audio_paths, prompt_audio_paths,
+                                prompt_audio_texts, texts, is_cut_text, cut_minlen,
+                                bert_batch_size, gpt_model, sovits_model):
+        """Front half of the batched mode: expand per-request inputs, cut
+        texts into engine-request segments, featurize, and gather
+        prompt/speaker resources per segment."""
+        if isinstance(texts, str):
+            texts = [texts]
+        texts = [t if self._check_pause(t) else t + "." for t in texts]
+        if not is_cut_text:
+            cut_minlen = 10000
+        n = len(texts)
+        if isinstance(spk_audio_paths, (str, dict, Path)):
+            spk_audio_paths = [spk_audio_paths] * n
+        if isinstance(prompt_audio_paths, (str, Path)):
+            prompt_audio_paths = [prompt_audio_paths] * n
+        if isinstance(prompt_audio_texts, str):
+            prompt_audio_texts = [prompt_audio_texts] * n
+        gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
+        if gpt_model not in self.gpt_models:
+            self.load_gpt_model(gpt_model)
+        if sovits_model not in self.sovits_models:
+            self.load_sovits_model(sovits_model)
+        gpt = self.gpt_models[gpt_model]
+        sovits = self.sovits_models[sovits_model]
+
+        all_segments: List[str] = []
+        segment_to_original: List[int] = []
+        for idx, t in enumerate(texts):
+            for cutted in cut_text(t, cut_minlen):
+                all_segments.append(cutted)
+                segment_to_original.append(idx)
+
+        def expand(inp):
+            return [inp[i] for i in segment_to_original]
+
+        all_phones2, all_bert2 = [], []
+        for i in range(0, len(all_segments), bert_batch_size):
+            p2, _, b2, _ = get_phones_and_bert(all_segments[i: i + bert_batch_size],
+                                               self.tts_config)
+            all_phones2 += p2
+            all_bert2 += b2
+
+        xs, ys, berts, all_ge = [], [], [], []
+        for spk, ppath, ptext, phones2, bert2 in zip(
+                expand(spk_audio_paths), expand(prompt_audio_paths),
+                expand(prompt_audio_texts), all_phones2, all_bert2):
+            if ppath not in self.prompt_audio_cache:
+                self.cache_prompt_audio(ppath, ptext)
+            cache = self.prompt_audio_cache[ppath]
+            _, ge = self._prepare_sovits_resources(sovits_model, spk)
+            xs.append(np.asarray(cache["phones1"] + phones2, np.int64))
+            ys.append(np.asarray(cache["prompt"], np.int64).reshape(-1))
+            berts.append(np.concatenate([np.asarray(cache["bert1"], np.float32),
+                                         np.asarray(bert2, np.float32)], axis=0))
+            all_ge.append(ge)
+        return (gpt, sovits, texts, all_segments, segment_to_original, all_phones2,
+                xs, ys, berts, all_ge)
+
+    def infer_batched(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts,
+                      return_subtitles: bool = False, is_cut_text: bool = True,
+                      cut_minlen: int = 10, cut_mute: float = 0.4,
+                      cut_mute_scale_map: dict = DEFAULT_MUTE_SCALE, top_k: int = 15,
+                      top_p: float = 1.0, temperature: float = 1.0,
+                      repetition_penalty: float = 1.35, noise_scale: float = 0.5,
+                      speed: float = 1.0, bert_batch_size: int = 20,
+                      sovits_batch_size: int = 10, gpt_model=None, sovits_model=None):
+        """Batched synthesis (reference ``TTS.py:506-868``): continuous-batched
+        t2s, then packed SoVITS decodes with block-diagonal MRTE masks.
+        Returns one ``AudioClip`` per text."""
+        if return_subtitles:
+            raise NotImplementedError("subtitles are not ported yet (ROADMAP Queue 1: subtitles)")
+        if speed != 1.0:
+            raise NotImplementedError("speed != 1 is not ported yet (ROADMAP Queue 1)")
+        t0 = time.perf_counter()
+        (gpt, sovits, orig_texts, texts, segment_to_original, all_phones2,
+         xs, ys, berts, all_ge) = self._prepare_batched_inputs(
+            spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts, is_cut_text,
+            cut_minlen, bert_batch_size, gpt_model, sovits_model)
+        t1 = time.perf_counter()
+
+        with torch.no_grad():
+            pred_semantic, semantic_orig_idx = gpt.engine.generate_batched(
+                xs, ys, berts, top_k=top_k, top_p=top_p, temperature=temperature,
+                repetition_penalty=repetition_penalty, generator=self.generator)
+        t2 = time.perf_counter()
+
+        lengths = np.asarray([len(s) for s in pred_semantic])
+        idx_map = np.argsort(lengths, kind="stable")
+        # dual-ended interleave to balance packed-batch lengths (``TTS.py:707-716``)
+        m = len(idx_map)
+        interleave = np.zeros(m, np.int64)
+        interleave[0::2] = np.arange(m)[: (m + 1) // 2]
+        interleave[1::2] = np.arange(m)[(m + 1) // 2:][::-1]
+        idx_map = idx_map[interleave]
+        pred_semantic = [pred_semantic[i] for i in idx_map]
+        semantic_orig_idx = np.asarray(semantic_orig_idx)[idx_map]
+        lengths = lengths[idx_map]
+
+        generated_audios: List[np.ndarray] = []
+        for i in range(0, len(pred_semantic), sovits_batch_size):
+            sem_list = pred_semantic[i: i + sovits_batch_size]
+            cur_orig = [int(o) for o in semantic_orig_idx[i: i + sovits_batch_size]]
+            cur_lens = lengths[i: i + sovits_batch_size]
+            # one packed decode: codes, phones and per-frame speaker
+            # conditioning concatenated; each frame attends its own request's
+            # text span
+            curr_ge = torch.cat([all_ge[oi].expand(-1, -1, int(n))
+                                 for oi, n in zip(cur_orig, cur_lens)], dim=2)
+            curr_sem = np.concatenate([np.asarray(s) for s in sem_list])[None, None, :]
+            phone_lens = np.asarray([len(all_phones2[oi]) for oi in cur_orig])
+            curr_phones = np.concatenate(
+                [np.asarray(all_phones2[oi], np.int64) for oi in cur_orig])[None]
+            ends = np.cumsum(phone_lens)
+            pairs = np.stack([ends - phone_lens, ends], axis=1)
+            slice_indices = np.repeat(pairs, np.asarray(cur_lens) * 2, axis=0)
+
+            with torch.no_grad():
+                audio_batch = self._sovits_decode(
+                    sovits, curr_sem, curr_phones, curr_ge, noise_scale=noise_scale,
+                    slice_indices=slice_indices).reshape(-1)
+            max_audio = np.abs(audio_batch).max() if audio_batch.size else 0.0
+            if max_audio > 1.0:
+                audio_batch = audio_batch / max_audio
+
+            last_len = 0
+            for n in cur_lens:
+                cur_len = last_len + int(n) * 2 * sovits.cfg.samples_per_frame
+                audio = audio_batch[last_len:cur_len]
+                last_len = cur_len
+                ho = dsp.find_head_threshold_offset(audio)
+                to = dsp.find_tail_threshold_offset(audio)
+                generated_audios.append(audio[ho: len(audio) - to])
+        t3 = time.perf_counter()
+        self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
+                             "tokens": int(lengths.sum()), "requests": len(texts),
+                             **gpt.engine.last_stats}
+
+        ordered_audios = [None] * len(generated_audios)
+        for cur_pos, orig_pos in enumerate(semantic_orig_idx.tolist()):
+            ordered_audios[orig_pos] = generated_audios[cur_pos]
+
+        final_audios = [[] for _ in orig_texts]
+        for i, audio_data in enumerate(ordered_audios):
+            oi = segment_to_original[i]
+            final_audios[oi].append(audio_data)
+            scale = self._mute_scale(texts[i], cut_mute_scale_map)
+            final_audios[oi].append(
+                np.zeros(int(cut_mute * scale * self.samplerate), audio_data.dtype))
+
+        result = []
+        for audio_list, orig_text in zip(final_audios, orig_texts):
+            audio = np.concatenate(audio_list)
+            result.append(AudioClip(audio.astype(np.float32), self.samplerate,
+                                    len(audio) / self.samplerate, [], orig_text))
+        return tuple(result)
+
     # -- internals -------------------------------------------------------
 
     def _default_models(self, gpt_model, sovits_model):
@@ -186,9 +347,31 @@ class TTS:
                             else self.default_sovits_path)
         return gpt_model, sovits_model
 
-    def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5) -> np.ndarray:
+    def _prepare_sovits_resources(self, sovits_model, spk_audio_path):
+        """The loaded SoVITS model and the speaker conditioning ``ge`` for
+        ``spk_audio_path`` — a path, or a ``{path: weight}`` dict blending
+        several speakers."""
+        if sovits_model not in self.sovits_models:
+            self.load_sovits_model(sovits_model)
+        paths = spk_audio_path if isinstance(spk_audio_path, dict) else {spk_audio_path: 1.0}
+        weight_sum = sum(paths.values())
+        ge = None
+        for path, weight in paths.items():
+            if (path not in self.spk_audio_cache
+                    or sovits_model not in self.spk_audio_cache[path]["ge"]):
+                self.cache_spk_audio(path, sovits_model=sovits_model)
+            part = self.spk_audio_cache[path]["ge"][sovits_model]
+            if isinstance(spk_audio_path, dict):
+                part = part * (weight / weight_sum)
+            ge = part if ge is None else ge + part
+        return self.sovits_models[sovits_model], ge
+
+    def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5,
+                       slice_indices=None) -> np.ndarray:
         """Full decode at the exact shape: latent pipeline, then flow⁻¹ and
-        HiFi-GAN.  codes [1, 1, n], text [1, N] → audio [1, 1, 2n·hop]."""
+        HiFi-GAN.  codes [1, 1, n], text [1, N], ge [1, gin, 1 or n],
+        ``slice_indices`` [2n, 2] (packed batches: each latent frame's text
+        span) → audio [1, 1, 2n·hop]."""
         cfg = sovits.cfg
         dtype = self.tts_config.dtype
         codes_t = torch.as_tensor(np.asarray(codes, np.int64), device=self.device)
@@ -196,8 +379,11 @@ class TTS:
         n = codes_t.shape[-1]
         noise = torch.randn((1, cfg.inter_channels, 2 * n), generator=self.generator,
                             device=self.device, dtype=torch.float32) * noise_scale
+        if slice_indices is not None:
+            slice_indices = torch.as_tensor(np.asarray(slice_indices, np.int64),
+                                            device=self.device)
         z_p, y_mask, _, ge_out = sovits_model.decode_core(
-            sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype))
+            sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype), slice_indices)
         audio = sovits_model.flow_dec(sovits.params, cfg, z_p, y_mask, ge_out)
         return audio.float().cpu().numpy()
 
@@ -229,6 +415,13 @@ class TTS:
             ssl = cnhubert_model(wav16k[None]).transpose(1, 2)
             codes = sovits_model.extract_latent(sovits.params, ssl)
         return codes[0, 0].cpu().numpy()
+
+    def _mute_scale(self, text_cut: str, scale_map: dict) -> float:
+        if text_cut and text_cut[-1] in scale_map:
+            return scale_map[text_cut[-1]]
+        if "…" in scale_map and text_cut[-3:] in ("...", "。。。"):
+            return scale_map["…"]
+        return 1.0
 
     def _check_pause(self, text: str) -> bool:
         return text.endswith(self.punctuation) or text[-3:] in ("...", "。。。")

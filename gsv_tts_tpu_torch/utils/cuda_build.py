@@ -3,8 +3,10 @@
 Each library is one ``nvcc`` call over ``csrc/*.cu`` with a plain C
 interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Outputs go to ``gsv_tts_tpu_torch/build/`` under a name carrying
-the hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built at import time.
+the hash of the sources, the ``csrc/*.cuh`` headers and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  Nothing is built
+at import time.  Libraries build independently: :func:`load_libraries`
+starts one ``nvcc`` per library, all together.
 """
 from __future__ import annotations
 
@@ -15,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -25,6 +28,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_lib_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: per library: {"path", "seconds" (0.0 when reused), "log" (nvcc output)}
 build_info: Dict[str, dict] = {}
@@ -47,12 +51,14 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Build (if needed) and load ``lib<name>-<hash>.so`` from ``sources``
     (file names under ``csrc/``)."""
     with _lock:
+        lib_lock = _lib_locks.setdefault(name, threading.Lock())
+    with lib_lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
         paths = [CSRC_DIR / s for s in sources]
         h = hashlib.sha256()
-        for p in paths:
+        for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
             h.update(p.name.encode())
             h.update(p.read_bytes())
         h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -75,3 +81,10 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         build_info[name] = {"path": str(out), "seconds": seconds, "log": log}
         _loaded[name] = lib
         return lib
+
+
+def load_libraries(specs: Sequence[Tuple[str, Sequence[str]]]) -> List[ctypes.CDLL]:
+    """Build and load several ``(name, sources)`` libraries at once, one
+    ``nvcc`` process each, all started together."""
+    with ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
+        return list(pool.map(lambda spec: load_library(*spec), specs))

@@ -81,12 +81,13 @@ def test_decode_chunk_on_cuda_runs_the_kernel_and_follows_the_twin(cuda_device):
                                 True, torch.bfloat16)
     before = fused_step.fused_decode_step_sample.launches
     g = gumbel_noise((5, 1, 1025), gen, cuda_device)
-    twin = ts.DecodeState(state.k_cache.clone(), state.v_cache.clone(), state.kv_len,
-                          state.x_len, state.tok_buf.clone(), state.buf_len,
-                          state.last_tok.clone(), state.step_idx)
+    twin = ts.DecodeState(*(t.clone() for t in (
+        state.k_cache, state.v_cache, state.kv_len, state.x_len, state.tok_buf, state.buf_len,
+        state.last_tok, state.step_idx)))
     state, toks = ts.decode_chunk(eng.params, cfg, state, 5, ts.SampleArgs(), g, 10)
     assert fused_step.fused_decode_step_sample.launches == before + 5
-    assert state.kv_len == twin.kv_len + 5 and int(toks.min()) >= 0 and int(toks.max()) < 1025
+    assert int(state.kv_len) == int(twin.kv_len) + 5
+    assert int(toks.min()) >= 0 and int(toks.max()) < 1025
     for i in range(5):
         tok, row, *_ = fused_step.fused_decode_step_sample_ref(
             eng.params, twin.k_cache, twin.v_cache, twin.tok_buf, twin.kv_len, twin.x_len,
@@ -99,3 +100,149 @@ def test_decode_chunk_on_cuda_runs_the_kernel_and_follows_the_twin(cuda_device):
         twin.kv_len += 1
         twin.buf_len += 1
         twin.step_idx += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 5, 8])
+def test_k2_cuda_kernel_matches_twin(cuda_device, B):
+    """K2 against its twin on the card (bf16, odd bucket, ragged ``kv_len``
+    with a frozen slot and a slot on the last row, ``last_tok = V-1``,
+    per-slot suppression, penalty on and off); launches are counted."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                             device=cuda_device)
+    params["k1_table"] = fused_step.K1Table(params)
+    S, V = 200, cfg.vocab_size
+    gen = torch.Generator(device=cuda_device).manual_seed(B)
+    kc = torch.randn((2, B, S, 4, 32), generator=gen, device=cuda_device).to(torch.bfloat16)
+    vc = torch.randn((2, B, S, 4, 32), generator=gen, device=cuda_device).to(torch.bfloat16)
+    buf = torch.randint(0, V, (B, S), generator=gen, device=cuda_device, dtype=torch.int32)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=cuda_device)
+
+    kv_lens = ([0, S - 1, 63, 64, 150, 7, 128, 199])[:B]
+    kv_len, x_len = i32(kv_lens), i32([30] + [min(20, n) for n in kv_lens[1:]])
+    last = i32([5] * (B - 1) + [V - 1])
+    buf_len, step_idx = i32([min(n, 100) for n in kv_lens]), i32([3 + 4 * b for b in range(B)])
+    g = torch.zeros((B, V), device=cuda_device)
+    sup = cfg.suppressed_tokens + (cfg.eos,)
+    before = fused_step.fused_decode_step_sample_batched.launches
+    for sa in (SampleArgs(top_k=V, top_p=1.0, repetition_penalty=1.0), SampleArgs(),
+               SampleArgs(use_prev=False)):
+        ka, va, ba = kc.clone(), vc.clone(), buf.clone()
+        tok, row, _, _ = fused_step.fused_decode_step_sample_batched(
+            params, ka, va, ba, kv_len, x_len, last, buf_len, step_idx, g, sa=sa,
+            suppress_until=10, suppressed=sup)
+        kb, vb, bb = kc.clone(), vc.clone(), buf.clone()
+        rtok, rrow, _, _ = fused_step.fused_decode_step_sample_batched_ref(
+            params, kb, vb, bb, kv_len, x_len, last, buf_len, step_idx, g, sa=sa,
+            suppress_until=10, suppressed=sup)
+        torch.cuda.synchronize()
+        params["k1_table"].check()
+        # two bf16 layers: the paths agree to float32 rounding unless a bf16
+        # rounding flips, which moves an O(1) value by at most ~1e-2
+        torch.testing.assert_close(row, rrow, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(ka, kb, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(va, vb, rtol=2e-2, atol=2e-2)
+        top2 = torch.topk(rrow, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 0.1  # clear of the bf16 tolerance
+        assert torch.equal(tok[clear], rtok[clear]) and bool(clear.any())
+        for b, n in enumerate(kv_lens):  # only row kv_len[b] of each slot changed
+            assert int(ba[b, int(buf_len[b])]) == int(tok[b])
+            assert torch.equal(ka[:, b, :n], kc[:, b, :n])
+            assert torch.equal(ka[:, b, n + 1:], kc[:, b, n + 1:])
+    assert fused_step.fused_decode_step_sample_batched.launches == before + 3
+    bad = kv_len.clone()
+    bad[1] = S  # a device-side value out of range is flagged, not clamped
+    fused_step.fused_decode_step_sample_batched(
+        params, kc.clone(), vc.clone(), buf.clone(), bad, x_len, last, buf_len, step_idx, g,
+        sa=SampleArgs())
+    with pytest.raises(RuntimeError, match="kv_len outside the cache"):
+        params["k1_table"].check()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_cuda_kernels_match_twin(cuda_device, dtype):
+    """K3a and K3b (every layer) against the twin on the card, ragged
+    lengths around the 64-row split size, an odd cache length, and cache rows
+    past ``kv_len`` poisoned with NaN (they must never be read)."""
+    from gsv_tts_tpu_torch.ops import flash_decode as fd
+
+    L, B, S, H, Dh = 3, 5, 200, 4, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    kc = torch.randn((L, B, S, H, Dh), generator=gen, device=cuda_device).to(torch.bfloat16)
+    vc = torch.randn((L, B, S, H, Dh), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q = torch.randn((B, H, Dh), generator=gen, device=cuda_device).to(dtype)
+    lens = [0, 63, 64, 128, S - 1]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    refs = [fd.decode_attention_ref(q, kc[i], vc[i], kv_len) for i in range(L)]
+    for b, n in enumerate(lens):
+        kc[:, b, n + 1:] = float("nan")
+        vc[:, b, n + 1:] = float("nan")
+    # bf16: the twin rounds the probabilities, both round the output
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    before = (fd.flash_decode_attention.launches, fd.flash_decode_attention_layered.launches)
+    for layer in range(L):
+        out = fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
+        torch.testing.assert_close(out, refs[layer], rtol=tol, atol=tol)
+        one = fd.flash_decode_attention(q, kc[layer], vc[layer], kv_len)
+        assert torch.equal(one, out) and out.dtype == dtype
+    torch.cuda.synchronize()
+    fd.check(cuda_device)
+    assert (fd.flash_decode_attention.launches, fd.flash_decode_attention_layered.launches) == (
+        before[0] + L, before[1] + L)
+    kv_len[2] = S
+    fd.flash_decode_attention(q, kc[0], vc[0], kv_len)
+    with pytest.raises(RuntimeError, match="kv_len outside"):
+        fd.check(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,path", [(4, "k2"), (10, "generic")])
+def test_decode_chunk_wave_on_cuda_counts_its_kernels(cuda_device, B, path):
+    """``decode_chunk`` of a wave on CUDA: K2 once per step for 2..8 slots,
+    K3b once per layer and step above; counters advance on the device and
+    the tokens land in ``tok_buf``."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import flash_decode, fused_step
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                             device=cuda_device)
+    eng = ts.T2SEngine(params, cfg, gpt_cache=[(B, 96)], dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randint(1, 700, (B, 32), generator=gen, device=cuda_device)
+    y = torch.randint(0, 1024, (B, 32), generator=gen, device=cuda_device)
+    bert = torch.zeros((B, 32, cfg.bert_dim), device=cuda_device)
+    xl = torch.arange(10, 10 + B, device=cuda_device)
+    yl = torch.arange(5, 5 + B, device=cuda_device)
+    k, v = eng._alloc_cache(B, 96)
+    sa = ts.SampleArgs(use_prev=False)
+    state, _ = ts.prefill_batch(eng.params, cfg, x, y, bert, xl, yl, k, v,
+                                gumbel_noise((B, 1025), gen, cuda_device), sa, False,
+                                torch.bfloat16)
+    state = ts.freeze_slot(state, 1)
+    kv0, buf0 = state.kv_len.clone(), state.buf_len.clone()
+    before = (fused_step.fused_decode_step_sample_batched.launches,
+              flash_decode.flash_decode_attention_layered.launches)
+    state, toks = ts.decode_chunk(eng.params, cfg, state, 5, sa,
+                                  gumbel_noise((5, B, 1025), gen, cuda_device), 0,
+                                  torch.bfloat16)
+    eng._check_kernels()
+    after = (fused_step.fused_decode_step_sample_batched.launches,
+             flash_decode.flash_decode_attention_layered.launches)
+    want = (5, 0) if path == "k2" else (0, 5 * cfg.num_layers)
+    assert (after[0] - before[0], after[1] - before[1]) == want
+    assert torch.equal(state.kv_len, kv0 + 5) and torch.equal(state.buf_len, buf0 + 5)
+    assert toks.shape == (B, 5) and int(toks.min()) >= 0 and int(toks.max()) < 1025
+    for b in range(B):
+        assert torch.equal(state.tok_buf[b, int(buf0[b]): int(buf0[b]) + 5], toks[b])
+    assert bool(torch.isfinite(state.k_cache.float()).all())

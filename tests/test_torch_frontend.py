@@ -1,7 +1,7 @@
-"""The port's English frontend: the JAX package's host code loaded under
-``gsv_tts_tpu_torch.frontend`` (no ``gsv_tts_tpu`` import) must give the
-same phones, ``word2ph`` and normalized text as the JAX package's own
-``get_phones_and_bert``."""
+"""The port's English frontend: ``gsv_tts_tpu_torch.frontend`` keeps its own
+copies of the JAX package's host code (nothing is loaded from
+``gsv_tts_tpu/``) and must give the same phones, ``word2ph`` and normalized
+text as the JAX package's own ``get_phones_and_bert``."""
 import types
 
 import pytest
@@ -28,17 +28,28 @@ def test_english_phones_match_jax(text):
 
 
 def test_frontend_modules_load_under_the_port_package():
-    """Shared sources, the port's package: the reused modules bind the
-    port's shadowed ``g2p`` dispatcher and ``symbols``."""
+    """Every frontend module is a file of the port's own package, and each
+    copied module is the JAX package's source byte for byte (so the two
+    frontends cannot drift apart unnoticed)."""
+    import importlib
     import os
 
+    from gsv_tts_tpu_torch import frontend
     from gsv_tts_tpu_torch.frontend import symbols, text_processor
-    from gsv_tts_tpu_torch.frontend.g2p import english
 
-    assert english.__name__ == "gsv_tts_tpu_torch.frontend.g2p.english"
-    assert english.__file__.endswith(os.path.join("gsv_tts_tpu", "frontend", "g2p", "english.py"))
+    port_dir = os.path.dirname(os.path.abspath(frontend.__file__))
+    jax_dir = os.path.join(os.path.dirname(os.path.dirname(port_dir)), "gsv_tts_tpu", "frontend")
+    assert list(frontend.__path__) == [port_dir]
+    for name in ("lang_segment", "pause", "text_processor", "g2p.english", "g2p.en_norm",
+                 "g2p.en_oov", "g2p.en_pos"):
+        mod = importlib.import_module("gsv_tts_tpu_torch.frontend." + name)
+        rel = name.replace(".", os.sep) + ".py"
+        assert os.path.abspath(mod.__file__) == os.path.join(port_dir, rel)
+        with open(mod.__file__, "rb") as a, open(os.path.join(jax_dir, rel), "rb") as b:
+            assert a.read() == b.read(), name
     assert text_processor.text_to_phonemes.__module__ == "gsv_tts_tpu_torch.frontend.g2p"
-    assert symbols.__file__.endswith(os.path.join("gsv_tts_tpu_torch", "frontend", "symbols.py"))
+    assert os.path.abspath(symbols.SYMBOLS_JSON) == os.path.join(
+        os.path.dirname(port_dir), "assets", "symbols.json")
 
 
 def test_port_symbols_equal_jax_symbols():

@@ -29,6 +29,20 @@ def test_logits_to_probs_matches_jax(kw):
     np.testing.assert_allclose(pp.numpy(), np.asarray(jp), rtol=RTOL, atol=ATOL)
 
 
+def test_repetition_penalty_marks_token_zero_beside_empty_entries():
+    """Token 0 in the history is penalised although the buffer's empty
+    entries (id V) follow it: an empty entry must not clear a real mark."""
+    from gsv_tts_tpu.ops import sampling as js
+    from gsv_tts_tpu_torch.ops import sampling as ps
+
+    logits = np.asarray([[2.0, -1.0, 0.5, 1.0]], np.float32)
+    prev = np.asarray([[3, 0] + [4] * 30], np.int32)
+    j = np.asarray(js.apply_repetition_penalty(jnp.asarray(logits), jnp.asarray(prev), 2.0))
+    p = ps.apply_repetition_penalty(torch.tensor(logits), torch.tensor(prev), 2.0).numpy()
+    np.testing.assert_array_equal(p, j)
+    np.testing.assert_array_equal(p, [[1.0, -1.0, 0.5, 0.5]])
+
+
 def test_top_k_keeps_every_value_tied_with_the_kth():
     from gsv_tts_tpu.ops import sampling as js
     from gsv_tts_tpu_torch.ops import sampling as ps

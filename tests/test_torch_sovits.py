@@ -93,6 +93,49 @@ def test_decode_core_and_flow_dec_match_jax(models):
     np.testing.assert_allclose(pa, ja, rtol=RTOL, atol=ATOL)
 
 
+def test_decode_core_packed_with_slice_indices_matches_jax(models):
+    """A packed batch of three requests: concatenated codes and phones, the
+    per-frame speaker conditioning ``ge`` [1, C, T] of two speakers, and
+    ``slice_indices`` giving each latent frame its own request's text span.
+    ``z_p``, the MRTE attention and the waveform equal JAX's, and no frame
+    attends another request's phones (the last column, the null key, apart)."""
+    from gsv_tts_tpu.models import sovits as js
+    from gsv_tts_tpu_torch.models import sovits as ps
+
+    jcfg, jp, pcfg, pp = models
+    rng = np.random.RandomState(5)
+    code_lens, phone_lens = np.asarray([9, 14, 6]), np.asarray([7, 11, 5])
+    T, N = int(code_lens.sum()), int(phone_lens.sum())
+    codes = rng.randint(0, 1024, size=(1, 1, T)).astype(np.int32)
+    text = rng.randint(1, 700, size=(1, N)).astype(np.int32)
+    spk = (rng.randn(2, 512, 1) * 0.5).astype(np.float32)
+    ge = np.concatenate([np.broadcast_to(spk[i % 2][None], (1, 512, n))
+                         for i, n in enumerate(code_lens)], axis=2)
+    ends = np.cumsum(phone_lens)
+    pairs = np.stack([ends - phone_lens, ends], axis=1)
+    slice_indices = np.repeat(pairs, code_lens * 2, axis=0)
+    noise = (rng.randn(1, jcfg.inter_channels, 2 * T) * 0.5).astype(np.float32)
+    jz, jmask, jattn, _, jge = jax.jit(
+        lambda p, c, t, g, n, si: js.decode_core(p, jcfg, c, t, g, n, slice_indices=si))(
+        jp, jnp.asarray(codes), jnp.asarray(text), jnp.asarray(ge), jnp.asarray(noise),
+        jnp.asarray(slice_indices, jnp.int32))
+    pz, pmask, pattn, pge = ps.decode_core(
+        pp, pcfg, torch.tensor(codes), torch.tensor(text), torch.tensor(ge),
+        torch.tensor(noise), torch.tensor(slice_indices))
+    assert pge.shape == (1, 512, 2 * T)
+    np.testing.assert_allclose(pge.numpy(), np.asarray(jge), rtol=0, atol=0)
+    np.testing.assert_allclose(pz.numpy(), np.asarray(jz), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(pattn.numpy(), np.asarray(jattn), rtol=RTOL, atol=ATOL)
+    cols = np.arange(N)[None, :]
+    outside = ~((cols >= slice_indices[:, :1]) & (cols < slice_indices[:, 1:]))
+    outside[:, -1] = False
+    assert float(pattn[0][:, torch.tensor(outside)].abs().max()) == 0.0
+    ja = np.asarray(jax.jit(js.flow_dec, static_argnums=1)(jp, jcfg, jz, jmask, jge))
+    pa = ps.flow_dec(pp, pcfg, pz, pmask, pge).numpy()
+    assert pa.shape == ja.shape == (1, 1, 2 * T * jcfg.samples_per_frame)
+    np.testing.assert_allclose(pa, ja, rtol=RTOL, atol=ATOL)
+
+
 def test_flow_reverse_and_generator_channels_first(models):
     """The flow and the vocoder separately, against JAX's channels-first
     (``nch``) functions."""
