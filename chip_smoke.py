@@ -9,7 +9,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per library, all started together, from
-   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3);
+   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3, K4, K5, K6);
 3. kernels, each against its plain PyTorch twin at the flagship t2s widths
    (L=24, D=512, H=16, M=2048, V=1025) in bf16:
    * K1 (whole B=1 decode step) and K2 (whole step for a wave of B slots,
@@ -22,7 +22,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    * K3a / K3b (decode attention, one layer's cache / a layer of the stacked
      cache): B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer
      index, cache rows past ``kv_len`` poisoned;
-   CUDA-event times of kernel and twin (and, for K3, of one
+   * K4 (prefill attention under the hybrid mask): B = 1 and 4, T = 160, 512
+     and 1024, q/k/v as strided views of one qkv product, lengths with one
+     phoneme, no audio rows, pad rows, the 1/1 of a dead slot and a ragged
+     batch; then the wall time of ``prefill_batch`` with and without it;
+   * K5 (all layers, one token, B=1): caches of 512 and 1024 rows, ``kv_len``
+     0, mid and S-1; hidden row and appended rows within the whole-step
+     tolerances, every other cache row untouched;
+   * K6 (one layer, one token per row): B = 1, 4, 8 and 12 (two launches),
+     ragged ``kv_len``, every layer index, cache rows past ``kv_len``
+     poisoned;
+   CUDA-event times of kernel and twin (and, for K3 and K4, of one
    ``scaled_dot_product_attention`` call as a yardstick), beside the least
    time the card could take for the bytes the call must move;
 4. main path: full-width random s1v3 t2s / v2 SoVITS / HuBERT-base
@@ -32,7 +42,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    texts on a four-slot wave (K2, with slot refills and tail compaction) and
    one of twelve texts (a wave above K2's limit: the generic step with K3b).
    The audio must be finite and of plausible length and each kernel's
-   launch count must equal the decode steps its path took.
+   launch count must equal the decode steps its path took;
+5. the ``attn_impl`` paths and streaming, on the same checkpoints:
+   ``T2SEngine(attn_impl="flash").generate`` (K4 in every layer of the
+   prefill, K3b in every layer of every step, at B=1),
+   ``T2SEngine(attn_impl="fused").generate`` (K6 in every layer of every
+   step), a decode loop through ``transformer_decode_step`` under
+   ``"fused_step"`` (K5 once per step; its tokens held against the
+   ``"flash"`` route's from the same states), and ``TTS.infer_stream`` twice
+   with the default engine (K1) and once under ``attn_impl="flash"``: more
+   than one chunk, every chunk finite, time to first audio printed.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 kernels' JSON record and the card.  Nothing here imports JAX.
@@ -66,6 +85,14 @@ TOL_REL = 2e-2
 # bf16 the twin rounds the probabilities and both round the output (2^-9
 # relative each); with float32 queries only the summation order differs.
 K3_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+# K4 against its twin: O(1) averages of bf16 value rows.  In bf16 the twin
+# rounds the normalised probabilities to bf16 before the value product (as the
+# TPU kernel does), the kernel keeps them in float32, and both round the
+# output (2^-9 relative each); in float32 only the summation order differs.
+# The error is taken relative to max(1, |twin|): a row that attends one
+# column returns that value row itself, whose entries reach past 2.
+K4_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -453,6 +480,288 @@ def k3_phase(dev, cfg):
 
 
 # ---------------------------------------------------------------------------
+# K4: prefill attention under the hybrid mask
+# ---------------------------------------------------------------------------
+
+def k4_row_limits(T, xl, xyl):
+    """Columns each of the T rows attends under the hybrid mask."""
+    return [min(xl, xyl) if r < xl else (r + 1 if r < xyl else xyl) for r in range(T)]
+
+
+def k4_err(got, ref):
+    """(largest |got - ref| / max(1, |ref|), largest |got - ref|)."""
+    ref = ref.float()
+    diff = (got.float() - ref).abs()
+    return float((diff / ref.abs().clamp_min(1.0)).max()), float(diff.max())
+
+
+def k4_phase(dev, cfg):
+    """K4 vs its twin at ``cfg``'s widths; returns (max abs err, kernel ms, twin ms, library
+    ms, bound ms, bound by), the times at B=1, T=512."""
+    import torch
+    import torch.nn.functional as F
+
+    from gsv_tts_tpu_torch.ops import flash_prefill as fp
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    H, Dh, D = cfg.num_heads, cfg.head_dim, cfg.hidden_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    worst, calls = 0.0, 0
+
+    def views(B, T, dtype):
+        qkv = (torch.randn((B, T, 3 * D), generator=gen, device=dev) * 0.7).to(dtype)
+        return tuple(t.reshape(B, T, H, Dh) for t in qkv.split(D, dim=-1))
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    # T=192 with 60 / 160 is what the engine paths below give the kernel: a
+    # 60-phoneme, 100-token prompt padded to 64 + 128 rows
+    for T in (160, 192, 512, 1024):
+        cases = [(1, [1], [T]), (1, [T], [T]), (1, [T // 3], [T - 37]), (1, [1], [2]),
+                 (1, [60], [160]),
+                 (4, [1, T, T // 3, 1], [T, T, T - 37, 2]),
+                 (4, [60, T // 2, 7, T - 1], [T - 5, T // 2 + 1, T, T])]
+        for B, xl, xyl in cases:
+            for dtype in (torch.bfloat16, torch.float32) if T == 160 else (torch.bfloat16,):
+                q, k, v = views(B, T, dtype)
+                if q.is_contiguous():
+                    fail("K4's inputs are meant to be strided views")
+                name = str(dtype).split(".")[1]
+                ref = fp.flash_prefill_attention_ref(q, k, v, i32(xl), i32(xyl), num_heads=H)
+                out = fp.flash_prefill_attention(q, k, v, i32(xl), i32(xyl), num_heads=H)
+                torch.cuda.synchronize()
+                fused_step.check(dev)
+                err, abs_err = k4_err(out, ref)
+                if not bool(torch.isfinite(out.float()).all()) or err > K4_TOL[name]:
+                    fail(f"k4 differs from its twin by {err:.4g} (tolerance {K4_TOL[name]}) at "
+                         f"B={B} T={T} {name} x_lens={xl} xy_lens={xyl}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, abs_err)
+                calls += 1
+
+    record = None
+    for T, xl, xyl in ((160, 60, 150), (512, 200, 480)):
+        q, k, v = views(1, T, torch.bfloat16)
+        lx, lxy = i32([xl]), i32([xyl])
+        mask = fp.hybrid_mask(T, lx, lxy)[:, None]
+        qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+
+        def library():  # one PyTorch call computing the same function; timed only
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+        lib = library().permute(0, 2, 1, 3).reshape(1, T, D)
+        out = fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
+        err, _ = k4_err(out, lib)
+        if err > K4_TOL["bfloat16"]:
+            fail(f"k4 differs from the library call by {err:.4g} at T={T}")
+        k_ms, p_ms = timed_turns(
+            lambda: fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H),
+            lambda: fp.flash_prefill_attention_ref(q, k, v, lx, lxy, num_heads=H), 200, 50)
+        lib_ms = cuda_ms(library, 200)
+        # q, k, v read and the output written once (bf16), the lengths; QK and PV
+        # only for the columns each row attends
+        pairs = sum(k4_row_limits(T, xl, xyl))
+        b_ms, b_by = bound(4 * T * D * 2 + 8, 4 * Dh * H * pairs)
+        # the kernel alone, without the wrapper's host cost: 50 launches replayed
+        # from a CUDA graph
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                for _ in range(50):
+                    fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
+        torch.cuda.current_stream().wait_stream(side)
+        dev_ms = cuda_ms(graph.replay, 20) / 50
+        print(f"k4 time B=1 T={T} x_len={xl} xy_len={xyl}: kernel {k_ms:.4f} ms ({dev_ms:.4f} ms "
+              f"on the device, from a CUDA graph of 50 launches), plain twin {p_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
+        record = (worst, k_ms, p_ms, lib_ms, b_ms, b_by)
+    print(f"K4 matches its twin on {calls} calls (B=1, 4; T=160, 192, 512, 1024; strided views; "
+          f"ragged lengths); max abs err {worst:.4g} (bf16 tolerance {K4_TOL['bfloat16']} of "
+          f"max(1, |twin|))",
+          flush=True)
+    return record
+
+
+def prefill_times(bench):
+    """Wall time of ``prefill_batch`` (all layers, first token) with the plain attention and
+    with K4, at T = 160 and 512."""
+    import torch
+
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    cfg, dev = bench.cfg, bench.dev
+    sa = ts.SampleArgs()
+    for lx, ly in ((60, 90), (200, 280)):
+        Lx, Ly = ts._round_up(lx, 32), ts._round_up(ly, 32)
+        x = torch.randint(1, cfg.phoneme_vocab_size, (1, Lx), generator=bench.dgen, device=dev)
+        y = torch.randint(0, cfg.vocab_size - 1, (1, Ly), generator=bench.dgen, device=dev)
+        bert = torch.randn((1, Lx, cfg.bert_dim), generator=bench.dgen, device=dev) * 0.1
+        shape = (cfg.num_layers, 1, 1024, cfg.num_heads, cfg.head_dim)
+        kc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        vc = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+        g = gumbel_noise((1, cfg.vocab_size), bench.dgen, dev)
+        ms = {}
+        for impl in ("fused_step", "flash", "flash", "fused_step"):  # plain, K4, K4, plain
+            def run():
+                ts.prefill_batch(bench.params, cfg, x, y, bert, lx, ly, kc, vc, g, sa, True,
+                                 torch.bfloat16, impl)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+            ms.setdefault(impl, []).append(100 * (time.perf_counter() - t0))
+        print(f"prefill_batch T={Lx + Ly} (x_len {lx}, y_len {ly}): plain attention "
+              f"{sum(ms['fused_step']) / 2:.3f} ms, K4 {sum(ms['flash']) / 2:.3f} ms (host wall "
+              f"clock, mean of two turns of 10)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the layers without embedding, head and sampling
+# ---------------------------------------------------------------------------
+
+def layers_bound(cfg, n_layers, kv_lens, x_bytes):
+    """Bound of ``n_layers`` layers for rows at ``kv_lens`` (K5: all layers, one row; K6: one
+    layer): every weight read once whatever B is; per row its hidden row in and out, the
+    attended cache rows (K and V, bf16), the appended row and its length."""
+    D, M = cfg.hidden_dim, cfg.hidden_dim * cfg.mlp_ratio
+    n_w = n_layers * (4 * D * D + 2 * D * M)
+    small = n_layers * (2 * (3 * D + D + M + D) + 4 * 4 * D)
+    per_row = sum(2 * x_bytes * D + n_layers * (4 * kv * D + 4 * D) + 4 for kv in kv_lens)
+    flops = 2 * len(kv_lens) * n_w + sum(4 * n_layers * (kv + 1) * D for kv in kv_lens)
+    return bound(2 * n_w + small + per_row, flops)
+
+
+def k5_phase(bench: StepBench):
+    """K5 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by), the times
+    at S=1024, kv_len 777."""
+    import torch
+
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    cfg, dev = bench.cfg, bench.dev
+    layers, layers32 = bench.params["layers"], bench.params32["layers"]
+    worst, calls, times = 0.0, 0, None
+    for S, kv_len in [(512, 0), (512, 300), (512, 511), (1024, 0), (1024, 777), (1024, 1023)]:
+        st = bench.state(S, [kv_len], [0], [17], [5])
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, cfg.hidden_dim), generator=bench.dgen, device=dev).to(dtype)
+            where = f"K5 S={S} kv_len={kv_len} x {dtype}"
+            ka, va = st["kc"].clone(), st["vc"].clone()
+            h, _, _ = fused_step.fused_decode_step(x, layers, ka, va, st["kv"],
+                                                   table=bench.table)
+            kb, vb = st["kc"].clone(), st["vc"].clone()
+            rh, _, _ = fused_step.fused_decode_step_ref(x, layers, kb, vb, st["kv"])
+            fh, _, _ = fused_step.fused_decode_step_ref(x.float(), layers32, st["kc"].float(),
+                                                        st["vc"].float(), st["kv"])
+            torch.cuda.synchronize()
+            fused_step.check(dev)
+            if h.dtype != dtype:
+                fail(f"K5 returned {h.dtype} at {where}")
+            worst = max(worst, check_close("hidden", h.float(), rh.float(), fh, where))
+            for name, a, r, orig in (("K", ka, kb, st["kc"]), ("V", va, vb, st["vc"])):
+                e = float((a[:, 0, kv_len].float() - r[:, 0, kv_len].float()).abs().max())
+                worst = max(worst, e)
+                if e > TOL_ABS:
+                    fail(f"appended {name} rows differ by {e:.4g} at {where}")
+                if not (torch.equal(a[:, 0, :kv_len], orig[:, 0, :kv_len])
+                        and torch.equal(a[:, 0, kv_len + 1:], orig[:, 0, kv_len + 1:])):
+                    fail(f"{name} cache rows other than kv_len were modified at {where}")
+            calls += 1
+        if (S, kv_len) == (1024, 777):
+            x = x.to(torch.bfloat16)
+            ka, va = st["kc"].clone(), st["vc"].clone()
+            k_ms, p_ms = timed_turns(
+                lambda: fused_step.fused_decode_step(x, layers, ka, va, st["kv"],
+                                                     table=bench.table),
+                lambda: fused_step.fused_decode_step_ref(x, layers, ka, va, st["kv"]), 100, 10)
+            times = (k_ms, p_ms) + layers_bound(cfg, cfg.num_layers, [kv_len], 2)
+            print(f"k5 time S={S} kv_len={kv_len}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+                  f"bound {times[2]:.4f} ms ({times[3]})", flush=True)
+    print(f"K5 matches its twin on {calls} flagship calls (S=512, 1024; kv_len 0, mid, S-1; bf16 "
+          f"and float32 rows); max abs err {worst:.4g} (tolerance {TOL_ABS})", flush=True)
+    return (worst,) + times
+
+
+def k6_phase(bench: StepBench):
+    """K6 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by), the times
+    at B=1, S=1024, kv_len 777."""
+    import torch
+
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+
+    cfg, dev = bench.cfg, bench.dev
+    L = cfg.num_layers
+    layers, layers32 = bench.params["layers"], bench.params32["layers"]
+    worst, calls = 0.0, 0
+    for S in (512, 1024):
+        waves = {1: [S - 1], 4: [0, 300, S - 1, S // 2], 8: [0, 1, 63, 64, 300, S // 2, S - 200, S - 1],
+                 12: [0, 63, 64, S - 1, 1, 300, 127, 128, 129, 200, S // 2, 17]}
+        for B, kv_lens in waves.items():
+            st = bench.state(S, kv_lens, [0] * B, [17] * B, [5] * B)
+            x = torch.randn((B, cfg.hidden_dim), generator=bench.dgen, device=dev).to(torch.bfloat16)
+            # rows past kv_len[b] must never be read: poison them (row kv_len[b]
+            # itself is the one the call writes)
+            kp, vp = st["kc"].clone(), st["vc"].clone()
+            for b, n in enumerate(kv_lens):
+                kp[:, b, n:] = float("nan")
+                vp[:, b, n:] = float("nan")
+            before = fused_layer.fused_decode_layer.launches
+            picked = range(L) if (S, B) in ((512, 12), (1024, 4)) else (0, L // 2, L - 1)
+            for layer in picked:
+                where = f"K6 B={B} S={S} layer {layer} kv_len={kv_lens}"
+                ka, va = kp.clone(), vp.clone()
+                h, _, _ = fused_layer.fused_decode_layer(x, layers[layer], ka, va, st["kv"], layer,
+                                                         table=bench.table)
+                kb, vb = st["kc"].clone(), st["vc"].clone()
+                rh, _, _ = fused_layer.fused_decode_layer_ref(x, layers[layer], kb, vb, st["kv"],
+                                                              layer)
+                fh, _, _ = fused_layer.fused_decode_layer_ref(
+                    x.float(), layers32[layer], st["kc"].float(), st["vc"].float(), st["kv"], layer)
+                torch.cuda.synchronize()
+                fused_step.check(dev)
+                worst = max(worst, check_close("hidden", h.float(), rh.float(), fh, where))
+                for b, n in enumerate(kv_lens):
+                    for name, a, r, orig in (("K", ka, kb, kp), ("V", va, vb, vp)):
+                        e = float((a[layer, b, n].float() - r[layer, b, n].float()).abs().max())
+                        worst = max(worst, e)
+                        if not e <= TOL_ABS:
+                            fail(f"appended {name} row differs by {e:.4g} at {where} row {b}")
+                        if not bool(torch.isnan(a[layer, b, n + 1:].float()).all()):
+                            fail(f"{name} cache rows past kv_len were written at {where} row {b}")
+                        if not torch.equal(a[layer, b, :n], orig[layer, b, :n]):
+                            fail(f"{name} cache rows below kv_len were modified at {where} row {b}")
+                calls += 1
+            groups = -(-B // fused_step.MAX_FUSED_B)
+            if fused_layer.fused_decode_layer.launches - before != groups * len(picked):
+                fail(f"K6 at B={B}: {fused_layer.fused_decode_layer.launches - before} launches "
+                     f"for {len(picked)} calls of {groups} groups")
+    times = {}
+    for B, kv_lens in ((4, [777, 761, 790, 770]), (1, [777])):
+        st = bench.state(1024, kv_lens, [0] * B, [17] * B, [5] * B)
+        x = torch.randn((B, cfg.hidden_dim), generator=bench.dgen, device=dev).to(torch.bfloat16)
+        ka, va, layer = st["kc"].clone(), st["vc"].clone(), 5
+        k_ms, p_ms = timed_turns(
+            lambda: fused_layer.fused_decode_layer(x, layers[layer], ka, va, st["kv"], layer,
+                                                   table=bench.table),
+            lambda: fused_layer.fused_decode_layer_ref(x, layers[layer], ka, va, st["kv"], layer),
+            200, 20)
+        times[B] = (k_ms, p_ms) + layers_bound(cfg, 1, kv_lens, 2)
+        print(f"k6 time B={B} S=1024 kv_len~777: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+              f"bound {times[B][2]:.5f} ms ({times[B][3]})", flush=True)
+    print(f"K6 matches its twin on {calls} flagship calls (B=1, 4, 8, 12; every layer; rows past "
+          f"kv_len poisoned); max abs err {worst:.4g} (tolerance {TOL_ABS})", flush=True)
+    return (worst,) + times[1]
+
+
+# ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
 
@@ -515,12 +824,23 @@ BIG_WAVE = 12  # slots of the wave above K2's limit
 
 
 def launch_counts():
-    from gsv_tts_tpu_torch.ops import flash_decode, fused_step
+    from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
 
     return {"k1": fused_step.fused_decode_step_sample,
             "k2": fused_step.fused_decode_step_sample_batched,
             "k3a": flash_decode.flash_decode_attention,
-            "k3b": flash_decode.flash_decode_attention_layered}
+            "k3b": flash_decode.flash_decode_attention_layered,
+            "k4": flash_prefill.flash_prefill_attention,
+            "k5": fused_step.fused_decode_step,
+            "k6": fused_layer.fused_decode_layer}
+
+
+def expect_counts(what, counts, **want):
+    """Fail unless the launch counts are ``want`` (kernels not named: 0)."""
+    want = {name: want.get(name, 0) for name in counts}
+    print(f"main path, {what}: launches {counts}", flush=True)
+    if counts != want:
+        fail(f"{what}: launches {counts}, the path needs {want}")
 
 
 def reset_counts():
@@ -546,7 +866,7 @@ def single_path(tts, spk, prompt):
     import torch
 
     reset_counts()
-    steps = 0
+    steps, rtf = 0, 0.0
     for i, text in enumerate(TEXTS[:2]):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -555,6 +875,7 @@ def single_path(tts, spk, prompt):
         wall = time.perf_counter() - t0
         st = tts.last_timings
         steps += st["decode_steps"]
+        rtf = wall / clip.audio_len_s  # the last request's: the warm one
         check_audio(f"infer request {i}", clip.audio_data, int(0.2 * 32000),
                     st["tokens"] * 1280 + int(0.2 * 32000))
         print(f"infer request {i}: {st['tokens']} tokens, {st['decode_steps']} decode steps in "
@@ -564,11 +885,10 @@ def single_path(tts, spk, prompt):
               f"{clip.audio_len_s:.2f} s of audio in {wall:.3f} s, RTF "
               f"{wall / clip.audio_len_s:.4f}", flush=True)
     counts = read_counts()
-    print(f"main path, infer: K1 launched {counts['k1']} times for {steps} decode steps",
-          flush=True)
-    if counts["k1"] != steps or steps == 0 or counts["k2"] or counts["k3b"]:
-        fail(f"infer: launches {counts} for {steps} decode steps")
-    return counts
+    if steps == 0:
+        fail("infer took no decode step")
+    expect_counts(f"infer ({steps} decode steps)", counts, k1=steps)
+    return counts, rtf
 
 
 def batched_path(tts, engine, spk, prompt, texts, layers):
@@ -604,23 +924,182 @@ def batched_path(tts, engine, spk, prompt, texts, layers):
           f"{1000 * st['prefill_s']:.1f} ms, SoVITS {st['sovits_s']:.3f} s; refills "
           f"{st['refills']}, compactions {st['compactions']}; {audio_s:.2f} s of audio in "
           f"{wall:.3f} s, RTF {wall / audio_s:.4f}", flush=True)
-    want = {"k1": st["k1_steps"], "k2": st["k2_steps"], "k3a": 0,
-            "k3b": st["generic_steps"] * layers}
-    print(f"main path, infer_batched of {n}: launches {counts}", flush=True)
-    if counts != want:
-        fail(f"infer_batched({n}): launches {counts}, the decode steps need {want}")
+    expect_counts(f"infer_batched of {n}", counts, k1=st["k1_steps"], k2=st["k2_steps"],
+                  k3b=st["generic_steps"] * layers)
     return counts, st
 
 
+def random_prompt(cfg, lx, ly, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return (rng.randint(1, cfg.phoneme_vocab_size, lx), rng.randint(0, cfg.vocab_size - 1, ly),
+            (rng.randn(lx, cfg.bert_dim) * 0.1).astype(np.float32))
+
+
+def engine_path(gpt_path, dev, impl, lx, ly, min_steps):
+    """``T2SEngine(attn_impl=impl).generate`` at B=1 on a 512-row cache, once to warm up and
+    once counted; returns the launch counts."""
+    import torch
+
+    from gsv_tts_tpu_torch.config import Config
+    from gsv_tts_tpu_torch.loader import get_gpt_weights
+
+    engine = get_gpt_weights(gpt_path, Config(device=dev, gpt_cache=[(1, 512)],
+                                              attn_impl=impl)).engine
+    L = engine.cfg.num_layers
+    # random weights may sample EOS early: take the first seed whose run is long enough
+    for seed in range(SEED, SEED + 4):
+        x, y, bert = random_prompt(engine.cfg, lx, ly, seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        engine.generate(x, y, bert, generator=gen)
+        reset_counts()
+        torch.cuda.synchronize()
+        toks = engine.generate(x, y, bert, generator=gen)
+        torch.cuda.synchronize()
+        counts, st = read_counts(), engine.last_stats
+        if st["decode_steps"] >= min_steps:
+            break
+    else:
+        fail(f'attn_impl="{impl}": no run of {min_steps} decode steps in four seeds')
+    steps = st["decode_steps"]
+    print(f'T2SEngine(attn_impl="{impl}").generate, B=1, prompt {lx}+{ly}: {toks.size} tokens, '
+          f"{steps} decode steps in {st['decode_s']:.3f} s = "
+          f"{1000 * st['decode_s'] / steps:.3f} ms/step; prefill {1000 * st['prefill_s']:.2f} ms",
+          flush=True)
+    if impl == "flash":
+        expect_counts(f'attn_impl="flash" ({steps} steps, 1 prefill)', counts, k4=L,
+                      k3b=L * steps)
+    else:
+        expect_counts(f'attn_impl="fused" ({steps} steps)', counts, k6=L * steps)
+    return counts
+
+
+def k5_loop_path(gpt_path, dev, n_steps=120, n_held=32):
+    """A greedy decode loop at B=1 through ``transformer_decode_step`` under ``"fused_step"``
+    (embedding -> K5 -> head -> sampling, the engine's generic step) after a plain prefill.
+    Then the ``"flash"`` route (PyTorch layers around K3b) takes the first ``n_held`` steps
+    from the same states: two bf16 routes may pick different tokens at a near-tie, so at
+    least 7 of 8 must agree.  Returns the launch counts of the K5 loop."""
+    import dataclasses
+
+    import torch
+
+    from gsv_tts_tpu_torch.config import Config
+    from gsv_tts_tpu_torch.loader import get_gpt_weights
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    engine = get_gpt_weights(gpt_path, Config(device=dev, gpt_cache=[(1, 512)])).engine
+    cfg, params, dtype = engine.cfg, engine.params, engine.dtype
+    x, y, bert = random_prompt(cfg, 60, 100, SEED)
+    xp, yp, bp = engine._pad_prompt(x, y, bert)
+    k_cache, v_cache = engine._alloc_cache(1, 512)
+    sa = ts.SampleArgs(top_k=1)
+    g = torch.zeros((1, cfg.vocab_size), device=dev)
+    state, _ = ts.prefill_batch(params, cfg, *engine._dev(xp[None], yp[None], bp[None]), len(x),
+                                len(y), k_cache, v_cache, g, sa, True, dtype)
+    toks = torch.empty((n_steps, 1), dtype=torch.int32, device=dev)
+
+    def step(st, out, impl):
+        ts._generic_step(params, cfg, st, g, sa, ts.INITIAL_SUPPRESSION_STEPS, dtype, out, impl)
+
+    def snapshot(st):
+        return dataclasses.replace(st, **{f.name: getattr(st, f.name).clone()
+                                          for f in dataclasses.fields(st)})
+
+    held = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        if i < n_held:
+            held.append(snapshot(state))
+        step(state, toks[i], "fused_step")
+        state.last_tok = toks[i]
+        for t in (state.kv_len, state.buf_len, state.step_idx):
+            t += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    engine._check_kernels()
+    print(f'transformer_decode_step(attn_impl="fused_step") loop, B=1: {n_steps} steps in '
+          f"{wall:.3f} s = {1000 * wall / n_steps:.3f} ms/step ({n_held} of them with a state "
+          f"snapshot)", flush=True)
+    expect_counts(f"K5 loop ({n_steps} steps)", counts, k5=n_steps)
+    other = torch.empty((n_held, 1), dtype=torch.int32, device=dev)
+    for i, st in enumerate(held):
+        step(st, other[i], "flash")
+    same = int((other == toks[:n_held]).sum())
+    print(f'K5 loop: {same} of {n_held} greedy tokens equal the "flash" route\'s from the same '
+          f"states", flush=True)
+    if same * 8 < n_held * 7:
+        fail(f'K5 loop: only {same} of {n_held} tokens equal the "flash" route\'s')
+    return counts
+
+
+def stream_path(models_dir, gpt, sov, spk, prompt, dev, attn_impl, texts, warm_rtf):
+    """``TTS.infer_stream`` once per text on an engine under ``attn_impl`` (one segment a
+    text, chunks of 25 tokens, the first sent at once); returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+
+    tts = TTS(gpt_cache=[(1, 512)], models_dir=models_dir, device=dev, seed=SEED,
+              attn_impl=attn_impl)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(sov))
+    L = tts.gpt_models[str(gpt)].engine.cfg.num_layers
+    reset_counts()
+    steps = 0
+    for i, text in enumerate(texts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clips = list(tts.infer_stream(str(spk), str(prompt), PROMPT_TEXT, text, is_cut_text=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = tts.last_timings
+        steps += st["decode_steps"]
+        what = f'infer_stream (attn_impl="{attn_impl}") request {i}'
+        if len(clips) < 2:
+            fail(f"{what}: {len(clips)} chunk(s), a stream has more than one")
+        for clip in clips:
+            if clip.audio_data.dtype != np.float32 or not np.all(np.isfinite(clip.audio_data)):
+                fail(f"{what}: a chunk is not finite float32")
+        audio = np.concatenate([c.audio_data for c in clips])
+        mute = int(0.4 * 2.0 * 32000)  # the longest pause appended after a segment
+        # (a stream is not peak-normalised: its chunks leave before the peak is known)
+        if not 0.25 * st["decode_steps"] * 1280 < audio.size <= st["decode_steps"] * 1280 + mute:
+            fail(f"{what}: {audio.size} samples for {st['decode_steps']} decode steps")
+        print(f"{what}: {len(clips)} chunks, {st['decode_steps']} decode steps, time to first "
+              f"audio {1000 * st['ttfa_s']:.1f} ms, {len(audio) / 32000:.2f} s of audio in "
+              f"{wall:.3f} s, RTF {wall / (len(audio) / 32000):.4f} (warm infer RTF "
+              f"{warm_rtf:.4f})", flush=True)
+    counts = read_counts()
+    if attn_impl == "flash":
+        expect_counts(f"infer_stream under flash ({steps} steps, {len(texts)} prefills)", counts,
+                      k4=L * len(texts), k3b=L * steps)
+    else:
+        expect_counts(f"infer_stream ({steps} steps)", counts, k1=steps)
+    return counts
+
+
 def main_path_phase(dev):
-    """Drives ``infer`` and ``infer_batched``; returns the launches summed
-    over the three drives (counts are zeroed before each and read after)."""
+    """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
+    K5 loop and ``infer_stream``; returns the launches summed over the drives (counts are
+    zeroed before each drive and read after it)."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
 
     if BIG_WAVE <= MAX_FUSED_B:
         fail(f"the big wave ({BIG_WAVE}) must exceed MAX_FUSED_B ({MAX_FUSED_B})")
     small = [(1, 512), (1, 1024), (2, 512), (4, 512)]
+    total = {name: 0 for name in launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         gpt, sov, spk, prompt = write_checkpoints(Path(tmp))
@@ -635,21 +1114,30 @@ def main_path_phase(dev):
         layers = engine.cfg.num_layers
         print(f"main path: checkpoints written and loaded in {time.perf_counter() - t0:.1f} s",
               flush=True)
-        total = single_path(tts, spk, prompt)
+        counts, warm_rtf = single_path(tts, spk, prompt)
+        add(counts)
         # six texts with waves of at most four slots: two refills, then the
         # tail compacts
         counts, st = batched_path(tts, engine, spk, prompt, TEXTS[:6], layers)
         if counts["k2"] == 0 or st["refills"] < 2 or st["compactions"] < 1:
             fail(f"infer_batched(6): K2 launches {counts['k2']}, refills {st['refills']}, "
                  f"compactions {st['compactions']}")
-        total = {k: total[k] + v for k, v in counts.items()}
+        add(counts)
         del tts, engine
         # a wave above K2's limit: the generic step, K3b in every layer
         tts, engine = engine_for(small + [(BIG_WAVE, 512)])
         counts, st = batched_path(tts, engine, spk, prompt, TEXTS[:BIG_WAVE], layers)
         if counts["k3b"] == 0:
             fail(f"infer_batched({BIG_WAVE}): K3b was not launched")
-        return {k: total[k] + v for k, v in counts.items()}
+        add(counts)
+        del tts, engine
+        # the engine's other implementations at B=1, the K5 loop, streaming
+        add(engine_path(str(gpt), dev, "flash", 60, 100, 200))
+        add(engine_path(str(gpt), dev, "fused", 200, 180, 100))
+        add(k5_loop_path(str(gpt), dev))
+        add(stream_path(tmp, gpt, sov, spk, prompt, dev, "fused_step", TEXTS[:2], warm_rtf))
+        add(stream_path(tmp, gpt, sov, spk, prompt, dev, "flash", TEXTS[2:3], warm_rtf))
+    return total
 
 
 def profile_phase(bench: StepBench):
@@ -726,14 +1214,16 @@ def main():
     card = card_line()
     print(f"card: {card}", flush=True)
 
-    from gsv_tts_tpu_torch.ops import flash_decode, fused_step
+    from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
     from gsv_tts_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    libraries = [fused_step.K1_LIBRARY, fused_step.K2_LIBRARY, flash_decode.LIBRARY]
+    libraries = [fused_step.K1_LIBRARY, fused_step.K2_LIBRARY, flash_decode.LIBRARY,
+                 flash_prefill.LIBRARY, fused_step.K5_LIBRARY, fused_layer.LIBRARY]
     cuda_build.load_libraries(libraries)
     for bind in (fused_step.load_kernels, fused_step.load_batched_kernels,
-                 flash_decode.load_kernels):
+                 flash_decode.load_kernels, flash_prefill.load_kernels,
+                 fused_step.load_layers_kernels, fused_layer.load_kernels):
         bind()
     print(f"build: {len(libraries)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, _ in libraries:
@@ -750,6 +1240,10 @@ def main():
     k1_err, k1_times = k1_phase(bench)
     k2_err, k2_times = k2_phase(bench)
     k3 = k3_phase(dev, bench.cfg)
+    k4 = k4_phase(dev, bench.cfg)
+    prefill_times(bench)
+    k5 = k5_phase(bench)
+    k6 = k6_phase(bench)
     del bench
     torch.cuda.empty_cache()
     launches = main_path_phase(dev)
@@ -759,26 +1253,33 @@ def main():
                 "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                 "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
 
-    def attn_record(name, replaces, count, r):
-        return {"name": name, "route": "cuda",
-                "source": "gsv_tts_tpu_torch/csrc/k3_flash_decode.cu", "replaces": replaces,
-                "launches": count, "max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
-                "bound_ms": r[4], "bound_by": r[5], "library_ms": r[3]}
+    def attn_record(name, source, replaces, count, r):
+        return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": count, "max_abs_err": r[0], "ms": r[1],
+                "plain_ms": r[2], "bound_ms": r[4], "bound_by": r[5], "library_ms": r[3]}
 
-    # times of the whole-step kernels: S=1024, kv_len ~777 (K2 at B=4); of
-    # the attention kernels: B=12, S=512, kv_len ~300.  K3a is not on the
-    # main path (it shares K3b's kernel body and is held in the kernel phase)
+    # times of the whole-step kernels and of K5 and K6: S=1024, kv_len ~777
+    # (K2 at B=4, K6 at B=1); of the decode attention kernels: B=12, S=512,
+    # kv_len ~300; of K4: B=1, T=512.  K3a has no caller in the JAX package
+    # outside its own module, so there is no path to put it on: it is held in
+    # the kernel phase and shares K3b's kernel body
     record = {"kernels": [
         step_record("k1_decode_step", "gsv_tts_tpu_torch/csrc/k1_decode_step.cu",
                     "gsv_tts_tpu/ops/fused_step.py:897", launches["k1"], k1_err, k1_times[1024]),
         step_record("k2_decode_step_batched", "gsv_tts_tpu_torch/csrc/k2_decode_step_batched.cu",
                     "gsv_tts_tpu/ops/fused_step.py:1641", launches["k2"], k2_err,
                     k2_times[1024]),
-        attn_record("k3a_flash_decode", "gsv_tts_tpu/ops/flash_decode.py:116", launches["k3a"],
-                    k3["k3a"]),
-        attn_record("k3b_flash_decode_layered", "gsv_tts_tpu/ops/flash_decode.py:183",
-                    launches["k3b"], k3["k3b"])]}
-    for name in ("k1", "k2", "k3b"):  # the kernels of the main path
+        attn_record("k3a_flash_decode", "k3_flash_decode.cu",
+                    "gsv_tts_tpu/ops/flash_decode.py:116", launches["k3a"], k3["k3a"]),
+        attn_record("k3b_flash_decode_layered", "k3_flash_decode.cu",
+                    "gsv_tts_tpu/ops/flash_decode.py:183", launches["k3b"], k3["k3b"]),
+        attn_record("k4_flash_prefill", "k4_flash_prefill.cu",
+                    "gsv_tts_tpu/ops/flash_prefill.py:97", launches["k4"], k4),
+        step_record("k5_decode_layers", "gsv_tts_tpu_torch/csrc/k5_decode_layers.cu",
+                    "gsv_tts_tpu/ops/fused_step.py:255", launches["k5"], k5[0], k5[1:]),
+        step_record("k6_decode_layer", "gsv_tts_tpu_torch/csrc/k6_decode_layer.cu",
+                    "gsv_tts_tpu/ops/fused_layer.py:208", launches["k6"], k6[0], k6[1:])]}
+    for name in ("k1", "k2", "k3b", "k4", "k5", "k6"):  # the kernels of the main paths
         if launches[name] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps(record), flush=True)

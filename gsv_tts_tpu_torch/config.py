@@ -47,13 +47,17 @@ class Config:
     ``"cpu"``; left ``None`` it is the card, and construction raises when
     there is none.  ``dtype`` defaults from the device.  ``gpt_cache`` is the list of
     ``(batch_size, max_seq_len)`` KV-cache buckets; ``models_dir`` keys the
-    frontend's G2P engines.
+    frontend's G2P engines.  ``attn_impl`` names the t2s engine's kernels
+    (``runtime/t2s_session.py``): ``"fused_step"`` (K1 / K2 whole-step
+    kernels, plain prefill), ``"flash"`` (K4 prefill attention, K3b decode
+    attention) or ``"fused"`` (K6, one call per layer).
     """
 
     device: Any = None
     dtype: Any = None
     gpt_cache: list = None
     models_dir: Optional[Path] = None
+    attn_impl: str = "fused_step"
 
     def __post_init__(self):
         self.device = (default_device() if self.device is None

@@ -24,6 +24,7 @@ constexpr int LN_THREADS = 256;
 constexpr int ERR_LAST_TOK = 1;  // last_tok outside [0, V)
 constexpr int ERR_KV_LEN = 2;    // kv_len outside [0, S)
 constexpr int ERR_PE_IDX = 4;    // positional index outside [0, P)
+// (bit 8 is K4's: prefill lengths outside the prompt block, k4_flash_prefill.cu)
 
 // One layer's weights: matrices [out, in] and biases in bf16, LayerNorm
 // affines in float32.
@@ -220,6 +221,250 @@ layernorm_rows(const float* in, const float* __restrict__ g, const float* __rest
   for (int i = threadIdx.x; i < D; i += blockDim.x)
     out[i] = (in[i] - mean) * inv * g[i] + b[i];
 }
+
+// ---------------------------------------------------------------------------
+// One post-norm transformer layer for a wave of NB <= ROWS_MAX_B rows, each
+// with its own cache slot and length: what K1 (one row) and K2 run L times
+// between their embedding and their head, K5 L times at one row, K6 once.
+// A source that wants it defines DEC_WITH_ROWS before including this header
+// (the others would only compile kernels they never launch).
+// ---------------------------------------------------------------------------
+#ifdef DEC_WITH_ROWS
+constexpr int ROWS_MAX_B = 8;  // row accumulators a GEMV warp keeps
+
+// float32 workspace of a wave (row-major, ROWS_MAX_B rows each) and the
+// error word (ERR_* bits)
+struct RowsWork {
+  float* x;     // [B, D]   the layer's input and output
+  float* h;     // [B, D]
+  float* qkv;   // [B, 3D]
+  float* attn;  // [B, D]
+  float* mlp;   // [B, M]
+  float* part;  // [B, H, ceil(S / 64), Dh + 2] attention partials
+  int* err;     // [1]
+};
+
+// y[b, n] = (res[b, n] +) sum_k bf16(x[b, k]) * W[n, k] (+ bias[n]) (relu)
+// for all NB rows b at once, float32.  One warp per output row n: each lane
+// loads its 16 bytes (8 bf16) of W[n] once and feeds NB accumulators from
+// the NB activation rows in shared memory (bf16, NB * K * 2 bytes).
+// Requires K % 8 == 0 and 16-byte aligned weight rows and activations
+// (checked by the caller).
+template <int NB>
+static __global__ void __launch_bounds__(GEMV_WARPS * 32)
+rows_gemv(const bf16* __restrict__ W, const bf16* __restrict__ bias,
+          const float* __restrict__ x, const float* __restrict__ res,
+          float* __restrict__ y, int N, int K, int relu) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [NB, K]
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5);
+  const bf16* w = W + (size_t)min(n, N - 1) * K;
+  // the lane's first 16 bytes of the weight row are requested before the
+  // activations are staged, so the two waits overlap
+  uint4 wraw = make_uint4(0u, 0u, 0u, 0u);
+  if (lane * 8 < K) wraw = __ldg(reinterpret_cast<const uint4*>(w + lane * 8));
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  __nv_bfloat162* xs2 = reinterpret_cast<__nv_bfloat162*>(xs);
+  for (int i = threadIdx.x; i < NB * K / 4; i += blockDim.x) {
+    const float4 v = x4[i];
+    xs2[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+    xs2[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  __syncthreads();
+  if (n >= N) return;
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+  for (int k = lane * 8; k < K; k += 32 * 8) {
+    float wf[8];
+    bf16x8_to_float(wraw, wf);
+    if (k + 32 * 8 < K) wraw = __ldg(reinterpret_cast<const uint4*>(w + k + 32 * 8));
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float xf[8];
+      bf16x8_to_float(*reinterpret_cast<const uint4*>(xs + (size_t)b * K + k), xf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[b] = fmaf(wf[j], xf[j], acc[b]);
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = warp_sum(acc[b]);
+  if (lane == 0) {
+    const float bv = bias ? __bfloat162float(bias[n]) : 0.f;
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float v = acc[b];
+      if (res) v = res[(size_t)b * N + n] + v;
+      if (bias) v += bv;
+      if (relu) v = fmaxf(v, 0.f);
+      y[(size_t)b * N + n] = v;
+    }
+  }
+}
+
+// Per-slot single-query attention: block (head h, split j, slot b) covers
+// rows [64 j, 64 j + 64) of [0, kv_len[b]] -- cache rows below kv_len[b]
+// plus the token itself, whose K/V enter in float32 from qkv[b].  Split 0
+// appends the slot's K/V row at kv_len[b] (never read here, so no race).
+// Blocks whose split starts past kv_len[b] exit.  kc/vc: one layer's
+// [B, S, D] cache.
+template <int LPR>
+static __global__ void __launch_bounds__(ATTN_THREADS)
+rows_attn_partial(const float* __restrict__ qkv, bf16* __restrict__ kc, bf16* __restrict__ vc,
+                  const int* __restrict__ kv_len, int S, int D, float scale,
+                  float* __restrict__ part, int nsplit_max, int* __restrict__ err) {
+  constexpr int Dh = LPR * 8;
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z, H = gridDim.x;
+  const int kv = kv_len[b];
+  if (kv < 0 || kv >= S) {  // uniform over the block
+    if (threadIdx.x == 0 && h == 0 && split == 0) atomicOr(err, ERR_KV_LEN);
+    return;
+  }
+  if (split * ATTN_ROWS > kv) return;
+  const size_t hoff = (size_t)h * Dh;
+  const float* q = qkv + (size_t)b * 3 * D + hoff;
+  const float* kn = q + D;
+  const float* vn = q + 2 * D;
+  bf16* kcb = kc + (size_t)b * S * D + hoff;
+  bf16* vcb = vc + (size_t)b * S * D + hoff;
+  if (split == 0) {
+    for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
+      kcb[(size_t)kv * D + d] = __float2bfloat16(kn[d]);
+      vcb[(size_t)kv * D + d] = __float2bfloat16(vn[d]);
+    }
+  }
+  const int d0 = (threadIdx.x & 31) % LPR * 8;
+  float qr[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) qr[j] = q[d0 + j];
+  attn_split_partial<LPR>(qr, kn, vn, kcb, vcb, D, kv, split, scale,
+                          part + (((size_t)b * H + h) * nsplit_max + split) * (Dh + 2));
+}
+
+// Merge the partials of (head blockIdx.x, slot blockIdx.y) into
+// out[b, h*Dh : (h+1)*Dh]; a slot with a bad kv_len gets NaN.
+static __global__ void rows_attn_combine(const float* __restrict__ part,
+                                         const int* __restrict__ kv_len, int S, int nsplit_max,
+                                         int Dh, float* __restrict__ out) {
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int kv = kv_len[b];
+  const bool ok = kv >= 0 && kv < S;
+  const int nsplit = ok ? kv / ATTN_ROWS + 1 : 0;
+  const float* p = part + ((size_t)b * H + h) * nsplit_max * (Dh + 2);
+  for (int d = threadIdx.x; d < Dh; d += blockDim.x)
+    out[((size_t)b * H + h) * Dh + d] = ok ? attn_split_combine(p, nsplit, Dh, d) : nanf("");
+}
+
+template <int NB>
+static int launch_rows_gemv_nb(const bf16* W, const bf16* bias, const float* x, const float* res,
+                               float* y, int N, int K, int relu, cudaStream_t st) {
+  const int blocks = (N + GEMV_WARPS - 1) / GEMV_WARPS;
+  rows_gemv<NB><<<blocks, GEMV_WARPS * 32, sizeof(bf16) * NB * K, st>>>(W, bias, x, res, y, N, K,
+                                                                        relu);
+  DEC_CHECK();
+  return 0;
+}
+
+static int launch_rows_gemv(int B, const bf16* W, const bf16* bias, const float* x,
+                            const float* res, float* y, int N, int K, int relu,
+                            cudaStream_t st) {
+  switch (B) {
+    case 1: return launch_rows_gemv_nb<1>(W, bias, x, res, y, N, K, relu, st);
+    case 2: return launch_rows_gemv_nb<2>(W, bias, x, res, y, N, K, relu, st);
+    case 3: return launch_rows_gemv_nb<3>(W, bias, x, res, y, N, K, relu, st);
+    case 4: return launch_rows_gemv_nb<4>(W, bias, x, res, y, N, K, relu, st);
+    case 5: return launch_rows_gemv_nb<5>(W, bias, x, res, y, N, K, relu, st);
+    case 6: return launch_rows_gemv_nb<6>(W, bias, x, res, y, N, K, relu, st);
+    case 7: return launch_rows_gemv_nb<7>(W, bias, x, res, y, N, K, relu, st);
+    case 8: return launch_rows_gemv_nb<8>(W, bias, x, res, y, N, K, relu, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+static int launch_rows_attention(int B, int D, int H, int S, float scale, const float* qkv,
+                                 bf16* kc, bf16* vc, const int* kv_len, float* part, float* out,
+                                 int* err, cudaStream_t st) {
+  const int Dh = D / H;
+  const int nsplit_max = (S + ATTN_ROWS - 1) / ATTN_ROWS;
+  const dim3 grid(H, nsplit_max, B);
+#define ROWS_ATTN(LPR)                                                                    \
+  rows_attn_partial<LPR><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, kv_len, S, D, scale, \
+                                                        part, nsplit_max, err)
+  switch (Dh) {
+    case 8: ROWS_ATTN(1); break;
+    case 16: ROWS_ATTN(2); break;
+    case 32: ROWS_ATTN(4); break;
+    case 64: ROWS_ATTN(8); break;
+    case 128: ROWS_ATTN(16); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ROWS_ATTN
+  DEC_CHECK();
+  rows_attn_combine<<<dim3(H, B), 128, 0, st>>>(part, kv_len, S, nsplit_max, Dh, out);
+  DEC_CHECK();
+  return 0;
+}
+
+// The layer: ws.x [B, D] -> ws.x, through qkv, the attention over the slot's
+// cache rows below kv_len[b] plus the token itself (its K/V row appended at
+// kv_len[b] of kc/vc, this layer's [B, S, D] cache), out-proj + residual +
+// LayerNorm, MLP(ReLU) + residual + LayerNorm.  8 launches.
+static int decode_layer_rows(int B, int D, int H, int M, int S, float scale,
+                             const LayerWeights& w, bf16* kc, bf16* vc, const int* kv_len,
+                             const RowsWork& ws, cudaStream_t st) {
+  int rc;
+  if (B < 1 || B > ROWS_MAX_B) return (int)cudaErrorInvalidValue;
+  if ((rc = launch_rows_gemv(B, w.qkv_w, w.qkv_b, ws.x, nullptr, ws.qkv, 3 * D, D, 0, st)))
+    return rc;
+  if ((rc = launch_rows_attention(B, D, H, S, scale, ws.qkv, kc, vc, kv_len, ws.part, ws.attn,
+                                  ws.err, st)))
+    return rc;
+  if ((rc = launch_rows_gemv(B, w.out_w, w.out_b, ws.attn, ws.x, ws.h, D, D, 0, st))) return rc;
+  layernorm_rows<<<B, LN_THREADS, 0, st>>>(ws.h, w.ln1_g, w.ln1_b, ws.h, D, 1e-5f);
+  DEC_CHECK();
+  if ((rc = launch_rows_gemv(B, w.mlp1_w, w.mlp1_b, ws.h, nullptr, ws.mlp, M, D, 1, st)))
+    return rc;
+  if ((rc = launch_rows_gemv(B, w.mlp2_w, w.mlp2_b, ws.mlp, ws.h, ws.x, D, M, 0, st))) return rc;
+  layernorm_rows<<<B, LN_THREADS, 0, st>>>(ws.x, w.ln2_g, w.ln2_b, ws.x, D, 1e-5f);
+  DEC_CHECK();
+  return 0;
+}
+
+// A given hidden wave in bf16 or float32 -> the float32 workspace, and back
+// (K5 and K6 take and return tensors of the caller's type).
+static __device__ __forceinline__ float dec_to_float(float v) { return v; }
+static __device__ __forceinline__ float dec_to_float(bf16 v) { return __bfloat162float(v); }
+static __device__ __forceinline__ void dec_store(float* p, float v) { *p = v; }
+static __device__ __forceinline__ void dec_store(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename TI, typename TO>
+static __global__ void rows_convert(const TI* __restrict__ in, TO* __restrict__ out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x)
+    dec_store(out + i, dec_to_float(in[i]));
+}
+
+// in [n] of bf16 (in_f32 = 0) or float32 -> float32 out
+static int launch_rows_load(const void* in, int in_f32, float* out, int n, cudaStream_t st) {
+  const int blocks = (n + 255) / 256;
+  if (in_f32)
+    rows_convert<float, float><<<blocks, 256, 0, st>>>((const float*)in, out, n);
+  else
+    rows_convert<bf16, float><<<blocks, 256, 0, st>>>((const bf16*)in, out, n);
+  DEC_CHECK();
+  return 0;
+}
+
+static int launch_rows_store(const float* in, void* out, int out_f32, int n, cudaStream_t st) {
+  const int blocks = (n + 255) / 256;
+  if (out_f32)
+    rows_convert<float, float><<<blocks, 256, 0, st>>>(in, (float*)out, n);
+  else
+    rows_convert<float, bf16><<<blocks, 256, 0, st>>>(in, (bf16*)out, n);
+  DEC_CHECK();
+  return 0;
+}
+#endif  // DEC_WITH_ROWS
 
 // ---------------------------------------------------------------------------
 // Sampling of one logits row by one block of SAMPLE_THREADS threads:

@@ -22,14 +22,19 @@
 // GEMV/attention/LayerNorm (8 per layer) instead of fusing; a persistent
 // fused kernel, wgmma/TMA and CUDA-graph capture are later work.
 //
+// The layer itself (GEMV, attention with the append, LayerNorm) is
+// decode_common.cuh's decode_layer_rows at one row, the code K2, K5 and K6
+// run; this file adds the embedding, the head and the sampling around it.
+// Its kernels read kv_len on the device, so the embedding kernel copies the
+// host's kv_len into a one-int word of the workspace first.
+//
 // Precision follows the TPU kernel: bf16 weights and caches, activations
 // rounded to bf16 only where they enter a matrix product, float32
 // accumulation, float32 LayerNorm, float32 single-query attention with an
 // online softmax (this token's own K/V enter in float32, as in the TPU
 // kernel), filtered row values of -1e30 for removed ids.
+#define DEC_WITH_ROWS
 #include "decode_common.cuh"
-
-typedef LayerWeights K1Layer;
 
 struct K1Args {
   int L, D, H, M, V, S, P;
@@ -54,21 +59,27 @@ struct K1Args {
   float* qkv;   // [3D]
   float* attn;  // [D]
   float* mlp;   // [M]
-  float* part;  // [H, ceil((kv_len + 1) / 64), Dh + 2] attention partials
+  float* part;  // [H, ceil(S / 64), Dh + 2] attention partials
   float* row_out;  // [V]  logits, then the filtered row
   int* tok_out;    // [1]
-  int* err;        // [1]  set to 1 when last_tok is out of range
+  int* err;        // [1]  ERR_* bits
+  int* kv_word;    // [1]  receives kv_len for the layer kernels
 };
 
 // ---------------------------------------------------------------------------
-// x = float(bf16(audio_emb[last_tok]) + bf16(alpha * pe[pe_idx]))
+// x = float(bf16(audio_emb[last_tok]) + bf16(alpha * pe[pe_idx]));
+// *kv_word = kv_len
 // ---------------------------------------------------------------------------
 __global__ void k1_embed(const bf16* __restrict__ emb, const float* __restrict__ pe,
                          float alpha, const int* __restrict__ last_tok, int V, int D,
-                         int pe_idx, float* __restrict__ x, int* __restrict__ err) {
+                         int pe_idx, int kv_len, float* __restrict__ x,
+                         int* __restrict__ kv_word, int* __restrict__ err) {
   const int t = *last_tok;
   const bool ok = t >= 0 && t < V;  // bounds-checked, never clamped
-  if (!ok && blockIdx.x == 0 && threadIdx.x == 0) *err = 1;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *kv_word = kv_len;
+    if (!ok) atomicOr(err, ERR_LAST_TOK);
+  }
   for (int d = blockIdx.x * blockDim.x + threadIdx.x; d < D; d += gridDim.x * blockDim.x) {
     if (!ok) {
       x[d] = nanf("");
@@ -78,83 +89,6 @@ __global__ void k1_embed(const bf16* __restrict__ emb, const float* __restrict__
     const float p = __bfloat162float(__float2bfloat16(alpha * pe[(size_t)pe_idx * D + d]));
     x[d] = __bfloat162float(__float2bfloat16(e + p));
   }
-}
-
-// ---------------------------------------------------------------------------
-// y[n] = (res[n] +) sum_k bf16(x[k]) * W[n, k] (+ bias[n]) (relu), float32.
-// One warp per output row; each lane streams 16 bytes (8 bf16) at a time.
-// Requires K % 8 == 0 and 16-byte aligned rows (checked by the caller).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-k1_gemv(const bf16* __restrict__ W, const bf16* __restrict__ bias,
-        const float* __restrict__ x, const float* __restrict__ res,
-        float* __restrict__ y, int N, int K, int relu) {
-  extern __shared__ float xs[];
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    xs[k] = __bfloat162float(__float2bfloat16(x[k]));
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * GEMV_WARPS + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const bf16* w = W + (size_t)n * K;
-  float acc = 0.f;
-  for (int k = lane * 8; k < K; k += 32 * 8) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(w + k));
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(p2[j]);
-      acc = fmaf(f.x, xs[k + 2 * j], acc);
-      acc = fmaf(f.y, xs[k + 2 * j + 1], acc);
-    }
-  }
-  acc = warp_sum(acc);
-  if (lane == 0) {
-    float v = acc;
-    if (res) v = res[n] + v;
-    if (bias) v += __bfloat162float(bias[n]);
-    if (relu) v = fmaxf(v, 0.f);
-    y[n] = v;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Single-query attention, split over the cache (decode_common.cuh): block
-// (head h, split j) covers rows [64 j, 64 j + 64) of [0, kv_len] -- cache
-// rows below kv_len plus the token itself, whose K/V enter in float32 from
-// qkv.  Split 0 also appends the token's K/V row at kv_len (never read
-// here, so no race).
-// ---------------------------------------------------------------------------
-template <int LPR>
-__global__ void __launch_bounds__(ATTN_THREADS)
-k1_attn_partial(const float* __restrict__ qkv, bf16* __restrict__ kc, bf16* __restrict__ vc,
-                int D, int kv_len, float scale, float* __restrict__ part, int nsplit) {
-  constexpr int Dh = LPR * 8;
-  const int h = blockIdx.x, split = blockIdx.y;
-  const size_t hoff = (size_t)h * Dh;
-  const float* q = qkv + hoff;
-  const float* kn = qkv + D + hoff;
-  const float* vn = qkv + 2 * D + hoff;
-  if (split == 0) {
-    for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-      kc[(size_t)kv_len * D + hoff + d] = __float2bfloat16(kn[d]);
-      vc[(size_t)kv_len * D + hoff + d] = __float2bfloat16(vn[d]);
-    }
-  }
-  const int d0 = (threadIdx.x & 31) % LPR * 8;
-  float qr[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) qr[j] = q[d0 + j];
-  attn_split_partial<LPR>(qr, kn, vn, kc + hoff, vc + hoff, D, kv_len, split, scale,
-                          part + ((size_t)h * nsplit + split) * (Dh + 2));
-}
-
-// Merge the splits' partials of head blockIdx.x into out[h*Dh : (h+1)*Dh].
-__global__ void k1_attn_combine(const float* __restrict__ part, int nsplit, int Dh,
-                                float* __restrict__ out) {
-  const float* p = part + (size_t)blockIdx.x * nsplit * (Dh + 2);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x)
-    out[(size_t)blockIdx.x * Dh + d] = attn_split_combine(p, nsplit, Dh, d);
 }
 
 // Sampling of the one row (decode_common.cuh: sample_row).
@@ -168,57 +102,23 @@ k1_sample(SampleParams p, float* row, const float* gumbel, int* tok_buf, int* to
 // Host entry point: the whole step, launched on ``stream``.  Returns the
 // first CUDA error raised by a launch (0 when every launch was accepted).
 // ---------------------------------------------------------------------------
-static int launch_gemv(const bf16* W, const bf16* bias, const float* x, const float* res,
-                       float* y, int N, int K, int relu, cudaStream_t st) {
-  const int blocks = (N + GEMV_WARPS - 1) / GEMV_WARPS;
-  k1_gemv<<<blocks, GEMV_WARPS * 32, sizeof(float) * K, st>>>(W, bias, x, res, y, N, K, relu);
-  DEC_CHECK();
-  return 0;
-}
-
-static int launch_attention(const float* qkv, bf16* kc, bf16* vc, int D, int H, int Dh,
-                            int kv_len, float scale, float* part, float* out, cudaStream_t st) {
-  const int nsplit = (kv_len + 1 + ATTN_ROWS - 1) / ATTN_ROWS;
-  const dim3 grid(H, nsplit);
-  switch (Dh) {
-    case 8: k1_attn_partial<1><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
-    case 16: k1_attn_partial<2><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
-    case 32: k1_attn_partial<4><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
-    case 64: k1_attn_partial<8><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
-    case 128: k1_attn_partial<16><<<grid, ATTN_THREADS, 0, st>>>(qkv, kc, vc, D, kv_len, scale, part, nsplit); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  DEC_CHECK();
-  k1_attn_combine<<<H, 128, 0, st>>>(part, nsplit, Dh, out);
-  DEC_CHECK();
-  return 0;
-}
-
-extern "C" int k1_decode_step(const K1Args* a, const K1Layer* layers, void* stream) {
+extern "C" int k1_decode_step(const K1Args* a, const LayerWeights* layers, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int D = a->D, M = a->M, V = a->V, S = a->S;
-  const int Dh = D / a->H;
+  const int D = a->D, V = a->V, S = a->S;
   int rc;
 
   k1_embed<<<(D + 255) / 256, 256, 0, st>>>(a->audio_emb, a->pe, a->alpha, a->last_tok, V, D,
-                                            a->pe_idx, a->x, a->err);
+                                            a->pe_idx, a->kv_len, a->x, a->kv_word, a->err);
   DEC_CHECK();
+  const RowsWork ws = {a->x, a->h, a->qkv, a->attn, a->mlp, a->part, a->err};
   for (int l = 0; l < a->L; ++l) {
-    const K1Layer& w = layers[l];
-    bf16* kc = a->k_cache + (size_t)l * S * D;
-    bf16* vc = a->v_cache + (size_t)l * S * D;
-    if ((rc = launch_gemv(w.qkv_w, w.qkv_b, a->x, nullptr, a->qkv, 3 * D, D, 0, st))) return rc;
-    if ((rc = launch_attention(a->qkv, kc, vc, D, a->H, Dh, a->kv_len, a->attn_scale,
-                               a->part, a->attn, st))) return rc;
-    if ((rc = launch_gemv(w.out_w, w.out_b, a->attn, a->x, a->h, D, D, 0, st))) return rc;
-    layernorm_rows<<<1, LN_THREADS, 0, st>>>(a->h, w.ln1_g, w.ln1_b, a->h, D, 1e-5f);
-    DEC_CHECK();
-    if ((rc = launch_gemv(w.mlp1_w, w.mlp1_b, a->h, nullptr, a->mlp, M, D, 1, st))) return rc;
-    if ((rc = launch_gemv(w.mlp2_w, w.mlp2_b, a->mlp, a->h, a->x, D, M, 0, st))) return rc;
-    layernorm_rows<<<1, LN_THREADS, 0, st>>>(a->x, w.ln2_g, w.ln2_b, a->x, D, 1e-5f);
-    DEC_CHECK();
+    if ((rc = decode_layer_rows(1, D, a->H, a->M, S, a->attn_scale, layers[l],
+                                a->k_cache + (size_t)l * S * D, a->v_cache + (size_t)l * S * D,
+                                a->kv_word, ws, st)))
+      return rc;
   }
-  if ((rc = launch_gemv(a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0, st))) return rc;
+  if ((rc = launch_rows_gemv(1, a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0, st)))
+    return rc;
 
   SampleParams s;
   s.V = V;

@@ -161,7 +161,7 @@ def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
     params = t2s_model.params_from_torch_state_dict(
         weights, cfg, dtype=tts_config.dtype, device=tts_config.device)
     engine = T2SEngine(params, cfg, gpt_cache=tts_config.gpt_cache or [(1, 512), (1, 1024)],
-                       dtype=tts_config.dtype)
+                       dtype=tts_config.dtype, attn_impl=tts_config.attn_impl)
     return Gpt(engine, params, cfg, config)
 
 

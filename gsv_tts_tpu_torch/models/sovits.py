@@ -389,21 +389,40 @@ def flow_dec(p, cfg: SovitsConfig, z_p, y_mask, ge):
     return generator(p, cfg, z * y_mask, g=ge)
 
 
-def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None):
+def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None,
+                y_overlap=None, valid_start_idx: int = 0, overlap_len: Optional[int] = None):
     """Latent pipeline of ``SynthesizerTrn.decode`` (``models.py:385-404``)
     up to ``z_p``, at the exact shape and speed 1.  ``codes`` [n_q, B, T],
     ``text`` [B, N], ``ge`` [B, gin, 1] or per code frame [B, gin, T] (a
     packed batch of several speakers; upsampled 2x to the latent rate here),
-    ``noise`` [B, inter, 2T] standard normal already scaled by
+    ``noise`` [B, inter, frames kept] standard normal already scaled by
     ``noise_scale``, ``slice_indices`` [2T, 2] each latent frame's text span
-    in a packed batch.  Returns (z_p, y_mask, attn, ge at the latent rate)."""
+    in a packed batch.
+
+    Streaming (``overlap_len`` given): the latent of the cumulative codes is
+    cut to the frames from ``valid_start_idx`` on, its first ``overlap_len``
+    frames cross-faded with ``y_overlap`` — the previous chunk's last frames
+    — when there is one (``models.py:209-215``), and its own last
+    ``overlap_len`` frames returned as ``new_overlap``.
+
+    Returns (z_p, y_mask, attn, new_overlap or None, ge at the latent rate)."""
     quantized = interpolate_nearest_2x(quantizer_decode(p, codes, cfg.quantizer_n_q))
     if ge.shape[-1] != 1:
         ge = interpolate_nearest_2x(ge)
     y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge, slice_indices)
+    new_overlap = None
+    if overlap_len is not None:
+        y_latent = y_latent[:, :, valid_start_idx:]
+        y_mask = y_mask[:, :, valid_start_idx:]
+        if y_overlap is not None:
+            alpha = torch.linspace(0, 1, overlap_len, dtype=y_latent.dtype,
+                                   device=y_latent.device)[None, None, :]
+            head = y_overlap * (1 - alpha) + y_latent[:, :, :overlap_len] * alpha
+            y_latent = torch.cat([head, y_latent[:, :, overlap_len:]], dim=2)
+        new_overlap = y_latent[:, :, -overlap_len:]
     m, logs = project_latent(p, cfg, y_latent, y_mask)
     z_p = m + noise.to(m.dtype) * torch.exp(logs)
-    return z_p, y_mask, attn, ge
+    return z_p, y_mask, attn, new_overlap, ge
 
 
 # ---------------------------------------------------------------------------

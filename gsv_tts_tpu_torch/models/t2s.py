@@ -9,23 +9,31 @@ loading is a key lookup and ``F.linear`` applies them.  LayerNorm affines,
 the positional ``alpha`` scalars and the sine table stay float32, as in the
 JAX package.
 
-The KV cache is ``[L, B, S, H, Dh]``, the JAX layout.  The decode step here
-is the generic one (plain PyTorch products and LayerNorms around the decode
-attention of ``ops/flash_decode.py``: kernel K3b on the card, its twin on
-the CPU), which waves larger than the whole-step kernels take; the engine's
-hot paths for 1 and 2..8 slots are those kernels, ``ops/fused_step.py``.
+The KV cache is ``[L, B, S, H, Dh]``, the JAX layout.  The prefill's
+attention is plain PyTorch or, under ``impl="flash"``, the hybrid-mask kernel
+K4 (``ops/flash_prefill.py``).  The decode step here is the one the engine's
+generic step calls, by implementation name as in the JAX package:
+``"flash"`` (plain PyTorch products and LayerNorms around the decode
+attention K3b, ``ops/flash_decode.py``), ``"fused_step"`` (K5, all layers in
+one call at B=1, ``ops/fused_step.py:fused_decode_step``) and ``"fused"``
+(K6, one call per layer, ``ops/fused_layer.py``) — each kernel on the card,
+its twin on the CPU.  The engine's default hot paths for 1 and 2..8 slots are
+the whole-step kernels K1 and K2 (``ops/fused_step.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.flash_decode import flash_decode_attention_layered
+from ..ops.flash_prefill import flash_prefill_attention, hybrid_mask
+from ..ops.fused_layer import fused_decode_layer
+from ..ops.fused_step import fused_decode_step
 from ..ops.norms import layer_norm
 
 F32 = torch.float32
@@ -178,9 +186,14 @@ def init_params(cfg: T2SConfig, generator: torch.Generator, dtype=F32,
 # Core math
 # ---------------------------------------------------------------------------
 
-def _block_prefill(x, lp, attn_mask, num_heads):
+def _block_prefill(x, lp, attn_mask, num_heads, lens=None, impl="plain"):
     """One post-norm block over the whole prompt.  x [B, T, D]; attn_mask
-    [B, T, T] bool.  Returns (hidden, k, v) with k/v [B, T, H, Dh]."""
+    [B, T, T] bool.  Returns (hidden, k, v) with k/v [B, T, H, Dh].
+
+    ``impl="flash"`` takes the hybrid-mask kernel K4
+    (``ops/flash_prefill.py``), which derives the same mask from
+    ``lens=(x_lens, xy_lens)`` ([B] int32): ``attn_mask`` is ignored there
+    and may be None."""
     B, T, D = x.shape
     H = num_heads
     Dh = D // H
@@ -190,10 +203,13 @@ def _block_prefill(x, lp, attn_mask, num_heads):
     q = q.reshape(B, T, H, Dh)
     k = k.reshape(B, T, H, Dh)
     v = v.reshape(B, T, H, Dh)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(Dh)
-    scores = scores.masked_fill(~attn_mask[:, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+    if impl == "flash":
+        attn = flash_prefill_attention(q, k, v, lens[0], lens[1], num_heads=H)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(Dh)
+        scores = scores.masked_fill(~attn_mask[:, None], float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
     x = residual + F.linear(attn, lp["out_w"], lp["out_b"])
     x = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     residual = x
@@ -204,13 +220,23 @@ def _block_prefill(x, lp, attn_mask, num_heads):
 
 
 def transformer_prefill(params, cfg: T2SConfig, xy_pos: torch.Tensor,
-                        attn_mask: torch.Tensor):
+                        attn_mask: Optional[torch.Tensor], lens=None, impl: str = "plain"):
     """All layers over the packed prompt; returns final hidden states and
-    stacked K/V ``[L, B, T, H, Dh]``."""
+    stacked K/V ``[L, B, T, H, Dh]``.  ``impl``: ``"plain"`` (masked softmax
+    attention in PyTorch, needs ``attn_mask``) or ``"flash"`` (K4, needs
+    ``lens=(x_lens, xy_lens)``)."""
+    if impl not in ("plain", "flash"):
+        raise ValueError(f"prefill impl {impl!r}: expected 'plain' or 'flash'")
+    if impl == "flash":
+        if lens is None:
+            raise ValueError("impl='flash' needs lens=(x_lens, xy_lens)")
+        lens = tuple(t.to(torch.int32) for t in lens)
+    elif attn_mask is None:
+        raise ValueError("the plain prefill needs attn_mask")
     x = xy_pos
     ks, vs = [], []
     for lp in params["layers"]:
-        x, k, v = _block_prefill(x, lp, attn_mask, cfg.num_heads)
+        x, k, v = _block_prefill(x, lp, attn_mask, cfg.num_heads, lens, impl)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
@@ -240,11 +266,30 @@ def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_he
     return layer_norm(x, lp["ln2_g"], lp["ln2_b"])
 
 
-def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len):
-    """One token per slot through all layers (the JAX generic step, whose
-    attention is ``flash_decode_attention_layered``).  ``kv_len`` [B] int32:
-    valid entries before this token.  Caches are updated in place and
-    returned for symmetry with the JAX signature."""
+#: implementation names of :func:`transformer_decode_step` and of the engine
+ATTN_IMPLS = ("fused_step", "flash", "fused")
+
+
+def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len,
+                            attn_impl: str = "flash"):
+    """One token per slot through all layers.  ``kv_len`` [B] int32: valid
+    entries before this token.  Caches are updated in place and returned for
+    symmetry with the JAX signature.  ``attn_impl`` as in the JAX package:
+
+    * ``"flash"``: PyTorch products and LayerNorms around the decode
+      attention K3b (``flash_decode_attention_layered``);
+    * ``"fused_step"``: K5, all layers in one call, at B=1; a larger wave
+      degrades to ``"flash"``;
+    * ``"fused"``: K6, one call per layer."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    table = params.get("k1_table")  # the owner's pointer table (CUDA parameters)
+    if attn_impl == "fused_step" and x.shape[0] == 1:
+        return fused_decode_step(x, params["layers"], k_cache, v_cache, kv_len, table=table)
+    if attn_impl == "fused":
+        for i, lp in enumerate(params["layers"]):
+            x, _, _ = fused_decode_layer(x, lp, k_cache, v_cache, kv_len, i, table=table)
+        return x, k_cache, v_cache
     bidx = torch.arange(x.shape[0], device=x.device)
     rows = kv_len.long()
     for i, lp in enumerate(params["layers"]):
@@ -274,10 +319,12 @@ def embed_prompt_single(params, cfg: T2SConfig, x_ids, y_ids, bert, dtype):
     return xy_pos, mask[None]
 
 
-def embed_prompt_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_lens, dtype):
+def embed_prompt_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_lens, dtype,
+                       with_mask: bool = True):
     """Ragged batch packing: row b is [x_b | y_b | padding] with the
-    hybrid mask ``(r < xl ? c < xl : c <= r) & c < xyl`` and a one-hot
-    last-token mask."""
+    hybrid mask ``(r < xl ? c < xl : c <= r) & c < xyl`` (None when
+    ``with_mask`` is false: a prefill that derives it from the lengths
+    needs no [B, T, T] tensor) and a one-hot last-token mask."""
     B, Lx = x_ids.shape
     Ly = y_ids.shape[1]
     T = Lx + Ly
@@ -299,11 +346,6 @@ def embed_prompt_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_len
     xy_pos = torch.where((pos < xy_lens[:, None])[:, :, None], xy_pos,
                          torch.zeros((), dtype=dtype, device=dev))
 
-    rows = torch.arange(T, device=dev)[None, :, None]
-    cols = torch.arange(T, device=dev)[None, None, :]
-    xl = x_lens[:, None, None]
-    in_x_col = cols < xl
-    mask = torch.where(rows < xl, in_x_col, in_x_col | (cols <= rows))
-    mask = mask & (cols < xy_lens[:, None, None])
+    mask = hybrid_mask(T, x_lens, xy_lens) if with_mask else None
     last_token_mask = pos == (xy_lens[:, None] - 1)
     return xy_pos, mask, last_token_mask

@@ -1,13 +1,18 @@
-"""K1 and K2: the whole t2s decode step — embedding, every layer with the
-K/V row appended in place, the logits head and the sampling chain — as one
-call (counterpart of ``gsv_tts_tpu/ops/fused_step.py``).
+"""K1, K2 and K5: the t2s decode step as one call (counterpart of
+``gsv_tts_tpu/ops/fused_step.py``).
 
-* K1, :func:`fused_decode_step_sample`: one slot (TPU kernel
-  ``_kernel_sample``), CUDA source ``csrc/k1_decode_step.cu``.
-* K2, :func:`fused_decode_step_sample_batched`: a wave of ``B`` slots with
-  per-slot counters (TPU kernel ``_kernel_sample_b``), CUDA source
+* K1, :func:`fused_decode_step_sample`: the whole step for one slot —
+  embedding, every layer with the K/V row appended in place, the logits head
+  and the sampling chain (TPU kernel ``_kernel_sample``), CUDA source
+  ``csrc/k1_decode_step.cu``.
+* K2, :func:`fused_decode_step_sample_batched`: the same for a wave of ``B``
+  slots with per-slot counters (TPU kernel ``_kernel_sample_b``), CUDA source
   ``csrc/k2_decode_step_batched.cu``; every layer's weights cross device
   memory once per step for all ``B`` rows.
+* K5, :func:`fused_decode_step`: a given hidden row through all layers at
+  B=1, no embedding, head or sampling (TPU kernel ``_kernel``), CUDA source
+  ``csrc/k5_decode_layers.cu``; ``kv_len`` is a ``[1]`` tensor that stays on
+  the device.
 
 On CUDA tensors the wrappers launch the hand-written Hopper kernels (built
 with ``nvcc`` at first use); on CPU tensors they run the plain PyTorch twins
@@ -53,6 +58,7 @@ GEMV_SMEM = 48 * 1024  # K2 keeps its B activation rows in static-limit shared m
 #: (library name, sources) for ``cuda_build``
 K1_LIBRARY = ("gsv_k1", ["k1_decode_step.cu"])
 K2_LIBRARY = ("gsv_k2", ["k2_decode_step_batched.cu"])
+K5_LIBRARY = ("gsv_k5", ["k5_decode_layers.cu"])
 
 _LAYER_FIELDS = ("qkv_w", "qkv_b", "out_w", "out_b", "mlp1_w", "mlp1_b",
                  "mlp2_w", "mlp2_b", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
@@ -118,27 +124,20 @@ def filter_row_ref(logits: torch.Tensor, tok_buf: torch.Tensor, buf_len, suppres
     return row
 
 
-def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
-    """The twins' model half for B slots: embedding with the positional
-    entry ``max(kv_len - x_len, 0)`` (the clamp serves frozen slots, whose
-    ``kv_len < x_len``), every layer (each slot's K/V row written in place
-    at ``kv_len[b]``; attention over the cache rows below it plus the
-    token's own float32 K/V) and the head.  ``kv_len``/``x_len``: host ints
-    (B=1) or [B] tensors.  Returns (final hidden [B, D], logits [B, V]),
-    both float32."""
-    L, B, S, H, Dh = k_cache.shape
+def decode_layers_ref(x, layers, k_cache, v_cache, kv, first_layer: int = 0):
+    """The twins' layer loop: float32 ``x`` [B, D] through ``layers`` (a list
+    of per-layer dicts, applied to cache layers ``first_layer`` onwards).
+    Each slot's K/V row is written in place at ``kv[b]`` ([B] int64);
+    attention runs over the cache rows below it plus the token's own float32
+    K/V.  Returns the final hidden [B, D] in float32."""
+    _, B, S, H, Dh = k_cache.shape
     D = H * Dh
     cd = k_cache.dtype
     dev = k_cache.device
     scale = 1.0 / math.sqrt(Dh)
-    kv = _as_counter(kv_len, B, dev)
-    pe_idx = (kv - _as_counter(x_len, B, dev)).clamp_min(0)
     bidx = torch.arange(B, device=dev)
     below = (torch.arange(S, device=dev)[None, :] < kv[:, None])[:, :, None]  # [B, S, 1]
-    emb = params["audio_emb"][last_tok.long()].to(cd)
-    pe_q = (params["audio_pos_alpha"].float() * params["pe"][pe_idx].float()).to(cd)
-    x = (emb + pe_q).float()
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layers, first_layer):
         qkv = _mm(x, lp["qkv_w"]) + lp["qkv_b"].float()
         q, k_new, v_new = (t.reshape(B, H, Dh) for t in qkv.split(D, dim=-1))
         k_cache[i, bidx, kv] = k_new.to(cd)
@@ -153,7 +152,33 @@ def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
         m1 = torch.relu(_mm(h, lp["mlp1_w"]) + lp["mlp1_b"].float())
         h2 = h + _mm(m1, lp["mlp2_w"]) + lp["mlp2_b"].float()
         x = layer_norm(h2, lp["ln2_g"], lp["ln2_b"])
+    return x
+
+
+def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
+    """The twins' model half for B slots: embedding with the positional
+    entry ``max(kv_len - x_len, 0)`` (the clamp serves frozen slots, whose
+    ``kv_len < x_len``), every layer (:func:`decode_layers_ref`) and the
+    head.  ``kv_len``/``x_len``: host ints (B=1) or [B] tensors.  Returns
+    (final hidden [B, D], logits [B, V]), both float32."""
+    B = k_cache.shape[1]
+    cd = k_cache.dtype
+    dev = k_cache.device
+    kv = _as_counter(kv_len, B, dev)
+    pe_idx = (kv - _as_counter(x_len, B, dev)).clamp_min(0)
+    emb = params["audio_emb"][last_tok.long()].to(cd)
+    pe_q = (params["audio_pos_alpha"].float() * params["pe"][pe_idx].float()).to(cd)
+    x = decode_layers_ref((emb + pe_q).float(), params["layers"], k_cache, v_cache, kv)
     return x, _mm(x, params["predict_w"])
+
+
+def fused_decode_step_ref(x, layers, k_cache, v_cache, kv_len):
+    """Plain PyTorch twin of K5: ``x`` [1, D] through all layers, each
+    layer's K/V row written in place at ``kv_len``.  Returns ``(h [1, D] in
+    x's dtype, k_cache, v_cache)``."""
+    kv = _as_counter(kv_len, x.shape[0], x.device)
+    h = decode_layers_ref(x.float(), layers, k_cache, v_cache, kv)
+    return h.to(x.dtype), k_cache, v_cache
 
 
 def fused_decode_step_sample_batched_ref(params, k_cache, v_cache, tok_buf, kv_len, x_len,
@@ -211,7 +236,7 @@ class _K1Args(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in ("audio_emb", "pe", "predict_w", "k_cache",
                                           "v_cache", "tok_buf", "last_tok", "gumbel")]
         + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress")]
-        + _SAMPLE_FIELDS + _WORK_FIELDS
+        + _SAMPLE_FIELDS + _WORK_FIELDS + [("kv_word", ctypes.c_void_p)]
     )
 
 
@@ -224,6 +249,15 @@ class _K2Args(ctypes.Structure):
                                           "last_tok", "buf_len", "step_idx", "gumbel")]
         + [("suppress_until", ctypes.c_int)]
         + _SAMPLE_FIELDS + _WORK_FIELDS
+    )
+
+
+class _K5Args(ctypes.Structure):
+    _fields_ = (
+        [(n, ctypes.c_int) for n in ("L", "D", "H", "M", "S", "x_f32")]
+        + [("attn_scale", ctypes.c_float)]
+        + [(n, ctypes.c_void_p) for n in ("x_in", "x_out", "k_cache", "v_cache", "kv_len",
+                                          "x", "h", "qkv", "attn", "mlp", "part", "err")]
     )
 
 
@@ -247,59 +281,92 @@ def load_batched_kernels() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_layers_kernels() -> ctypes.CDLL:
+    """Build (first call only) and bind ``csrc/k5_decode_layers.cu``."""
+    lib = cuda_build.load_library(*K5_LIBRARY)
+    lib.k5_decode_layers.argtypes = [ctypes.POINTER(_K5Args), ctypes.POINTER(_LayerWeights),
+                                     ctypes.c_void_p]
+    lib.k5_decode_layers.restype = ctypes.c_int
+    return lib
+
+
 def _need(cond: bool, msg: str):
     if not cond:
-        raise ValueError(f"fused_decode_step_sample: {msg}")
+        raise ValueError(f"decode step kernel: {msg}")
 
 
-class K1Table:
-    """What the CUDA kernels (K1 and K2) read besides the per-step tensors:
-    a host table of every layer's weight pointers and a float32 workspace on
-    the card for up to ``MAX_FUSED_B`` rows.  Build it once per parameter
-    set (the engine keeps it under ``params["k1_table"]``); it holds the
-    parameters alive.  One table serves one decode at a time — its
-    workspace is shared."""
+_err_words = {}  # device -> the [1] int32 error word the t2s kernels (K1, K2, K4-K6) set bits in
 
-    def __init__(self, params):
-        layers = params["layers"]
-        pw = params["predict_w"]
-        self.device = pw.device
-        _need(self.device.type == "cuda", "K1Table needs CUDA parameters")
-        self.V, self.D = pw.shape
-        self.M = layers[0]["mlp1_w"].shape[0]
+
+def error_word(dev: torch.device) -> torch.Tensor:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    err = _err_words.get(dev)
+    if err is None:
+        err = _err_words[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return err
+
+
+def check(dev) -> None:
+    """Raise if a launch on ``dev`` found a device-side value out of range
+    (reads one int from the card; call where the host synchronises anyway).
+    ``"cuda"`` without an index means the current card."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    err = _err_words.get(dev)
+    bits = int(err.item()) if err is not None else 0
+    if bits:
+        err.zero_()
+        what = [name for bit, name in ((1, "last_tok outside [0, V)"),
+                                       (2, "kv_len outside the cache"),
+                                       (4, "positional index outside the table"),
+                                       (8, "prefill x_lens / xy_lens outside the prompt block"))
+                if bits & bit]
+        raise RuntimeError("t2s kernel: " + ", ".join(what))
+
+
+class LayerTable:
+    """What the layer kernels (K1, K2, K5, K6) read besides the per-step
+    tensors: a host table of the layers' weight pointers and a float32
+    workspace on the card for up to ``MAX_FUSED_B`` rows.  ``layers`` is a
+    list of per-layer dicts; the table holds it alive (``kept``).  One table
+    serves one decode at a time — its workspace is shared.  Whoever owns the
+    parameters builds one table over them (the engine's ``K1Table``) and
+    hands it to the wrappers; a wrapper given none builds one for its call."""
+
+    def __init__(self, layers):
+        first = layers[0]
+        self.device = first["qkv_w"].device
+        _need(self.device.type == "cuda", "the kernels' table needs CUDA parameters")
+        self.D = first["qkv_w"].shape[1]
+        self.M = first["mlp1_w"].shape[0]
         self.L = len(layers)
         D, M = self.D, self.M
         _need(D % 8 == 0 and M % 8 == 0, f"D={D} and M={M} must be multiples of 8")
-        _need(self.V <= MAX_VOCAB, f"vocabulary {self.V} > {MAX_VOCAB}")
         shapes = {"qkv_w": (3 * D, D), "qkv_b": (3 * D,), "out_w": (D, D), "out_b": (D,),
                   "mlp1_w": (M, D), "mlp1_b": (M,), "mlp2_w": (D, M), "mlp2_b": (D,),
                   "ln1_g": (D,), "ln1_b": (D,), "ln2_g": (D,), "ln2_b": (D,)}
-
-        def ptr(t, shape, dtype):
-            _need(t.device == self.device and t.dtype == dtype and t.is_contiguous()
-                  and tuple(t.shape) == tuple(shape) and t.data_ptr() % 16 == 0,
-                  f"weight {tuple(t.shape)} {t.dtype} must be contiguous, 16-byte "
-                  f"aligned {dtype} {tuple(shape)} on {self.device}")
-            return t.data_ptr()
-
         bf = torch.bfloat16
         self.layers = (_LayerWeights * self.L)(*[
-            _LayerWeights(*[ptr(lp[n], shapes[n], torch.float32 if n.startswith("ln") else bf)
+            _LayerWeights(*[self.ptr(lp[n], shapes[n], torch.float32 if n.startswith("ln") else bf)
                             for n in _LAYER_FIELDS]) for lp in layers])
-        self.audio_emb = ptr(params["audio_emb"], (self.V, D), bf)
-        self.predict_w = ptr(pw, (self.V, D), bf)
-        pe = params["pe"]
-        self.P = pe.shape[0]
-        self.pe = ptr(pe, (self.P, D), torch.float32)
-        self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
-        # [rows, D | D | 3D | D | M]: K1 uses row 0, K2 rows [0, B)
+        # [rows, D | D | 3D | D | M]: B=1 kernels use row 0, the others rows [0, B)
         R = MAX_FUSED_B
         ws = torch.empty(R * (6 * D + M), dtype=torch.float32, device=self.device)
         self.x, self.h, self.qkv, self.attn, self.mlp = torch.split(
             ws, [R * D, R * D, 3 * R * D, R * D, R * M])
-        self.err = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.err = error_word(self.device)
         self.part = torch.empty(0, dtype=torch.float32, device=self.device)
-        self.params = params
+        self.kept = layers
+
+    def ptr(self, t, shape, dtype):
+        _need(t.device == self.device and t.dtype == dtype and t.is_contiguous()
+              and tuple(t.shape) == tuple(shape) and t.data_ptr() % 16 == 0,
+              f"weight {tuple(t.shape)} {t.dtype} must be contiguous, 16-byte "
+              f"aligned {dtype} {tuple(shape)} on {self.device}")
+        return t.data_ptr()
 
     def attention_partials(self, B: int, S: int, H: int, Dh: int) -> torch.Tensor:
         """Workspace for the split attention's per-split partials (max, sum,
@@ -310,9 +377,45 @@ class K1Table:
             self.part = torch.empty(n, dtype=torch.float32, device=self.device)
         return self.part
 
+    def work(self, a, B: int, S: int, H: int, Dh: int):
+        """The workspace fields every argument struct has."""
+        a.x, a.h, a.qkv = self.x.data_ptr(), self.h.data_ptr(), self.qkv.data_ptr()
+        a.attn, a.mlp, a.err = self.attn.data_ptr(), self.mlp.data_ptr(), self.err.data_ptr()
+        a.part = self.attention_partials(B, S, H, Dh).data_ptr()
+
+    def check(self):
+        """Raise if a launch found a device-side value out of range
+        (:func:`check` for this table's device)."""
+        check(self.device)
+
+
+class K1Table(LayerTable):
+    """The layer table plus what the whole-step kernels (K1 and K2) read
+    around the layers: embedding, positional table and head.  Build it once
+    per parameter set (the engine keeps it under ``params["k1_table"]``); it
+    holds the parameters alive."""
+
+    def __init__(self, params):
+        pw = params["predict_w"]
+        _need(pw.device.type == "cuda", "K1Table needs CUDA parameters")
+        super().__init__(params["layers"])
+        self.V = pw.shape[0]
+        D = self.D
+        _need(self.V <= MAX_VOCAB, f"vocabulary {self.V} > {MAX_VOCAB}")
+        bf = torch.bfloat16
+        self.audio_emb = self.ptr(params["audio_emb"], (self.V, D), bf)
+        self.predict_w = self.ptr(pw, (self.V, D), bf)
+        pe = params["pe"]
+        self.P = pe.shape[0]
+        self.pe = self.ptr(pe, (self.P, D), torch.float32)
+        self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
+        # K1's kv_len is a host int; its layer kernels read it from this word
+        self.kv_word = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self.params = params
+
     def fill(self, a, sa, sup):
-        """The fields both argument structs share: widths, weights, the
-        sampling settings and the workspace."""
+        """The fields both whole-step argument structs share: widths,
+        weights and the sampling settings."""
         a.L, a.D, a.M, a.V, a.P = self.L, self.D, self.M, self.V, self.P
         a.alpha = self.alpha
         a.audio_emb, a.pe, a.predict_w = self.audio_emb, self.pe, self.predict_w
@@ -324,20 +427,6 @@ class K1Table:
         a.top_p = sa.top_p
         a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
         a.top_k = sa.top_k
-        a.x, a.h, a.qkv = self.x.data_ptr(), self.h.data_ptr(), self.qkv.data_ptr()
-        a.attn, a.mlp, a.err = self.attn.data_ptr(), self.mlp.data_ptr(), self.err.data_ptr()
-
-    def check(self):
-        """Raise if a launch found a device-side value out of range (reads
-        one int from the card; call where the host synchronises anyway)."""
-        bits = int(self.err.item())
-        if bits:
-            self.err.zero_()
-            what = [name for bit, name in ((1, "last_tok outside [0, V)"),
-                                           (2, "kv_len outside the cache"),
-                                           (4, "positional index outside the table"))
-                    if bits & bit]
-            raise RuntimeError("decode step kernel: " + ", ".join(what))
 
 
 def _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa, suppress_until, suppressed):
@@ -417,8 +506,9 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     a.tok_buf, a.last_tok, a.gumbel = tok_buf.data_ptr(), last_tok.data_ptr(), gumbel.data_ptr()
     a.kv_len, a.pe_idx, a.buf_len = kv_len, kv_len - x_len, buf_len
     a.suppress = int(step_idx < suppress_until)
-    a.part = table.attention_partials(1, S, H, Dh).data_ptr()
+    table.work(a, 1, S, H, Dh)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
+    a.kv_word = table.kv_word.data_ptr()
 
     rc = load_kernels().k1_decode_step(ctypes.byref(a), table.layers,
                                        torch.cuda.current_stream(dev).cuda_stream)
@@ -489,7 +579,7 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     for name, t in counters:
         setattr(a, name, t.data_ptr())
     a.suppress_until = suppress_until
-    a.part = table.attention_partials(B, S, H, Dh).data_ptr()
+    table.work(a, B, S, H, Dh)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
 
     rc = load_batched_kernels().k2_decode_step_batched(
@@ -500,6 +590,79 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     return tok_out, row_out, k_cache, v_cache
 
 
+def check_hidden_rows(x, k_cache, v_cache, kv_len):
+    """Checks K5 and K6 share: ``x`` [B, D] of bf16 or float32, the stacked
+    caches [L, B, S, H, Dh], ``kv_len`` a [B] tensor."""
+    _need(k_cache.dim() == 5 and v_cache.shape == k_cache.shape,
+          f"cache shapes {tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    L, B, S, H, Dh = k_cache.shape
+    _need(tuple(x.shape) == (B, H * Dh), f"x {tuple(x.shape)} is not ({B}, {H * Dh})")
+    _need(isinstance(kv_len, torch.Tensor) and tuple(kv_len.shape) == (B,),
+          f"kv_len must be a [{B}] tensor")
+    dev = x.device
+    if dev.type == "cpu":
+        _need(bool(((kv_len >= 0) & (kv_len < S)).all()), f"kv_len outside the cache [0, {S})")
+        return
+    _need(dev.type == "cuda", f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
+    _need(Dh in HEAD_DIMS, f"head dim {Dh} must be one of {HEAD_DIMS}")
+    _need(x.dtype in (torch.bfloat16, torch.float32), f"x dtype {x.dtype}")
+    for name, t, dtype, align in (("x", x, x.dtype, 4), ("k_cache", k_cache, torch.bfloat16, 16),
+                                  ("v_cache", v_cache, torch.bfloat16, 16),
+                                  ("kv_len", kv_len, torch.int32, 4)):
+        _need(t.device == dev and t.dtype == dtype and t.is_contiguous()
+              and t.data_ptr() % align == 0,
+              f"{name} must be a contiguous, {align}-byte aligned {dtype} tensor on {dev}")
+
+
+def table_for(table, layers, at: int = 0) -> LayerTable:
+    """``table`` after checking that its entries ``at`` onwards are the
+    dicts of ``layers``, or a new table over ``layers`` when ``table`` is
+    None (a one-call table: pass the owner's to avoid building it)."""
+    if table is None:
+        return LayerTable(layers)
+    _need(at + len(layers) <= table.L
+          and all(table.kept[at + i] is lp for i, lp in enumerate(layers)),
+          "the table was not built over these layers")
+    return table
+
+
+def fused_decode_step(x, layers, k_cache, v_cache, kv_len, *, table=None):
+    """K5: one token through all layers at B=1, no embedding, head or
+    sampling.
+
+    ``x`` [1, D] (bf16 or float32); ``layers`` the list of per-layer dicts
+    (``params["layers"]``); ``k_cache``/``v_cache`` [L, 1, S, H, Dh], every
+    layer's new K/V row appended in place at row ``kv_len``; ``kv_len`` [1]
+    int32 on the tensors' device, never read back; ``table`` the
+    :class:`LayerTable` built over ``layers`` (``params["k1_table"]``).
+    Returns ``(h [1, D] in x's dtype, k_cache, v_cache)``.
+    """
+    check_hidden_rows(x, k_cache, v_cache, kv_len)
+    L, B, S, H, Dh = k_cache.shape
+    _need(B == 1, f"batch {B}: this kernel is B=1")
+    _need(len(layers) == L, f"{len(layers)} layers for a {L}-layer cache")
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_decode_step_ref(x, layers, k_cache, v_cache, kv_len)
+    table = table_for(table, layers)
+    _need(table.L == L and table.D == H * Dh, f"cache width {H * Dh} does not match the weights' {table.D}")
+    out = torch.empty_like(x)
+    a = _K5Args()
+    a.L, a.D, a.H, a.M, a.S = L, table.D, H, table.M, S
+    a.x_f32 = int(x.dtype == torch.float32)
+    a.attn_scale = 1.0 / math.sqrt(Dh)
+    a.x_in, a.x_out = x.data_ptr(), out.data_ptr()
+    a.k_cache, a.v_cache, a.kv_len = k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
+    table.work(a, 1, S, H, Dh)
+    rc = load_layers_kernels().k5_decode_layers(ctypes.byref(a), table.layers,
+                                                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 launch failed: CUDA error {rc}")
+    fused_decode_step.launches += 1
+    return out, k_cache, v_cache
+
+
 #: kernel launches (whole steps) since the last reset; the twins never count
 fused_decode_step_sample.launches = 0
 fused_decode_step_sample_batched.launches = 0
+fused_decode_step.launches = 0

@@ -2,17 +2,23 @@
 ``gsv_tts_tpu/runtime/t2s_session.py``; reference ``t2s_model.py:385-734``).
 
 Bucketed KV cache ``[L, B, S, H, Dh]`` with escalation to the next
-``gpt_cache`` length, a plain-PyTorch prefill under the hybrid mask (whole
-batch, or one or several slots of a running wave), and a chunked decode loop
-whose steps go through the hand-written kernels (on the card; their twins on
-the CPU):
+``gpt_cache`` length, a prefill under the hybrid mask (whole batch, or one
+or several slots of a running wave), and a chunked decode loop.  The
+engine's ``attn_impl`` picks the kernels both go through (on the card; their
+twins on the CPU), as in the JAX engine:
 
-* ``B == 1``: K1, the whole step for one slot (``ops/fused_step.py``);
-* ``2 <= B <= MAX_FUSED_B``: K2, the whole step for the wave, the weights
+* ``"fused_step"`` (the default): plain-PyTorch prefill attention; decode
+  steps by wave size —
+  ``B == 1``: K1, the whole step for one slot (``ops/fused_step.py``);
+  ``2 <= B <= MAX_FUSED_B``: K2, the whole step for the wave, the weights
   read once for all slots;
-* larger waves: the generic step — plain PyTorch embedding, products,
+  larger waves: the generic step — plain PyTorch embedding, products,
   LayerNorms and sampling around K3b, the per-slot decode attention
-  (``ops/flash_decode.py``).
+  (``ops/flash_decode.py``);
+* ``"flash"``: the prefill's attention is K4 (``ops/flash_prefill.py``) and
+  every wave, B=1 included, decodes through the generic step with K3b;
+* ``"fused"``: plain prefill attention; the generic step with K6, one
+  whole-layer call per layer (``ops/fused_layer.py``).
 
 The per-slot counters (``kv_len``, ``x_len``, ``buf_len``, ``last_tok``,
 ``step_idx``) are ``[B]`` int32 tensors on the device; the kernels read
@@ -45,7 +51,7 @@ import numpy as np
 import torch
 
 from ..models import t2s as t2s_model
-from ..models.t2s import T2SConfig
+from ..models.t2s import ATTN_IMPLS, T2SConfig
 from ..ops import flash_decode, sampling
 from ..ops.fused_step import (MAX_FUSED_B, K1Table, fused_decode_step_sample,
                               fused_decode_step_sample_batched)
@@ -54,6 +60,26 @@ PAD_MULTIPLE = 32
 CHECK_INTERVAL = 5  # decode steps per dispatch: the host checks EOS this often
 INITIAL_SUPPRESSION_STEPS = 10  # steps during which 280, 486 and EOS are barred
 I32 = torch.int32
+
+
+def resolve_attn_impl(attn_impl: str) -> str:
+    """Validate an engine ``attn_impl`` name at construction (the JAX
+    ``loader.resolve_t2s_attn_impl``); the q8/q4 modes of K1/K2 are not
+    ported."""
+    if attn_impl in ("fused_step_q8", "fused_step_q4"):
+        raise NotImplementedError(
+            f"attn_impl {attn_impl!r}: the quantised whole-step kernels are not ported yet "
+            "(ROADMAP Queue 1: q8/q4)")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    return attn_impl
+
+
+def _prefill_impl(attn_impl: str) -> str:
+    """Engine ``attn_impl`` → prefill attention: only ``"flash"`` takes K4;
+    the whole-step and whole-layer decode paths pair with the plain prefill
+    (the JAX engine's mapping of its real implementations)."""
+    return "flash" if attn_impl == "flash" else "plain"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -224,19 +250,23 @@ def _lens(v, dev) -> torch.Tensor:
     return torch.as_tensor(v, device=dev).reshape(-1).long()
 
 
-def _prefill_rows(params, cfg, x_ids, y_ids, bert, x_lens, y_lens, dtype, S, guard_pad):
+def _prefill_rows(params, cfg, x_ids, y_ids, bert, x_lens, y_lens, dtype, S, guard_pad,
+                  attn_impl):
     """What the three prefills share: the packed prompt through all layers,
     the last real position's logits, and each row's fresh ``tok_buf`` row
     (prompt y tokens, then V).  Returns (ks, vs [L, k, T, H, Dh], logits
     [k, V], tok_rows [k, S] int32)."""
     dev = x_ids.device
     k, Ly = y_ids.shape
+    impl = _prefill_impl(attn_impl)
+    # K4 derives the mask from the lengths: no [k, T, T] tensor is built
     xy_pos, mask, _ = t2s_model.embed_prompt_batch(
-        params, cfg, x_ids, y_ids, bert, x_lens, y_lens, dtype)
-    if guard_pad:
+        params, cfg, x_ids, y_ids, bert, x_lens, y_lens, dtype, with_mask=impl == "plain")
+    if guard_pad and mask is not None:
         # padded rows must still attend somewhere to avoid NaN softmax rows
         mask = mask | (torch.arange(mask.shape[-1], device=dev)[None, None, :] == 0)
-    h, ks, vs = t2s_model.transformer_prefill(params, cfg, xy_pos, mask)
+    h, ks, vs = t2s_model.transformer_prefill(params, cfg, xy_pos, mask,
+                                              lens=(x_lens, x_lens + y_lens), impl=impl)
     h_last = h[torch.arange(k, device=dev), x_lens + y_lens - 1]  # [k, D]
     logits = torch.nn.functional.linear(h_last, params["predict_w"])
     pos = torch.arange(S, device=dev)[None, :]
@@ -248,7 +278,7 @@ def _prefill_rows(params, cfg, x_ids, y_ids, bert, x_lens, y_lens, dtype, S, gua
 
 def prefill_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_lens,
                   k_cache, v_cache, gumbel, sa: SampleArgs, first_suppress: bool,
-                  dtype=torch.float32):
+                  dtype=torch.float32, attn_impl: str = "fused_step"):
     """Full-batch prefill into fresh caches; samples the first token per row.
 
     ``x_ids`` [B, Lx] / ``y_ids`` [B, Ly] / ``bert`` [B, Lx, bert_dim] may be
@@ -262,7 +292,7 @@ def prefill_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_lens,
     x_lens, y_lens = _lens(x_lens, dev), _lens(y_lens, dev)
     S = k_cache.shape[2]
     ks, vs, logits, tok_buf = _prefill_rows(params, cfg, x_ids, y_ids, bert, x_lens, y_lens,
-                                            dtype, S, guard_pad=False)
+                                            dtype, S, False, attn_impl)
     T = ks.shape[2]
     k_cache[:, :, :T] = ks.to(k_cache.dtype)
     v_cache[:, :, :T] = vs.to(v_cache.dtype)
@@ -278,7 +308,8 @@ def prefill_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_lens,
 
 
 def prefill_slots(params, cfg: T2SConfig, state: DecodeState, slots, x_ids, y_ids, bert,
-                  x_lens, y_lens, gumbel, sa: SampleArgs, dtype=torch.float32):
+                  x_lens, y_lens, gumbel, sa: SampleArgs, dtype=torch.float32,
+                  attn_impl: str = "fused_step"):
     """Batched slot refill: prefill ``k`` requests into cache slots ``slots``
     ([k], distinct) of a running wave in one pass, in place.  Inputs are
     [k, Lx] / [k, Ly] / [k, Lx, bert_dim] padded to common shapes; ``gumbel``
@@ -289,7 +320,7 @@ def prefill_slots(params, cfg: T2SConfig, state: DecodeState, slots, x_ids, y_id
     x_lens, y_lens = _lens(x_lens, dev), _lens(y_lens, dev)
     k = len(slots)
     ks, vs, logits, tok_rows = _prefill_rows(params, cfg, x_ids, y_ids, bert, x_lens, y_lens,
-                                             dtype, state.k_cache.shape[2], guard_pad=True)
+                                             dtype, state.k_cache.shape[2], True, attn_impl)
     T = ks.shape[2]
     state.k_cache[:, slots, :T] = ks.to(state.k_cache.dtype)
     state.v_cache[:, slots, :T] = vs.to(state.v_cache.dtype)
@@ -307,26 +338,28 @@ def prefill_slots(params, cfg: T2SConfig, state: DecodeState, slots, x_ids, y_id
 
 
 def prefill_slot(params, cfg: T2SConfig, state: DecodeState, slot: int, x_ids, y_ids, bert,
-                 x_len, y_len, gumbel, sa: SampleArgs, dtype=torch.float32):
+                 x_len, y_len, gumbel, sa: SampleArgs, dtype=torch.float32,
+                 attn_impl: str = "fused_step"):
     """Continuous-batching slot refill (``t2s_model.py:696-722``): prefill
     one request ([1, Lx] / [1, Ly] inputs, ``gumbel`` [1, V]) into cache slot
     ``slot`` while the other slots keep their state.  Returns
     ``(state, tok)``."""
     state, toks = prefill_slots(params, cfg, state, [slot], x_ids, y_ids, bert, x_len, y_len,
-                                gumbel, sa, dtype)
+                                gumbel, sa, dtype, attn_impl)
     return state, toks[0]
 
 
 def _generic_step(params, cfg: T2SConfig, st: DecodeState, g, sa: SampleArgs,
-                  suppress_until: int, dtype, tok_out):
-    """One step of a wave too large for the whole-step kernels: embedding,
-    the layers (attention through K3b), the head and the sampling as plain
-    PyTorch (the JAX generic ``step``)."""
+                  suppress_until: int, dtype, tok_out, attn_impl: str = "flash"):
+    """One step outside the whole-step kernels (the JAX generic ``step``):
+    embedding, head and sampling as plain PyTorch around
+    ``transformer_decode_step`` — under ``"flash"`` PyTorch layers with K3b
+    as their attention, under ``"fused"`` K6 per layer."""
     pe_idx = (st.kv_len - st.x_len).clamp_min(0).long()  # 0 for a frozen slot
     pe = (params["audio_pos_alpha"] * params["pe"][pe_idx]).to(dtype)
     x = params["audio_emb"][st.last_tok.long()].to(dtype) + pe
     h, _, _ = t2s_model.transformer_decode_step(params, cfg, x, st.k_cache, st.v_cache,
-                                                st.kv_len)
+                                                st.kv_len, attn_impl)
     logits = torch.nn.functional.linear(h, params["predict_w"])
     tok = _sample_logits(g, logits, st.tok_buf, sa, cfg.vocab_size, False,
                          st.step_idx < suppress_until,
@@ -337,13 +370,15 @@ def _generic_step(params, cfg: T2SConfig, st: DecodeState, g, sa: SampleArgs,
 
 def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
                  sa: SampleArgs, gumbel: torch.Tensor, suppress_until: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "fused_step"):
     """Generate ``n_steps`` tokens per slot (the caches, ``tok_buf`` and the
-    counters are updated in place): one K1 call per step at B=1, one K2 call
-    per step for 2..``MAX_FUSED_B`` slots, the generic step with K3b above.
-    Every slot advances, dead ones too.  ``gumbel`` [n_steps, B, V] float32.
-    Returns ``(state, toks [B, n_steps] int32)`` with ``toks`` on the device
-    (no host synchronisation here except K1's one counter readback)."""
+    counters are updated in place).  Under ``"fused_step"``: one K1 call per
+    step at B=1, one K2 call per step for 2..``MAX_FUSED_B`` slots, the
+    generic step with K3b above.  Under ``"flash"`` the generic step with
+    K3b, under ``"fused"`` the generic step with K6, at every B.  Every slot
+    advances, dead ones too.  ``gumbel`` [n_steps, B, V] float32.  Returns
+    ``(state, toks [B, n_steps] int32)`` with ``toks`` on the device (no
+    host synchronisation here except K1's one counter readback)."""
     dev = state.k_cache.device
     B, S = state.tok_buf.shape
     V = cfg.vocab_size
@@ -351,7 +386,8 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
         raise ValueError(f"gumbel {tuple(gumbel.shape)} is not ({n_steps}, {B}, {V})")
     toks = torch.empty((n_steps, B), dtype=I32, device=dev)
     suppressed = cfg.suppressed_tokens + (cfg.eos,)
-    if B == 1:
+    whole_step = attn_impl == "fused_step"
+    if whole_step and B == 1:
         kv_len, x_len, buf_len, step_idx = torch.stack(
             [state.kv_len, state.x_len, state.buf_len, state.step_idx]).flatten().tolist()
         if kv_len + n_steps > S:
@@ -367,7 +403,7 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
         for t in (state.kv_len, state.buf_len, state.step_idx):
             t += n_steps
         return state, toks.T
-    fused = B <= MAX_FUSED_B
+    fused = whole_step and B <= MAX_FUSED_B
     if fused:
         row = torch.empty((B, V), dtype=torch.float32, device=dev)
     for i in range(n_steps):
@@ -378,7 +414,9 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
                 sa=sa, suppress_until=suppress_until, suppressed=suppressed,
                 tok_out=toks[i], row_out=row)
         else:
-            _generic_step(params, cfg, state, gumbel[i], sa, suppress_until, dtype, toks[i])
+            # (a wave above K2's limit: "fused_step" degrades to "flash" at B > 1)
+            _generic_step(params, cfg, state, gumbel[i], sa, suppress_until, dtype, toks[i],
+                          attn_impl)
         state.last_tok = toks[i]
         for t in (state.kv_len, state.buf_len, state.step_idx):
             t += 1
@@ -390,9 +428,10 @@ class T2SEngine:
     ``infer_stream`` / ``infer_batched``, ``t2s_model.py:385-734``)."""
 
     def __init__(self, params, cfg: T2SConfig, gpt_cache: Sequence[Tuple[int, int]],
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_impl: str = "fused_step"):
         self.params = params
         self.cfg = cfg
+        self.attn_impl = resolve_attn_impl(attn_impl)
         self.dtype = dtype
         self.check_interval = CHECK_INTERVAL
         self.device = params["predict_w"].device
@@ -568,7 +607,7 @@ class T2SEngine:
         if group is not None:
             state, _ = prefill_slots(
                 self.params, self.cfg, state, slot_idx, *self._dev(*group),
-                self._noise(generator, len(items), V), sa, self.dtype)
+                self._noise(generator, len(items), V), sa, self.dtype, self.attn_impl)
             return state, True
         for j, (x, y, b) in zip(slot_idx, items):
             new_state = self._ensure_rows(state, B, prompt_rows(x, y))
@@ -579,7 +618,7 @@ class T2SEngine:
             xp, yp, bp = self._pad_prompt(x, y, b)
             state, _ = prefill_slot(
                 self.params, self.cfg, state, j, *self._dev(xp[None], yp[None], bp[None]),
-                len(x), len(y), self._noise(generator, 1, V), sa, self.dtype)
+                len(x), len(y), self._noise(generator, 1, V), sa, self.dtype, self.attn_impl)
         return state, False
 
     def _gather_live(self, state: DecodeState, live_idx: List[int],
@@ -602,14 +641,16 @@ class T2SEngine:
 
     def generate(self, x_ids, y_ids, bert, top_k=15, top_p=1.0, temperature=1.0,
                  repetition_penalty=1.35, generator: Optional[torch.Generator] = None,
-                 stream_chunk: Optional[int] = None):
+                 stream_chunk: Optional[int] = None, boost_first_chunk: bool = False):
         """B=1 generation.  Returns the generated tokens [1, 1, n] int64 (the
         prefill's sample excluded, EOS trimmed); with ``stream_chunk`` a
-        generator of ``(tokens_so_far, is_final)`` instead."""
+        generator of ``(tokens_so_far, is_final)`` instead, each chunk held
+        back until the next one arrives — except the first when
+        ``boost_first_chunk`` is set, which goes out at once."""
         if stream_chunk is not None:
             return self._generate_stream(
                 x_ids, y_ids, bert, top_k, top_p, temperature, repetition_penalty,
-                generator, stream_chunk, stream_final_semantics=True)
+                generator, stream_chunk, boost_first_chunk, stream_final_semantics=True)
         toks = None
         for toks, _ in self._generate_stream(
                 x_ids, y_ids, bert, top_k, top_p, temperature, repetition_penalty,
@@ -625,6 +666,7 @@ class T2SEngine:
 
     def _generate_stream(self, x_ids, y_ids, bert, top_k, top_p, temperature,
                          repetition_penalty, generator, stream_chunk,
+                         boost_first_chunk: bool = False,
                          stream_final_semantics: bool = False):
         cfg = self.cfg
         V = cfg.vocab_size
@@ -643,7 +685,7 @@ class T2SEngine:
         state, tok0 = prefill_batch(
             self.params, cfg, *self._dev(xp[None], yp[None], bp[None]),
             len(x_ids), len(y_ids), k_cache, v_cache, self._noise(generator, 1, V), sa, True,
-            self.dtype)
+            self.dtype, self.attn_impl)
         del k_cache, v_cache
 
         generated: List[int] = [int(tok0[0])]
@@ -652,6 +694,7 @@ class T2SEngine:
         kv = prompt_len  # every step advances the one slot by one row
         eos_at = None
         chunk_accum = 0
+        first_chunk = True
         pre_chunk = None
         while True:
             cur_S = state.k_cache.shape[2]
@@ -665,7 +708,7 @@ class T2SEngine:
             n = min(self.check_interval, cur_S - kv)
             state, toks = decode_chunk(self.params, cfg, state, n, sa,
                                        self._noise(generator, n, 1, V),
-                                       INITIAL_SUPPRESSION_STEPS, self.dtype)
+                                       INITIAL_SUPPRESSION_STEPS, self.dtype, self.attn_impl)
             toks = toks.cpu().numpy()[0]
             steps += n
             kv += n
@@ -682,11 +725,16 @@ class T2SEngine:
             chunk_accum += n
             if chunk_accum >= stream_chunk:
                 chunk_accum = 0
+                out = np.asarray(generated[1:], np.int64)[None, None, :]
+                if first_chunk and boost_first_chunk:
+                    first_chunk = False
+                    yield out, False
+                    continue
                 # a chunk is held back until the next one arrives; the last
                 # one held gives way to the final yield below
                 if pre_chunk is not None:
                     yield pre_chunk, False
-                pre_chunk = np.asarray(generated[1:], np.int64)[None, None, :]
+                pre_chunk = out
         if eos_at is not None:
             # reference quirk kept for parity: stream mode keeps the
             # prefill-sampled first token of an EOS-ended run
@@ -756,7 +804,7 @@ class T2SEngine:
         k_cache, v_cache = self._alloc_cache(B, S)
         state, _ = prefill_batch(
             self.params, cfg, *self._dev(xs, ys, bs, x_lens, y_lens), k_cache, v_cache,
-            self._noise(generator, B, V), sa, False, self.dtype)
+            self._noise(generator, B, V), sa, False, self.dtype, self.attn_impl)
         del k_cache, v_cache
 
         slot_orig = list(wave) + [-1] * (B - len(wave))
@@ -783,14 +831,15 @@ class T2SEngine:
             state, n_steps, S_cur = self._prepare_chunk(
                 state, [not ig for ig in ignore], n_steps)
             state, toks = decode_chunk(self.params, cfg, state, n_steps, sa,
-                                       self._noise(generator, n_steps, B, V), 0, self.dtype)
+                                       self._noise(generator, n_steps, B, V), 0, self.dtype,
+                                       self.attn_impl)
             toks = toks.cpu().numpy()  # [B, n_steps]
             kv = state.kv_len.cpu().numpy()
             self._check_kernels()
             stats["decode_steps"] += n_steps
             stats["slot_steps"] += n_steps * B
-            stats["k1_steps" if B == 1 else "k2_steps" if B <= MAX_FUSED_B
-                  else "generic_steps"] += n_steps
+            stats["generic_steps" if self.attn_impl != "fused_step" or B > MAX_FUSED_B
+                  else "k1_steps" if B == 1 else "k2_steps"] += n_steps
             stats["decode_s"] = time.perf_counter() - t_decode
             self.last_stats = stats
             for j in range(B):

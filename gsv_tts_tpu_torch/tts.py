@@ -1,14 +1,17 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
-registry, speaker/prompt audio caches, single-utterance ``infer`` and
-batched ``infer_batched``.
+registry, speaker/prompt audio caches, single-utterance ``infer``, streaming
+``infer_stream`` and batched ``infer_batched``.
 
-Pipeline: text → English frontend (host) → t2s engine (plain-PyTorch
-prefill, then one whole-step kernel per decode step: K1 for one utterance,
-K2 for a continuous-batched wave, the generic step with K3b for waves above
-K2's limit) → SoVITS decode at the exact shape (packed, with block-diagonal
-MRTE masks, in the batched mode) → host trim.  Not ported yet (ROADMAP
-Queue 1): subtitles, speed != 1, streaming, voice conversion, Chinese and
-Japanese text, v2Pro speaker verification.
+Pipeline: text → English frontend (host) → t2s engine (prefill, then one
+whole-step kernel per decode step by default: K1 for one utterance, K2 for a
+continuous-batched wave, the generic step with K3b for waves above K2's
+limit; ``attn_impl`` selects the K4 / K3b or the K6 paths instead) → SoVITS
+decode at the exact shape (packed, with block-diagonal MRTE masks, in the
+batched mode; chunk by chunk over the cumulative tokens with a latent
+cross-fade and SOLA stitching in the streaming mode) → host trim.  Not
+ported yet (ROADMAP Queue 1): subtitles, speed != 1, the bucket-padded
+stream vocoder and batched streaming, voice conversion, Chinese and Japanese
+text, v2Pro speaker verification.
 """
 from __future__ import annotations
 
@@ -38,16 +41,70 @@ DEFAULT_MUTE_SCALE = {"…": 2.0, ".": 1.5, "。": 1.5, "?": 1.5, "？": 1.5,
                       "・": 0.8}
 
 
+class _SegStream:
+    """Incremental vocoder state of one text segment of ``infer_stream``
+    (the JAX ``_SegStream`` without its subtitle and batcher branches):
+    chunked SoVITS decode over the cumulative tokens with the latent
+    cross-fade (``y_overlap``), SOLA waveform stitching, head trim on the
+    first chunk and the mute pad after the last (reference
+    ``TTS.py:415-476``)."""
+
+    __slots__ = ("tokens", "phones2", "ge", "text_cut", "_y_overlap", "_vsi",
+                 "_last_overlap", "_chunk_idx")
+
+    def __init__(self, phones2, ge, text_cut):
+        self.tokens: List[int] = []
+        self.phones2 = phones2
+        self.ge = ge
+        self.text_cut = text_cut
+        self._y_overlap = None  # the previous chunk's last latent frames
+        self._vsi = 0           # latent frames already voiced
+        self._last_overlap = None  # the previous chunk's last samples
+        self._chunk_idx = 0
+
+    def step(self, tts: "TTS", sovits, final: bool, *, noise_scale: float, overlap_len: int,
+             cut_mute: float, cut_mute_scale_map: dict) -> np.ndarray:
+        """One vocode pass over the cumulative tokens; returns the new audio
+        (float32)."""
+        overlap_samples = overlap_len * sovits.cfg.samples_per_frame
+        semantic = np.asarray(self.tokens, np.int64)
+        if semantic.size:
+            audio, n_frames, self._y_overlap = tts._sovits_decode_stream(
+                sovits, semantic[None, None, :], np.asarray(self.phones2, np.int64)[None],
+                self.ge, noise_scale=noise_scale, y_overlap=self._y_overlap,
+                valid_start_idx=self._vsi, overlap_len=overlap_len)
+            audio = audio.reshape(-1)
+            if self._last_overlap is not None:
+                audio, _ = dsp.sola_align(self._last_overlap, audio, overlap_samples)
+            self._last_overlap = audio[-overlap_samples:].copy()
+            if not final:
+                audio = audio[:-overlap_samples]
+                self._vsi = n_frames - overlap_len
+            if self._chunk_idx == 0:
+                audio = audio[dsp.find_head_threshold_offset(audio):]
+            self._chunk_idx += 1
+        else:
+            audio = np.zeros(0, np.float32)
+        if final:
+            scale = tts._mute_scale(self.text_cut, cut_mute_scale_map)
+            audio = np.concatenate(
+                [audio, np.zeros(int(cut_mute * scale * tts.samplerate), np.float32)])
+        return audio.astype(np.float32)
+
+
 class TTS:
     """Engine facade.  ``device`` and ``dtype`` follow ``Config``'s policy:
     the engine runs on the card in bf16 and raises when there is none, unless
     the caller asks for ``device="cpu"`` (then f32).  ``seed`` seeds the explicit generator every
-    random draw (Gumbel noise, SoVITS latent noise) comes from."""
+    random draw (Gumbel noise, SoVITS latent noise) comes from.
+    ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``)."""
 
     def __init__(self, gpt_cache: List[tuple] = ((1, 512), (1, 768), (1, 1024)),
                  models_dir: Optional[str] = None, device: Optional[str] = None,
-                 dtype: Optional[str] = None, seed: Optional[int] = None):
-        self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache))
+                 dtype: Optional[str] = None, seed: Optional[int] = None,
+                 attn_impl: str = "fused_step"):
+        self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache),
+                                 attn_impl=attn_impl)
         if models_dir is None:
             models_dir = Path.home() / ".cache" / "gsv"
         self.models_dir = Path(models_dir)
@@ -71,8 +128,9 @@ class TTS:
         self.cnhubert_model = None
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
-        #: stage wall times (s) and decode counts of the last ``infer`` or
-        #: ``infer_batched``
+        #: stage wall times (s) and decode counts of the last ``infer``,
+        #: ``infer_batched`` or ``infer_stream`` (``ttfa_s``: time to the
+        #: first audio chunk)
         self.last_timings: Dict[str, float] = {}
         logger.info("Device: %s, dtype: %s", self.device, self.tts_config.dtype)
 
@@ -145,12 +203,8 @@ class TTS:
             text += "."
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
         sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
-        if gpt_model not in self.gpt_models:
-            self.load_gpt_model(gpt_model)
-        gpt = self.gpt_models[gpt_model]
-        if prompt_audio_path not in self.prompt_audio_cache:
-            self.cache_prompt_audio(prompt_audio_path, prompt_audio_text)
-        cache = self.prompt_audio_cache[prompt_audio_path]
+        gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
+                                                 prompt_audio_text)
 
         t0 = time.perf_counter()
         phones2, _, bert2, _ = get_phones_and_bert(text, self.tts_config)
@@ -179,6 +233,71 @@ class TTS:
         audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
         return AudioClip(audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, [], text)
+
+    def infer_stream(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
+                     return_subtitles: bool = False, is_cut_text: bool = True,
+                     cut_minlen: int = 10, cut_mute: float = 0.4,
+                     cut_mute_scale_map: dict = DEFAULT_MUTE_SCALE,
+                     stream_mode: str = "token", stream_chunk: int = 25,
+                     overlap_len: int = 5, boost_first_chunk: bool = True, top_k: int = 15,
+                     top_p: float = 1.0, temperature: float = 1.0,
+                     repetition_penalty: float = 1.35, noise_scale: float = 0.5,
+                     speed: float = 1.0, gpt_model=None, sovits_model=None):
+        """Streaming synthesis (reference ``TTS.py:288-504``): a generator
+        of ``AudioClip`` chunks.  The t2s decode is cut into chunks of
+        ``stream_chunk`` tokens (``stream_mode="sentence"``: one chunk per
+        text segment); each chunk is vocoded over the cumulative tokens with
+        a latent cross-fade of ``overlap_len`` frames and stitched to the
+        previous one by SOLA.  ``boost_first_chunk`` sends the first chunk of
+        the first segment out without holding it back for its successor.
+        ``last_timings["ttfa_s"]`` is the time to the first chunk."""
+        if return_subtitles:
+            raise NotImplementedError("subtitles are not ported yet (ROADMAP Queue 1: subtitles)")
+        if speed != 1.0:
+            raise NotImplementedError("speed != 1 is not ported yet (ROADMAP Queue 1)")
+        if not self._check_pause(text):
+            text += "."
+        if stream_mode == "sentence":
+            stream_chunk = 10000
+        if not is_cut_text:
+            cut_minlen = 10000
+        gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
+        sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
+        gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
+                                                 prompt_audio_text)
+
+        audio_len_s = 0.0
+        t_start = time.perf_counter()
+        self.last_timings = {}
+        for i, text_cut in enumerate(cut_text(text, cut_minlen)):
+            phones2, _, bert2, _ = get_phones_and_bert(text_cut, self.tts_config)
+            all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
+            bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
+                                   np.asarray(bert2, np.float32)], axis=0)
+            seg = _SegStream(phones2, ge, text_cut)
+            chunks = gpt.engine.generate(
+                all_phones, cache["prompt"], bert, top_k=top_k, top_p=top_p,
+                temperature=temperature, repetition_penalty=repetition_penalty,
+                generator=self.generator, stream_chunk=stream_chunk,
+                boost_first_chunk=boost_first_chunk and i == 0)
+            while True:
+                # grad mode is switched off only while this generator runs,
+                # never across a yield
+                with torch.no_grad():
+                    item = next(chunks, None)
+                    if item is None:
+                        break
+                    pred_semantic, is_final = item
+                    seg.tokens = list(np.asarray(pred_semantic).reshape(-1))
+                    if not seg.tokens and not is_final:
+                        continue
+                    audio = seg.step(self, sovits, is_final, noise_scale=noise_scale,
+                                     overlap_len=overlap_len, cut_mute=cut_mute,
+                                     cut_mute_scale_map=cut_mute_scale_map)
+                audio_len_s += len(audio) / self.samplerate
+                self.last_timings.setdefault("ttfa_s", time.perf_counter() - t_start)
+                self.last_timings.update(gpt.engine.last_stats)
+                yield AudioClip(audio, self.samplerate, audio_len_s, [], text)
 
     def _prepare_batched_inputs(self, spk_audio_paths, prompt_audio_paths,
                                 prompt_audio_texts, texts, is_cut_text, cut_minlen,
@@ -366,6 +485,15 @@ class TTS:
             ge = part if ge is None else ge + part
         return self.sovits_models[sovits_model], ge
 
+    def _prepare_gpt_resources(self, gpt_model, prompt_audio_path, prompt_audio_text):
+        """The loaded t2s model and the prompt cache entry (semantic prompt,
+        phones and BERT features of its text) for ``prompt_audio_path``."""
+        if gpt_model not in self.gpt_models:
+            self.load_gpt_model(gpt_model)
+        if prompt_audio_path not in self.prompt_audio_cache:
+            self.cache_prompt_audio(prompt_audio_path, prompt_audio_text)
+        return self.gpt_models[gpt_model], self.prompt_audio_cache[prompt_audio_path]
+
     def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5,
                        slice_indices=None) -> np.ndarray:
         """Full decode at the exact shape: latent pipeline, then flow⁻¹ and
@@ -382,10 +510,31 @@ class TTS:
         if slice_indices is not None:
             slice_indices = torch.as_tensor(np.asarray(slice_indices, np.int64),
                                             device=self.device)
-        z_p, y_mask, _, ge_out = sovits_model.decode_core(
+        z_p, y_mask, _, _, ge_out = sovits_model.decode_core(
             sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype), slice_indices)
         audio = sovits_model.flow_dec(sovits.params, cfg, z_p, y_mask, ge_out)
         return audio.float().cpu().numpy()
+
+    def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, y_overlap,
+                              valid_start_idx: int, overlap_len: int):
+        """One streaming chunk at the exact shape: the latent of the
+        cumulative ``codes`` [1, 1, n] from frame ``valid_start_idx`` on,
+        cross-faded with ``y_overlap``, through flow⁻¹ and HiFi-GAN.  Returns
+        (audio [1, 1, (2n - valid_start_idx)·hop], latent frames 2n, the new
+        overlap [1, hidden, overlap_len])."""
+        cfg = sovits.cfg
+        dtype = self.tts_config.dtype
+        codes_t = torch.as_tensor(np.asarray(codes, np.int64), device=self.device)
+        text_t = torch.as_tensor(np.asarray(text, np.int64), device=self.device)
+        n_frames = 2 * codes_t.shape[-1]
+        noise = torch.randn((1, cfg.inter_channels, n_frames - valid_start_idx),
+                            generator=self.generator, device=self.device,
+                            dtype=torch.float32) * noise_scale
+        z_p, y_mask, _, new_overlap, ge_out = sovits_model.decode_core(
+            sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype),
+            y_overlap=y_overlap, valid_start_idx=valid_start_idx, overlap_len=overlap_len)
+        audio = sovits_model.flow_dec(sovits.params, cfg, z_p, y_mask, ge_out)
+        return audio.float().cpu().numpy(), n_frames, new_overlap
 
     def _get_spec(self, hps, filename) -> torch.Tensor:
         """Linear spectrogram of the speaker audio at the model's rate."""

@@ -246,3 +246,186 @@ def test_decode_chunk_wave_on_cuda_counts_its_kernels(cuda_device, B, path):
     for b in range(B):
         assert torch.equal(state.tok_buf[b, int(buf0[b]): int(buf0[b]) + 5], toks[b])
     assert bool(torch.isfinite(state.k_cache.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,Dh", [(torch.bfloat16, 32), (torch.float32, 32),
+                                      (torch.bfloat16, 64), (torch.float32, 16),
+                                      (torch.bfloat16, 128)])
+def test_k4_cuda_kernel_matches_twin(cuda_device, dtype, Dh):
+    """K4 against its twin on the card: strided views of one qkv product, a
+    ragged batch (one phoneme, no audio rows, a pad tail, the 1/1 lengths of
+    a dead slot), T not a multiple of the kernel's tiles."""
+    from gsv_tts_tpu_torch.ops import flash_prefill as fp
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    B, T, H = 4, 200, 4
+    D = H * Dh
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn((B, T, 3 * D), generator=gen, device=cuda_device).to(dtype)
+    q, k, v = (t.reshape(B, T, H, Dh) for t in qkv.split(D, dim=-1))
+    xl = torch.tensor([1, T, 70, 1], dtype=torch.int32, device=cuda_device)
+    xyl = torch.tensor([T, T, 131, 2], dtype=torch.int32, device=cuda_device)
+    ref = fp.flash_prefill_attention_ref(q, k, v, xl, xyl, num_heads=H)
+    before = fp.flash_prefill_attention.launches
+    out = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
+    torch.cuda.synchronize()
+    fused_step.check(cuda_device)
+    assert fp.flash_prefill_attention.launches == before + 1
+    assert out.shape == (B, T, D) and out.dtype == dtype
+    # bf16: the twin rounds the probabilities, both round the output
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+    xyl[2] = T + 1
+    bad = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
+    with pytest.raises(RuntimeError, match="xy_lens outside"):
+        fused_step.check(cuda_device)
+    assert bool(torch.isnan(bad[2].float()).all()) and bool(torch.isfinite(bad[3].float()).all())
+    flat = torch.zeros(qkv.numel() + 1, dtype=dtype, device=cuda_device)
+    off = (t.reshape(B, T, H, Dh) for t in flat[1:].view(B, T, 3 * D).split(D, dim=-1))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fp.flash_prefill_attention(*off, xl, xyl, num_heads=H)
+
+
+def _layer_fixture(dev, B, S, seed):
+    from gsv_tts_tpu_torch.models import t2s
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=3)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(seed), dtype=torch.bfloat16,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.num_layers, B, S, cfg.num_heads, cfg.head_dim)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((B, cfg.hidden_dim), generator=gen, device=dev)
+    return cfg, params, x, kc, vc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_cuda_kernel_matches_twin(cuda_device, dtype):
+    """K5 against its twin on the card (odd bucket; first, middle and last
+    row): hidden row and appended rows close, every other cache row
+    untouched, ``kv_len`` read on the device; with the owner's pointer table
+    and with the one the wrapper builds for a call."""
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    S = 200
+    cfg, params, x, kc, vc = _layer_fixture(cuda_device, 1, S, 3)
+    x = x.to(dtype)
+    before = fused_step.fused_decode_step.launches
+    table = fused_step.LayerTable(params["layers"])
+    for n in (0, 150, S - 1):
+        kv_len = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+        ka, va = kc.clone(), vc.clone()
+        h, _, _ = fused_step.fused_decode_step(x, params["layers"], ka, va, kv_len,
+                                               table=table if n else None)
+        kb, vb = kc.clone(), vc.clone()
+        rh, _, _ = fused_step.fused_decode_step_ref(x, params["layers"], kb, vb, kv_len)
+        torch.cuda.synchronize()
+        fused_step.check(cuda_device)
+        assert h.dtype == dtype and h.shape == x.shape
+        # three bf16 layers: float32 rounding unless one bf16 rounding flips
+        torch.testing.assert_close(h.float(), rh.float(), rtol=3e-2, atol=3e-2)
+        torch.testing.assert_close(ka, kb, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(va, vb, rtol=2e-2, atol=2e-2)
+        keep = torch.ones(S, dtype=torch.bool, device=cuda_device)
+        keep[n] = False
+        assert torch.equal(ka[:, :, keep], kc[:, :, keep])
+    assert fused_step.fused_decode_step.launches == before + 3
+    with pytest.raises(ValueError, match="not built over these layers"):
+        fused_step.fused_decode_step(x, [dict(lp) for lp in params["layers"]], kc, vc, kv_len,
+                                     table=table)
+    fused_step.fused_decode_step(x, params["layers"], kc, vc,
+                                 torch.tensor([S], dtype=torch.int32, device=cuda_device),
+                                 table=table)
+    with pytest.raises(RuntimeError, match="kv_len outside the cache"):
+        fused_step.check("cuda")  # no index: the current card's word
+    fused_step.check(cuda_device)  # cleared by the raise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 8, 11])
+def test_k6_cuda_kernel_matches_twin(cuda_device, B):
+    """K6 against its twin on the card for every layer index, ragged lengths
+    (0 and S-1 among them), rows past ``kv_len`` poisoned; above 8 rows the
+    wrapper launches the kernel in groups.  Layer 0 goes through a table the
+    wrapper builds for the call, the others through one table over all
+    layers."""
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+
+    S = 200
+    cfg, params, x, kc, vc = _layer_fixture(cuda_device, B, S, 4)
+    x = x.to(torch.bfloat16)
+    lens = ([0, S - 1, 63, 64, 150, 1, 128, 17, 90, 199, 33])[:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    for b, n in enumerate(lens):
+        kc[:, b, n:] = float("nan")
+        vc[:, b, n:] = float("nan")
+    table = fused_step.LayerTable(params["layers"])
+    with pytest.raises(ValueError, match="not built over these layers"):
+        fused_layer.fused_decode_layer(x, params["layers"][1], kc.clone(), vc.clone(), kv_len, 2,
+                                       table=table)
+    before = fused_layer.fused_decode_layer.launches
+    for layer in range(cfg.num_layers):
+        ka, va = kc.clone(), vc.clone()
+        h, _, _ = fused_layer.fused_decode_layer(x, params["layers"][layer], ka, va, kv_len,
+                                                 layer, table=table if layer else None)
+        kb, vb = kc.clone().nan_to_num(0.0), vc.clone().nan_to_num(0.0)
+        rh, _, _ = fused_layer.fused_decode_layer_ref(x, params["layers"][layer], kb, vb,
+                                                      kv_len, layer)
+        torch.cuda.synchronize()
+        fused_step.check(cuda_device)
+        assert bool(torch.isfinite(h.float()).all())
+        torch.testing.assert_close(h.float(), rh.float(), rtol=2e-2, atol=2e-2)
+        for b, n in enumerate(lens):
+            torch.testing.assert_close(ka[layer, b, n], kb[layer, b, n], rtol=2e-2, atol=2e-2)
+            torch.testing.assert_close(va[layer, b, n], vb[layer, b, n], rtol=2e-2, atol=2e-2)
+            assert bool(torch.isnan(ka[layer, b, n + 1:].float()).all())  # untouched
+            assert bool(torch.isnan(va[layer, b, n + 1:].float()).all())
+            assert torch.equal(ka[layer, b, :n], kc[layer, b, :n])
+            assert torch.equal(va[layer, b, :n], vc[layer, b, :n])
+    groups = -(-B // fused_step.MAX_FUSED_B)
+    assert fused_layer.fused_decode_layer.launches == before + cfg.num_layers * groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["flash", "fused", "fused_step"])
+def test_engine_attn_impl_on_cuda_counts_its_kernels(cuda_device, impl):
+    """``T2SEngine(attn_impl=...)`` on CUDA at B=1: ``"flash"`` launches K4
+    per layer of the prefill and K3b per layer and step, ``"fused"`` K6 per
+    layer and step, the default K1 per step; and ``transformer_decode_step``
+    under ``"fused_step"`` launches K5."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                             device=cuda_device)
+    eng = ts.T2SEngine(params, cfg, gpt_cache=[(1, 96)], dtype=torch.bfloat16, attn_impl=impl)
+    fns = {"k1": fused_step.fused_decode_step_sample,
+           "k3b": flash_decode.flash_decode_attention_layered,
+           "k4": flash_prefill.flash_prefill_attention, "k5": fused_step.fused_decode_step,
+           "k6": fused_layer.fused_decode_layer}
+    before = {k: f.launches for k, f in fns.items()}
+    rng = np.random.RandomState(0)
+    toks = eng.generate(rng.randint(1, 700, 20), rng.randint(0, 1024, 9),
+                        rng.randn(20, cfg.bert_dim).astype(np.float32),
+                        generator=torch.Generator(device=cuda_device).manual_seed(3))
+    steps, L = eng.last_stats["decode_steps"], cfg.num_layers
+    got = {k: f.launches - before[k] for k, f in fns.items()}
+    want = {"flash": dict(k1=0, k3b=L * steps, k4=L, k5=0, k6=0),
+            "fused": dict(k1=0, k3b=0, k4=0, k5=0, k6=L * steps),
+            "fused_step": dict(k1=steps, k3b=0, k4=0, k5=0, k6=0)}[impl]
+    assert got == want and steps > 0 and toks.size > 0
+    if impl == "fused_step":
+        shape = (L, 1, 96, cfg.num_heads, cfg.head_dim)
+        kc = torch.zeros(shape, dtype=torch.bfloat16, device=cuda_device)
+        x = torch.randn((1, cfg.hidden_dim), device=cuda_device).to(torch.bfloat16)
+        kv_len = torch.tensor([0], dtype=torch.int32, device=cuda_device)
+        h, _, _ = t2s.transformer_decode_step(eng.params, cfg, x, kc, kc.clone(), kv_len,
+                                              "fused_step")
+        assert fns["k5"].launches == before["k5"] + 1 and bool(torch.isfinite(h.float()).all())

@@ -82,8 +82,9 @@ def test_decode_core_and_flow_dec_match_jax(models):
     # jitted: eager JAX dispatches every op separately (~20 s here)
     jz, jmask, jattn, _, jge = jax.jit(js.decode_core, static_argnums=1)(
         jp, jcfg, jnp.asarray(codes), jnp.asarray(text), jnp.asarray(ge), jnp.asarray(noise))
-    pz, pmask, pattn, pge = ps.decode_core(pp, pcfg, torch.tensor(codes), torch.tensor(text),
-                                           torch.tensor(ge), torch.tensor(noise))
+    pz, pmask, pattn, _, pge = ps.decode_core(pp, pcfg, torch.tensor(codes),
+                                              torch.tensor(text), torch.tensor(ge),
+                                              torch.tensor(noise))
     np.testing.assert_allclose(pz.numpy(), np.asarray(jz), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(pattn.numpy(), np.asarray(jattn), rtol=RTOL, atol=ATOL)
     ja = np.asarray(jax.jit(js.flow_dec, static_argnums=1)(jp, jcfg, jz, jmask, jge))
@@ -119,7 +120,7 @@ def test_decode_core_packed_with_slice_indices_matches_jax(models):
         lambda p, c, t, g, n, si: js.decode_core(p, jcfg, c, t, g, n, slice_indices=si))(
         jp, jnp.asarray(codes), jnp.asarray(text), jnp.asarray(ge), jnp.asarray(noise),
         jnp.asarray(slice_indices, jnp.int32))
-    pz, pmask, pattn, pge = ps.decode_core(
+    pz, pmask, pattn, _, pge = ps.decode_core(
         pp, pcfg, torch.tensor(codes), torch.tensor(text), torch.tensor(ge),
         torch.tensor(noise), torch.tensor(slice_indices))
     assert pge.shape == (1, 512, 2 * T)
