@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py             # the smoke
     python3 chip_smoke.py --profile   # the smoke's set-up, then a torch.profiler
-                                      # breakdown of one K1 and one K2 step
+                                      # breakdown of a K1 and a K2 step and the
+                                      # persistent kernels' time phase by phase
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -13,12 +14,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. kernels, each against its plain PyTorch twin at the flagship t2s widths
    (L=24, D=512, H=16, M=2048, V=1025) in bf16:
    * K1 (whole B=1 decode step) and K2 (whole step for a wave of B slots,
-     B = 2, 4 and ``MAX_FUSED_B``): caches of 512 and 1024 rows, ragged
+     every B from 2 to ``MAX_FUSED_B``), each one persistent cooperative
+     kernel plus the sampling launch: caches of 512 and 1024 rows, ragged
      ``kv_len`` (a frozen slot, the first row past the 512 -> 1024
      escalation, the last row of the cache), repetition penalty on and off;
      final hidden state, logits, appended K/V rows and filtered rows within
      stated tolerances, tokens equal wherever the top-2 margin of
      ``row + gumbel`` clears the tolerance, every other cache row untouched;
+     the three error bits (a bad ``last_tok``, ``kv_len = S``, a positional
+     index past the table) set with NaN where promised and the kernel back
+     within a deadline; the first design of both (a chain of 195 launches)
+     timed in turns with them, the cost of one grid barrier, and the host's
+     time per call;
    * K3a / K3b (decode attention, one layer's cache / a layer of the stacked
      cache): B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer
      index, cache rows past ``kv_len`` poisoned;
@@ -138,6 +145,39 @@ def timed_turns(run_kernel, run_plain, k_iters: int, p_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def chain_turns(run_kernel, run_chain, run_plain, k_iters: int, p_iters: int):
+    """plain, chain, kernel, kernel, chain, plain: as :func:`timed_turns`, with the kernel's
+    first design beside it.  Returns (kernel ms, plain ms, chain ms)."""
+    p1 = cuda_ms(run_plain, p_iters)
+    c1 = cuda_ms(run_chain, k_iters)
+    k1 = cuda_ms(run_kernel, k_iters)
+    k2 = cuda_ms(run_kernel, k_iters)
+    c2 = cuda_ms(run_chain, k_iters)
+    p2 = cuda_ms(run_plain, p_iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (c1 + c2) / 2
+
+
+def host_us(fn, calls: int = 10) -> float:
+    """Host time of one call (us): the host clock around ``calls`` calls with no synchronise
+    inside, started on an idle device so that the launch queue stays shallow."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
+def weight_bytes(cfg) -> int:
+    """bf16 matrix bytes every whole decode step reads once, whatever B is."""
+    L, D, M, V = cfg.num_layers, cfg.hidden_dim, cfg.hidden_dim * cfg.mlp_ratio, cfg.vocab_size
+    return 2 * (L * (4 * D * D + 2 * D * M) + V * D)
+
+
 def bound(n_bytes: float, n_flops: float):
     """Least time (ms) the card could take: the larger of the bytes over the
     memory rate and the operations over the bf16 peak, and which it is."""
@@ -233,18 +273,21 @@ class StepBench:
                     kv_lens=list(kv_lens), x_lens=list(x_lens), buf_lens=buf_lens,
                     steps=list(step_idx))
 
-    def kernel(self, st, kc, vc, tok_buf, g, sa, su, **out):
-        """K1 for one slot (its counters as host ints), K2 for a wave."""
+    def kernel(self, st, kc, vc, tok_buf, g, sa, su, chain=False, **out):
+        """K1 for one slot (its counters as host ints), K2 for a wave; with ``chain`` their
+        first design, the chain of 195 launches (timed beside them, nothing else)."""
         from gsv_tts_tpu_torch.ops import fused_step
 
         kw = dict(sa=sa, suppress_until=su, suppressed=self.sup, **out)
         if len(st["kv_lens"]) == 1:
-            return fused_step.fused_decode_step_sample(
-                self.params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0], st["last"],
-                st["buf_lens"][0], st["steps"][0], g, **kw)
-        return fused_step.fused_decode_step_sample_batched(
-            self.params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"], st["step"],
-            g, **kw)
+            fn = (fused_step.fused_decode_step_sample_chain if chain
+                  else fused_step.fused_decode_step_sample)
+            return fn(self.params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0],
+                      st["last"], st["buf_lens"][0], st["steps"][0], g, **kw)
+        fn = (fused_step.fused_decode_step_sample_batched_chain if chain
+              else fused_step.fused_decode_step_sample_batched)
+        return fn(self.params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"],
+                  st["step"], g, **kw)
 
     def twin(self, st, kc, vc, tok_buf, g, sa, su, **out):
         from gsv_tts_tpu_torch.ops import fused_step
@@ -316,7 +359,10 @@ class StepBench:
                 fail(f"token not appended to tok_buf at {at}")
         return worst
 
-    def times(self, st, sa, su, k_iters=100, p_iters=10):
+    def times(self, name, st, sa, su, S, k_iters=100, p_iters=10):
+        """Times of one step from ``st``: the twin, the chain, the persistent kernel twice,
+        the chain, the twin, each the mean of its two turns, and the host's time per
+        kernel call.  Returns (kernel ms, twin ms, bound ms, bound by, chain ms)."""
         import torch
 
         from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
@@ -326,9 +372,19 @@ class StepBench:
         kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
         out = dict(tok_out=torch.empty(B, dtype=torch.int32, device=self.dev),
                    row_out=torch.empty((B, V), dtype=torch.float32, device=self.dev))
-        return timed_turns(lambda: self.kernel(st, kk, kv, kt, g, sa, su, **out),
-                           lambda: self.twin(st, kk, kv, kt, g, sa, su, **out),
-                           k_iters, p_iters)
+
+        def run_kernel():
+            self.kernel(st, kk, kv, kt, g, sa, su, **out)
+
+        k_ms, p_ms, c_ms = chain_turns(
+            run_kernel, lambda: self.kernel(st, kk, kv, kt, g, sa, su, chain=True, **out),
+            lambda: self.twin(st, kk, kv, kt, g, sa, su, **out), k_iters, p_iters)
+        b_ms, b_by = step_bound(self.cfg, S, st["kv_lens"])
+        print(f"{name} time B={B} S={S} kv_len={st['kv_lens']}: persistent kernel {k_ms:.4f} "
+              f"ms/step ({weight_bytes(self.cfg) / k_ms / 1e6:.0f} GB/s over the weight bytes), "
+              f"chain of 195 launches {c_ms:.4f} ms/step, plain twin {p_ms:.4f} ms/step, bound "
+              f"{b_ms:.4f} ms ({b_by}); host {host_us(run_kernel):.1f} us per call", flush=True)
+        return k_ms, p_ms, b_ms, b_by, c_ms
 
 
 def sampling_settings():
@@ -356,24 +412,23 @@ def k1_phase(bench: StepBench):
                 steps += 1
         if kv_len in (300, 777):
             sa, su, _ = sampling_settings()[1]
-            k_ms, p_ms = bench.times(st, sa, su)
-            times[S] = (k_ms, p_ms) + step_bound(bench.cfg, S, [kv_len])
-            print(f"K1 time S={S} kv_len={kv_len}: kernel {k_ms:.4f} ms/step, plain twin "
-                  f"{p_ms:.4f} ms/step, bound {times[S][2]:.4f} ms ({times[S][3]})", flush=True)
+            times[S] = bench.times("K1", st, sa, su, S)
     print(f"K1 matches its twin on {steps} flagship steps; max abs err {worst:.4g} "
           f"(tolerance {TOL_ABS})", flush=True)
     return worst, times
 
 
 def k2_phase(bench: StepBench):
-    """K2 vs its twin at B = 2, 4 and MAX_FUSED_B; same returns as K1's."""
+    """K2 vs its twin at every B from 2 to MAX_FUSED_B; same returns as K1's."""
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
 
     worst, times, steps = 0.0, {}, 0
     V = bench.cfg.vocab_size
     for S in (512, 1024):
         half = S // 2  # at S=1024: the first row past the 512 -> 1024 escalation
-        waves = {2: [0, S - 1], 4: [0, 300, S - 1, half],
+        waves = {2: [0, S - 1], 3: [0, 64, S - 1], 4: [0, 300, S - 1, half],
+                 5: [0, 63, half, 1, S - 1], 6: [0, S - 1, 64, 300, half, 1],
+                 7: [0, 1, 63, S - 1, 300, half, S - 200],
                  MAX_FUSED_B: [0, 1, 63, 64, 300, half, S - 200, S - 1]}
         for B, kv_lens in waves.items():
             # slot 0 is frozen (kv_len 0 below its x_len); slot b's step
@@ -388,13 +443,90 @@ def k2_phase(bench: StepBench):
         kv_lens = [300, 287, 313, 296] if S == 512 else [777, 761, 790, 770]
         st = bench.state(S, kv_lens, [60] * 4, [17] * 4, [20] * 4)
         sa, su, _ = sampling_settings()[3]
-        k_ms, p_ms = bench.times(st, sa, su)
-        times[S] = (k_ms, p_ms) + step_bound(bench.cfg, S, kv_lens)
-        print(f"K2 time B=4 S={S} kv_len={kv_lens}: kernel {k_ms:.4f} ms/step, plain twin "
-              f"{p_ms:.4f} ms/step, bound {times[S][2]:.4f} ms ({times[S][3]})", flush=True)
-    print(f"K2 matches its twin on {steps} flagship steps (B=2, 4, {MAX_FUSED_B}); max abs err "
+        times[S] = bench.times("K2", st, sa, su, S)
+    wave8 = [777, 761, 790, 770, 745, 781, 799, 752]
+    bench.times("K2", bench.state(1024, wave8, [60] * 8, [17] * 8, [20] * 8), sa, su, 1024)
+    print(f"K2 matches its twin on {steps} flagship steps (B=2..{MAX_FUSED_B}); max abs err "
           f"{worst:.4g} (tolerance {TOL_ABS})", flush=True)
     return worst, times
+
+
+def returned_within(seconds: float) -> bool:
+    """Whether the device finishes what it was given within ``seconds`` (polled: a kernel that
+    hangs must fail the run, not stall it)."""
+    import torch
+
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.perf_counter() + seconds
+    while not done.query():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def error_bits_phase(bench: StepBench):
+    """Out-of-range device values through the persistent kernels: the launch comes back, the
+    error word holds the value's bit, the slot's row is NaN where promised (a bad ``kv_len``
+    appends nothing) and the other slots are untouched by it."""
+    import torch
+
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+
+    cfg, V, S = bench.cfg, bench.cfg.vocab_size, 512
+    P = bench.params["pe"].shape[0]
+    sa, su, _ = sampling_settings()[3]
+    # (what is wrong, B, slot, field, value, the message's words, the slot's cache row stays)
+    cases = [("last_tok = V", 1, 0, "last", V, "last_tok", False),
+             ("last_tok = -1", 4, 1, "last", -1, "last_tok", False),
+             ("kv_len = S", 4, 2, "kv", S, "kv_len", True),
+             ("kv_len = S", 2, 0, "kv", S, "kv_len", True),
+             ("positional index = P", 4, 3, "x", 296 - P, "positional", False),
+             ("kv_len = -1", 8, 5, "kv", -1, "kv_len", True)]
+    for what, B, slot, field, value, words, row_stays in cases:
+        kv_lens = [300, 287, 313, 296, 305, 291, 320, 279][:B]
+        st = bench.state(S, kv_lens, [60] * B, [17] * B, [20] * B)
+        st[field][slot] = value
+        if B == 1:  # K1's counters are host ints, checked on the host: only last_tok is left
+            st["last"][0] = value
+        g = gumbel_noise((B, V), bench.dgen, bench.dev)
+        kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
+        _, row, _, _ = bench.kernel(st, kk, kv, kt, g, sa, su)
+        if not returned_within(30.0):
+            fail(f"the persistent kernel did not come back from {what} at B={B}")
+        try:
+            bench.table.check()
+        except RuntimeError as e:
+            if words not in str(e) or "gave up" in str(e):
+                fail(f"{what} at B={B} raised {e}")
+        else:
+            fail(f"{what} at B={B} set no error bit")
+        hid = bench.table.x[:B * cfg.hidden_dim].reshape(B, cfg.hidden_dim)
+        for b in range(B):
+            nan = bool(torch.isnan(hid[b]).all()) and bool(torch.isnan(row[b]).any())
+            fine = bool(torch.isfinite(hid[b]).all())
+            if (b == slot and not nan) or (b != slot and not fine):
+                fail(f"{what} at B={B}: slot {b} {'is not NaN' if b == slot else 'is not finite'}")
+        if row_stays and not (torch.equal(kk[:, slot], st["kc"][:, slot])
+                              and torch.equal(kv[:, slot], st["vc"][:, slot])):
+            fail(f"{what} at B={B}: the slot's cache was written")
+    print(f"K1/K2 error bits: {len(cases)} launches with an out-of-range last_tok, kv_len or "
+          f"positional index came back with their bit set and NaN in that slot alone", flush=True)
+
+
+def barrier_phase(bench: StepBench):
+    """What one grid barrier of the persistent kernels costs: loops of empty barriers."""
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    costs = {}
+    for n in (100, 10000):
+        costs[n] = cuda_ms(lambda: fused_step.grid_barrier_loop(bench.table, n), 5)
+    bench.table.check()
+    per = 1000 * (costs[10000] - costs[100]) / 9900
+    print(f"grid barrier: {costs[100]:.4f} ms for 100, {costs[10000]:.4f} ms for 10000 in one "
+          f"launch = {per:.3f} us each (132 blocks of 512 threads, nothing between them)",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1140,10 +1272,42 @@ def main_path_phase(dev):
     return total
 
 
+# what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
+# tagged values, K2 through a grid barrier after every phase
+K1_PHASES = ("stage x (embedding / LayerNorm 2)", "QKV product", "attention",
+             "stage attention rows", "out-proj + residual", "stage LayerNorm 1", "MLP-1 (ReLU)",
+             "stage MLP rows", "MLP-2 + residual")
+K2_PHASES = (K1_PHASES[:2] + ("barrier",) + K1_PHASES[2:3] + ("barrier",) + K1_PHASES[3:5]
+             + ("barrier",) + K1_PHASES[5:7] + ("barrier",) + K1_PHASES[7:] + ("barrier",))
+
+
+def phase_trace(bench: StepBench, label: str, phases):
+    """The persistent kernel's time phase by phase, from the clock marks block 0 of a build
+    with -DPS_TRACE leaves behind (``csrc/decode_step_persistent.cuh``)."""
+    import torch
+
+    L = bench.cfg.num_layers
+    marks = bench.table.part[:2 * (1 + len(phases) * L)].view(torch.int64).cpu().tolist()
+    d = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(smi.stdout.split()[0])
+    total = marks[-1] - marks[0]
+    print(f"phase trace {label}: {total} SM cycles from the first phase to the last layer's "
+          f"end = {total / mhz / 1000:.4f} ms at {mhz:.0f} MHz; mean SM cycles a layer of block 0 "
+          f"(layers 1..{L - 1}; layer 0 apart; without barriers a phase's wait for its inputs "
+          f"counts as its own time):", flush=True)
+    for j, name in enumerate(phases):
+        vals = [d[l * len(phases) + j] for l in range(1, L)]
+        print(f"  {sum(vals) / len(vals):8.0f}  (min {min(vals)}, max {max(vals)}; layer 0 "
+              f"{d[j]})  {name}", flush=True)
+
+
 def profile_phase(bench: StepBench):
-    """torch.profiler over 20 steps of K1, of K2 (B=4) and of the generic
-    step with K3b (B=12) at kv_len ~777 in a 1024-row cache: device time by
-    kernel and the device's idle share."""
+    """torch.profiler over 20 steps of K1, of K2 (B=4 and B=8) and of the generic step with
+    K3b (B=12) at kv_len ~777 in a 1024-row cache: device time by kernel, launches a step,
+    the device's idle share, the persistent kernel's rate over the weight bytes and its time
+    phase by phase."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1154,6 +1318,7 @@ def profile_phase(bench: StepBench):
     wave12 = [777, 761, 790, 770, 745, 781, 799, 752, 766, 773, 758, 787]
     for label, kv_lens, (sa, su, _) in (("K1 B=1", [777], sampling_settings()[1]),
                                         ("K2 B=4", wave12[:4], sampling_settings()[3]),
+                                        ("K2 B=8", wave12[:8], sampling_settings()[3]),
                                         ("generic step with K3b B=12", wave12,
                                          sampling_settings()[3])):
         B = len(kv_lens)
@@ -1191,13 +1356,26 @@ def profile_phase(bench: StepBench):
         busy = sum(r[1] for r in rows)
         if busy == 0:
             fail("torch.profiler recorded no device time")
+        launches = sum(r[2] for r in rows)
         t_plain = cuda_ms(step, n)
         print(f"profile {label} S=1024 kv_len~777: profiled span {span_ms:.4f} ms/step "
               f"({t_plain:.4f} without the profiler), device busy {busy:.4f} ms/step in "
-              f"{sum(r[2] for r in rows):.0f} launches, idle share {1 - busy / span_ms:.3f}",
+              f"{launches:.0f} launches, idle share {1 - busy / span_ms:.3f}",
               flush=True)
         for key, ms, cnt in sorted(rows, key=lambda r: -r[1])[:12]:
             print(f"  {ms:.4f} ms/step  {cnt:6.1f} launches/step  {key[:100]}", flush=True)
+        if B <= 8:
+            if launches > 2.5:
+                fail(f"{label}: {launches:.1f} device launches a step, the persistent design "
+                     f"has two")
+            # (per launch, not per step: the profiler may drop a window's first events)
+            model = [r[1] / r[2] for r in rows if "decode_step_persistent" in r[0]]
+            if len(model) != 1:
+                fail(f"{label}: no persistent kernel among the profiled launches")
+            print(f"  the persistent kernel takes {model[0]:.4f} ms a launch: the "
+                  f"{weight_bytes(bench.cfg) / 1e6:.1f} MB of weights at "
+                  f"{weight_bytes(bench.cfg) / model[0] / 1e6:.0f} GB/s", flush=True)
+            phase_trace(bench, label, K1_PHASES if B == 1 else K2_PHASES)
 
 
 def main():
@@ -1217,6 +1395,9 @@ def main():
     from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
     from gsv_tts_tpu_torch.utils import cuda_build
 
+    profiling = "--profile" in sys.argv[1:]
+    if profiling:  # the persistent kernels leave their clock marks (phase_trace reads them)
+        cuda_build.NVCC_FLAGS += ("-DPS_TRACE",)
     t0 = time.perf_counter()
     libraries = [fused_step.K1_LIBRARY, fused_step.K2_LIBRARY, flash_decode.LIBRARY,
                  flash_prefill.LIBRARY, fused_step.K5_LIBRARY, fused_layer.LIBRARY]
@@ -1234,11 +1415,13 @@ def main():
                 print(f"    ptxas: {line.strip()}", flush=True)
 
     bench = StepBench(dev)
-    if "--profile" in sys.argv[1:]:
+    if profiling:
         profile_phase(bench)
         return
     k1_err, k1_times = k1_phase(bench)
     k2_err, k2_times = k2_phase(bench)
+    error_bits_phase(bench)
+    barrier_phase(bench)
     k3 = k3_phase(dev, bench.cfg)
     k4 = k4_phase(dev, bench.cfg)
     prefill_times(bench)
@@ -1249,16 +1432,20 @@ def main():
     launches = main_path_phase(dev)
 
     def step_record(name, source, replaces, count, err, t):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+               "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
+        if len(t) > 4:  # K1, K2: their first design, the chain of 195 launches, beside them
+            rec["chain_ms"] = t[4]
+        return rec
 
     def attn_record(name, source, replaces, count, r):
         return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": count, "max_abs_err": r[0], "ms": r[1],
                 "plain_ms": r[2], "bound_ms": r[4], "bound_by": r[5], "library_ms": r[3]}
 
-    # times of the whole-step kernels and of K5 and K6: S=1024, kv_len ~777
+    # times of the whole-step kernels (K1 and K2: the persistent kernel plus
+    # the sampling launch) and of K5 and K6: S=1024, kv_len ~777
     # (K2 at B=4, K6 at B=1); of the decode attention kernels: B=12, S=512,
     # kv_len ~300; of K4: B=1, T=512.  K3a has no caller in the JAX package
     # outside its own module, so there is no path to put it on: it is held in

@@ -25,6 +25,7 @@ constexpr int ERR_LAST_TOK = 1;  // last_tok outside [0, V)
 constexpr int ERR_KV_LEN = 2;    // kv_len outside [0, S)
 constexpr int ERR_PE_IDX = 4;    // positional index outside [0, P)
 // (bit 8 is K4's: prefill lengths outside the prompt block, k4_flash_prefill.cu)
+constexpr int ERR_SYNC = 16;     // a wait inside a persistent kernel gave up
 
 // One layer's weights: matrices [out, in] and biases in bf16, LayerNorm
 // affines in float32.
@@ -93,77 +94,124 @@ static __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float (
 }
 
 // ---------------------------------------------------------------------------
-// Single-query attention, split over the cache (flash-decoding).  One block
-// (ATTN_THREADS threads) handles one (slot, head, split): rows
-// [64 split, 64 split + 64) of the n_cache cache rows followed, when kn/vn
-// are given, by the token's own K/V in float32 (row n_cache).  It writes the
+// Single-query attention, split over the cache (flash-decoding).  A group of
+// ATTN_THREADS threads handles one (slot, head, split): rows
+// [64 split, 64 split + 64) of the n_cache cache rows followed, when has_own
+// is set, by the token's own K/V in float32 (row n_cache).  It writes the
 // split's partial (max, sum, unnormalised output [Dh]) to ``out``.  A row is
 // read by LPR = Dh/8 lanes, 16 bytes each, so a warp covers 32/LPR rows per
 // step; every (warp, row slot) keeps its own online softmax, merged in
 // shared memory at the end.  Rows at or past n_cache are never read.
-//   qr       this lane's 8 query values: dims (lane % LPR) * 8 ... + 7
-//   kc, vc   the slot's cache rows of this layer, offset to this head
+//   qr          this lane's 8 query values: dims (lane % LPR) * 8 ... + 7
+//   kown, vown  the same 8 dims of the token's own K/V (read when has_own)
+//   kc, vc      the slot's cache rows of this layer, offset to this head
+//   s_m, s_l    [ATTN_SLOTS<LPR>] floats of shared memory each, s_acc
+//               [ATTN_SLOTS<LPR> * Dh] = ATTN_ACC_FLOATS floats
+//   tid         the thread's index in the group, sync() the group's barrier
 // ---------------------------------------------------------------------------
-template <int LPR>
-static __device__ __forceinline__ void attn_split_partial(
-    const float (&qr)[8], const float* __restrict__ kn, const float* __restrict__ vn,
-    const bf16* __restrict__ kc, const bf16* __restrict__ vc, int row_stride, int n_cache,
-    int split, float scale, float* __restrict__ out) {
-  constexpr int Dh = LPR * 8;
-  constexpr int RPW = 32 / LPR;                      // rows per warp step
-  constexpr int SLOTS = (ATTN_THREADS / 32) * RPW;
-  __shared__ float s_m[SLOTS], s_l[SLOTS];
-  __shared__ float s_acc[SLOTS][Dh];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = warp * RPW + lane / LPR;
-  const int d0 = (lane % LPR) * 8;
-  const int n_total = n_cache + (kn != nullptr ? 1 : 0);
+constexpr int ATTN_ACC_FLOATS = ATTN_THREADS * 8;  // every lane's 8 outputs
+constexpr int ATTN_MAX_SLOTS = ATTN_THREADS;       // Dh = 8: one row per lane
 
-  float acc[8];
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// The walk: rows [s_begin, s_end) of the n_cache cache rows and, when has_own
+// is set, the token's own row n_cache, by a group of NT threads.  Every
+// (warp, row slot) -- the LPR lanes that share lane / LPR -- leaves the
+// running maximum m, the sum l and its 8 unnormalised outputs acc of the
+// rows it met (m = -inf, l = 0 where it met none).  The group walks STEP
+// rows at a time; the loads of BATCH steps are issued together, so that it
+// waits for device memory once per BATCH steps.
+template <int LPR, int NT, int BATCH = 4>
+static __device__ __forceinline__ void attn_walk(
+    const float (&qr)[8], const float (&kown)[8], const float (&vown)[8], bool has_own,
+    const bf16* __restrict__ kc, const bf16* __restrict__ vc, int row_stride, int n_cache,
+    int s_begin, int s_end, float scale, int tid, float& m, float& l, float (&acc)[8]) {
+  constexpr int RPW = 32 / LPR;  // rows per warp step
+  constexpr int STEP = (NT / 32) * RPW;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int d0 = (lane % LPR) * 8;
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  const int s_end = min((split + 1) * ATTN_ROWS, n_total);
-  for (int s0 = split * ATTN_ROWS + warp * RPW; s0 < s_end; s0 += (ATTN_THREADS / 32) * RPW) {
-    const int s = s0 + lane / LPR;
-    float kf[8], vf[8];
-    if (s < n_cache) {
-      const uint4 kr = *reinterpret_cast<const uint4*>(kc + (size_t)s * row_stride + d0);
-      const uint4 vr = *reinterpret_cast<const uint4*>(vc + (size_t)s * row_stride + d0);
-      bf16x8_to_float(kr, kf);
-      bf16x8_to_float(vr, vf);
-    } else {  // the token itself (s == n_cache), or past this split's end
-      const bool own = kn != nullptr && s == n_cache;
+  m = -INFINITY;
+  l = 0.f;
+  const int n_load = min(n_cache, s_end);
+#pragma unroll 1
+  for (int s0 = s_begin + warp * RPW; s0 < s_end; s0 += BATCH * STEP) {  // warp-uniform
+    const int s_first = s0 + lane / LPR;
+    uint4 kr[BATCH], vr[BATCH];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        kf[j] = own ? kn[d0 + j] : 0.f;
-        vf[j] = own ? vn[d0 + j] : 0.f;
+    for (int i = 0; i < BATCH; ++i) {
+      const int s = s_first + i * STEP;
+      kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (s < n_load) {
+        kr[i] = *reinterpret_cast<const uint4*>(kc + (size_t)s * row_stride + d0);
+        vr[i] = *reinterpret_cast<const uint4*>(vc + (size_t)s * row_stride + d0);
       }
     }
-    float part_dot = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) part_dot += qr[j] * kf[j];
+    for (int i = 0; i < BATCH; ++i) {
+      const int s = s_first + i * STEP;
+      if (s0 + i * STEP >= s_end) break;  // warp-uniform: the shuffles below stay whole
+      float kf[8], vf[8];
+      bf16x8_to_float(kr[i], kf);
+      bf16x8_to_float(vr[i], vf);
+      if (has_own && s == n_cache) {  // the token itself
 #pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
-    if (s < s_end) {
-      const float score = part_dot * scale;
-      const float m_new = fmaxf(m, score);
-      const float corr = expf(m - m_new);
-      const float p = expf(score - m_new);
-      l = l * corr + p;
+        for (int j = 0; j < 8; ++j) {
+          kf[j] = kown[j];
+          vf[j] = vown[j];
+        }
+      }
+      float part_dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = acc[j] * corr + p * vf[j];
-      m = m_new;
+      for (int j = 0; j < 8; ++j) part_dot += qr[j] * kf[j];
+#pragma unroll
+      for (int o = LPR / 2; o > 0; o >>= 1)
+        part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
+      if (s < s_end) {
+        const float score = part_dot * scale;
+        const float m_new = fmaxf(m, score);
+        // (__expf: two instructions against expf's fifteen, twice a step in a
+        // loop that waits for instruction issue; its error, 2 ulp at these
+        // arguments <= 0, is far below a bf16 cache row's)
+        const float corr = __expf(m - m_new);
+        const float p = __expf(score - m_new);
+        l = l * corr + p;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[j] = acc[j] * corr + p * vf[j];
+        m = m_new;
+      }
     }
   }
+}
+
+template <int LPR, class Sync>
+static __device__ __forceinline__ void attn_split_partial_at(
+    const float (&qr)[8], const float (&kown)[8], const float (&vown)[8], bool has_own,
+    const bf16* __restrict__ kc, const bf16* __restrict__ vc, int row_stride, int n_cache,
+    int split, float scale, float* out, float* s_m, float* s_l, float* s_acc, int tid,
+    Sync sync) {
+  constexpr int Dh = LPR * 8;
+  constexpr int RPW = 32 / LPR;
+  constexpr int SLOTS = (ATTN_THREADS / 32) * RPW;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int slot = warp * RPW + lane / LPR;
+  const int d0 = (lane % LPR) * 8;
+  const int n_total = n_cache + (has_own ? 1 : 0);
+  float acc[8], m, l;
+  attn_walk<LPR, ATTN_THREADS>(qr, kown, vown, has_own, kc, vc, row_stride, n_cache,
+                               split * ATTN_ROWS, min((split + 1) * ATTN_ROWS, n_total), scale,
+                               tid, m, l, acc);
   if (lane % LPR == 0) {
     s_m[slot] = m;
     s_l[slot] = l;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s_acc[slot][d0 + j] = acc[j];
-  __syncthreads();
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
+  for (int j = 0; j < 8; ++j) s_acc[slot * Dh + d0 + j] = acc[j];
+  sync();
+  for (int d = tid; d < Dh; d += ATTN_THREADS) {
     float mx = -INFINITY;
     for (int t = 0; t < SLOTS; ++t) mx = fmaxf(mx, s_m[t]);
     float lsum = 0.f, a = 0.f;
@@ -171,7 +219,7 @@ static __device__ __forceinline__ void attn_split_partial(
       if (s_l[t] > 0.f) {
         const float c = expf(s_m[t] - mx);
         lsum += s_l[t] * c;
-        a += s_acc[t][d] * c;
+        a += s_acc[t * Dh + d] * c;
       }
     }
     out[2 + d] = a;
@@ -180,6 +228,26 @@ static __device__ __forceinline__ void attn_split_partial(
       out[1] = lsum;
     }
   }
+}
+
+// The same for a block of ATTN_THREADS threads of its own (one launch's
+// block per (slot, head, split)); the token's K/V at kn / vn, or nullptr.
+template <int LPR>
+static __device__ __forceinline__ void attn_split_partial(
+    const float (&qr)[8], const float* __restrict__ kn, const float* __restrict__ vn,
+    const bf16* __restrict__ kc, const bf16* __restrict__ vc, int row_stride, int n_cache,
+    int split, float scale, float* __restrict__ out) {
+  __shared__ float s_m[ATTN_MAX_SLOTS], s_l[ATTN_MAX_SLOTS];
+  __shared__ float s_acc[ATTN_ACC_FLOATS];
+  const int d0 = (threadIdx.x & 31) % LPR * 8;
+  float kown[8], vown[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    kown[j] = kn != nullptr ? kn[d0 + j] : 0.f;
+    vown[j] = kn != nullptr ? vn[d0 + j] : 0.f;
+  }
+  attn_split_partial_at<LPR>(qr, kown, vown, kn != nullptr, kc, vc, row_stride, n_cache, split,
+                             scale, out, s_m, s_l, s_acc, threadIdx.x, BlockSync());
 }
 
 // Merge ``nsplit`` partials (each Dh + 2 floats, at ``part``) into output
@@ -469,15 +537,71 @@ static int launch_rows_store(const float* in, void* out, int out_f32, int n, cud
 // ---------------------------------------------------------------------------
 // Sampling of one logits row by one block of SAMPLE_THREADS threads:
 // suppression -> repetition penalty -> top-p on the pre-temperature row ->
-// temperature -> top-k pivot -> argmax(row + g).  Top-p and top-k share one
-// bitonic sort in shared memory (value descending, ties to the lowest id --
-// the TPU kernels peel maxima with ties to the lowest lane).  The filtered
+// temperature -> top-k pivot -> argmax(row + g).  A top-p cut sorts the row
+// in shared memory (bitonic, value descending, ties to the lowest id -- the
+// TPU kernels peel maxima with ties to the lowest lane) and the top-k pivot
+// is read off that order; without one the pivot comes from a radix select
+// (sample_kth_largest), a twentieth of the sort's barriers.  The filtered
 // row overwrites ``row``; the token goes to tok_out[0] and is appended to
 // tok_buf[buf_len] (tok_buf is this row's S entries).  Dynamic shared
 // memory: sample_smem_bytes(V, NP).
 // ---------------------------------------------------------------------------
 static __device__ __forceinline__ bool sample_before(float ka, int ia, float kb, int ib) {
   return ka > kb || (ka == kb && ia < ib);
+}
+
+// Floats as unsigned keys of the same order (-inf lowest), and back.
+static __device__ __forceinline__ unsigned sample_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+static __device__ __forceinline__ float sample_unkey(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The k-th largest (k >= 1, duplicates counted) of r[0, V): a radix select
+// over the keys' four bytes -- a histogram of the candidates' next byte in
+// shared memory (integer atomics: the counts do not depend on their order),
+// then one warp finds the bin the k-th falls into.  Four passes of three
+// block barriers against the 66 of a bitonic sort of the padded row, which
+// only a top-p cut needs.  ``hist`` holds 256 ints, ``pick`` 2.
+static __device__ float sample_kth_largest(const float* r, int V, int k, int* hist, int* pick) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  unsigned prefix = 0u, mask = 0u;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += nt) hist[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < V; i += nt) {
+      const unsigned key = sample_key(r[i]);
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1);
+    }
+    __syncthreads();
+    if (tid < 32) {  // lane l owns bins 255 - 8 l down to 248 - 8 l
+      int mine = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mine += hist[255 - 8 * tid - j];
+      int above = mine;  // inclusive sum over the lanes before this one
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, above, o);
+        if (tid >= o) above += t;
+      }
+      above -= mine;  // candidates in bins above this lane's
+      if (above < k && k <= above + mine) {  // exactly one lane
+        int bin = 255 - 8 * tid;
+        while (above + hist[bin] < k) above += hist[bin--];
+        pick[0] = bin;
+        pick[1] = k - above;
+      }
+    }
+    __syncthreads();
+    prefix |= (unsigned)pick[0] << shift;
+    mask |= 255u << shift;
+    k = pick[1];
+    // (pick is rewritten only after the next pass's two barriers)
+  }
+  return sample_unkey(prefix);
 }
 
 static __device__ void sample_row(const SampleParams& a, float* __restrict__ row,
@@ -521,7 +645,11 @@ static __device__ void sample_row(const SampleParams& a, float* __restrict__ row
   const int k = min(a.top_k, V);
   const bool need_top_k = k < V;
   int n_keep = V;
-  if (need_top_p || need_top_k) {
+  float kth = DEC_NEG;  // the k-th largest of the filtered, unscaled row
+  if (need_top_k && !need_top_p) {
+    int* hist = reinterpret_cast<int*>(scan);  // (free here: SAMPLE_THREADS entries)
+    kth = sample_kth_largest(r, V, k, hist, hist + 256);
+  } else if (need_top_p) {  // the cut needs the order itself
     for (int i = tid; i < NP; i += nt) {
       key[i] = i < V ? r[i] : -INFINITY;
       idx[i] = i;
@@ -545,7 +673,7 @@ static __device__ void sample_row(const SampleParams& a, float* __restrict__ row
       }
     }
 
-    if (need_top_p) {
+    {
       const float mx = key[0];
       float zs = 0.f;
       for (int j = tid; j < V; j += nt) zs += expf(key[j] - mx);
@@ -579,15 +707,16 @@ static __device__ void sample_row(const SampleParams& a, float* __restrict__ row
         if (j >= n_keep) r[idx[j]] = DEC_NEG;
       __syncthreads();
     }
+    // kept entries are a prefix of the sorted order, everything past it is -1e30
+    if (k - 1 < n_keep) kth = key[k - 1];
   }
 
   for (int i = tid; i < V; i += nt) r[i] = r[i] * a.inv_temperature;
   __syncthreads();
   if (need_top_k) {
-    // the k-th largest of the filtered row: kept entries are a prefix of
-    // the sorted order, everything past it is -1e30; scaling by
-    // 1/temperature is monotone, so the scaled pivot is the scaled value
-    const float pivot = (k - 1 < n_keep ? key[k - 1] : DEC_NEG) * a.inv_temperature;
+    // scaling by 1/temperature is monotone, so the scaled pivot is the
+    // scaled k-th largest
+    const float pivot = kth * a.inv_temperature;
     for (int i = tid; i < V; i += nt)
       if (r[i] < pivot) r[i] = DEC_NEG;
     __syncthreads();
@@ -633,6 +762,23 @@ static inline int next_pow2(int v) {
   int p = 1;
   while (p < v) p <<= 1;
   return p;
+}
+
+// The sampling settings of a whole-step argument struct (K1Args, K2Args).
+template <class Args>
+static inline SampleParams sample_params_of(const Args* a) {
+  SampleParams s;
+  s.V = a->V;
+  s.NP = next_pow2(a->V);
+  s.S = a->S;
+  s.n_suppressed = a->n_suppressed;
+  for (int i = 0; i < DEC_MAX_SUPPRESSED; ++i) s.suppressed[i] = a->suppressed[i];
+  s.use_prev = a->use_prev;
+  s.rep_penalty = a->rep_penalty;
+  s.top_p = a->top_p;
+  s.inv_temperature = a->inv_temperature;
+  s.top_k = a->top_k;
+  return s;
 }
 
 static inline size_t sample_smem_bytes(int V, int NP) {

@@ -1,5 +1,6 @@
-// K1: the whole B=1 t2s decode step on Hopper (sm_90a), as a chain of
-// hand-written kernels launched from one host entry point.
+// K1: the whole B=1 t2s decode step on Hopper (sm_90a): one persistent
+// cooperative kernel for the model (decode_step_persistent.cuh at one row)
+// and one launch for the sampling chain.
 //
 // Replaces the TPU kernel gsv_tts_tpu/ops/fused_step.py:_kernel_sample
 // (wrapper fused_decode_step_sample): embedding + positional entry, L
@@ -8,25 +9,20 @@
 // pre-temperature row, temperature, top-k pivot, Gumbel argmax).
 //
 // What bounds it on the card: the weights.  Every step reads every layer's
-// matrices once, 2*L*(4*D*D + 2*D*M) bytes of bf16 -- about 151 MB at the
-// flagship widths (L=24, D=512, M=2048) -- plus the head (V*D) and the
-// attended cache rows, all at batch 1, so the step is a string of
-// bandwidth-bound GEMVs whose floor, computed from those bytes at the
-// H100's published 3.35 TB/s, is ~45 us (a bound, not a measurement).
-// This first design does the simplest thing about it that is right: one
-// warp per output row streams that row with 16-byte loads (coalesced,
-// read exactly once), activations stay in float32 scratch of a few KB, and
-// nothing else touches device memory twice.  The attention over the cache
-// (the other byte stream: 2*L*kv_len*D bytes) is split into 64-row pieces
-// so that every head's walk spreads over many SMs.  It pays one launch per
-// GEMV/attention/LayerNorm (8 per layer) instead of fusing; a persistent
-// fused kernel, wgmma/TMA and CUDA-graph capture are later work.
-//
-// The layer itself (GEMV, attention with the append, LayerNorm) is
-// decode_common.cuh's decode_layer_rows at one row, the code K2, K5 and K6
-// run; this file adds the embedding, the head and the sampling around it.
-// Its kernels read kv_len on the device, so the embedding kernel copies the
-// host's kv_len into a one-int word of the workspace first.
+// matrices once, 2*L*(4*D*D + 2*D*M) bytes of bf16 -- 151 MB at the flagship
+// widths (L=24, D=512, M=2048) -- plus the head (V*D) and the attended cache
+// rows, all at one row: bytes, at 1-2 flops each.  The first version of
+// this kernel was a chain of 195 launches a step (8 a layer) and took as
+// long as the host needed to issue them.  decode_step_persistent.cuh says
+// what the one-launch design does about that: a ring of bulk asynchronous
+// copies that keeps the weight stream running through every phase, values
+// that carry their own arrival tags from phase to phase instead of launches
+// or barriers, LayerNorm folded into the staging of the product that reads
+// it, attention merged inside one block per head, split-K where a block has
+// fewer rows than warps.  What is left of a step is the chain of dependent
+// trips to L2 between its 121 phases, not bytes (PERF.md).  The chain stays
+// below as k1_decode_step_chain, for timing beside the persistent kernel in
+// one process; nothing in the package calls it.
 //
 // Precision follows the TPU kernel: bf16 weights and caches, activations
 // rounded to bf16 only where they enter a matrix product, float32
@@ -34,7 +30,7 @@
 // online softmax (this token's own K/V enter in float32, as in the TPU
 // kernel), filtered row values of -1e30 for removed ids.
 #define DEC_WITH_ROWS
-#include "decode_common.cuh"
+#include "decode_step_persistent.cuh"
 
 struct K1Args {
   int L, D, H, M, V, S, P;
@@ -63,12 +59,19 @@ struct K1Args {
   float* row_out;  // [V]  logits, then the filtered row
   int* tok_out;    // [1]
   int* err;        // [1]  ERR_* bits
-  int* kv_word;    // [1]  receives kv_len for the layer kernels
+  int* kv_word;    // [1]  receives kv_len for the chain's layer kernels
+  // what the persistent kernel reads besides (both whole-step structs carry
+  // all of it; K1 hands over through ``tagged``, K2 through ``pre`` and ``bar``)
+  const LayerWeights* layers_dev;  // [L] the layer table on the device
+  PsTagged* tagged;                // [D | D | 3D | D | M]: one row's h, pre, qkv, attn, mlp
+  float* pre;                      // [B, D]  workspace
+  unsigned long long* bar;         // [1]  the grid barrier's counter
+  unsigned epoch;                  // StepArgs::epoch
 };
 
 // ---------------------------------------------------------------------------
-// x = float(bf16(audio_emb[last_tok]) + bf16(alpha * pe[pe_idx]));
-// *kv_word = kv_len
+// The chain's embedding: x = float(bf16(audio_emb[last_tok]) + bf16(alpha *
+// pe[pe_idx])); *kv_word = kv_len
 // ---------------------------------------------------------------------------
 __global__ void k1_embed(const bf16* __restrict__ emb, const float* __restrict__ pe,
                          float alpha, const int* __restrict__ last_tok, int V, int D,
@@ -98,11 +101,51 @@ k1_sample(SampleParams p, float* row, const float* gumbel, int* tok_buf, int* to
   sample_row(p, row, gumbel, tok_buf, tok_out, buf_len, suppress != 0);
 }
 
+static int launch_k1_sample(const K1Args* a, cudaStream_t st) {
+  const SampleParams s = sample_params_of(a);
+  k1_sample<<<1, SAMPLE_THREADS, sample_smem_bytes(s.V, s.NP), st>>>(
+      s, a->row_out, a->gumbel, a->tok_buf, a->tok_out, a->buf_len, a->suppress);
+  DEC_CHECK();
+  return 0;
+}
+
 // ---------------------------------------------------------------------------
-// Host entry point: the whole step, launched on ``stream``.  Returns the
-// first CUDA error raised by a launch (0 when every launch was accepted).
+// Host entry point: the whole step in two launches on ``stream``.  Returns
+// the first CUDA error raised by a launch (0 when both were accepted).
 // ---------------------------------------------------------------------------
-extern "C" int k1_decode_step(const K1Args* a, const LayerWeights* layers, void* stream) {
+extern "C" int k1_decode_step(const K1Args* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  StepArgs s;
+  s.B = 1;
+  s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.V = a->V, s.S = a->S, s.P = a->P;
+  s.alpha = a->alpha, s.attn_scale = a->attn_scale;
+  s.audio_emb = a->audio_emb, s.pe = a->pe, s.predict_w = a->predict_w;
+  s.k_cache = a->k_cache, s.v_cache = a->v_cache;
+  s.kv_len = nullptr, s.x_len = nullptr, s.last_tok = a->last_tok;
+  s.kv_i = a->kv_len, s.pe_i = a->pe_idx;
+  s.layers = a->layers_dev;
+  PsTagged* t = a->tagged;  // one row: the values carry their tags
+  s.x = a->x;
+  s.h = t, s.pre = t + a->D, s.qkv = t + 2 * a->D, s.attn = t + 5 * a->D, s.mlp = t + 6 * a->D;
+  s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
+  s.epoch = a->epoch, s.bar = nullptr;
+  int rc;
+  if ((rc = launch_decode_step_persistent<1>(s, st))) return rc;
+  return launch_k1_sample(a, st);
+}
+
+// ``n`` empty grid barriers on ``bar`` (the cost of one, for chip_smoke.py).
+extern "C" int k1_barrier_loop(void* bar, int n, void* err, void* stream) {
+  return launch_barrier_loop((unsigned long long*)bar, n, (int*)err, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The first design, a chain of 195 launches: embedding, L x
+// decode_common.cuh:decode_layer_rows at one row (8 launches a layer), head,
+// sampling.  Its layer kernels read kv_len on the device, so the embedding
+// kernel copies the host's kv_len into a->kv_word first.
+// ---------------------------------------------------------------------------
+extern "C" int k1_decode_step_chain(const K1Args* a, const LayerWeights* layers, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = a->D, V = a->V, S = a->S;
   int rc;
@@ -119,20 +162,5 @@ extern "C" int k1_decode_step(const K1Args* a, const LayerWeights* layers, void*
   }
   if ((rc = launch_rows_gemv(1, a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0, st)))
     return rc;
-
-  SampleParams s;
-  s.V = V;
-  s.NP = next_pow2(V);
-  s.S = S;
-  s.n_suppressed = a->n_suppressed;
-  for (int i = 0; i < DEC_MAX_SUPPRESSED; ++i) s.suppressed[i] = a->suppressed[i];
-  s.use_prev = a->use_prev;
-  s.rep_penalty = a->rep_penalty;
-  s.top_p = a->top_p;
-  s.inv_temperature = a->inv_temperature;
-  s.top_k = a->top_k;
-  k1_sample<<<1, SAMPLE_THREADS, sample_smem_bytes(V, s.NP), st>>>(
-      s, a->row_out, a->gumbel, a->tok_buf, a->tok_out, a->buf_len, a->suppress);
-  DEC_CHECK();
-  return 0;
+  return launch_k1_sample(a, st);
 }

@@ -1,6 +1,7 @@
 // K2: the whole t2s decode step for a wave of B cache slots on Hopper
-// (sm_90a), as a chain of hand-written kernels launched from one host entry
-// point.
+// (sm_90a): one persistent cooperative kernel for the model
+// (decode_step_persistent.cuh at 2, 4 or 8 rows) and one launch for the
+// per-row sampling chain.
 //
 // Replaces the TPU kernel gsv_tts_tpu/ops/fused_step.py:_kernel_sample_b
 // (wrapper fused_decode_step_sample_batched): per-slot embedding +
@@ -10,41 +11,41 @@
 // the new row, the logits head and the per-row sampling chain.
 //
 // What bounds it on the card: bytes.  A step reads every layer's matrices,
-// 2*L*(4*D*D + 2*D*M) + 2*V*D bytes of bf16 (about 152 MB at L=24, D=512,
-// M=2048, V=1025), plus each slot's attended cache rows, 4*L*kv_len[b]*D
-// bytes.  At B <= 8 the products do at most 2*B flops per weight, far below
-// the card's operations-per-byte ridge, so tensor cores would not help: the
-// point of the TPU kernel -- the weight stream crosses device memory ONCE
-// per step whatever B is -- is the property to keep.  The GEMV here does
-// that: one warp per output row, each lane loads its 16 bytes of the weight
-// row once and accumulates B dot products against the B activation rows,
-// which sit in shared memory as bf16 (they are rounded to bf16 where they
-// enter a product anyway, so this is exact and halves the footprint).
-// Calling the B=1 kernels B times would read the weights B times, which is
-// what this kernel exists to avoid.
+// 2*L*(4*D*D + 2*D*M) + 2*V*D bytes of bf16 (152 MB at L=24, D=512, M=2048,
+// V=1025), plus each slot's attended cache rows, 4*L*kv_len[b]*D bytes.  At
+// B <= 8 the products do at most 2*B flops per weight, far below the card's
+// operations-per-byte ridge: the point of the TPU kernel -- the weight
+// stream crosses device memory ONCE per step whatever B is -- is the
+// property to keep.  The persistent kernel does: a warp takes a weight row
+// (or a slice of its K) from the shared-memory ring once and accumulates B
+// dot products against the B activation rows, which sit in shared memory as
+// bf16 (they are rounded to bf16 where they enter a product anyway).  The
+// kernel is built for 2, 4 and 8 rows; a wave of 1, 3, 5, 6 or 7 runs in the
+// next size up, its dead rows touching no cache, no tok_buf and no output
+// (the weights cross once whatever the size).
 //
-// The attention runs on a (head, split, slot) grid of 64-row splits.  The
-// per-slot counters stay on the device: every block reads its own slot's
-// kv_len, blocks past it exit at once, and split 0 appends the slot's K/V
-// row at kv_len[b].  The TPU kernel's 8-row read-modify-write windows and
-// strided [B, block, D] walk buffers answer TPU DMA constraints and have no
-// counterpart here.  Its three softmax modes ("rows", "vec", "shared") are
-// one function in exact arithmetic -- "rows" and "vec" are bit-identical,
-// "shared" trades a shared running max for fewer vector ops on the TPU --
-// so one kernel computes the exact per-row online softmax.
+// The first version was a chain of 195 launches a step and ran at the
+// host's launch rate; decode_step_persistent.cuh says what the one-launch
+// design does about that (for a wave: a grid barrier between phases, the
+// weight stream running through all of them).  The chain stays below as
+// k2_decode_step_batched_chain, for timing beside the persistent kernel in
+// one process; nothing in the package calls it.
+//
+// The per-slot counters stay on the device: the block of a (slot, head) reads
+// its own slot's kv_len, walks no row past it, and appends the slot's K/V row
+// at kv_len[b].  The TPU kernel's 8-row read-modify-write
+// windows and strided [B, block, D] walk buffers answer TPU DMA constraints
+// and have no counterpart here.  Its three softmax modes ("rows", "vec",
+// "shared") are one function in exact arithmetic -- "rows" and "vec" are
+// bit-identical, "shared" trades a shared running max for fewer vector ops
+// on the TPU -- so one kernel computes the exact per-row online softmax.
 //
 // Out-of-range values are flagged, never clamped: a last_tok outside
 // [0, V), a kv_len outside [0, S) or a positional index outside [0, P) sets
 // a bit in ``err`` (the slot then produces NaN or skips its append), which
 // the host reads where it synchronises anyway.
-//
-// The layer itself (GEMV, attention with the append, LayerNorm) is
-// decode_common.cuh's decode_layer_rows, shared with K5 and K6; this file
-// adds the embedding, the head and the sampling around it.  Like K1 it pays
-// one launch per GEMV/attention/LayerNorm (8 per layer); a persistent fused
-// kernel and CUDA-graph capture are later work.
 #define DEC_WITH_ROWS
-#include "decode_common.cuh"
+#include "decode_step_persistent.cuh"
 
 struct K2Args {
   int B, L, D, H, M, V, S, P;
@@ -77,11 +78,19 @@ struct K2Args {
   float* row_out;  // [B, V]  logits, then the filtered rows
   int* tok_out;    // [B]
   int* err;        // [1]  ERR_* bits
+  // what the persistent kernel reads besides (both whole-step structs carry
+  // all of it; K1 hands over through ``tagged``, K2 through ``pre`` and ``bar``)
+  const LayerWeights* layers_dev;  // [L] the layer table on the device
+  PsTagged* tagged;                // [D | D | 3D | D | M]: one row's h, pre, qkv, attn, mlp
+  float* pre;                      // [B, D]  workspace
+  unsigned long long* bar;         // [1]  the grid barrier's counter
+  unsigned epoch;                  // StepArgs::epoch
 };
 
 // ---------------------------------------------------------------------------
-// x[b] = float(bf16(audio_emb[last_tok[b]]) + bf16(alpha * pe[pe_idx[b]])),
-// pe_idx = max(kv_len - x_len, 0).  One block per slot.
+// The chain's embedding: x[b] = float(bf16(audio_emb[last_tok[b]]) +
+// bf16(alpha * pe[pe_idx[b]])), pe_idx = max(kv_len - x_len, 0).  One block
+// per slot.
 // ---------------------------------------------------------------------------
 __global__ void k2_embed(const bf16* __restrict__ emb, const float* __restrict__ pe,
                          float alpha, const int* __restrict__ last_tok,
@@ -115,12 +124,52 @@ k2_sample(SampleParams p, float* rows, const float* gumbel, int* tok_buf, int* t
              tok_out + b, buf_len[b], step_idx[b] < suppress_until);
 }
 
+static int launch_k2_sample(const K2Args* a, cudaStream_t st) {
+  const SampleParams s = sample_params_of(a);
+  k2_sample<<<a->B, SAMPLE_THREADS, sample_smem_bytes(s.V, s.NP), st>>>(
+      s, a->row_out, a->gumbel, a->tok_buf, a->tok_out, a->buf_len, a->step_idx,
+      a->suppress_until);
+  DEC_CHECK();
+  return 0;
+}
+
 // ---------------------------------------------------------------------------
-// Host entry point: the whole step, launched on ``stream``.  Returns the
-// first CUDA error raised by a launch (0 when every launch was accepted).
+// Host entry point: the whole step in two launches on ``stream``.  Returns
+// the first CUDA error raised by a launch (0 when both were accepted).
 // ---------------------------------------------------------------------------
-extern "C" int k2_decode_step_batched(const K2Args* a, const LayerWeights* layers,
-                                      void* stream) {
+extern "C" int k2_decode_step_batched(const K2Args* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  StepArgs s;
+  s.B = a->B;
+  s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.V = a->V, s.S = a->S, s.P = a->P;
+  s.alpha = a->alpha, s.attn_scale = a->attn_scale;
+  s.audio_emb = a->audio_emb, s.pe = a->pe, s.predict_w = a->predict_w;
+  s.k_cache = a->k_cache, s.v_cache = a->v_cache;
+  s.kv_len = a->kv_len, s.x_len = a->x_len, s.last_tok = a->last_tok;
+  s.kv_i = 0, s.pe_i = 0;
+  s.layers = a->layers_dev;
+  s.x = a->x, s.h = a->h, s.pre = a->pre, s.qkv = a->qkv, s.attn = a->attn, s.mlp = a->mlp;
+  s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
+  s.epoch = 0, s.bar = a->bar;  // a wave: barriers between the phases
+  int rc;
+  if (a->B < 1 || a->B > 8)
+    rc = (int)cudaErrorInvalidValue;
+  else if (a->B <= 2)
+    rc = launch_decode_step_persistent<2>(s, st);
+  else if (a->B <= 4)
+    rc = launch_decode_step_persistent<4>(s, st);
+  else
+    rc = launch_decode_step_persistent<8>(s, st);
+  if (rc) return rc;
+  return launch_k2_sample(a, st);
+}
+
+// ---------------------------------------------------------------------------
+// The first design, a chain of 195 launches: per-slot embedding, L x
+// decode_common.cuh:decode_layer_rows (8 launches a layer), head, sampling.
+// ---------------------------------------------------------------------------
+extern "C" int k2_decode_step_batched_chain(const K2Args* a, const LayerWeights* layers,
+                                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int B = a->B, D = a->D, M = a->M, V = a->V, S = a->S;
   int rc;
@@ -139,21 +188,5 @@ extern "C" int k2_decode_step_batched(const K2Args* a, const LayerWeights* layer
   if ((rc = launch_rows_gemv(B, a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0,
                              st)))
     return rc;
-
-  SampleParams s;
-  s.V = V;
-  s.NP = next_pow2(V);
-  s.S = S;
-  s.n_suppressed = a->n_suppressed;
-  for (int i = 0; i < DEC_MAX_SUPPRESSED; ++i) s.suppressed[i] = a->suppressed[i];
-  s.use_prev = a->use_prev;
-  s.rep_penalty = a->rep_penalty;
-  s.top_p = a->top_p;
-  s.inv_temperature = a->inv_temperature;
-  s.top_k = a->top_k;
-  k2_sample<<<B, SAMPLE_THREADS, sample_smem_bytes(V, s.NP), st>>>(
-      s, a->row_out, a->gumbel, a->tok_buf, a->tok_out, a->buf_len, a->step_idx,
-      a->suppress_until);
-  DEC_CHECK();
-  return 0;
+  return launch_k2_sample(a, st);
 }

@@ -9,6 +9,12 @@
   slots with per-slot counters (TPU kernel ``_kernel_sample_b``), CUDA source
   ``csrc/k2_decode_step_batched.cu``; every layer's weights cross device
   memory once per step for all ``B`` rows.
+  Both are two launches a step: one persistent cooperative kernel for the
+  model (``csrc/decode_step_persistent.cuh``: the weights streamed through a
+  shared-memory ring; between phases tagged values at one row, a grid
+  barrier for a wave) and the sampling chain.  Their first design, a chain
+  of 195 launches, stays in the sources and is bound here as ``*_chain`` for
+  timing beside them; nothing calls it.
 * K5, :func:`fused_decode_step`: a given hidden row through all layers at
   B=1, no embedding, head or sampling (TPU kernel ``_kernel``), CUDA source
   ``csrc/k5_decode_layers.cu``; ``kv_len`` is a ``[1]`` tensor that stays on
@@ -50,11 +56,13 @@ NEG = -1e30
 MAX_SUPPRESSED = 8
 HEAD_DIMS = (8, 16, 32, 64, 128)  # a cache row is read by Dh/8 lanes of a warp
 ATTN_ROWS = 64  # cache rows per attention split (csrc ATTN_ROWS)
+TRACE_BYTES = 4096  # csrc PS_TRACE_BYTES
 MAX_VOCAB = 2048  # the sampling block keeps the row and its sort in shared memory
 #: slots K2 takes: row accumulators its weight-streaming GEMV keeps per warp
 #: (csrc K2_MAX_B); larger waves decode through the generic step
 MAX_FUSED_B = 8
-GEMV_SMEM = 48 * 1024  # K2 keeps its B activation rows in static-limit shared memory
+GEMV_SMEM = 48 * 1024  # the chain's GEMV keeps its B activation rows in static-limit shared memory
+PS_STAGE_BYTES = 16384  # a stage of the persistent kernel's weight ring (csrc PS_STAGE_BYTES)
 #: (library name, sources) for ``cuda_build``
 K1_LIBRARY = ("gsv_k1", ["k1_decode_step.cu"])
 K2_LIBRARY = ("gsv_k2", ["k2_decode_step_batched.cu"])
@@ -227,6 +235,11 @@ _SAMPLE_FIELDS = ([("n_suppressed", ctypes.c_int),
                   + [("top_k", ctypes.c_int)])
 _WORK_FIELDS = [(n, ctypes.c_void_p) for n in ("x", "h", "qkv", "attn", "mlp", "part",
                                                "row_out", "tok_out", "err")]
+# what the persistent kernels read besides: the layer table on the device;
+# K1's tagged workspace and the launch's number; K2's extra workspace rows and
+# its grid barrier's counter
+_PERSISTENT_FIELDS = ([(n, ctypes.c_void_p) for n in ("layers_dev", "tagged", "pre", "bar")]
+                      + [("epoch", ctypes.c_uint)])
 
 
 class _K1Args(ctypes.Structure):
@@ -236,7 +249,7 @@ class _K1Args(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in ("audio_emb", "pe", "predict_w", "k_cache",
                                           "v_cache", "tok_buf", "last_tok", "gumbel")]
         + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress")]
-        + _SAMPLE_FIELDS + _WORK_FIELDS + [("kv_word", ctypes.c_void_p)]
+        + _SAMPLE_FIELDS + _WORK_FIELDS + [("kv_word", ctypes.c_void_p)] + _PERSISTENT_FIELDS
     )
 
 
@@ -248,7 +261,7 @@ class _K2Args(ctypes.Structure):
                                           "v_cache", "tok_buf", "kv_len", "x_len",
                                           "last_tok", "buf_len", "step_idx", "gumbel")]
         + [("suppress_until", ctypes.c_int)]
-        + _SAMPLE_FIELDS + _WORK_FIELDS
+        + _SAMPLE_FIELDS + _WORK_FIELDS + _PERSISTENT_FIELDS
     )
 
 
@@ -265,9 +278,13 @@ class _K5Args(ctypes.Structure):
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k1_decode_step.cu``."""
     lib = cuda_build.load_library(*K1_LIBRARY)
-    lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.POINTER(_LayerWeights),
-                                   ctypes.c_void_p]
-    lib.k1_decode_step.restype = ctypes.c_int
+    lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.c_void_p]
+    lib.k1_decode_step_chain.argtypes = [ctypes.POINTER(_K1Args),
+                                         ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
+    lib.k1_barrier_loop.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_void_p]
+    for fn in (lib.k1_decode_step, lib.k1_decode_step_chain, lib.k1_barrier_loop):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -275,9 +292,11 @@ def load_kernels() -> ctypes.CDLL:
 def load_batched_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k2_decode_step_batched.cu``."""
     lib = cuda_build.load_library(*K2_LIBRARY)
-    lib.k2_decode_step_batched.argtypes = [ctypes.POINTER(_K2Args),
-                                           ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
-    lib.k2_decode_step_batched.restype = ctypes.c_int
+    lib.k2_decode_step_batched.argtypes = [ctypes.POINTER(_K2Args), ctypes.c_void_p]
+    lib.k2_decode_step_batched_chain.argtypes = [ctypes.POINTER(_K2Args),
+                                                 ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
+    for fn in (lib.k2_decode_step_batched, lib.k2_decode_step_batched_chain):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -322,7 +341,10 @@ def check(dev) -> None:
         what = [name for bit, name in ((1, "last_tok outside [0, V)"),
                                        (2, "kv_len outside the cache"),
                                        (4, "positional index outside the table"),
-                                       (8, "prefill x_lens / xy_lens outside the prompt block"))
+                                       (8, "prefill x_lens / xy_lens outside the prompt block"),
+                                       (16, "a wait inside the persistent step kernel gave up "
+                                            "(its results are void; build a new K1Table "
+                                            "before decoding on)"))
                 if bits & bit]
         raise RuntimeError("t2s kernel: " + ", ".join(what))
 
@@ -352,11 +374,11 @@ class LayerTable:
         self.layers = (_LayerWeights * self.L)(*[
             _LayerWeights(*[self.ptr(lp[n], shapes[n], torch.float32 if n.startswith("ln") else bf)
                             for n in _LAYER_FIELDS]) for lp in layers])
-        # [rows, D | D | 3D | D | M]: B=1 kernels use row 0, the others rows [0, B)
+        # [rows, D | D | 3D | D | M | D]: B=1 kernels use row 0, the others rows [0, B)
         R = MAX_FUSED_B
-        ws = torch.empty(R * (6 * D + M), dtype=torch.float32, device=self.device)
-        self.x, self.h, self.qkv, self.attn, self.mlp = torch.split(
-            ws, [R * D, R * D, 3 * R * D, R * D, R * M])
+        ws = torch.empty(R * (7 * D + M), dtype=torch.float32, device=self.device)
+        self.x, self.h, self.qkv, self.attn, self.mlp, self.pre = torch.split(
+            ws, [R * D, R * D, 3 * R * D, R * D, R * M, R * D])
         self.err = error_word(self.device)
         self.part = torch.empty(0, dtype=torch.float32, device=self.device)
         self.kept = layers
@@ -373,6 +395,7 @@ class LayerTable:
         Dh outputs per slot, head and 64-row split), grown to fit B slots of
         an S-row cache."""
         n = B * H * -(-S // ATTN_ROWS) * (Dh + 2)
+        n = max(n, TRACE_BYTES // 4)  # (a traced build of the persistent kernel marks here)
         if self.part.numel() < n:
             self.part = torch.empty(n, dtype=torch.float32, device=self.device)
         return self.part
@@ -409,9 +432,33 @@ class K1Table(LayerTable):
         self.P = pe.shape[0]
         self.pe = self.ptr(pe, (self.P, D), torch.float32)
         self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
-        # K1's kv_len is a host int; its layer kernels read it from this word
+        # K1's kv_len is a host int; the chain's layer kernels read it from this word
         self.kv_word = torch.zeros(1, dtype=torch.int32, device=self.device)
+        # the persistent kernels' copy of the layer table; what K1's phases
+        # hand to each other: (value, tag) pairs for one row of
+        # [D | D | 3D | D | M], the tag naming the launch (``epoch``, counted
+        # here from 1 in 24 bits) and the layer that wrote the value; and the
+        # counter of the grid barrier between K2's phases (it only grows)
+        self.layers_dev = torch.frombuffer(bytearray(bytes(self.layers)),
+                                           dtype=torch.uint8).to(self.device)
+        self.tagged = torch.zeros((6 * D + self.M, 2), dtype=torch.int32, device=self.device)
+        self.epoch = 0
+        self.bar = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.params = params
+
+    def check_persistent(self, tagged: bool):
+        """Raise on widths the persistent kernel does not take (K1's hands
+        over through ``tagged`` values, K2's through barriers).  What is left
+        to the launch: the shared memory a block needs (its rows of D and M
+        floats beside the ring), refused as an invalid value."""
+        _need(2 * max(self.D, self.M) <= PS_STAGE_BYTES,
+              f"a weight row of {max(self.D, self.M)} bf16 exceeds a {PS_STAGE_BYTES}-byte "
+              f"ring stage")
+        if tagged:  # without barriers, what orders a buffer's writers behind its readers
+            sms = torch.cuda.get_device_properties(self.device).multi_processor_count
+            _need(min(3 * self.D, self.M) >= sms and self.L <= 255,
+                  f"D={self.D}, M={self.M}: every one of the card's {sms} blocks needs a row of "
+                  f"the QKV and MLP-1 products (and at most 255 layers)")
 
     def fill(self, a, sa, sup):
         """The fields both whole-step argument structs share: widths,
@@ -427,6 +474,10 @@ class K1Table(LayerTable):
         a.top_p = sa.top_p
         a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
         a.top_k = sa.top_k
+        self.epoch = self.epoch % 0xFFFFFE + 1  # 1 .. 2^24 - 2: never 0, the fresh workspace's
+        a.layers_dev, a.tagged, a.epoch = (self.layers_dev.data_ptr(), self.tagged.data_ptr(),
+                                           self.epoch)
+        a.pre, a.bar = self.pre.data_ptr(), self.bar.data_ptr()
 
 
 def _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa, suppress_until, suppressed):
@@ -455,19 +506,20 @@ def _check_cuda_tensors(dev, table, k_cache, named):
           "the caches must be 16-byte aligned")
 
 
-def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
-                             x_len: int, last_tok, buf_len: int, step_idx: int,
-                             gumbel, *, sa, suppress_until: int = 0,
-                             suppressed=(), tok_out=None, row_out=None):
-    """K1: one full decode step at B=1.
+def _launch(entry, what: str, a, dev, *table_layers):
+    """Call a whole-step entry point on ``dev``'s current stream; raise on the
+    CUDA error of a refused launch (an invalid value: widths that need more
+    shared memory than a block has; a cooperative launch too large: a card
+    that cannot hold one block per SM, shared with another process)."""
+    rc = entry(ctypes.byref(a), *table_layers, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
-    ``k_cache``/``v_cache`` [L, 1, S, H, Dh] (updated in place at row
-    ``kv_len``); ``tok_buf`` [1, S] int32 (token appended at ``buf_len``);
-    ``last_tok`` [1] int32 on the device; ``gumbel`` [1, V] float32 noise;
-    ``kv_len``/``x_len``/``buf_len``/``step_idx`` host ints.  ``tok_out``
-    [1] int32 / ``row_out`` [1, V] float32 receive the results when given.
-    Returns ``(tok, row, k_cache, v_cache)``.
-    """
+
+def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx,
+             gumbel, sa, suppress_until, suppressed, tok_out, row_out):
+    """Check K1's arguments; on the CPU return None, else the filled argument
+    struct with its table and outputs ``(a, table, tok_out, row_out)``."""
     L, B, S, H, Dh = k_cache.shape
     _need(B == 1, f"batch {B}: this kernel is B=1")
     sup, V, P = _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa,
@@ -477,15 +529,13 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     _need(0 <= buf_len <= S, f"buf_len {buf_len} does not fit S={S}")
     dev = k_cache.device
     if dev.type == "cpu":
-        return fused_decode_step_sample_ref(
-            params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
-            step_idx, gumbel, sa=sa, suppress_until=suppress_until,
-            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+        return None
     _need(dev.type == "cuda", f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
 
     table = params.get("k1_table")
     if table is None:
         table = K1Table(params)
+    table.check_persistent(tagged=True)
     if tok_out is None:
         tok_out = torch.empty(1, dtype=torch.int32, device=dev)
     if row_out is None:
@@ -509,31 +559,55 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     table.work(a, 1, S, H, Dh)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
     a.kv_word = table.kv_word.data_ptr()
+    return a, table, tok_out, row_out
 
-    rc = load_kernels().k1_decode_step(ctypes.byref(a), table.layers,
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc}")
+
+def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
+                             x_len: int, last_tok, buf_len: int, step_idx: int,
+                             gumbel, *, sa, suppress_until: int = 0,
+                             suppressed=(), tok_out=None, row_out=None):
+    """K1: one full decode step at B=1.
+
+    ``k_cache``/``v_cache`` [L, 1, S, H, Dh] (updated in place at row
+    ``kv_len``); ``tok_buf`` [1, S] int32 (token appended at ``buf_len``);
+    ``last_tok`` [1] int32 on the device; ``gumbel`` [1, V] float32 noise;
+    ``kv_len``/``x_len``/``buf_len``/``step_idx`` host ints.  ``tok_out``
+    [1] int32 / ``row_out`` [1, V] float32 receive the results when given.
+    Returns ``(tok, row, k_cache, v_cache)``.
+    """
+    prepared = _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
+                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out)
+    if prepared is None:
+        return fused_decode_step_sample_ref(
+            params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
+            step_idx, gumbel, sa=sa, suppress_until=suppress_until,
+            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+    a, _, tok_out, row_out = prepared
+    _launch(load_kernels().k1_decode_step, "K1", a, k_cache.device)
     fused_decode_step_sample.launches += 1
     return tok_out, row_out, k_cache, v_cache
 
 
-def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, x_len,
-                                     last_tok, buf_len, step_idx, gumbel, *, sa,
-                                     suppress_until: int = 0, suppressed=(),
-                                     tok_out=None, row_out=None):
-    """K2: one full decode step for a wave of ``B <= MAX_FUSED_B`` slots.
+def fused_decode_step_sample_chain(params, k_cache, v_cache, tok_buf, kv_len: int,
+                                   x_len: int, last_tok, buf_len: int, step_idx: int,
+                                   gumbel, *, sa, suppress_until: int = 0,
+                                   suppressed=(), tok_out=None, row_out=None):
+    """K1's first design, a chain of 195 launches, on CUDA tensors: the same
+    arguments and effects as :func:`fused_decode_step_sample`.  Kept to time
+    beside the persistent kernel in one process; nothing in the package calls
+    it and it counts no launch."""
+    _need(k_cache.device.type == "cuda", "the chain runs on CUDA tensors only")
+    a, table, tok_out, row_out = _k1_args(
+        params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx, gumbel,
+        sa, suppress_until, suppressed, tok_out, row_out)
+    _launch(load_kernels().k1_decode_step_chain, "K1 chain", a, k_cache.device, table.layers)
+    return tok_out, row_out, k_cache, v_cache
 
-    ``k_cache``/``v_cache`` [L, B, S, H, Dh] (slot b updated in place at row
-    ``kv_len[b]``); ``tok_buf`` [B, S] int32 (slot b's token appended at
-    ``buf_len[b]``); ``kv_len``/``x_len``/``last_tok``/``buf_len``/
-    ``step_idx`` [B] int32 on the tensors' device — nothing is read back;
-    ``gumbel`` [B, V] float32 noise.  A frozen slot (``kv_len < x_len``)
-    takes positional entry 0; slot b is suppressed while ``step_idx[b] <
-    suppress_until``.  ``tok_out`` [B] int32 / ``row_out`` [B, V] float32
-    receive the results when given.  Returns ``(tok, row, k_cache,
-    v_cache)``.
-    """
+
+def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx,
+             gumbel, sa, suppress_until, suppressed, tok_out, row_out):
+    """Check K2's arguments; on the CPU return None, else the filled argument
+    struct with its table and outputs ``(a, table, tok_out, row_out)``."""
     L, B, S, H, Dh = k_cache.shape
     _need(1 <= B <= MAX_FUSED_B, f"batch {B}: this kernel takes 1..{MAX_FUSED_B} slots")
     sup, V, P = _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa,
@@ -547,10 +621,7 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     if dev.type == "cpu":
         _need(bool(((kv_len >= 0) & (kv_len < S)).all()), f"kv_len outside the cache [0, {S})")
         _need(bool((kv_len - x_len < P).all()), f"positional index outside [0, {P})")
-        return fused_decode_step_sample_batched_ref(
-            params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
-            step_idx, gumbel, sa=sa, suppress_until=suppress_until,
-            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+        return None
     _need(dev.type == "cuda", f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
 
     table = params.get("k1_table")
@@ -558,6 +629,7 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
         table = K1Table(params)
     _need(2 * B * max(table.D, table.M) <= GEMV_SMEM,
           f"{B} activation rows of {max(table.D, table.M)} bf16 exceed {GEMV_SMEM} bytes")
+    table.check_persistent(tagged=False)
     if tok_out is None:
         tok_out = torch.empty(B, dtype=torch.int32, device=dev)
     if row_out is None:
@@ -581,13 +653,63 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     a.suppress_until = suppress_until
     table.work(a, B, S, H, Dh)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
+    return a, table, tok_out, row_out
 
-    rc = load_batched_kernels().k2_decode_step_batched(
-        ctypes.byref(a), table.layers, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: CUDA error {rc}")
+
+def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, x_len,
+                                     last_tok, buf_len, step_idx, gumbel, *, sa,
+                                     suppress_until: int = 0, suppressed=(),
+                                     tok_out=None, row_out=None):
+    """K2: one full decode step for a wave of ``B <= MAX_FUSED_B`` slots.
+
+    ``k_cache``/``v_cache`` [L, B, S, H, Dh] (slot b updated in place at row
+    ``kv_len[b]``); ``tok_buf`` [B, S] int32 (slot b's token appended at
+    ``buf_len[b]``); ``kv_len``/``x_len``/``last_tok``/``buf_len``/
+    ``step_idx`` [B] int32 on the tensors' device — nothing is read back;
+    ``gumbel`` [B, V] float32 noise.  A frozen slot (``kv_len < x_len``)
+    takes positional entry 0; slot b is suppressed while ``step_idx[b] <
+    suppress_until``.  ``tok_out`` [B] int32 / ``row_out`` [B, V] float32
+    receive the results when given.  Returns ``(tok, row, k_cache,
+    v_cache)``.
+    """
+    prepared = _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
+                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out)
+    if prepared is None:
+        return fused_decode_step_sample_batched_ref(
+            params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
+            step_idx, gumbel, sa=sa, suppress_until=suppress_until,
+            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+    a, _, tok_out, row_out = prepared
+    _launch(load_batched_kernels().k2_decode_step_batched, "K2", a, k_cache.device)
     fused_decode_step_sample_batched.launches += 1
     return tok_out, row_out, k_cache, v_cache
+
+
+def fused_decode_step_sample_batched_chain(params, k_cache, v_cache, tok_buf, kv_len, x_len,
+                                           last_tok, buf_len, step_idx, gumbel, *, sa,
+                                           suppress_until: int = 0, suppressed=(),
+                                           tok_out=None, row_out=None):
+    """K2's first design, a chain of 195 launches, on CUDA tensors: the same
+    arguments and effects as :func:`fused_decode_step_sample_batched`.  Kept
+    to time beside the persistent kernel in one process; nothing in the
+    package calls it and it counts no launch."""
+    _need(k_cache.device.type == "cuda", "the chain runs on CUDA tensors only")
+    a, table, tok_out, row_out = _k2_args(
+        params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx, gumbel,
+        sa, suppress_until, suppressed, tok_out, row_out)
+    _launch(load_batched_kernels().k2_decode_step_batched_chain, "K2 chain", a, k_cache.device,
+            table.layers)
+    return tok_out, row_out, k_cache, v_cache
+
+
+def grid_barrier_loop(table: "K1Table", n: int) -> None:
+    """Launch the persistent kernels' grid barrier ``n`` times in a row on
+    ``table``'s counter (what one barrier costs; for measurements only)."""
+    rc = load_kernels().k1_barrier_loop(
+        table.bar.data_ptr(), n, table.err.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"barrier loop launch failed: CUDA error {rc}")
 
 
 def check_hidden_rows(x, k_cache, v_cache, kv_len):

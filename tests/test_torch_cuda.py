@@ -429,3 +429,253 @@ def test_engine_attn_impl_on_cuda_counts_its_kernels(cuda_device, impl):
         h, _, _ = t2s.transformer_decode_step(eng.params, cfg, x, kc, kc.clone(), kv_len,
                                               "fused_step")
         assert fns["k5"].launches == before["k5"] + 1 and bool(torch.isfinite(h.float()).all())
+
+
+# ---------------------------------------------------------------------------
+# The persistent whole-step kernels (K1, K2) against twin and chain
+# ---------------------------------------------------------------------------
+
+def _step_fixture(dev, width, B, S, seed=0):
+    """Parameters with their table and a random wave state at ragged
+    ``kv_len`` (a frozen slot first, a slot on the cache's last row)."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    cfg = (t2s.T2SConfig() if width == "flagship" else
+           t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=3,
+                         mlp_ratio=2))
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(seed), dtype=torch.bfloat16,
+                             device=dev)
+    params["k1_table"] = fused_step.K1Table(params)
+    L, H, Dh, V = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(seed + B)
+    kc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    buf = torch.randint(0, V, (B, S), generator=gen, device=dev, dtype=torch.int32)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    kv_lens = [0, S - 1, 63, 64, 150, 7, 128, S - 2][:B] if B > 1 else [S - 1]
+    x_lens = [30] + [min(20, n) for n in kv_lens[1:]] if B > 1 else [20]
+    st = dict(kv_lens=kv_lens, x_lens=x_lens, kv=i32(kv_lens), x=i32(x_lens),
+              last=i32(([1017] * B)[:B - 1] + [V - 1]),
+              buf=i32([min(n, 100) for n in kv_lens]), step=i32([3 + 4 * b for b in range(B)]))
+    return cfg, params, kc, vc, buf, st
+
+
+def _run_step(fn_b1, fn_wave, params, kc, vc, buf, st, g, sa, sup):
+    """One step from a copy of the state through K1's flavour (B=1, host
+    counters) or K2's; returns (tok, row, k_cache, v_cache, tok_buf, hidden)."""
+    ka, va, ba = kc.clone(), vc.clone(), buf.clone()
+    B = kc.shape[1]
+    kw = dict(sa=sa, suppress_until=10, suppressed=sup)
+    if B == 1:
+        tok, row, _, _ = fn_b1(params, ka, va, ba, st["kv_lens"][0], st["x_lens"][0], st["last"],
+                               int(st["buf"][0]), int(st["step"][0]), g, **kw)
+    else:
+        tok, row, _, _ = fn_wave(params, ka, va, ba, st["kv"], st["x"], st["last"], st["buf"],
+                                 st["step"], g, **kw)
+    torch.cuda.synchronize()
+    table = params["k1_table"]
+    table.check()
+    D = table.D
+    return tok.clone(), row.clone(), ka, va, ba, table.x[:B * D].clone().reshape(B, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,S", [("small", 200), ("flagship", 1024)])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_persistent_step_matches_twin_and_chain(cuda_device, width, S, B):
+    """K1 (B=1) and K2 at every wave size: the persistent kernel against the
+    twin and against its first design, the chain, at a small width (a partial
+    last 64-row step, tokens 1017 and 1024) and at the flagship width; only
+    row ``kv_len[b]`` of a slot's cache changes."""
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    cfg, params, kc, vc, buf, st = _step_fixture(cuda_device, width, B, S)
+    V = cfg.vocab_size
+    g = torch.zeros((B, V), device=cuda_device)
+    sup = cfg.suppressed_tokens + (cfg.eos,)
+    # a few bf16 layers agree to float32 rounding unless a bf16 rounding
+    # flips (~1e-2 on an O(1) value); 24 layers carry a flip forward (the
+    # smoke's tolerance: 0.1 absolute)
+    tol = 0.1 if width == "flagship" else 2e-2
+    for sa in (SampleArgs(top_k=V, top_p=1.0, repetition_penalty=1.0), SampleArgs(use_prev=False)):
+        before = (fused_step.fused_decode_step_sample.launches,
+                  fused_step.fused_decode_step_sample_batched.launches)
+        got = _run_step(fused_step.fused_decode_step_sample,
+                        fused_step.fused_decode_step_sample_batched, params, kc, vc, buf, st, g,
+                        sa, sup)
+        after = (fused_step.fused_decode_step_sample.launches,
+                 fused_step.fused_decode_step_sample_batched.launches)
+        assert after == ((before[0] + 1, before[1]) if B == 1 else (before[0], before[1] + 1))
+        chain = _run_step(fused_step.fused_decode_step_sample_chain,
+                          fused_step.fused_decode_step_sample_batched_chain, params, kc, vc, buf,
+                          st, g, sa, sup)
+        assert (fused_step.fused_decode_step_sample.launches,
+                fused_step.fused_decode_step_sample_batched.launches) == after  # uncounted
+        kb, vb, bb = kc.clone(), vc.clone(), buf.clone()
+        rtok, rrow, _, _ = fused_step.fused_decode_step_sample_batched_ref(
+            params, kb, vb, bb, st["kv"], st["x"], st["last"], st["buf"], st["step"], g, sa=sa,
+            suppress_until=10, suppressed=sup)
+        rhid, _ = fused_step.decode_hidden_ref(params, kc.clone(), vc.clone(), st["kv"], st["x"],
+                                               st["last"])
+        for tok, row, ka, va, ba, hid in (got, chain):
+            torch.testing.assert_close(hid, rhid, rtol=tol, atol=tol)
+            keep = (row > -1e29) & (rrow > -1e29)  # (a value at the filter's cut may flip sides)
+            assert float((row - rrow)[keep].abs().max()) <= tol and bool(keep.any())
+            torch.testing.assert_close(ka.float(), kb.float(), rtol=tol, atol=tol)
+            torch.testing.assert_close(va.float(), vb.float(), rtol=tol, atol=tol)
+            for b, n in enumerate(st["kv_lens"]):
+                assert int(ba[b, int(st["buf"][b])]) == int(tok[b])
+                for a, orig in ((ka, kc), (va, vc)):
+                    assert torch.equal(a[:, b, :n], orig[:, b, :n])
+                    assert torch.equal(a[:, b, n + 1:], orig[:, b, n + 1:])
+        top2 = torch.topk(rrow, 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        assert torch.equal(got[0][clear], rtok[clear])
+
+
+@pytest.mark.cuda
+def test_persistent_steps_of_two_tables_interleave_on_one_stream(cuda_device):
+    """Two decodes, each on its own parameters and table, taking turns on
+    one stream give what each gives alone (a table's workspace and barrier
+    counter are its own)."""
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    sa = SampleArgs(top_k=1)
+    runs = {}
+    for order in ("alone", "interleaved"):
+        fixtures = [_step_fixture(cuda_device, "small", B, 200, seed)
+                    for B, seed in ((1, 3), (4, 5))]
+        states = []
+        for cfg, params, kc, vc, buf, st in fixtures:
+            states.append(dict(cfg=cfg, params=params, kc=kc.clone(), vc=vc.clone(),
+                               buf=buf.clone(), st=st, toks=[]))
+
+        def step(s, i):
+            B, V = s["kc"].shape[1], s["cfg"].vocab_size
+            g = torch.zeros((B, V), device=cuda_device)
+            kw = dict(sa=sa, suppress_until=0)
+            kv = [min(n, 150) + i for n in s["st"]["kv_lens"]]
+            if B == 1:
+                tok, _, _, _ = fused_step.fused_decode_step_sample(
+                    s["params"], s["kc"], s["vc"], s["buf"], kv[0], 20, s["st"]["last"], 10 + i,
+                    20 + i, g, **kw)
+            else:
+                t = torch.tensor(kv, dtype=torch.int32, device=cuda_device)
+                tok, _, _, _ = fused_step.fused_decode_step_sample_batched(
+                    s["params"], s["kc"], s["vc"], s["buf"], t, s["st"]["x"], s["st"]["last"],
+                    s["st"]["buf"] + i, s["st"]["step"] + i, g, **kw)
+            s["toks"].append(tok.clone())
+
+        if order == "alone":
+            for s in states:
+                for i in range(6):
+                    step(s, i)
+        else:
+            for i in range(6):
+                for s in states:
+                    step(s, i)
+        torch.cuda.synchronize()
+        for s in states:
+            s["params"]["k1_table"].check()
+        runs[order] = [(torch.stack(s["toks"]), s["kc"], s["vc"]) for s in states]
+    for (ta, ka, va), (tb, kb, vb) in zip(runs["alone"], runs["interleaved"]):
+        assert torch.equal(ta, tb) and torch.equal(ka, kb) and torch.equal(va, vb)
+
+
+@pytest.mark.cuda
+def test_persistent_greedy_steps_repeat_and_follow_the_chain(cuda_device):
+    """200 consecutive greedy steps through ``decode_chunk``: the same tokens
+    from run to run (no reduction's order depends on timing), and the chain's
+    tokens over a bounded prefix (two bf16 routes part at the first near-tie)."""
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    n = 200
+    cfg, params, kc, vc, buf, st = _step_fixture(cuda_device, "small", 1, 256)
+    V = cfg.vocab_size
+    sa = ts.SampleArgs(top_k=1, repetition_penalty=1.0)
+    g = torch.zeros((n, 1, V), device=cuda_device)
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=cuda_device)
+
+    def run(chain):
+        state = ts.DecodeState(kc.clone(), vc.clone(), i32(30), i32(20), buf.clone(), i32(11),
+                               i32(1017), i32(0))
+        if not chain:
+            _, toks = ts.decode_chunk(params, cfg, state, n, sa, g, dtype=torch.bfloat16)
+            out = toks[0].clone()
+        else:
+            out = torch.empty(n, dtype=torch.int32, device=cuda_device)
+            row = torch.empty((1, V), device=cuda_device)
+            for i in range(n):
+                fused_step.fused_decode_step_sample_chain(
+                    params, state.k_cache, state.v_cache, state.tok_buf, 30 + i, 20,
+                    state.last_tok, 11 + i, i, g[i], sa=sa, tok_out=out[i:i + 1], row_out=row)
+                state.last_tok = out[i:i + 1]
+        torch.cuda.synchronize()
+        params["k1_table"].check()
+        return out
+
+    before = fused_step.fused_decode_step_sample.launches
+    first, second, chain = run(False), run(False), run(True)
+    assert fused_step.fused_decode_step_sample.launches == before + 2 * n
+    assert torch.equal(first, second)
+    agree = int((first == chain).int().cumprod(0).sum())
+    assert agree >= 8, f"only {agree} leading tokens equal the chain's"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what,match", [("last_tok", "last_tok outside"),
+                                        ("kv_len", "kv_len outside the cache"),
+                                        ("pe_idx", "positional index outside")])
+def test_persistent_step_error_bits_return_without_a_hang(cuda_device, what, match):
+    """An out-of-range device value sets its bit and the launch comes back
+    (a persistent block must reach every barrier): the bad slot's hidden row
+    is NaN, the others are finite, a bad ``kv_len`` appends nothing."""
+    import time
+
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    B, S, slot = 4, 200, 2
+    cfg, params, kc, vc, buf, st = _step_fixture(cuda_device, "small", B, S)
+    V, P = cfg.vocab_size, params["pe"].shape[0]
+    kv, x, last = st["kv"].clone(), st["x"].clone(), st["last"].clone()
+    if what == "last_tok":
+        last[slot] = V
+    elif what == "kv_len":
+        kv[slot] = S
+    else:
+        x[slot] = int(kv[slot]) - P
+    ka, va = kc.clone(), vc.clone()
+    fused_step.fused_decode_step_sample_batched(
+        params, ka, va, buf.clone(), kv, x, last, st["buf"], st["step"],
+        torch.zeros((B, V), device=cuda_device), sa=SampleArgs(use_prev=False))
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.perf_counter() + 30
+    while not done.query():
+        assert time.perf_counter() < deadline, "the kernel did not come back"
+        time.sleep(0.01)
+    with pytest.raises(RuntimeError, match=match):
+        params["k1_table"].check()
+    hid = params["k1_table"].x[:B * cfg.hidden_dim].reshape(B, cfg.hidden_dim)
+    for b in range(B):
+        assert bool(torch.isnan(hid[b]).all()) if b == slot else bool(torch.isfinite(hid[b]).all())
+    if what == "kv_len":
+        assert torch.equal(ka[:, slot], kc[:, slot]) and torch.equal(va[:, slot], vc[:, slot])
+    if what == "last_tok":  # K1's only device-side value
+        _, p1, k1, v1, b1, s1 = _step_fixture(cuda_device, "small", 1, S)
+        fused_step.fused_decode_step_sample(
+            p1, k1, v1, b1, 150, 20, torch.tensor([-1], dtype=torch.int32, device=cuda_device),
+            100, 3, torch.zeros((1, V), device=cuda_device), sa=SampleArgs())
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match=match):
+            p1["k1_table"].check()
