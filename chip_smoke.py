@@ -27,12 +27,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      timed in turns with them, the cost of one grid barrier, and the host's
      time per call;
    * K3a / K3b (decode attention, one layer's cache / a layer of the stacked
-     cache): B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer
-     index, cache rows past ``kv_len`` poisoned;
-   * K4 (prefill attention under the hybrid mask): B = 1 and 4, T = 160, 512
-     and 1024, q/k/v as strided views of one qkv product, lengths with one
-     phoneme, no audio rows, pad rows, the 1/1 of a dead slot and a ragged
-     batch; then the wall time of ``prefill_batch`` with and without it;
+     cache; one launch of clusters of ``cluster_plan`` blocks a (slot, head)):
+     B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer index,
+     cache rows past ``kv_len`` poisoned, at B=1 also forced to the largest
+     cluster (8); at B=12, S=512 and at B=1, S=1024 the device kernels of 10
+     calls (one each, by ``torch.profiler``), the time a call in turns with
+     the twin, the device time from a CUDA graph of 50 launches beside the
+     first design's (a split grid and a merge: two launches), the library
+     call's and, at B=1, the same launch forced to each other cluster size;
+     the host's time per call;
+   * K4 (prefill attention under the hybrid mask; bf16 on the tensor cores,
+     float32 on the CUDA cores): B = 1, 4 and 6, T = 160, 512 and 1024, q/k/v
+     as strided views of one qkv product, lengths with one phoneme, no audio
+     rows, pad rows, the 1/1 of a dead slot, a ragged batch, every pair of
+     lengths from 15, 16, 17, 63, 64 and 65, head dims 8 and 128; at T=160 and
+     512 the time a call in turns with the twin, the device time of the
+     tensor-core body, of the CUDA-core one and of the library call from CUDA
+     graphs of 50 launches in turns, the host's time per call; then the wall
+     time of ``prefill_batch`` with and without it;
    * K5 (all layers, one token, B=1): caches of 512 and 1024 rows, ``kv_len``
      0, mid and S-1; hidden row and appended rows within the whole-step
      tolerances, every other cache row untouched;
@@ -41,7 +53,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      poisoned;
    CUDA-event times of kernel and twin (and, for K3 and K4, of one
    ``scaled_dot_product_attention`` call as a yardstick), beside the least
-   time the card could take for the bytes the call must move;
+   time the card could take for the bytes the call must move; on the device
+   (CUDA graphs, timed in turns) K3b must be faster than its first design at
+   B=12, K4 than the library call at T=512;
 4. main path: full-width random s1v3 t2s / v2 SoVITS / HuBERT-base
    checkpoints and synthetic wavs made from a seed in a temporary models
    directory, loaded through ``TTS.load_gpt_model`` / ``load_sovits_model``;
@@ -170,6 +184,15 @@ def host_us(fn, calls: int = 10) -> float:
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return 1e6 * dt / calls
+
+
+def host_scale(t) -> str:
+    """What a wrapper's host time compares with on this host: one ``torch.empty_like`` (every
+    launch allocates its output) and one eager ``torch.add``."""
+    import torch
+
+    return (f"for scale, torch.empty_like {host_us(lambda: torch.empty_like(t)):.1f} us and an "
+            f"eager torch.add {host_us(lambda: torch.add(t, t)):.1f} us")
 
 
 def weight_bytes(cfg) -> int:
@@ -533,9 +556,79 @@ def barrier_phase(bench: StepBench):
 # K3a / K3b: decode attention
 # ---------------------------------------------------------------------------
 
+def graph_of(fn, n: int = 50):
+    """A CUDA graph of ``n`` calls of ``fn``: replayed, it times the device alone, without the
+    wrapper's host cost."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(n):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return graph
+
+
+def graph_turns(graphs: dict, n: int = 50, reps: int = 20) -> dict:
+    """Device ms per call from each of ``graphs`` (name -> a :func:`graph_of` of ``n`` calls),
+    timed in turns (a, b, ..., ..., b, a) and averaged over its two turns."""
+    order = list(graphs) + list(reversed(graphs))
+    ms = {name: 0.0 for name in graphs}
+    for name in order:
+        ms[name] += cuda_ms(graphs[name].replay, reps) / n / 2
+    return ms
+
+
+class forced_clusters:
+    """Within the block, K3's wrapper launches clusters of ``C`` blocks whatever
+    ``cluster_plan`` would pick (the plans memoized before and after are dropped)."""
+
+    def __init__(self, C: int):
+        from gsv_tts_tpu_torch.ops import flash_decode
+
+        self.fd, self.C = flash_decode, C
+
+    def __enter__(self):
+        self.saved = self.fd.cluster_plan
+        self.fd.cluster_plan = lambda B, H, S, sms: self.C
+        self.fd.launch_plan.cache_clear()
+
+    def __exit__(self, *exc):
+        self.fd.cluster_plan = self.saved
+        self.fd.launch_plan.cache_clear()
+
+
+def device_kernels(fn, calls: int = 10) -> dict:
+    """torch.profiler over ``calls`` calls of ``fn`` (after a warm-up window of as many that
+    is not recorded): {kernel name: launches}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    got = {}
+
+    def ready(prof):
+        got.update({e.key: e.count for e in prof.key_averages()  # (the step's own annotation
+                    if "CUDA" in str(getattr(e, "device_type", ""))  # is no kernel)
+                    and e.count > 0 and not e.key.startswith("ProfilerStep")})
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
 def k3_phase(dev, cfg):
     """K3a and K3b vs the twin at ``cfg``'s widths; returns {"k3a"/"k3b": (max abs err, kernel ms,
-    twin ms, library ms, bound ms, bound by)}."""
+    twin ms, library ms, bound ms, bound by, extra record fields)}, the times at B=12, S=512."""
     import torch
     import torch.nn.functional as F
 
@@ -553,11 +646,15 @@ def k3_phase(dev, cfg):
             fail(f"{name} differs from its twin by {err:.4g} (tolerance {tol}) at {where}")
         worst[name] = max(worst[name], err)
 
+    def caches(B, S):
+        return tuple((torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5)
+                     .to(torch.bfloat16) for _ in range(2))
+
+    plans = {}
     for S in (512, 1024):
-        for B, lens in ((1, [S - 1]), (1, [0]), (4, [0, 63, 64, S - 1]),
+        for B, lens in ((1, [S - 1]), (1, [0]), (1, [777 % S]), (4, [0, 63, 64, S - 1]),
                         (12, [0, 63, 64, S - 1, 1, 300, 127, 128, 129, 200, S // 2, 17])):
-            kc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-            vc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            kc, vc = caches(B, S)
             kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
             for dtype in (torch.bfloat16, torch.float32) if B != 4 else (torch.bfloat16,):
                 q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
@@ -568,46 +665,94 @@ def k3_phase(dev, cfg):
                 for b, n in enumerate(lens):
                     kp[:, b, n + 1:] = float("nan")
                     vp[:, b, n + 1:] = float("nan")
+                plans[(B, S)] = fd.launch_plan(
+                    True, *(fd.meta(t, t.data_ptr()) for t in (q, kp, vp, kv_len)),
+                    fd.sm_count(dev)).C
                 for layer in range(L):
                     out = fd.flash_decode_attention_layered(q, kp, vp, kv_len, layer)
                     held("k3b", out, refs[layer], name, f"B={B} S={S} {name} layer {layer}")
                     calls += 1
+                if B == 1:  # the largest cluster the kernel takes, whatever the plan picks
+                    with forced_clusters(fd.MAX_CLUSTER):
+                        for layer in range(L):
+                            out = fd.flash_decode_attention_layered(q, kp, vp, kv_len, layer)
+                            held("k3b", out, refs[layer], name, f"B=1 S={S} {name} layer {layer} "
+                                 f"in clusters of {fd.MAX_CLUSTER}")
+                            calls += 1
                 for layer in (0, L - 1):
                     out = fd.flash_decode_attention(q, kp[layer], vp[layer], kv_len)
                     held("k3a", out, refs[layer], name, f"B={B} S={S} {name} layer {layer}")
                     calls += 1
                 torch.cuda.synchronize()
                 fd.check(dev)
+    print(f"K3a/K3b: blocks per (slot, head) from cluster_plan on {fd.sm_count(dev)} SMs: "
+          f"{', '.join(f'B={B} S={S}: {C}' for (B, S), C in sorted(plans.items()))}", flush=True)
 
-    # times at the generic step's shapes: a 12-slot wave, ~300 rows attended
-    B, S, layer = 12, 512, min(5, L - 1)
-    lens = [300, 287, 313, 296, 305, 291, 320, 279, 301, 310, 284, 298]
-    kc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    vc = (torch.randn((L, B, S, H, Dh), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(torch.bfloat16)
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None, :] <= kv_len[:, None])[:, None, None, :]
-    k1, v1 = kc[layer], vc[layer]
+    # times at the generic step's shapes (a 12-slot wave, ~300 rows attended) and at the
+    # "flash" engine's (B=1 on a 1024-row cache, ~777 rows)
+    out, layer = {}, min(5, L - 1)
+    for B, S, lens in ((1, 1024, [777]),
+                       (12, 512, [300, 287, 313, 296, 305, 291, 320, 279, 301, 310, 284, 298])):
+        kc, vc = caches(B, S)
+        q = torch.randn((B, H, Dh), generator=gen, device=dev).to(torch.bfloat16)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = (torch.arange(S, device=dev)[None, :] <= kv_len[:, None])[:, None, None, :]
+        k1, v1 = kc[layer], vc[layer]
 
-    def library():  # one PyTorch call computing the same function; timed only
-        return F.scaled_dot_product_attention(q[:, :, None, :], k1.permute(0, 2, 1, 3),
-                                              v1.permute(0, 2, 1, 3), attn_mask=mask)
+        def library():  # one PyTorch call computing the same function; timed only
+            return F.scaled_dot_product_attention(q[:, :, None, :], k1.permute(0, 2, 1, 3),
+                                                  v1.permute(0, 2, 1, 3), attn_mask=mask)
 
-    lib = library()[:, :, 0]
-    held("k3b", fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer), lib, "bfloat16",
-         "the library call")
-    b_ms, b_by = attn_bound(H, Dh, lens, 2)
-    out = {}
-    for name, run in (("k3a", lambda: fd.flash_decode_attention(q, k1, v1, kv_len)),
-                      ("k3b", lambda: fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer))):
-        k_ms, p_ms = timed_turns(run, lambda: fd.decode_attention_ref(q, k1, v1, kv_len), 200, 50)
+        def k3b():
+            return fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
+
+        def split():
+            return fd.flash_decode_attention_layered_split(q, kc, vc, kv_len, layer)
+
+        held("k3b", k3b(), library()[:, :, 0], "bfloat16", f"the library call at B={B}")
+        held("k3b", split(), k3b(), "bfloat16", f"the first design at B={B}")
+        kernels = device_kernels(k3b)
+        if sum(kernels.values()) != 10 or len(kernels) != 1:
+            fail(f"K3b at B={B}: 10 calls ran the device kernels {kernels}, one each is the design")
+        first = device_kernels(split)
+        b_ms, b_by = attn_bound(H, Dh, lens, 2)
+        twin = lambda: fd.decode_attention_ref(q, k1, v1, kv_len)  # noqa: E731
+        if B == 12:  # K3a shares K3b's body: timed where K3b's record is taken
+            k_ms, p_ms = timed_turns(lambda: fd.flash_decode_attention(q, k1, v1, kv_len), twin,
+                                     200, 50)
+            out["k3a"] = (worst["k3a"], k_ms, p_ms, cuda_ms(library, 200), b_ms, b_by, {})
+        k_ms, p_ms = timed_turns(k3b, twin, 200, 50)
         lib_ms = cuda_ms(library, 200)
-        out[name] = (worst[name], k_ms, p_ms, lib_ms, b_ms, b_by)
-        print(f"{name} time B={B} S={S} kv_len~300: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} "
-              f"ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
-              flush=True)
+        graphs = {"one launch": graph_of(k3b), "first design": graph_of(split),
+                  "library": graph_of(library)}
+        if B == 1:  # the same launch with each cluster size the plan did not pick
+            for C in (1, 2, 4, fd.MAX_CLUSTER):
+                if C != plans[(B, S)]:
+                    with forced_clusters(C):
+                        graphs[f"C={C}"] = graph_of(k3b)
+        dev_ms = graph_turns(graphs)
+        host = host_us(k3b)
+        print(f"k3b time B={B} S={S} kv_len~{lens[0]}: clusters of {plans.get((B, S), 1)}; kernel "
+              f"{k_ms:.4f} ms a call in turns ({dev_ms['one launch']:.4f} ms on the device, from a "
+              f"CUDA graph of 50 launches), first design "
+              f"{dev_ms['first design']:.4f} ms on the device ({sum(first.values()) / 10:.0f} "
+              f"kernels a call), plain twin {p_ms:.4f} ms, scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms a call ({dev_ms['library']:.4f} on the device), bound "
+              f"{b_ms:.5f} ms ({b_by})"
+              + "".join(f"; forced {k}: {v:.4f} ms on the device" for k, v in dev_ms.items()
+                        if k.startswith("C=")), flush=True)
+        print(f"k3b device kernels of 10 calls at B={B}: {kernels}; host {host:.1f} us per call, "
+              f"{host_scale(q)}", flush=True)
+        if B == 12:
+            if dev_ms["one launch"] >= dev_ms["first design"]:
+                fail(f"K3b at B=12 takes {dev_ms['one launch']:.4f} ms on the device, its first "
+                     f"design {dev_ms['first design']:.4f}")
+            out["k3b"] = (worst["k3b"], k_ms, p_ms, lib_ms, b_ms, b_by,
+                          {"device_ms": dev_ms["one launch"],
+                           "first_design_device_ms": dev_ms["first design"],
+                           "library_device_ms": dev_ms["library"], "host_us": host})
     print(f"K3a/K3b match the twin on {calls} calls (B=1, 4, 12; every layer; rows past kv_len "
-          f"poisoned); max abs err K3a {worst['k3a']:.4g}, K3b {worst['k3b']:.4g}", flush=True)
+          f"poisoned; B=1 also in clusters of {fd.MAX_CLUSTER}); max abs err K3a {worst['k3a']:.4g}, K3b {worst['k3b']:.4g}", flush=True)
     return out
 
 
@@ -628,8 +773,9 @@ def k4_err(got, ref):
 
 
 def k4_phase(dev, cfg):
-    """K4 vs its twin at ``cfg``'s widths; returns (max abs err, kernel ms, twin ms, library
-    ms, bound ms, bound by), the times at B=1, T=512."""
+    """K4 vs its twin at ``cfg``'s widths (and at head dims 8 and 128); returns (max abs err,
+    kernel ms, twin ms, library ms, bound ms, bound by, extra record fields), the times at B=1,
+    T=512."""
     import torch
     import torch.nn.functional as F
 
@@ -640,12 +786,30 @@ def k4_phase(dev, cfg):
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     worst, calls = 0.0, 0
 
-    def views(B, T, dtype):
-        qkv = (torch.randn((B, T, 3 * D), generator=gen, device=dev) * 0.7).to(dtype)
-        return tuple(t.reshape(B, T, H, Dh) for t in qkv.split(D, dim=-1))
+    def views(B, T, dtype, H=H, Dh=Dh):
+        qkv = (torch.randn((B, T, 3 * H * Dh), generator=gen, device=dev) * 0.7).to(dtype)
+        return tuple(t.reshape(B, T, H, Dh) for t in qkv.split(H * Dh, dim=-1))
 
     def i32(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def held(B, T, dtype, xl, xyl, H=H, Dh=Dh):
+        nonlocal worst, calls
+        q, k, v = views(B, T, dtype, H, Dh)
+        if q.is_contiguous():
+            fail("K4's inputs are meant to be strided views")
+        name = str(dtype).split(".")[1]
+        ref = fp.flash_prefill_attention_ref(q, k, v, i32(xl), i32(xyl), num_heads=H)
+        out = fp.flash_prefill_attention(q, k, v, i32(xl), i32(xyl), num_heads=H)
+        torch.cuda.synchronize()
+        fused_step.check(dev)
+        err, abs_err = k4_err(out, ref)
+        if not bool(torch.isfinite(out.float()).all()) or err > K4_TOL[name]:
+            fail(f"k4 differs from its twin by {err:.4g} (tolerance {K4_TOL[name]}) at "
+                 f"B={B} T={T} H={H} Dh={Dh} {name} x_lens={xl} xy_lens={xyl}")
+        if dtype == torch.bfloat16:
+            worst = max(worst, abs_err)
+        calls += 1
 
     # T=192 with 60 / 160 is what the engine paths below give the kernel: a
     # 60-phoneme, 100-token prompt padded to 64 + 128 rows
@@ -656,21 +820,17 @@ def k4_phase(dev, cfg):
                  (4, [60, T // 2, 7, T - 1], [T - 5, T // 2 + 1, T, T])]
         for B, xl, xyl in cases:
             for dtype in (torch.bfloat16, torch.float32) if T == 160 else (torch.bfloat16,):
-                q, k, v = views(B, T, dtype)
-                if q.is_contiguous():
-                    fail("K4's inputs are meant to be strided views")
-                name = str(dtype).split(".")[1]
-                ref = fp.flash_prefill_attention_ref(q, k, v, i32(xl), i32(xyl), num_heads=H)
-                out = fp.flash_prefill_attention(q, k, v, i32(xl), i32(xyl), num_heads=H)
-                torch.cuda.synchronize()
-                fused_step.check(dev)
-                err, abs_err = k4_err(out, ref)
-                if not bool(torch.isfinite(out.float()).all()) or err > K4_TOL[name]:
-                    fail(f"k4 differs from its twin by {err:.4g} (tolerance {K4_TOL[name]}) at "
-                         f"B={B} T={T} {name} x_lens={xl} xy_lens={xyl}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, abs_err)
-                calls += 1
+                held(B, T, dtype, xl, xyl)
+    # lengths on and beside the 16- and 64-row tile edges: every (x_len, xy_len) pair
+    edges = [15, 16, 17, 63, 64, 65]
+    for T in (160, 512):
+        for shift in range(len(edges)):
+            held(len(edges), T, torch.bfloat16, edges, edges[shift:] + edges[:shift])
+    # the narrowest and the widest head (Dh=8 pads the tensor cores' depth)
+    for hd, nh in ((8, 16), (128, 4)):
+        for T in (160, 512):
+            held(4, T, torch.bfloat16, [60, T // 2, 7, T - 1], [T - 5, T // 2 + 1, T, T],
+                 H=nh, Dh=hd)
 
     record = None
     for T, xl, xyl in ((160, 60, 150), (512, 200, 480)):
@@ -682,39 +842,48 @@ def k4_phase(dev, cfg):
         def library():  # one PyTorch call computing the same function; timed only
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-        lib = library().permute(0, 2, 1, 3).reshape(1, T, D)
-        out = fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
-        err, _ = k4_err(out, lib)
-        if err > K4_TOL["bfloat16"]:
-            fail(f"k4 differs from the library call by {err:.4g} at T={T}")
+        def k4():
+            return fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
+
+        def cuda_core():
+            return fp.flash_prefill_attention_cuda_core(q, k, v, lx, lxy, num_heads=H)
+
+        out = k4()
+        for what, other in (("the library call", library().permute(0, 2, 1, 3).reshape(1, T, D)),
+                            ("its CUDA-core body", cuda_core())):
+            err, _ = k4_err(out, other)
+            if err > K4_TOL["bfloat16"]:
+                fail(f"k4 differs from {what} by {err:.4g} at T={T}")
         k_ms, p_ms = timed_turns(
-            lambda: fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H),
-            lambda: fp.flash_prefill_attention_ref(q, k, v, lx, lxy, num_heads=H), 200, 50)
+            k4, lambda: fp.flash_prefill_attention_ref(q, k, v, lx, lxy, num_heads=H), 200, 50)
         lib_ms = cuda_ms(library, 200)
         # q, k, v read and the output written once (bf16), the lengths; QK and PV
         # only for the columns each row attends
         pairs = sum(k4_row_limits(T, xl, xyl))
         b_ms, b_by = bound(4 * T * D * 2 + 8, 4 * Dh * H * pairs)
-        # the kernel alone, without the wrapper's host cost: 50 launches replayed
-        # from a CUDA graph
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side):
-                for _ in range(50):
-                    fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
-        torch.cuda.current_stream().wait_stream(side)
-        dev_ms = cuda_ms(graph.replay, 20) / 50
-        print(f"k4 time B=1 T={T} x_len={xl} xy_len={xyl}: kernel {k_ms:.4f} ms ({dev_ms:.4f} ms "
-              f"on the device, from a CUDA graph of 50 launches), plain twin {p_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})",
-              flush=True)
-        record = (worst, k_ms, p_ms, lib_ms, b_ms, b_by)
-    print(f"K4 matches its twin on {calls} calls (B=1, 4; T=160, 192, 512, 1024; strided views; "
-          f"ragged lengths); max abs err {worst:.4g} (bf16 tolerance {K4_TOL['bfloat16']} of "
-          f"max(1, |twin|))",
-          flush=True)
+        # the kernels alone, without the wrapper's host cost: 50 launches replayed from a CUDA
+        # graph, the tensor-core body and the CUDA-core one in turns
+        dev_ms = graph_turns({"tensor cores": graph_of(k4), "CUDA cores": graph_of(cuda_core),
+                              "library": graph_of(library)})
+        host = host_us(k4)
+        print(f"k4 time B=1 T={T} x_len={xl} xy_len={xyl}: kernel {k_ms:.4f} ms a call in turns "
+              f"({dev_ms['tensor cores']:.4f} ms on the device, from a CUDA graph of 50 launches, "
+              f"{100 * b_ms / dev_ms['tensor cores']:.1f} % of the bound; host {host:.1f} us per "
+              f"call), the CUDA-core body {dev_ms['CUDA cores']:.4f} ms on the device, plain twin "
+              f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms a call "
+              f"({dev_ms['library']:.4f} on the device), bound {b_ms:.5f} ms ({b_by}); "
+              f"{host_scale(q)}", flush=True)
+        record = (worst, k_ms, p_ms, lib_ms, b_ms, b_by,
+                  {"device_ms": dev_ms["tensor cores"],
+                   "first_design_device_ms": dev_ms["CUDA cores"],
+                   "library_device_ms": dev_ms["library"], "host_us": host})
+    # like against like: both on the device alone, from the same graph_turns
+    if record[6]["device_ms"] >= record[6]["library_device_ms"]:
+        fail(f"K4 at T=512 takes {record[6]['device_ms']:.4f} ms on the device, the library call "
+             f"{record[6]['library_device_ms']:.4f}")
+    print(f"K4 matches its twin on {calls} calls (B=1, 4, 6; T=160, 192, 512, 1024; head dims 8, "
+          f"{Dh}, 128; strided views; ragged lengths, on and beside the tile edges); max abs err "
+          f"{worst:.4g} (bf16 tolerance {K4_TOL['bfloat16']} of max(1, |twin|))", flush=True)
     return record
 
 
@@ -1442,7 +1611,8 @@ def main():
     def attn_record(name, source, replaces, count, r):
         return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": count, "max_abs_err": r[0], "ms": r[1],
-                "plain_ms": r[2], "bound_ms": r[4], "bound_by": r[5], "library_ms": r[3]}
+                "plain_ms": r[2], "bound_ms": r[4], "bound_by": r[5], "library_ms": r[3],
+                **r[6]}
 
     # times of the whole-step kernels (K1 and K2: the persistent kernel plus
     # the sampling launch) and of K5 and K6: S=1024, kv_len ~777

@@ -8,19 +8,26 @@ are attended (the caller has written the token's own row at ``kv_len[b]``).
 
 On CUDA tensors both launch the hand-written Hopper kernel of
 ``csrc/k3_flash_decode.cu`` (one body, two entry points; built with ``nvcc``
-at first use), which never reads a cache row past ``kv_len[b]``; on CPU
-tensors they run the plain PyTorch twin :func:`decode_attention_ref` (the
-JAX ``xla_decode_attention``).  There is no fallback between the two.
-``kv_len`` stays on the device: the kernel's blocks read their own slot's
-entry.  A ``kv_len`` outside ``[0, S)`` yields NaN for that slot and sets a
-flag that :func:`check` raises on (it reads one int back, so call it where
-the host synchronises anyway).
+at first use): one launch a call, a cluster of :func:`cluster_plan` blocks
+for each (slot, head), merged through distributed shared memory; it never
+reads a cache row past ``kv_len[b]``.  On CPU tensors they run the plain
+PyTorch twin :func:`decode_attention_ref` (the JAX ``xla_decode_attention``).
+There is no fallback between the two.  ``kv_len`` stays on the device: the
+kernel's blocks read their own slot's entry.  A ``kv_len`` outside
+``[0, S)`` yields NaN for that slot and sets a flag that :func:`check` raises
+on (it reads one int back, so call it where the host synchronises anyway).
+
+The argument checks of a launch are a pure function of the tensors'
+metadata, :func:`launch_plan`, memoized on it: a call whose shapes, strides,
+dtypes, device and 16-byte alignment were seen before pays a dictionary
+lookup, and any change of them is checked afresh.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +36,13 @@ from .fused_step import ATTN_ROWS, HEAD_DIMS  # the split attention's limits, sh
 
 #: (library name, sources) for ``cuda_build``
 LIBRARY = ("gsv_k3", ["k3_flash_decode.cu"])
+
+#: the largest cluster the kernel takes (csrc K3_MAX_CLUSTER; 8 is the portable limit)
+MAX_CLUSTER = 8
+#: the largest cluster :func:`cluster_plan` picks: at B=1, H=16, S=1024 on an
+#: H100 clusters of 4 ran 0.2-0.3 us ahead of 8 in every measurement (the
+#: merge over 8 ranks costs more than halving each block's rows saves)
+PLAN_MAX_CLUSTER = 4
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -46,34 +60,59 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     return torch.einsum("bhs,bshd->bhd", probs.float(), v_cache.float()).to(q.dtype)
 
 
+def cluster_plan(B: int, H: int, S: int, sms: int) -> int:
+    """Blocks per (slot, head) of one launch: the largest power of two
+    ``C <= PLAN_MAX_CLUSTER`` whose ``B * H * C`` blocks still fit the card's
+    ``sms`` streaming multiprocessors, and no more than give every block
+    ``ATTN_ROWS`` of the ``S`` rows.  At H=16 on 132 SMs: 4 at B=1 and 2, 2 at
+    B=4, 1 from B=5 on."""
+    C = 1
+    while C < PLAN_MAX_CLUSTER and 2 * C * B * H <= sms and 2 * C * ATTN_ROWS <= S:
+        C *= 2
+    return C
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of the card ``dev`` (read once per device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k3_flash_decode.cu``."""
     lib = cuda_build.load_library(*LIBRARY)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.k3a_flash_decode.argtypes = [vp] * 7 + [ci] * 5 + [vp]
-    lib.k3a_flash_decode.restype = ci
-    lib.k3b_flash_decode_layered.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-    lib.k3b_flash_decode_layered.restype = ci
+    lib.k3a_flash_decode.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.k3b_flash_decode_layered.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+    lib.k3b_flash_decode_layered_split.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    for fn in (lib.k3a_flash_decode, lib.k3b_flash_decode_layered,
+               lib.k3b_flash_decode_layered_split):
+        fn.restype = ci
     return lib
 
 
-_scratch = {}  # device -> (partials workspace, error word)
+_err_words = {}  # device -> the [1] int32 word the K3 launches set ERR_KV_LEN in
+_parts = {}  # device -> the float32 partials of the first design
 
 
-def _workspace(dev: torch.device, n: int):
-    part, err = _scratch.get(dev, (None, None))
+def _device(dev) -> torch.device:
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _err_word(dev: torch.device) -> torch.Tensor:
+    err = _err_words.get(dev)
     if err is None:
-        err = torch.zeros(1, dtype=torch.int32, device=dev)
-    if part is None or part.numel() < n:
-        part = torch.empty(n, dtype=torch.float32, device=dev)
-    _scratch[dev] = (part, err)
-    return part, err
+        err = _err_words[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return err
 
 
 def check(dev) -> None:
     """Raise if a launch on ``dev`` found a ``kv_len`` outside its cache."""
-    _, err = _scratch.get(torch.device(dev), (None, None))
+    err = _err_words.get(_device(dev))
     if err is not None and int(err.item()):
         err.zero_()
         raise RuntimeError("flash decode attention: kv_len outside [0, S) in a launch")
@@ -83,44 +122,99 @@ def _fail(msg: str):
     raise ValueError(f"flash_decode_attention: {msg}")
 
 
-def _launch(entry: str, q, k_cache, v_cache, kv_len, layer):
-    """Shared wrapper body; ``layer`` is None for the single-layer form.
-    It runs once per layer and step, so messages are built only on failure."""
-    cache_shape = k_cache.shape[1:] if layer is not None else k_cache.shape
-    if len(cache_shape) != 4 or v_cache.shape != k_cache.shape:
-        _fail(f"cache shapes {tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+def _shapes(layered: bool, q_shape, k_shape, v_shape, kv_shape):
+    """(B, S, H, Dh) of a call, or raise."""
+    cache_shape = k_shape[1:] if layered else k_shape
+    if len(cache_shape) != 4 or v_shape != k_shape:
+        _fail(f"cache shapes {tuple(k_shape)} / {tuple(v_shape)}")
     B, S, H, Dh = cache_shape
-    if q.shape != (B, H, Dh):
-        _fail(f"q {tuple(q.shape)} is not ({B}, {H}, {Dh})")
-    if kv_len.shape != (B,):
-        _fail(f"kv_len {tuple(kv_len.shape)} is not ({B},)")
-    if layer is not None and not 0 <= layer < k_cache.shape[0]:
-        _fail(f"layer {layer} outside [0, {k_cache.shape[0]})")
-    dev = q.device
-    if dev.type == "cpu":
-        kc, vc = (k_cache, v_cache) if layer is None else (k_cache[layer], v_cache[layer])
-        return decode_attention_ref(q, kc, vc, kv_len)
+    if q_shape != (B, H, Dh):
+        _fail(f"q {tuple(q_shape)} is not ({B}, {H}, {Dh})")
+    if kv_shape != (B,):
+        _fail(f"kv_len {tuple(kv_shape)} is not ({B},)")
+    return B, S, H, Dh
+
+
+def _contiguous(shape, stride) -> bool:
+    want = 1
+    for n, s in zip(reversed(shape), reversed(stride)):
+        if n != 1 and s != want:
+            return False
+        want *= n
+    return True
+
+
+def meta(t: torch.Tensor, ptr: int):
+    """What :func:`launch_plan` checks of a tensor at ``ptr`` (its
+    ``data_ptr()``): (shape, strides, dtype, device, ``ptr % 16``)."""
+    return t.shape, t.stride(), t.dtype, t.device, ptr % 16
+
+
+class Plan(NamedTuple):
+    L: int  # layers of the stacked cache (1 for one layer's cache)
+    B: int
+    S: int
+    H: int
+    Dh: int
+    q_f32: int
+    C: int  # blocks per (slot, head): cluster_plan(B, H, S, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(layered: bool, q, k_cache, v_cache, kv_len, sms: int) -> Plan:
+    """Check one CUDA launch from its tensors' :func:`meta` and return its
+    plan for a card of ``sms`` SMs; raises ``ValueError`` on what the kernel
+    does not take.  A pure function of its arguments, memoized on them."""
+    (q_shape, q_stride, q_dtype, dev, _), (k_shape, *_) = q, k_cache
+    B, S, H, Dh = _shapes(layered, q_shape, k_shape, v_cache[0], kv_len[0])
     if dev.type != "cuda":
         _fail(f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
     if Dh not in HEAD_DIMS:
         _fail(f"head dim {Dh} must be one of {HEAD_DIMS}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        _fail(f"q dtype {q.dtype}")
-    for name, t, dtype, align in (("q", q, q.dtype, 4), ("k_cache", k_cache, torch.bfloat16, 16),
-                                  ("v_cache", v_cache, torch.bfloat16, 16),
-                                  ("kv_len", kv_len, torch.int32, 4)):
-        if not (t.device == dev and t.dtype == dtype and t.is_contiguous()
-                and t.data_ptr() % align == 0):
-            _fail(f"{name} must be a contiguous, {align}-byte aligned {dtype} tensor on {dev}")
+    if q_dtype not in (torch.bfloat16, torch.float32):
+        _fail(f"q dtype {q_dtype}")
+    for name, (shape, stride, dtype, t_dev, mis), want, align in (
+            ("q", q, q_dtype, 4), ("k_cache", k_cache, torch.bfloat16, 16),
+            ("v_cache", v_cache, torch.bfloat16, 16), ("kv_len", kv_len, torch.int32, 4)):
+        if not (t_dev == dev and dtype == want and _contiguous(shape, stride)
+                and mis % align == 0):
+            _fail(f"{name} must be a contiguous, {align}-byte aligned {want} tensor on {dev}")
+    return Plan(k_shape[0] if layered else 1, B, S, H, Dh, int(q_dtype == torch.float32),
+                cluster_plan(B, H, S, sms))
+
+
+def _cuda_plan(q, k_cache, v_cache, kv_len, layer, ptrs):
+    p = launch_plan(layer is not None, meta(q, ptrs[0]), meta(k_cache, ptrs[1]),
+                    meta(v_cache, ptrs[2]), meta(kv_len, ptrs[3]), sm_count(q.device))
+    if layer is not None and not 0 <= layer < p.L:
+        _fail(f"layer {layer} outside [0, {p.L})")
+    return p
+
+
+def _launch(entry: str, q, k_cache, v_cache, kv_len, layer):
+    """Shared wrapper body; ``layer`` is None for the single-layer form.
+    It runs once per layer and step, so messages are built only on failure."""
+    dev = q.device
+    if dev.type != "cuda":
+        _shapes(layer is not None, tuple(q.shape), tuple(k_cache.shape), tuple(v_cache.shape),
+                tuple(kv_len.shape))
+        if layer is not None and not 0 <= layer < k_cache.shape[0]:
+            _fail(f"layer {layer} outside [0, {k_cache.shape[0]})")
+        if dev.type != "cpu":
+            _fail(f"tensors on {dev}: the kernel runs on CUDA, the twin on CPU")
+        kc, vc = (k_cache, v_cache) if layer is None else (k_cache[layer], v_cache[layer])
+        return decode_attention_ref(q, kc, vc, kv_len)
+    ptrs = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
+    p = _cuda_plan(q, k_cache, v_cache, kv_len, layer, ptrs)
     out = torch.empty_like(q)
-    part, err = _workspace(dev, B * H * -(-S // ATTN_ROWS) * (Dh + 2))
-    args = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
-            out.data_ptr(), part.data_ptr(), err.data_ptr()]
-    if layer is not None:
-        args.append(layer)
-    args += [B, S, H, Dh, int(q.dtype == torch.float32),
-             torch.cuda.current_stream(dev).cuda_stream]
-    rc = getattr(load_kernels(), entry)(*args)
+    lib = load_kernels()
+    if layer is None:
+        rc = lib.k3a_flash_decode(*ptrs, out.data_ptr(), _err_word(dev).data_ptr(), p.B, p.S, p.H,
+                                  p.Dh, p.q_f32, p.C, cuda_build.stream_handle(dev))
+    else:
+        rc = lib.k3b_flash_decode_layered(*ptrs, out.data_ptr(), _err_word(dev).data_ptr(), layer,
+                                          p.B, p.S, p.H, p.Dh, p.q_f32, p.C,
+                                          cuda_build.stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out
@@ -141,6 +235,27 @@ def flash_decode_attention_layered(q, k_cache, v_cache, kv_len, layer: int):
     out = _launch("k3b_flash_decode_layered", q, k_cache, v_cache, kv_len, int(layer))
     if q.device.type == "cuda":
         flash_decode_attention_layered.launches += 1
+    return out
+
+
+def flash_decode_attention_layered_split(q, k_cache, v_cache, kv_len, layer: int):
+    """K3b's first design on CUDA tensors: float32 partials of 64-row splits
+    to a device workspace, then a second launch that merges them.  The same
+    function as :func:`flash_decode_attention_layered`, kept to be timed
+    beside it; nothing calls it, and it counts no launch."""
+    dev = q.device
+    ptrs = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
+    p = _cuda_plan(q, k_cache, v_cache, kv_len, int(layer), ptrs)
+    n = p.B * p.H * -(-p.S // ATTN_ROWS) * (p.Dh + 2)
+    part = _parts.get(dev)
+    if part is None or part.numel() < n:
+        part = _parts[dev] = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    rc = load_kernels().k3b_flash_decode_layered_split(
+        *ptrs, out.data_ptr(), part.data_ptr(), _err_word(dev).data_ptr(), int(layer), p.B, p.S,
+        p.H, p.Dh, p.q_f32, cuda_build.stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"k3b_flash_decode_layered_split launch failed: CUDA error {rc}")
     return out
 
 

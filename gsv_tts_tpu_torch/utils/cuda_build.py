@@ -83,6 +83,19 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         return lib
 
 
+def stream_handle(dev) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on ``dev`` (a CUDA
+    ``torch.device`` with its index), as an int for a ctypes call.
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives the same handle but
+    builds a ``Stream`` object first, which costs a launch wrapper more host
+    time than the launch itself.  ``_cuda_getCurrentRawStream`` is a private
+    binding of PyTorch: should a release drop it, every launch fails here
+    with an ``AttributeError``, and the public form above replaces it."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def load_libraries(specs: Sequence[Tuple[str, Sequence[str]]]) -> List[ctypes.CDLL]:
     """Build and load several ``(name, sources)`` libraries at once, one
     ``nvcc`` process each, all started together."""

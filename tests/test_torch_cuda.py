@@ -287,6 +287,122 @@ def test_k4_cuda_kernel_matches_twin(cuda_device, dtype, Dh):
         fp.flash_prefill_attention(*off, xl, xyl, num_heads=H)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 16, 17, 160, 1024])
+@pytest.mark.parametrize("Dh", [8, 16, 32, 64, 128])
+def test_k4_tensor_core_body_matches_twin_and_cuda_core_body(cuda_device, Dh, T):
+    """K4's bf16 tensor-core body against the twin and against the first
+    (CUDA-core) bf16 body, at every head dim of ``HEAD_DIMS``: strided views,
+    a ragged B=4 batch whose lengths fall on and beside the 16- and 64-row
+    tile edges, pad rows; two calls are bitwise equal."""
+    from gsv_tts_tpu_torch.ops import flash_prefill as fp
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    B, H = 4, 2
+    D = H * Dh
+    gen = torch.Generator(device=cuda_device).manual_seed(Dh * 1000 + T)
+    qkv = torch.randn((B, T, 3 * D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = (t.reshape(B, T, H, Dh) for t in qkv.split(D, dim=-1))
+    xl = torch.tensor([min(n, T) for n in (15, 64, 0, 17)], dtype=torch.int32,
+                      device=cuda_device)
+    xyl = torch.tensor([max(1, min(n, T)) for n in (63, 65, 16, T)], dtype=torch.int32,
+                       device=cuda_device)
+    ref = fp.flash_prefill_attention_ref(q, k, v, xl, xyl, num_heads=H)
+    before = fp.flash_prefill_attention.launches
+    out = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
+    again = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
+    first = fp.flash_prefill_attention_cuda_core(q, k, v, xl, xyl, num_heads=H)
+    torch.cuda.synchronize()
+    fused_step.check(cuda_device)
+    assert fp.flash_prefill_attention.launches == before + 2  # the yardstick counts none
+    assert out.shape == (B, T, D) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    # bf16: the twin rounds the normalised probabilities, the kernel the
+    # unnormalised ones; both round the output (2^-9 relative each)
+    torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out, first, rtol=2e-2, atol=2e-2)
+
+
+def _k3_case(dev, B, S, lens, seed, L=2, H=4, Dh=32, dtype=torch.bfloat16):
+    """Caches [L, B, S, H, Dh] with the rows past ``lens`` poisoned (NaN), the
+    query, ``kv_len`` and the twin's output per layer (from clean caches)."""
+    from gsv_tts_tpu_torch.ops import flash_decode as fd
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kc = torch.randn((L, B, S, H, Dh), generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, B, S, H, Dh), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, H, Dh), generator=gen, device=dev).to(dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    refs = [fd.decode_attention_ref(q, kc[i], vc[i], kv_len) for i in range(L)]
+    for b, n in enumerate(lens):
+        kc[:, b, n + 1:] = float("nan")
+        vc[:, b, n + 1:] = float("nan")
+    return q, kc, vc, kv_len, refs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [200, 512, 1024])
+@pytest.mark.parametrize("B", [1, 4, 12, 20])
+def test_k3_one_launch_matches_twin(cuda_device, B, S):
+    """K3b (and K3a, the same body) in one launch against the twin: ``kv_len``
+    at 0, 63, 64 and S-1 (for B=1 one call each), rows past ``kv_len``
+    poisoned, the cluster size ``cluster_plan`` picks; deterministic, K3a
+    bitwise equal to K3b."""
+    from gsv_tts_tpu_torch.ops import flash_decode as fd
+
+    edges = [0, 63, 64, S - 1]
+    gen = torch.Generator().manual_seed(B * S)
+    rest = torch.randint(0, S, (max(B - 4, 0),), generator=gen).tolist()
+    waves = [[n] for n in edges] if B == 1 else [(edges + rest)[:B]]
+    for i, lens in enumerate(waves):
+        q, kc, vc, kv_len, refs = _k3_case(cuda_device, B, S, lens, 100 * B + i)
+        before = fd.flash_decode_attention_layered.launches
+        for layer in range(kc.shape[0]):
+            out = fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
+            torch.testing.assert_close(out, refs[layer], rtol=2e-2, atol=2e-2)
+            assert torch.equal(out, fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer))
+            assert torch.equal(out, fd.flash_decode_attention(q, kc[layer], vc[layer], kv_len))
+        torch.cuda.synchronize()
+        fd.check(cuda_device)
+        assert fd.flash_decode_attention_layered.launches == before + 2 * kc.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_every_cluster_size(cuda_device, monkeypatch, C, dtype):
+    """Each cluster size forced once through ``cluster_plan`` (the one thing
+    the wrapper picks it by): against the twin and the first design's
+    split-and-merge body, with ranks whose share of the rows is empty
+    (kv_len 0); a bad ``kv_len`` gives NaN in its slot alone and the flag."""
+    from gsv_tts_tpu_torch.ops import flash_decode as fd
+
+    monkeypatch.setattr(fd, "cluster_plan", lambda B, H, S, sms: C)
+    fd.launch_plan.cache_clear()
+    try:
+        lens = [0, 63, 64, 777, 1023]
+        q, kc, vc, kv_len, refs = _k3_case(cuda_device, len(lens), 1024, lens, C, dtype=dtype)
+        metas = (fd.meta(t, t.data_ptr()) for t in (q, kc, vc, kv_len))
+        assert fd.launch_plan(True, *metas, fd.sm_count(cuda_device)).C == C
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        for layer in range(kc.shape[0]):
+            out = fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
+            torch.testing.assert_close(out, refs[layer], rtol=tol, atol=tol)
+            split = fd.flash_decode_attention_layered_split(q, kc, vc, kv_len, layer)
+            torch.testing.assert_close(out, split, rtol=tol, atol=tol)
+        torch.cuda.synchronize()
+        fd.check(cuda_device)
+        bad = kv_len.clone()
+        bad[3] = 1024
+        nan = fd.flash_decode_attention_layered(q, kc, vc, bad, 0)
+        with pytest.raises(RuntimeError, match="kv_len outside"):
+            fd.check(cuda_device)
+        assert bool(torch.isnan(nan[3].float()).all())
+        assert bool(torch.isfinite(nan[torch.arange(5, device=cuda_device) != 3].float()).all())
+    finally:
+        fd.launch_plan.cache_clear()
+
+
 def _layer_fixture(dev, B, S, seed):
     from gsv_tts_tpu_torch.models import t2s
 
