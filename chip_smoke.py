@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py             # the smoke
     python3 chip_smoke.py --profile   # the smoke's set-up, then a torch.profiler
-                                      # breakdown of a K1 and a K2 step and the
-                                      # persistent kernels' time phase by phase
+                                      # breakdown of a K1 and a K2 step, of K5 and
+                                      # K6 calls, and the persistent kernels' time
+                                      # phase by phase
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -45,12 +46,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      tensor-core body, of the CUDA-core one and of the library call from CUDA
      graphs of 50 launches in turns, the host's time per call; then the wall
      time of ``prefill_batch`` with and without it;
-   * K5 (all layers, one token, B=1): caches of 512 and 1024 rows, ``kv_len``
-     0, mid and S-1; hidden row and appended rows within the whole-step
-     tolerances, every other cache row untouched;
-   * K6 (one layer, one token per row): B = 1, 4, 8 and 12 (two launches),
-     ragged ``kv_len``, every layer index, cache rows past ``kv_len``
-     poisoned;
+   * K5 (all layers, one token, B=1) and K6 (one layer, one token per row),
+     each one launch of the persistent kernel as a layer stack (K6 one per
+     group of at most 8 rows): K5 at caches of 512 and 1024 rows, ``kv_len``
+     0, mid and S-1, bf16 and float32 rows; K6 at B = 1, 3, 4, 5, 8, 11 and
+     12 (groups with dead rows), ragged ``kv_len``, every layer index, cache
+     rows past ``kv_len`` poisoned, ``x`` and ``kv_len`` ending where the
+     wave does, every other cache entry bit for bit; hidden rows and appended
+     rows within the whole-step tolerances; a ``kv_len`` past the cache sets
+     its bit with NaN in that row alone; one device kernel a call (K6: a
+     group) by ``torch.profiler``; the time a call in turns with the twin and
+     the first design (a chain of 194 / 10 launches; K6's calls walk the
+     layers as the ``"fused"`` path does), the device time of both (CUDA
+     graphs of many calls, replayed in turns), the host's time per call;
+     then K1, K6, K5 and K1 interleaved on the engine's one table, each bit
+     for bit its lone call;
    CUDA-event times of kernel and twin (and, for K3 and K4, of one
    ``scaled_dot_product_attention`` call as a yardstick), beside the least
    time the card could take for the bytes the call must move; on the device
@@ -601,9 +611,20 @@ class forced_clusters:
         self.fd.launch_plan.cache_clear()
 
 
-def device_kernels(fn, calls: int = 10) -> dict:
+def device_kernels(fn, calls: int = 10, want: int = None) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` (after a warm-up window of as many that
-    is not recorded): {kernel name: launches}."""
+    is not recorded): {kernel name: launches}.  The profiler may lose kernel events of a
+    window (one run recorded 4 of 10 launches of a kernel whose calls all ran): a window that
+    recorded fewer than ``want`` kernels is taken again, up to three in all.  (A count above
+    ``want``, or a kernel of another name, is never taken again: the caller fails on it.)"""
+    for _ in range(3):
+        got = _profiled_kernels(fn, calls)
+        if want is None or sum(got.values()) >= want:
+            break
+    return got
+
+
+def _profiled_kernels(fn, calls: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -711,7 +732,7 @@ def k3_phase(dev, cfg):
 
         held("k3b", k3b(), library()[:, :, 0], "bfloat16", f"the library call at B={B}")
         held("k3b", split(), k3b(), "bfloat16", f"the first design at B={B}")
-        kernels = device_kernels(k3b)
+        kernels = device_kernels(k3b, want=10)
         if sum(kernels.values()) != 10 or len(kernels) != 1:
             fail(f"K3b at B={B}: 10 calls ran the device kernels {kernels}, one each is the design")
         first = device_kernels(split)
@@ -940,9 +961,28 @@ def layers_bound(cfg, n_layers, kv_lens, x_bytes):
     return bound(2 * n_w + small + per_row, flops)
 
 
+def one_kernel_a_launch(name, fn, calls, per_call):
+    """Fail unless ``calls`` calls of ``fn`` put ``per_call`` device kernels each, all of
+    them the persistent kernel, on the card (torch.profiler)."""
+    got = device_kernels(fn, calls, want=calls * per_call)
+    if sum(got.values()) != calls * per_call or not all("decode_step_persistent" in k
+                                                        for k in got):
+        fail(f"{name}: {calls} calls ran the device kernels {got}, expected {per_call} "
+             f"persistent kernel(s) a call")
+    return got
+
+
+def poisoned_view(t, pad):
+    """``t`` as the leading rows of a buffer one row longer whose last row is ``pad``: a
+    kernel that reads past the view's end reads it."""
+    import torch
+
+    return torch.cat([t, torch.full_like(t[:1], pad)])[:t.shape[0]]
+
+
 def k5_phase(bench: StepBench):
-    """K5 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by), the times
-    at S=1024, kv_len 777."""
+    """K5 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, chain ms,
+    extras), the times at S=1024, kv_len 777."""
     import torch
 
     from gsv_tts_tpu_torch.ops import fused_step
@@ -979,21 +1019,50 @@ def k5_phase(bench: StepBench):
         if (S, kv_len) == (1024, 777):
             x = x.to(torch.bfloat16)
             ka, va = st["kc"].clone(), st["vc"].clone()
-            k_ms, p_ms = timed_turns(
-                lambda: fused_step.fused_decode_step(x, layers, ka, va, st["kv"],
-                                                     table=bench.table),
-                lambda: fused_step.fused_decode_step_ref(x, layers, ka, va, st["kv"]), 100, 10)
-            times = (k_ms, p_ms) + layers_bound(cfg, cfg.num_layers, [kv_len], 2)
-            print(f"k5 time S={S} kv_len={kv_len}: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
-                  f"bound {times[2]:.4f} ms ({times[3]})", flush=True)
+
+            def run(fn):
+                return lambda: fn(x, layers, ka, va, st["kv"], table=bench.table)
+
+            kernel, chain = run(fused_step.fused_decode_step), run(fused_step.fused_decode_step_chain)
+            k_ms, p_ms, c_ms = chain_turns(
+                kernel, chain, lambda: fused_step.fused_decode_step_ref(x, layers, ka, va, st["kv"]),
+                50, 10)
+            dev_ms = graph_turns({"kernel": graph_of(kernel, 20), "chain": graph_of(chain, 20)}, 20)
+            one_kernel_a_launch("K5", kernel, 10, 1)
+            host = host_us(kernel)
+            times = (k_ms, p_ms) + layers_bound(cfg, cfg.num_layers, [kv_len], 2) + (c_ms, dict(
+                device_ms=dev_ms["kernel"], chain_device_ms=dev_ms["chain"], host_us=host))
+            print(f"k5 time S={S} kv_len={kv_len}: persistent kernel {k_ms:.4f} ms a call "
+                  f"({dev_ms['kernel']:.4f} on the device), chain of 194 launches {c_ms:.4f} "
+                  f"({dev_ms['chain']:.4f} on the device), plain twin {p_ms:.4f} ms, bound "
+                  f"{times[2]:.4f} ms ({times[3]}); host {host:.1f} us per call; one device "
+                  f"kernel a call (torch.profiler); device times from CUDA graphs of 20 calls "
+                  f"replayed in turns; {host_scale(x)}", flush=True)
+    # a kv_len past the cache: the bit, NaN, no append, and the kernel comes back
+    st = bench.state(512, [300], [0], [17], [5])
+    ka, va = st["kc"].clone(), st["vc"].clone()
+    h, _, _ = fused_step.fused_decode_step(x, layers, ka, va, st["kv"] + 212, table=bench.table)
+    if not returned_within(30.0):
+        fail("K5 did not come back from kv_len = S")
+    try:
+        fused_step.check(dev)
+    except RuntimeError as e:
+        if "kv_len" not in str(e) or "gave up" in str(e):
+            fail(f"K5 with kv_len = S raised {e}")
+    else:
+        fail("K5 with kv_len = S set no error bit")
+    if not (bool(torch.isnan(h.float()).all()) and torch.equal(ka, st["kc"])
+            and torch.equal(va, st["vc"])):
+        fail("K5 with kv_len = S: the row is not NaN or the cache was written")
     print(f"K5 matches its twin on {calls} flagship calls (S=512, 1024; kv_len 0, mid, S-1; bf16 "
-          f"and float32 rows); max abs err {worst:.4g} (tolerance {TOL_ABS})", flush=True)
+          f"and float32 rows); kv_len = S sets its bit with NaN and no append; max abs err "
+          f"{worst:.4g} (tolerance {TOL_ABS})", flush=True)
     return (worst,) + times
 
 
 def k6_phase(bench: StepBench):
-    """K6 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by), the times
-    at B=1, S=1024, kv_len 777."""
+    """K6 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, chain ms,
+    extras), the times at B=1, S=1024, kv_len 777."""
     import torch
 
     from gsv_tts_tpu_torch.ops import fused_layer, fused_step
@@ -1003,11 +1072,19 @@ def k6_phase(bench: StepBench):
     layers, layers32 = bench.params["layers"], bench.params32["layers"]
     worst, calls = 0.0, 0
     for S in (512, 1024):
-        waves = {1: [S - 1], 4: [0, 300, S - 1, S // 2], 8: [0, 1, 63, 64, 300, S // 2, S - 200, S - 1],
+        # groups of 3, 5 and 3 (after 8) run at the kernel's next row count with dead rows
+        waves = {1: [S - 1], 3: [0, S - 1, 300], 4: [0, 300, S - 1, S // 2],
+                 5: [S - 1, 0, 63, 64, S // 2],
+                 8: [0, 1, 63, 64, 300, S // 2, S - 200, S - 1],
+                 11: [0, 63, 64, S - 1, 1, 300, 127, 128, 129, 200, S // 2],
                  12: [0, 63, 64, S - 1, 1, 300, 127, 128, 129, 200, S // 2, 17]}
         for B, kv_lens in waves.items():
             st = bench.state(S, kv_lens, [0] * B, [17] * B, [5] * B)
-            x = torch.randn((B, cfg.hidden_dim), generator=bench.dgen, device=dev).to(torch.bfloat16)
+            # x and kv_len end where the wave does: the next row (NaN) and length (past the
+            # cache, which would set the error bit) belong to no row, dead or alive
+            x = poisoned_view(torch.randn((B, cfg.hidden_dim), generator=bench.dgen,
+                                          device=dev).to(torch.bfloat16), float("nan"))
+            kv = poisoned_view(st["kv"], S + 7)
             # rows past kv_len[b] must never be read: poison them (row kv_len[b]
             # itself is the one the call writes)
             kp, vp = st["kc"].clone(), st["vc"].clone()
@@ -1015,51 +1092,147 @@ def k6_phase(bench: StepBench):
                 kp[:, b, n:] = float("nan")
                 vp[:, b, n:] = float("nan")
             before = fused_layer.fused_decode_layer.launches
-            picked = range(L) if (S, B) in ((512, 12), (1024, 4)) else (0, L // 2, L - 1)
+            picked = range(L) if S == 512 or B == 4 else (0, L // 2, L - 1)
             for layer in picked:
                 where = f"K6 B={B} S={S} layer {layer} kv_len={kv_lens}"
                 ka, va = kp.clone(), vp.clone()
-                h, _, _ = fused_layer.fused_decode_layer(x, layers[layer], ka, va, st["kv"], layer,
+                h, _, _ = fused_layer.fused_decode_layer(x, layers[layer], ka, va, kv, layer,
                                                          table=bench.table)
                 kb, vb = st["kc"].clone(), st["vc"].clone()
-                rh, _, _ = fused_layer.fused_decode_layer_ref(x, layers[layer], kb, vb, st["kv"],
+                rh, _, _ = fused_layer.fused_decode_layer_ref(x, layers[layer], kb, vb, kv,
                                                               layer)
                 fh, _, _ = fused_layer.fused_decode_layer_ref(
-                    x.float(), layers32[layer], st["kc"].float(), st["vc"].float(), st["kv"], layer)
+                    x.float(), layers32[layer], st["kc"].float(), st["vc"].float(), kv, layer)
                 torch.cuda.synchronize()
                 fused_step.check(dev)
                 worst = max(worst, check_close("hidden", h.float(), rh.float(), fh, where))
-                for b, n in enumerate(kv_lens):
-                    for name, a, r, orig in (("K", ka, kb, kp), ("V", va, vb, vp)):
+                for name, a, r, orig in (("K", ka, kb, kp), ("V", va, vb, vp)):
+                    want = orig.clone()
+                    for b, n in enumerate(kv_lens):
                         e = float((a[layer, b, n].float() - r[layer, b, n].float()).abs().max())
                         worst = max(worst, e)
                         if not e <= TOL_ABS:
                             fail(f"appended {name} row differs by {e:.4g} at {where} row {b}")
-                        if not bool(torch.isnan(a[layer, b, n + 1:].float()).all()):
-                            fail(f"{name} cache rows past kv_len were written at {where} row {b}")
-                        if not torch.equal(a[layer, b, :n], orig[layer, b, :n]):
-                            fail(f"{name} cache rows below kv_len were modified at {where} row {b}")
+                        want[layer, b, n] = a[layer, b, n]
+                    # bit for bit (the poisoned rows are NaN, never equal as numbers)
+                    if not torch.equal(a.view(torch.int16), want.view(torch.int16)):
+                        fail(f"{name} cache entries other than the appended rows changed at "
+                             f"{where}")
                 calls += 1
             groups = -(-B // fused_step.MAX_FUSED_B)
             if fused_layer.fused_decode_layer.launches - before != groups * len(picked):
                 fail(f"K6 at B={B}: {fused_layer.fused_decode_layer.launches - before} launches "
                      f"for {len(picked)} calls of {groups} groups")
     times = {}
-    for B, kv_lens in ((4, [777, 761, 790, 770]), (1, [777])):
+    for B, kv_lens in ((4, [777, 761, 790, 770]), (1, [777]), (12, [777, 761, 790, 770] * 3)):
         st = bench.state(1024, kv_lens, [0] * B, [17] * B, [5] * B)
         x = torch.randn((B, cfg.hidden_dim), generator=bench.dgen, device=dev).to(torch.bfloat16)
-        ka, va, layer = st["kc"].clone(), st["vc"].clone(), 5
-        k_ms, p_ms = timed_turns(
-            lambda: fused_layer.fused_decode_layer(x, layers[layer], ka, va, st["kv"], layer,
-                                                   table=bench.table),
-            lambda: fused_layer.fused_decode_layer_ref(x, layers[layer], ka, va, st["kv"], layer),
-            200, 20)
-        times[B] = (k_ms, p_ms) + layers_bound(cfg, 1, kv_lens, 2)
-        print(f"k6 time B={B} S=1024 kv_len~777: kernel {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
-              f"bound {times[B][2]:.5f} ms ({times[B][3]})", flush=True)
-    print(f"K6 matches its twin on {calls} flagship calls (B=1, 4, 8, 12; every layer; rows past "
-          f"kv_len poisoned); max abs err {worst:.4g} (tolerance {TOL_ABS})", flush=True)
+        ka, va = st["kc"].clone(), st["vc"].clone()
+
+        def walk(fn, table=True):
+            """One call a layer, the layers in turn as the "fused" path takes them: each call
+            finds its layer's 6.3 MB of weights out of L2."""
+            at = [0]
+
+            def call():
+                layer = at[0] % L
+                at[0] += 1
+                kw = dict(table=bench.table) if table else {}
+                fn(x, layers[layer], ka, va, st["kv"], layer, **kw)
+            return call
+
+        kernel, chain = walk(fused_layer.fused_decode_layer), walk(fused_layer.fused_decode_layer_chain)
+        k_ms, p_ms, c_ms = chain_turns(kernel, chain,
+                                       walk(fused_layer.fused_decode_layer_ref, table=False),
+                                       10 * L, L)
+        dev_ms = graph_turns({"kernel": graph_of(kernel, 2 * L), "chain": graph_of(chain, 2 * L)},
+                             2 * L)
+        groups = -(-B // fused_step.MAX_FUSED_B)
+        one_kernel_a_launch(f"K6 at B={B}", kernel, L, groups)
+        host = host_us(kernel, L)
+        times[B] = (k_ms, p_ms) + layers_bound(cfg, 1, kv_lens, 2) + (c_ms, dict(
+            device_ms=dev_ms["kernel"], chain_device_ms=dev_ms["chain"], host_us=host))
+        print(f"k6 time B={B} S=1024 kv_len~777, the {L} layers in turn: persistent kernel "
+              f"{k_ms:.4f} ms a call ({dev_ms['kernel']:.4f} on the device, {groups} launch(es) "
+              f"a call), chain {c_ms:.4f} ({dev_ms['chain']:.4f} on the device), plain twin "
+              f"{p_ms:.4f} ms, bound {times[B][2]:.5f} ms ({times[B][3]}); host {host:.1f} us per "
+              f"call; one device kernel a group (torch.profiler); device times from CUDA graphs of "
+              f"{2 * L} calls replayed in turns", flush=True)
+    # a kv_len past the cache in a group of 5: that row's bit and NaN, the rest as before
+    st = bench.state(512, [10, 150, 300, 0, 511], [0] * 5, [17] * 5, [5] * 5)
+    st["kv"][2] = 512
+    x = torch.randn((5, cfg.hidden_dim), generator=bench.dgen, device=dev).to(torch.bfloat16)
+    ka, va = st["kc"].clone(), st["vc"].clone()
+    h, _, _ = fused_layer.fused_decode_layer(x, layers[3], ka, va, st["kv"], 3, table=bench.table)
+    if not returned_within(30.0):
+        fail("K6 did not come back from kv_len = S")
+    try:
+        fused_step.check(dev)
+    except RuntimeError as e:
+        if "kv_len" not in str(e) or "gave up" in str(e):
+            fail(f"K6 with kv_len = S raised {e}")
+    else:
+        fail("K6 with kv_len = S set no error bit")
+    if not (bool(torch.isnan(h[2].float()).all()) and bool(torch.isfinite(h[[0, 1, 3, 4]]).all())
+            and torch.equal(ka[:, 2], st["kc"][:, 2]) and torch.equal(va[:, 2], st["vc"][:, 2])):
+        fail("K6 with kv_len = S in row 2: NaN elsewhere, or the row's cache was written")
+    print(f"K6 matches its twin on {calls} flagship calls (B=1, 3, 4, 5, 8, 11, 12: groups with "
+          f"dead rows; every layer at S=512; rows past kv_len poisoned, nothing read past the "
+          f"wave's x and kv_len, every other cache entry bit for bit); kv_len = S sets its bit "
+          f"with NaN in that row alone; max abs err {worst:.4g} (tolerance {TOL_ABS})",
+          flush=True)
     return (worst,) + times[1]
+
+
+def interleave_phase(bench: StepBench):
+    """K1, K6 (one row, then a group of 4), K5 and K1 again on the engine's one table, one
+    after another: each must give bit for bit what the same call gives alone (one count of
+    launches numbers every launch on the table's workspace)."""
+    import torch
+
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+
+    cfg, dev, table = bench.cfg, bench.dev, bench.table
+    D, V = cfg.hidden_dim, cfg.vocab_size
+    layers = bench.params["layers"]
+    sa, su, _ = sampling_settings()[1]
+    s1 = bench.state(1024, [777], [60], [17], [20])
+    s4 = bench.state(512, [0, 63, 300, 511], [0] * 4, [17] * 4, [5] * 4)
+    g = gumbel_noise((1, V), bench.dgen, dev)
+    x1 = torch.randn((1, D), generator=bench.dgen, device=dev).to(torch.bfloat16)
+    x4 = torch.randn((4, D), generator=bench.dgen, device=dev).to(torch.bfloat16)
+
+    def k1():
+        ka, va, kt = s1["kc"].clone(), s1["vc"].clone(), s1["tok_buf"].clone()
+        tok, row, _, _ = bench.kernel(s1, ka, va, kt, g, sa, su)
+        return [tok.clone(), row.clone(), table.x[:D].clone(), ka, va, kt]
+
+    def k6(x, st, layer):
+        ka, va = st["kc"].clone(), st["vc"].clone()
+        h, _, _ = fused_layer.fused_decode_layer(x, layers[layer], ka, va, st["kv"], layer,
+                                                 table=table)
+        return [h, ka, va]
+
+    def k5():
+        ka, va = s1["kc"].clone(), s1["vc"].clone()
+        h, _, _ = fused_step.fused_decode_step(x1, layers, ka, va, s1["kv"], table=table)
+        return [h, ka, va]
+
+    calls = [("K1", k1), ("K6 B=1", lambda: k6(x1, s1, 7)), ("K6 B=4", lambda: k6(x4, s4, 20)),
+             ("K5", k5), ("K1", k1)]
+    alone = []
+    for _, fn in calls:
+        alone.append(fn())
+        torch.cuda.synchronize()
+    together = [fn() for _, fn in calls]
+    torch.cuda.synchronize()
+    table.check()
+    for (name, _), a, b in zip(calls, alone, together):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"{name} interleaved with the others on one table differs from its lone call")
+    print("K1, K6 (B=1, 4), K5, K1 interleaved on one table: each equals its lone call bit for "
+          "bit", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1448,28 +1621,35 @@ K1_PHASES = ("stage x (embedding / LayerNorm 2)", "QKV product", "attention",
              "stage MLP rows", "MLP-2 + residual")
 K2_PHASES = (K1_PHASES[:2] + ("barrier",) + K1_PHASES[2:3] + ("barrier",) + K1_PHASES[3:5]
              + ("barrier",) + K1_PHASES[5:7] + ("barrier",) + K1_PHASES[7:] + ("barrier",))
+# a layer stack (K5, K6) stages x_in in place of the embedding, and block 0 marks once more
+# after the last LayerNorm's rows are stored
+STACK_TAIL = "stage LayerNorm 2 + store the rows (block 0)"
 
 
-def phase_trace(bench: StepBench, label: str, phases):
+def phase_trace(bench: StepBench, label: str, phases, L: int, tail: str = None):
     """The persistent kernel's time phase by phase, from the clock marks block 0 of a build
-    with -DPS_TRACE leaves behind (``csrc/decode_step_persistent.cuh``)."""
+    with -DPS_TRACE leaves behind (``csrc/decode_step_persistent.cuh``) in its last launch
+    of ``L`` layers (with ``tail``, the mark after a layer stack's store)."""
     import torch
 
-    L = bench.cfg.num_layers
-    marks = bench.table.part[:2 * (1 + len(phases) * L)].view(torch.int64).cpu().tolist()
+    n = 1 + len(phases) * L + (tail is not None)
+    marks = bench.table.part[:2 * n].view(torch.int64).cpu().tolist()
     d = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60)
     mhz = float(smi.stdout.split()[0])
     total = marks[-1] - marks[0]
-    print(f"phase trace {label}: {total} SM cycles from the first phase to the last layer's "
-          f"end = {total / mhz / 1000:.4f} ms at {mhz:.0f} MHz; mean SM cycles a layer of block 0 "
-          f"(layers 1..{L - 1}; layer 0 apart; without barriers a phase's wait for its inputs "
-          f"counts as its own time):", flush=True)
+    first = 1 if L > 1 else 0
+    print(f"phase trace {label}: {total} SM cycles from the first phase to the last mark = "
+          f"{total / mhz / 1000:.4f} ms at {mhz:.0f} MHz; mean SM cycles a layer of block 0 "
+          f"(layers {first}..{L - 1}{'; layer 0 apart' if first else ''}; without barriers a "
+          f"phase's wait for its inputs counts as its own time):", flush=True)
     for j, name in enumerate(phases):
-        vals = [d[l * len(phases) + j] for l in range(1, L)]
+        vals = [d[l * len(phases) + j] for l in range(first, L)]
         print(f"  {sum(vals) / len(vals):8.0f}  (min {min(vals)}, max {max(vals)}; layer 0 "
               f"{d[j]})  {name}", flush=True)
+    if tail is not None:
+        print(f"  {d[-1]:8.0f}  {tail}", flush=True)
 
 
 def profile_phase(bench: StepBench):
@@ -1544,7 +1724,63 @@ def profile_phase(bench: StepBench):
             print(f"  the persistent kernel takes {model[0]:.4f} ms a launch: the "
                   f"{weight_bytes(bench.cfg) / 1e6:.1f} MB of weights at "
                   f"{weight_bytes(bench.cfg) / model[0] / 1e6:.0f} GB/s", flush=True)
-            phase_trace(bench, label, K1_PHASES if B == 1 else K2_PHASES)
+            phase_trace(bench, label, K1_PHASES if B == 1 else K2_PHASES, bench.cfg.num_layers)
+    profile_layer_stacks(bench)
+
+
+def profile_layer_stacks(bench: StepBench):
+    """torch.profiler over calls of K5 (all layers, B=1) and of K6 (B=1 and 4, the layers in
+    turn) at kv_len ~777 in a 1024-row cache: device kernels a call, the persistent kernel's
+    time a launch, and its time phase by phase (K6: its last launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+
+    cfg, L = bench.cfg, bench.cfg.num_layers
+    layers = bench.params["layers"]
+    for label, B in (("K5 B=1", 1), ("K6 B=1", 1), ("K6 B=4", 4)):
+        st = bench.state(1024, [777, 761, 790, 770][:B], [60] * B, [17] * B, [20] * B)
+        x = torch.randn((B, cfg.hidden_dim), generator=bench.dgen, device=bench.dev).to(
+            torch.bfloat16)
+        kk, kv = st["kc"].clone(), st["vc"].clone()
+        at = [0]
+
+        def call():
+            if label.startswith("K5"):
+                fused_step.fused_decode_step(x, layers, kk, kv, st["kv"], table=bench.table)
+            else:
+                layer = at[0] % L
+                at[0] += 1
+                fused_layer.fused_decode_layer(x, layers[layer], kk, kv, st["kv"], layer,
+                                               table=bench.table)
+        n = 20 if label.startswith("K5") else 2 * L
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+            span_ms = 1000 * (time.perf_counter() - t0) / n
+        rows = [(e.key, (getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0.0)) / 1000, e.count)
+                for e in prof.key_averages() if "CUDA" in str(getattr(e, "device_type", ""))
+                and e.count > 0]
+        launches = sum(r[2] for r in rows) / n
+        busy = sum(r[1] for r in rows) / n
+        print(f"profile {label} S=1024 kv_len~777: profiled span {span_ms:.4f} ms a call, "
+              f"device busy {busy:.4f} ms a call in {launches:.1f} device kernels a call, idle "
+              f"share {1 - busy / span_ms:.3f}", flush=True)
+        for key, ms, cnt in rows:
+            print(f"  {ms / cnt:.4f} ms a launch  {cnt / n:.1f} a call  {key[:100]}", flush=True)
+        # (the profiler may drop a window's first events: fewer is no second kernel)
+        if launches > 1.5 or not all("decode_step_persistent" in r[0] for r in rows):
+            fail(f"{label}: {launches} device kernels a call, the persistent design has one")
+        torch.cuda.synchronize()
+        phases = ("stage x (x_in / LayerNorm 2)",) + (K1_PHASES if B == 1 else K2_PHASES)[1:]
+        phase_trace(bench, label, phases, L if label.startswith("K5") else 1, tail=STACK_TAIL)
 
 
 def main():
@@ -1596,17 +1832,17 @@ def main():
     prefill_times(bench)
     k5 = k5_phase(bench)
     k6 = k6_phase(bench)
+    interleave_phase(bench)
     del bench
     torch.cuda.empty_cache()
     launches = main_path_phase(dev)
 
     def step_record(name, source, replaces, count, err, t):
-        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-               "bound_ms": t[2], "bound_by": t[3], "library_ms": None}
-        if len(t) > 4:  # K1, K2: their first design, the chain of 195 launches, beside them
-            rec["chain_ms"] = t[4]
-        return rec
+        # t: (ms, plain ms, bound ms, bound by, the first design's ms[, extras])
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2], "bound_by": t[3], "library_ms": None, "chain_ms": t[4],
+                **(t[5] if len(t) > 5 else {})}
 
     def attn_record(name, source, replaces, count, r):
         return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
@@ -1615,8 +1851,9 @@ def main():
                 **r[6]}
 
     # times of the whole-step kernels (K1 and K2: the persistent kernel plus
-    # the sampling launch) and of K5 and K6: S=1024, kv_len ~777
-    # (K2 at B=4, K6 at B=1); of the decode attention kernels: B=12, S=512,
+    # the sampling launch) and of K5 and K6 (the persistent kernel alone; K6's
+    # calls walk the layers): S=1024, kv_len ~777 (K2 at B=4, K6 at B=1); each
+    # beside its first design, the chain; of the decode attention kernels: B=12, S=512,
     # kv_len ~300; of K4: B=1, T=512.  K3a has no caller in the JAX package
     # outside its own module, so there is no path to put it on: it is held in
     # the kernel phase and shares K3b's kernel body

@@ -1,16 +1,23 @@
-// The whole t2s decode step as ONE persistent cooperative kernel on Hopper
-// (sm_90a): embedding -> L post-norm layers -> logits head, for a wave of up
-// to NB rows.  k1_decode_step.cu instantiates it at NB = 1 (K1), and
-// k2_decode_step_batched.cu at NB = 2, 4 and 8 (K2; a wave of 3 runs as 4
-// with a dead row that touches nothing).  The sampling chain stays a second
-// launch (decode_common.cuh: sample_row is written for one block of 1024
-// threads; this kernel runs 512 a block so that a thread may keep 128
-// registers, and one launch boundary costs less than the sort at half the
-// threads would).
+// The t2s decode layers as ONE persistent cooperative kernel on Hopper
+// (sm_90a), for up to NB rows.  One kernel body serves three entries:
+//   * the whole step (StepArgs::x_in == nullptr): embedding -> L post-norm
+//     layers -> logits head; k1_decode_step.cu instantiates it at NB = 1
+//     (K1), k2_decode_step_batched.cu at NB = 2, 4 and 8 (K2; a wave of 3
+//     runs as 4 with a dead row that touches nothing).  The sampling chain
+//     stays a second launch (decode_common.cuh: sample_row is written for one
+//     block of 1024 threads; this kernel runs 512 a block so that a thread
+//     may keep 128 registers, and one launch boundary costs less than the
+//     sort at half the threads would);
+//   * a layer stack (x_in given): the rows of x_in -> the L layers of the
+//     table -> the last LayerNorm's rows into x_out, in x_in's type; no
+//     embedding, no head.  k5_decode_layers.cu runs all L layers at one row
+//     (K5), k6_decode_layer.cu one layer (a one-entry table and that layer's
+//     cache slab) for groups of up to 8 rows (K6, NB = 1, 2, 4, 8).
 //
 // Replaces the model half of the TPU kernels
-// gsv_tts_tpu/ops/fused_step.py:_kernel_sample and :_kernel_sample_b: one
-// launch a step with the next layer's weights in flight while the current
+// gsv_tts_tpu/ops/fused_step.py:_kernel_sample and :_kernel_sample_b, and
+// the whole of :_kernel (K5) and gsv_tts_tpu/ops/fused_layer.py:_kernel
+// (K6): one launch with the next layer's weights in flight while the current
 // layer computes (their double-buffered make_async_copy of w_packed_ref).
 //
 // What bounds a step on this card: bytes.  2*L*(4*D*D + 2*D*M) + 2*V*D bytes
@@ -32,10 +39,10 @@
 //   is ONE 1-D bulk asynchronous copy (cp.async.bulk, completion counted in
 //   bytes on an mbarrier in shared memory; no tensor map).  Every block
 //   walks the same fixed list of tiles -- layer by layer, product by
-//   product, then the head -- through a ring of PS_STAGES stages of
-//   PS_STAGE_BYTES.  One thread issues the copy of tile t + PS_STAGES as
-//   soon as tile t has been consumed; the weights do not depend on the
-//   activations, so the ring (128 KB a block, 17 MB over the card: two
+//   product, then the head if the entry has one -- through a ring of
+//   PS_STAGES stages of PS_STAGE_BYTES.  One thread issues the copy of tile
+//   t + PS_STAGES as soon as tile t has been consumed; the weights do not
+//   depend on the activations, so the ring (128 KB a block, 17 MB over the card: two
 //   layers ahead) keeps filling while the block computes another phase or
 //   waits for one.  No product ever waits for its weights.
 // * The hand-over between phases (PsHandOver).  A phase lasts a microsecond
@@ -67,7 +74,8 @@
 //   D floats) while it stages them to bf16 in shared memory for the next
 //   product.  The normalised rows stay in shared memory in float32 as the
 //   residual of the product after next; block 0 also writes the last
-//   layer's to StepArgs::x.
+//   layer's to StepArgs::x (a whole step) or x_out (a layer stack, where
+//   no other block needs them).
 // * All SMs on every product: rows are dealt over the whole grid, and where
 //   a block holds fewer rows than warps (out-proj, MLP-2, the head) a row's
 //   K is split over several warps whose partial sums are added through
@@ -147,7 +155,22 @@ struct StepArgs {
   int* err;
   unsigned epoch;           // one row: this launch's number on its workspace, in [1, 2^24)
   unsigned long long* bar;  // a wave: the grid barrier's counter
+  // A layer stack (K5, K6) gives x_in: the first layer's rows ([B, D], float32
+  // when x_f32, else bf16; post-norm, so they are also its residual), and the
+  // last LayerNorm's rows go to x_out in the same type.  There is then no
+  // embedding and no head: audio_emb, pe, predict_w, x_len, last_tok, x and
+  // row_out are not read.  nullptr: the whole step.
+  const void* x_in;
+  void* x_out;
+  int x_f32;
 };
+
+// The products on the tile list: four a layer, and the head after them when
+// the entry has one.  The list ends there, so that every bulk copy a block
+// issues is one it consumes before it exits.
+static __host__ __device__ __forceinline__ int ps_products(const StepArgs& a) {
+  return 4 * a.L + (a.x_in == nullptr ? 1 : 0);
+}
 
 // Shared-memory layout (bytes from the dynamic base), the same on both sides.
 struct PsLayout {
@@ -325,8 +348,8 @@ static __device__ __forceinline__ unsigned long long ps_first_target(unsigned lo
 
 // ---------------------------------------------------------------------------
 // The weight stream: the block's tiles in the order every block consumes
-// them.  Product p of 4 L + 1: layer p / 4's qkv, out, mlp1, mlp2; the last
-// is the head.  A block's rows of a product [N, K] are
+// them.  Product p of ps_products(a): layer p / 4's qkv, out, mlp1, mlp2;
+// a whole step's last is the head.  A block's rows of a product [N, K] are
 // [N bid / G, N (bid + 1) / G), taken PsPlan::tile_rows at a time.  The five
 // shapes' plans are worked out once, at the kernel's start (integer
 // divisions are slow enough to show in a phase of two microseconds).
@@ -374,7 +397,7 @@ struct PsStream {  // the issuing thread's cursor over the tile list
   __device__ __noinline__ void fill(const StepArgs& a, const LayerWeights* lw,
                                     const PsPlan* plan, unsigned char* ring,
                                     unsigned long long* full, int consumed) {
-    while (issued - consumed < PS_STAGES && p <= 4 * a.L) {
+    while (issued - consumed < PS_STAGES && p < ps_products(a)) {
       const PsPlan& pl = plan[ps_kind(a, p)];
       if (row < pl.r0) row = pl.r0;
       if (row >= pl.r1) {  // this product is done (or the block has no row of it)
@@ -564,6 +587,39 @@ static __device__ __noinline__ void ps_stage_embed(const StepArgs& a) {
     s.act[i] = __float2bfloat16(v);
   }
   __syncthreads();
+}
+
+// x[b] = x_in[b] (a layer stack's rows, promoted to float32); block 0 flags a
+// kv_len outside [0, S), which the attention turns into NaN for that row.
+template <int NB>
+static __device__ __noinline__ void ps_stage_input(const StepArgs& a) {
+  const PsBlock<NB> s = ps_block<NB>(a);
+  if (blockIdx.x == 0 && threadIdx.x < a.B) {
+    const int kv = a.kv_len != nullptr ? a.kv_len[threadIdx.x] : a.kv_i;
+    if (kv < 0 || kv >= a.S) atomicOr(a.err, ERR_KV_LEN);
+  }
+  const int n = a.B * a.D;  // the live rows only: a dead row's x_in does not exist
+  for (int i = threadIdx.x; i < n; i += PS_THREADS) {
+    const float v = a.x_f32 ? static_cast<const float*>(a.x_in)[i]
+                            : __bfloat162float(static_cast<const bf16*>(a.x_in)[i]);
+    s.resid[i] = v;
+    s.act[i] = __float2bfloat16(v);
+  }
+  __syncthreads();
+}
+
+// x_out[b] = the normalised rows in s.resid, in x_in's type (a layer stack's
+// result; the caller's block has just staged the last LayerNorm).
+template <int NB>
+static __device__ __noinline__ void ps_store_rows(const StepArgs& a) {
+  const float* r = ps_block<NB>(a).resid;
+  const int n = a.B * a.D;
+  if (a.x_f32) {
+    for (int i = threadIdx.x; i < n; i += PS_THREADS) static_cast<float*>(a.x_out)[i] = r[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += PS_THREADS)
+      static_cast<bf16*>(a.x_out)[i] = __float2bfloat16(r[i]);
+  }
 }
 
 // Start the copy of a LayerNorm's scale and shift into s.gb (cp.async, 16
@@ -792,7 +848,8 @@ static __device__ __forceinline__ void ps_attention(const StepArgs& a, float* sc
 }
 
 // Built with -DPS_TRACE, block 0 writes its SM's clock at every mark (1 + 9
-// a layer at one row, 14 for a wave with its barriers) into a.trace, as long
+// a layer at one row, 14 for a wave with its barriers, and for a layer stack
+// one more after its rows are stored) into a.trace, as long
 // long (the chain's attention partials live there; the wrapper keeps it at
 // least PS_TRACE_BYTES long): where a step's time goes, phase by phase.
 constexpr int PS_TRACE_BYTES = 4096;
@@ -861,7 +918,9 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
   for (int l = 0; l < L; ++l) {
     const LayerWeights& w = s.lw[l];
     const unsigned tag = (a.epoch << 8) + l;  // what this layer's phases write under
-    if (l == 0)
+    if (l == 0 && a.x_in != nullptr)
+      ps_stage_input<NB>(a);
+    else if (l == 0)
       ps_stage_embed<NB>(a);
     else
       ps_stage_layernorm<NB>(a, a.pre, tag - 1, nullptr);
@@ -899,8 +958,16 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
     PS_HAND_OVER();
   }
 #undef PS_HAND_OVER
-  ps_stage_layernorm<NB>(a, a.pre, (a.epoch << 8) + L - 1, a.x);
-  ps_product_rows<NB>(a, 4 * L, nullptr, 0.f, false, nullptr, 0u, a.row_out, false, consumed);
+  if (a.x_in == nullptr) {  // the whole step: every block normalises the rows for the head
+    ps_stage_layernorm<NB>(a, a.pre, (a.epoch << 8) + L - 1, a.x);
+    ps_product_rows<NB>(a, 4 * L, nullptr, 0.f, false, nullptr, 0u, a.row_out, false, consumed);
+  } else if (blockIdx.x == 0) {  // a layer stack: nobody else needs the last rows
+    ps_stage_layernorm<NB>(a, a.pre, (a.epoch << 8) + L - 1, nullptr);
+    ps_store_rows<NB>(a);
+    PS_MARK();
+  } else {  // (the last LayerNorm's scale and shift are on their way here too)
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -964,6 +1031,7 @@ static int launch_decode_step_persistent(const StepArgs& a, cudaStream_t st) {
   static size_t cached_smem = 0;
   constexpr bool TAGGED = PsHandOver<NB>::TAGGED;
   if (a.B < 1 || a.B > NB || a.L < 1 || 2 * a.D > PS_STAGE_BYTES || 2 * a.M > PS_STAGE_BYTES ||
+      (a.x_in != nullptr && a.x_out == nullptr) ||
       (TAGGED && (a.L > 255 || a.epoch == 0 || a.epoch >= (1u << 24))))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ps_layout(NB, a.L, a.D, a.M).total;

@@ -115,7 +115,7 @@ static int launch_k1_sample(const K1Args* a, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 extern "C" int k1_decode_step(const K1Args* a, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  StepArgs s;
+  StepArgs s = {};  // (a field left unset is 0: no x_in, a whole step)
   s.B = 1;
   s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.V = a->V, s.S = a->S, s.P = a->P;
   s.alpha = a->alpha, s.attn_scale = a->attn_scale;

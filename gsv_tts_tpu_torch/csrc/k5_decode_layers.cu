@@ -1,5 +1,6 @@
-// K5: one token through all L post-norm layers at B=1 on Hopper (sm_90a),
-// as a chain of hand-written kernels launched from one host entry point.
+// K5: one token through all L post-norm layers at B=1 on Hopper (sm_90a), as
+// ONE launch of the persistent decode kernel (decode_step_persistent.cuh as a
+// layer stack at one row).
 //
 // Replaces the TPU kernel gsv_tts_tpu/ops/fused_step.py:_kernel (wrapper
 // fused_decode_step): the given hidden row goes through qkv, the attention
@@ -12,19 +13,24 @@
 // What bounds it on the card: bytes -- every layer's matrices once,
 // 2*L*(4*D*D + 2*D*M) bytes of bf16 (about 151 MB at L=24, D=512, M=2048),
 // plus the attended cache rows, 4*L*kv_len*D bytes; K1's bound without the
-// embedding and the head.  The design is K2's layer (decode_common.cuh:
-// decode_layer_rows) at one row: a warp per output row streams the weight
-// row once with 16-byte loads, the attention is split into 64-row pieces
-// over (head, split) blocks, and kv_len stays on the device -- every block
-// reads it there, so the caller never reads it back.  The TPU kernel's
-// double-buffered weight DMA answers a VMEM staging constraint and has no
-// counterpart: the GEMV blocks of one layer already keep the memory system
-// busy while the next launch is queued.  8 launches per layer; a persistent
-// fused kernel and CUDA-graph capture are later work.
+// embedding and the head.  The design is K1's: one cooperative launch with
+// one block per SM, the layers' weights streamed through each block's
+// shared-memory ring of bulk copies from the first tile to the last MLP-2's
+// (the list ends there: no head), values handed from phase to phase with the
+// tag of this launch and layer instead of launches or barriers.  The first
+// row is x_in itself (promoted to float32: it is also the first residual);
+// block 0 normalises the last layer's rows and stores them in x's type.
+// kv_len stays on the device: the blocks read its word there, and the caller
+// never reads it back.
+//
+// The first design, a chain of 8 launches a layer (decode_common.cuh:
+// decode_layer_rows) between a row load and a row store, 194 launches a
+// call, stays below as k5_decode_layers_chain, for timing beside the
+// persistent kernel in one process; nothing in the package calls it.
 //
 // A kv_len outside [0, S) sets ERR_KV_LEN and yields NaN; nothing is clamped.
 #define DEC_WITH_ROWS
-#include "decode_common.cuh"
+#include "decode_step_persistent.cuh"
 
 struct K5Args {
   int L, D, H, M, S;
@@ -35,18 +41,46 @@ struct K5Args {
   bf16* k_cache;      // [L, S, D]  (the [L, 1, S, H, Dh] cache)
   bf16* v_cache;
   const int* kv_len;  // [1]
-  float* x;     // [D]   float32 workspace
+  float* x;     // [D]   float32 workspace of the chain
   float* h;     // [D]
   float* qkv;   // [3D]
   float* attn;  // [D]
   float* mlp;   // [M]
-  float* part;  // [H, ceil(S / 64), Dh + 2] attention partials
+  float* part;  // [H, ceil(S / 64), Dh + 2] the chain's attention partials (a traced
+                // build's clock marks)
   int* err;     // [1]  ERR_* bits
+  // what the persistent kernel reads besides
+  const LayerWeights* layers_dev;  // [L] the layer table on the device
+  PsTagged* tagged;                // [D | D | 3D | D | M]: one row's h, pre, qkv, attn, mlp
+  float* pre;                      // (a wave's; unused at one row)
+  unsigned long long* bar;         // (a wave's; unused at one row)
+  unsigned epoch;                  // StepArgs::epoch
 };
 
-// The host entry point: the L layers, launched on ``stream``.  Returns the
-// first CUDA error raised by a launch (0 when every launch was accepted).
-extern "C" int k5_decode_layers(const K5Args* a, const LayerWeights* layers, void* stream) {
+// The host entry point: the L layers in one launch on ``stream``.  Returns
+// the CUDA error of the launch (0 when it was accepted).
+extern "C" int k5_decode_layers(const K5Args* a, void* stream) {
+  StepArgs s = {};
+  s.B = 1;
+  s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.S = a->S;
+  s.attn_scale = a->attn_scale;
+  s.k_cache = a->k_cache, s.v_cache = a->v_cache;
+  s.kv_len = a->kv_len;
+  s.layers = a->layers_dev;
+  PsTagged* t = a->tagged;  // one row: the values carry their tags
+  s.h = t, s.pre = t + a->D, s.qkv = t + 2 * a->D, s.attn = t + 5 * a->D, s.mlp = t + 6 * a->D;
+  s.trace = a->part, s.err = a->err;
+  s.epoch = a->epoch;
+  s.x_in = a->x_in, s.x_out = a->x_out, s.x_f32 = a->x_f32;
+  return launch_decode_step_persistent<1>(s, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The first design: the L layers as a chain of 194 launches on ``stream``.
+// Returns the first CUDA error raised by a launch (0 when every launch was
+// accepted).
+// ---------------------------------------------------------------------------
+extern "C" int k5_decode_layers_chain(const K5Args* a, const LayerWeights* layers, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int D = a->D, S = a->S;
   int rc;

@@ -17,8 +17,10 @@
   timing beside them; nothing calls it.
 * K5, :func:`fused_decode_step`: a given hidden row through all layers at
   B=1, no embedding, head or sampling (TPU kernel ``_kernel``), CUDA source
-  ``csrc/k5_decode_layers.cu``; ``kv_len`` is a ``[1]`` tensor that stays on
-  the device.
+  ``csrc/k5_decode_layers.cu``: one launch of the same persistent kernel as
+  a layer stack; ``kv_len`` is a ``[1]`` tensor that stays on the device.
+  Its first design, a chain of 194 launches, is bound as
+  :func:`fused_decode_step_chain` for timing beside it; nothing calls it.
 
 On CUDA tensors the wrappers launch the hand-written Hopper kernels (built
 with ``nvcc`` at first use); on CPU tensors they run the plain PyTorch twins
@@ -240,6 +242,11 @@ _WORK_FIELDS = [(n, ctypes.c_void_p) for n in ("x", "h", "qkv", "attn", "mlp", "
 # its grid barrier's counter
 _PERSISTENT_FIELDS = ([(n, ctypes.c_void_p) for n in ("layers_dev", "tagged", "pre", "bar")]
                       + [("epoch", ctypes.c_uint)])
+# K5's and K6's: the rows in and out, the caches, the counters, the workspace
+_LAYERS_FIELDS = ([("attn_scale", ctypes.c_float)]
+                  + [(n, ctypes.c_void_p) for n in ("x_in", "x_out", "k_cache", "v_cache", "kv_len",
+                                                    "x", "h", "qkv", "attn", "mlp", "part", "err")]
+                  + _PERSISTENT_FIELDS)
 
 
 class _K1Args(ctypes.Structure):
@@ -266,12 +273,7 @@ class _K2Args(ctypes.Structure):
 
 
 class _K5Args(ctypes.Structure):
-    _fields_ = (
-        [(n, ctypes.c_int) for n in ("L", "D", "H", "M", "S", "x_f32")]
-        + [("attn_scale", ctypes.c_float)]
-        + [(n, ctypes.c_void_p) for n in ("x_in", "x_out", "k_cache", "v_cache", "kv_len",
-                                          "x", "h", "qkv", "attn", "mlp", "part", "err")]
-    )
+    _fields_ = [(n, ctypes.c_int) for n in ("L", "D", "H", "M", "S", "x_f32")] + _LAYERS_FIELDS
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,9 +306,11 @@ def load_batched_kernels() -> ctypes.CDLL:
 def load_layers_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k5_decode_layers.cu``."""
     lib = cuda_build.load_library(*K5_LIBRARY)
-    lib.k5_decode_layers.argtypes = [ctypes.POINTER(_K5Args), ctypes.POINTER(_LayerWeights),
-                                     ctypes.c_void_p]
-    lib.k5_decode_layers.restype = ctypes.c_int
+    lib.k5_decode_layers.argtypes = [ctypes.POINTER(_K5Args), ctypes.c_void_p]
+    lib.k5_decode_layers_chain.argtypes = [ctypes.POINTER(_K5Args), ctypes.POINTER(_LayerWeights),
+                                           ctypes.c_void_p]
+    for fn in (lib.k5_decode_layers, lib.k5_decode_layers_chain):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -351,12 +355,16 @@ def check(dev) -> None:
 
 class LayerTable:
     """What the layer kernels (K1, K2, K5, K6) read besides the per-step
-    tensors: a host table of the layers' weight pointers and a float32
-    workspace on the card for up to ``MAX_FUSED_B`` rows.  ``layers`` is a
-    list of per-layer dicts; the table holds it alive (``kept``).  One table
-    serves one decode at a time — its workspace is shared.  Whoever owns the
-    parameters builds one table over them (the engine's ``K1Table``) and
-    hands it to the wrappers; a wrapper given none builds one for its call."""
+    tensors: a table of the layers' weight pointers (on the host for the
+    chains, on the card for the persistent kernel), a float32 workspace on
+    the card for up to ``MAX_FUSED_B`` rows, and the persistent kernel's
+    hand-over state: the tagged values of one row, the grid barrier's
+    counter and the one count (``epoch``) that numbers every launch on this
+    workspace, whichever kernel makes it.  ``layers`` is a list of per-layer
+    dicts; the table holds it alive (``kept``).  One table serves one decode
+    at a time — its workspace is shared.  Whoever owns the parameters builds
+    one table over them (the engine's ``K1Table``) and hands it to the
+    wrappers; a wrapper given none builds one for its call."""
 
     def __init__(self, layers):
         first = layers[0]
@@ -382,6 +390,20 @@ class LayerTable:
         self.err = error_word(self.device)
         self.part = torch.empty(0, dtype=torch.float32, device=self.device)
         self.kept = layers
+        # the persistent kernel's copy of the layer table; what its phases
+        # hand to each other at one row: (value, tag) pairs for
+        # [D | D | 3D | D | M], the tag naming the launch (``epoch``, counted
+        # here from 1 in 24 bits for every launch on this workspace: two
+        # counts could give two launches one tag, and a reader would take
+        # the older launch's value) and the layer that wrote the value; and
+        # the counter of the grid barrier between a wave's phases (it only
+        # grows)
+        self.layers_dev = torch.frombuffer(bytearray(bytes(self.layers)),
+                                           dtype=torch.uint8).to(self.device)
+        self.tagged = torch.zeros((6 * D + M, 2), dtype=torch.int32, device=self.device)
+        self.epoch = 0
+        self.bar = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.persistent_ok = set()  # the hand-over modes check_persistent has passed
 
     def ptr(self, t, shape, dtype):
         _need(t.device == self.device and t.dtype == dtype and t.is_contiguous()
@@ -411,6 +433,33 @@ class LayerTable:
         (:func:`check` for this table's device)."""
         check(self.device)
 
+    def check_persistent(self, tagged: bool):
+        """Raise on widths the persistent kernel does not take (at one row it
+        hands over through ``tagged`` values, for a wave through barriers).
+        What is left to the launch: the shared memory a block needs (its rows
+        of D and M floats beside the ring), refused as an invalid value.  A
+        table's widths do not change: each mode is checked once."""
+        if tagged in self.persistent_ok:
+            return
+        _need(2 * max(self.D, self.M) <= PS_STAGE_BYTES,
+              f"a weight row of {max(self.D, self.M)} bf16 exceeds a {PS_STAGE_BYTES}-byte "
+              f"ring stage")
+        if tagged:  # without barriers, what orders a buffer's writers behind its readers
+            sms = torch.cuda.get_device_properties(self.device).multi_processor_count
+            _need(min(3 * self.D, self.M) >= sms and self.L <= 255,
+                  f"D={self.D}, M={self.M}: every one of the card's {sms} blocks needs a row of "
+                  f"the QKV and MLP-1 products (and at most 255 layers)")
+        self.persistent_ok.add(tagged)
+
+    def persistent(self, a, layer: int = 0):
+        """The persistent kernel's fields of an argument struct: the device
+        table from entry ``layer`` on, the hand-over state, and this launch's
+        number."""
+        self.epoch = self.epoch % 0xFFFFFE + 1  # 1 .. 2^24 - 2: never 0, the fresh workspace's
+        a.layers_dev = self.layers_dev.data_ptr() + layer * ctypes.sizeof(_LayerWeights)
+        a.tagged, a.epoch = self.tagged.data_ptr(), self.epoch
+        a.pre, a.bar = self.pre.data_ptr(), self.bar.data_ptr()
+
 
 class K1Table(LayerTable):
     """The layer table plus what the whole-step kernels (K1 and K2) read
@@ -434,31 +483,7 @@ class K1Table(LayerTable):
         self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
         # K1's kv_len is a host int; the chain's layer kernels read it from this word
         self.kv_word = torch.zeros(1, dtype=torch.int32, device=self.device)
-        # the persistent kernels' copy of the layer table; what K1's phases
-        # hand to each other: (value, tag) pairs for one row of
-        # [D | D | 3D | D | M], the tag naming the launch (``epoch``, counted
-        # here from 1 in 24 bits) and the layer that wrote the value; and the
-        # counter of the grid barrier between K2's phases (it only grows)
-        self.layers_dev = torch.frombuffer(bytearray(bytes(self.layers)),
-                                           dtype=torch.uint8).to(self.device)
-        self.tagged = torch.zeros((6 * D + self.M, 2), dtype=torch.int32, device=self.device)
-        self.epoch = 0
-        self.bar = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.params = params
-
-    def check_persistent(self, tagged: bool):
-        """Raise on widths the persistent kernel does not take (K1's hands
-        over through ``tagged`` values, K2's through barriers).  What is left
-        to the launch: the shared memory a block needs (its rows of D and M
-        floats beside the ring), refused as an invalid value."""
-        _need(2 * max(self.D, self.M) <= PS_STAGE_BYTES,
-              f"a weight row of {max(self.D, self.M)} bf16 exceeds a {PS_STAGE_BYTES}-byte "
-              f"ring stage")
-        if tagged:  # without barriers, what orders a buffer's writers behind its readers
-            sms = torch.cuda.get_device_properties(self.device).multi_processor_count
-            _need(min(3 * self.D, self.M) >= sms and self.L <= 255,
-                  f"D={self.D}, M={self.M}: every one of the card's {sms} blocks needs a row of "
-                  f"the QKV and MLP-1 products (and at most 255 layers)")
 
     def fill(self, a, sa, sup):
         """The fields both whole-step argument structs share: widths,
@@ -474,10 +499,7 @@ class K1Table(LayerTable):
         a.top_p = sa.top_p
         a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
         a.top_k = sa.top_k
-        self.epoch = self.epoch % 0xFFFFFE + 1  # 1 .. 2^24 - 2: never 0, the fresh workspace's
-        a.layers_dev, a.tagged, a.epoch = (self.layers_dev.data_ptr(), self.tagged.data_ptr(),
-                                           self.epoch)
-        a.pre, a.bar = self.pre.data_ptr(), self.bar.data_ptr()
+        self.persistent(a)
 
 
 def _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa, suppress_until, suppressed):
@@ -507,10 +529,11 @@ def _check_cuda_tensors(dev, table, k_cache, named):
 
 
 def _launch(entry, what: str, a, dev, *table_layers):
-    """Call a whole-step entry point on ``dev``'s current stream; raise on the
-    CUDA error of a refused launch (an invalid value: widths that need more
-    shared memory than a block has; a cooperative launch too large: a card
-    that cannot hold one block per SM, shared with another process)."""
+    """Call a persistent kernel's entry point (or a chain's) on ``dev``'s
+    current stream; raise on the CUDA error of a refused launch (an invalid
+    value: widths that need more shared memory than a block has; a
+    cooperative launch too large: a card that cannot hold one block per SM,
+    shared with another process)."""
     rc = entry(ctypes.byref(a), *table_layers, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
@@ -748,26 +771,19 @@ def table_for(table, layers, at: int = 0) -> LayerTable:
     return table
 
 
-def fused_decode_step(x, layers, k_cache, v_cache, kv_len, *, table=None):
-    """K5: one token through all layers at B=1, no embedding, head or
-    sampling.
-
-    ``x`` [1, D] (bf16 or float32); ``layers`` the list of per-layer dicts
-    (``params["layers"]``); ``k_cache``/``v_cache`` [L, 1, S, H, Dh], every
-    layer's new K/V row appended in place at row ``kv_len``; ``kv_len`` [1]
-    int32 on the tensors' device, never read back; ``table`` the
-    :class:`LayerTable` built over ``layers`` (``params["k1_table"]``).
-    Returns ``(h [1, D] in x's dtype, k_cache, v_cache)``.
-    """
+def _k5_args(x, layers, k_cache, v_cache, kv_len, table):
+    """Check K5's arguments; on the CPU return None, else the filled argument
+    struct with its table and output ``(a, table, out)``."""
     check_hidden_rows(x, k_cache, v_cache, kv_len)
     L, B, S, H, Dh = k_cache.shape
     _need(B == 1, f"batch {B}: this kernel is B=1")
     _need(len(layers) == L, f"{len(layers)} layers for a {L}-layer cache")
-    dev = x.device
-    if dev.type == "cpu":
-        return fused_decode_step_ref(x, layers, k_cache, v_cache, kv_len)
+    if x.device.type == "cpu":
+        return None
     table = table_for(table, layers)
-    _need(table.L == L and table.D == H * Dh, f"cache width {H * Dh} does not match the weights' {table.D}")
+    _need(table.L == L and table.D == H * Dh,
+          f"cache width {H * Dh} does not match the weights' {table.D}")
+    table.check_persistent(tagged=True)
     out = torch.empty_like(x)
     a = _K5Args()
     a.L, a.D, a.H, a.M, a.S = L, table.D, H, table.M, S
@@ -776,11 +792,38 @@ def fused_decode_step(x, layers, k_cache, v_cache, kv_len, *, table=None):
     a.x_in, a.x_out = x.data_ptr(), out.data_ptr()
     a.k_cache, a.v_cache, a.kv_len = k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
     table.work(a, 1, S, H, Dh)
-    rc = load_layers_kernels().k5_decode_layers(ctypes.byref(a), table.layers,
-                                                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"K5 launch failed: CUDA error {rc}")
+    return a, table, out
+
+
+def fused_decode_step(x, layers, k_cache, v_cache, kv_len, *, table=None):
+    """K5: one token through all layers at B=1, no embedding, head or
+    sampling: one launch of the persistent kernel.
+
+    ``x`` [1, D] (bf16 or float32); ``layers`` the list of per-layer dicts
+    (``params["layers"]``); ``k_cache``/``v_cache`` [L, 1, S, H, Dh], every
+    layer's new K/V row appended in place at row ``kv_len``; ``kv_len`` [1]
+    int32 on the tensors' device, never read back; ``table`` the
+    :class:`LayerTable` built over ``layers`` (``params["k1_table"]``).
+    Returns ``(h [1, D] in x's dtype, k_cache, v_cache)``.
+    """
+    prepared = _k5_args(x, layers, k_cache, v_cache, kv_len, table)
+    if prepared is None:
+        return fused_decode_step_ref(x, layers, k_cache, v_cache, kv_len)
+    a, table, out = prepared
+    table.persistent(a)
+    _launch(load_layers_kernels().k5_decode_layers, "K5", a, x.device)
     fused_decode_step.launches += 1
+    return out, k_cache, v_cache
+
+
+def fused_decode_step_chain(x, layers, k_cache, v_cache, kv_len, *, table=None):
+    """K5's first design, a chain of 194 launches, on CUDA tensors: the same
+    arguments and effects as :func:`fused_decode_step`.  Kept to time beside
+    the persistent kernel in one process; nothing in the package calls it and
+    it counts no launch."""
+    _need(x.device.type == "cuda", "the chain runs on CUDA tensors only")
+    a, table, out = _k5_args(x, layers, k_cache, v_cache, kv_len, table)
+    _launch(load_layers_kernels().k5_decode_layers_chain, "K5 chain", a, x.device, table.layers)
     return out, k_cache, v_cache
 
 

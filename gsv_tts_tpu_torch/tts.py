@@ -92,6 +92,13 @@ class _SegStream:
         return audio.astype(np.float32)
 
 
+#: the t2s KV-cache buckets ``TTS()`` takes, the JAX facade's: B=1 lengths for
+#: ``infer`` and waves of 4 slots for ``infer_batched`` (a wave takes the
+#: smallest bucket with B >= its texts, so without a B=4 bucket a batch would
+#: decode one text at a time)
+DEFAULT_GPT_CACHE = ((1, 512), (1, 768), (1, 1024), (4, 512), (4, 1024))
+
+
 class TTS:
     """Engine facade.  ``device`` and ``dtype`` follow ``Config``'s policy:
     the engine runs on the card in bf16 and raises when there is none, unless
@@ -99,7 +106,7 @@ class TTS:
     random draw (Gumbel noise, SoVITS latent noise) comes from.
     ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``)."""
 
-    def __init__(self, gpt_cache: List[tuple] = ((1, 512), (1, 768), (1, 1024)),
+    def __init__(self, gpt_cache: List[tuple] = DEFAULT_GPT_CACHE,
                  models_dir: Optional[str] = None, device: Optional[str] = None,
                  dtype: Optional[str] = None, seed: Optional[int] = None,
                  attn_impl: str = "fused_step"):

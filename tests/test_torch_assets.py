@@ -6,8 +6,10 @@ package's own ``save_trained_gpt`` / ``save_trained_sovits``, a tiny HuBERT
 directory in the Hugging Face layout, and two synthetic wavs — all made
 from fixed seeds.
 """
+import contextlib
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -15,6 +17,40 @@ import torch
 
 import jax
 import jax.numpy as jnp
+
+#: optional packages the frontend takes when they import (sentence
+#: segmentation, language identification), and which JAX-side oracle tests
+#: stand in for with stubs they leave in ``sys.modules``
+#: (``tests/test_frontend.py:_load_ref_textprocessor``)
+OPTIONAL_TEXT_MODULES = ("pysbd", "py3langid")
+
+
+@contextlib.contextmanager
+def real_text_modules():
+    """Within the block, the optional text packages import as installed: a
+    stand-in that another test left in ``sys.modules`` (a module object
+    without a file) is taken out, and put back afterwards.  The stub
+    ``pysbd`` takes a whole text as one sentence, so without this a facade
+    test that runs after those tests in the same process cuts its text
+    differently than when it runs alone."""
+    hidden = {}
+    for name in OPTIONAL_TEXT_MODULES:
+        mod = sys.modules.get(name)
+        if mod is not None and getattr(mod, "__file__", None) is None:
+            hidden[name] = sys.modules.pop(name)
+    try:
+        yield
+    finally:
+        sys.modules.update(hidden)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def text_modules_as_installed():
+    """For a whole test module (its module-scoped fixtures included): the
+    optional text packages as installed (:func:`real_text_modules`)."""
+    with real_text_modules():
+        yield
+
 
 TINY_T2S = dict(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2,
                 vocab_size=1025, phoneme_vocab_size=732, eos=1024)

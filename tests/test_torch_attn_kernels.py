@@ -1,9 +1,10 @@
 """The host side of the attention kernels K3 (``ops/flash_decode.py``) and K4
-(``ops/flash_prefill.py``) that runs without a card: the cluster plan of the
-one-launch decode attention, and the memoized argument checks of both
-wrappers, called with the metadata a CUDA tensor would have (shape, strides,
-dtype, device, ``data_ptr() % 16``).  The kernels themselves are held against
-their twins in ``test_torch_cuda.py``."""
+(``ops/flash_prefill.py``), and of the layer kernel K6 (``ops/fused_layer.py``),
+that runs without a card: the cluster plan of the one-launch decode
+attention, and the memoized argument checks of the three wrappers, called
+with the metadata a CUDA tensor would have (shape, strides, dtype, device,
+``data_ptr() % 16``).  The kernels themselves are held against their twins
+in ``test_torch_cuda.py``."""
 import pytest
 import torch
 
@@ -165,3 +166,58 @@ def test_k4_plan_checks_heads_and_float32_widths():
         fp.launch_plan(*f32, 4)
     assert fp.launch_plan(*_k4(dtype=F32, Dh=64), 4).shape.is_f32 == 1
     assert fp.launch_plan(*_k4(Dh=128), 4).shape.Dh == 128  # bf16 takes 128-wide heads
+
+
+def _k6(B=3, S=256, L=4, H=4, Dh=32, x_dtype=BF16, **over):
+    """Metadata of a K6 call; ``over`` replaces one tensor's."""
+    args = dict(x=_t((B, H * Dh), x_dtype), k=_t((L, B, S, H, Dh), BF16),
+                v=_t((L, B, S, H, Dh), BF16), kv=_t((B,), torch.int32))
+    args.update(over)
+    return args["x"], args["k"], args["v"], args["kv"]
+
+
+K6_BAD = {
+    "cache dtype": (dict(k=_t((4, 3, 256, 4, 32), F32)), "k_cache must be"),
+    "cache alignment": (dict(v=_t((4, 3, 256, 4, 32), BF16, mis=8)), "v_cache must be"),
+    "x not contiguous": (dict(x=_t((3, 128), BF16, stride=(256, 1))), "x must be"),
+    "x dtype": (dict(x=_t((3, 128), torch.float16)), "x dtype"),
+    "x shape": (dict(x=_t((3, 64), BF16)), r"x \(3, 64\) is not"),
+    "kv_len dtype": (dict(kv=_t((3,), torch.int64)), "kv_len must be"),
+    "kv_len device": (dict(kv=_t((3,), torch.int32, dev=torch.device("cuda", 1))),
+                      "kv_len must be"),
+    "kv_len shape": (dict(kv=_t((2,), torch.int32)), r"kv_len must be a \[3\] tensor"),
+    "head dim": (dict(x=_t((3, 96), BF16), k=_t((4, 3, 256, 4, 24), BF16),
+                      v=_t((4, 3, 256, 4, 24), BF16)), "head dim 24"),
+    "cache shapes": (dict(v=_t((4, 3, 255, 4, 32), BF16)), "cache shapes"),
+    "not on CUDA": (dict(x=_t((3, 128), BF16, dev=torch.device("cpu")),
+                         k=_t((4, 3, 256, 4, 32), BF16, dev=torch.device("cpu")),
+                         v=_t((4, 3, 256, 4, 32), BF16, dev=torch.device("cpu")),
+                         kv=_t((3,), torch.int32, dev=torch.device("cpu"))), "runs on CUDA"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K6_BAD))
+def test_k6_memoized_checks_still_raise(case):
+    """K6's wrapper checks a call once per metadata key (it runs once per
+    layer and step on the "fused" path): a good call memoizes its plan; each
+    bad input, under another key, still raises, and is never memoized."""
+    from gsv_tts_tpu_torch.ops import fused_layer as fl
+
+    good = _k6(B=3)
+    plan = fl.launch_plan(*good)
+    assert plan == fl.Plan(L=4, B=3, S=256, H=4, Dh=32, x_f32=0)
+    over, match = K6_BAD[case]
+    with pytest.raises(ValueError, match=match):
+        fl.launch_plan(*_k6(B=3, **over))
+    hits = fl.launch_plan.cache_info().hits
+    assert fl.launch_plan(*good) is plan
+    assert fl.launch_plan.cache_info().hits == hits + 1
+    with pytest.raises(ValueError, match=match):
+        fl.launch_plan(*_k6(B=3, **over))
+
+
+def test_k6_plan_of_float32_rows_and_a_wave_of_eleven():
+    from gsv_tts_tpu_torch.ops import fused_layer as fl
+
+    assert fl.launch_plan(*_k6(B=11, S=1024, L=24, H=16, Dh=32, x_dtype=F32)) == fl.Plan(
+        L=24, B=11, S=1024, H=16, Dh=32, x_f32=1)

@@ -461,20 +461,25 @@ def test_k5_cuda_kernel_matches_twin(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 5, 8, 11])
+@pytest.mark.parametrize("B", [1, 3, 5, 8, 11, 12])
 def test_k6_cuda_kernel_matches_twin(cuda_device, B):
     """K6 against its twin on the card for every layer index, ragged lengths
     (0 and S-1 among them), rows past ``kv_len`` poisoned; above 8 rows the
-    wrapper launches the kernel in groups.  Layer 0 goes through a table the
-    wrapper builds for the call, the others through one table over all
-    layers."""
+    wrapper launches the kernel in groups, and a group of 3, 5 or 7 runs with
+    dead rows that touch nothing: ``x`` and ``kv_len`` are views whose next
+    entry (NaN, and a length past the cache that would set the error bit) no
+    row may read, and every cache entry but the appended rows stays bit for
+    bit.  Layer 0 goes through a table the wrapper builds for the call, the
+    others through one table over all layers."""
     from gsv_tts_tpu_torch.ops import fused_layer, fused_step
 
     S = 200
     cfg, params, x, kc, vc = _layer_fixture(cuda_device, B, S, 4)
-    x = x.to(torch.bfloat16)
-    lens = ([0, S - 1, 63, 64, 150, 1, 128, 17, 90, 199, 33])[:B]
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    xbuf = torch.cat([x, torch.full_like(x[:1], float("nan"))]).to(torch.bfloat16)
+    x = xbuf[:B]
+    lens = ([0, S - 1, 63, 64, 150, 1, 128, 17, 90, 199, 33, 5])[:B]
+    kvbuf = torch.tensor(lens + [S + 7], dtype=torch.int32, device=cuda_device)
+    kv_len = kvbuf[:B]
     for b, n in enumerate(lens):
         kc[:, b, n:] = float("nan")
         vc[:, b, n:] = float("nan")
@@ -491,18 +496,195 @@ def test_k6_cuda_kernel_matches_twin(cuda_device, B):
         rh, _, _ = fused_layer.fused_decode_layer_ref(x, params["layers"][layer], kb, vb,
                                                       kv_len, layer)
         torch.cuda.synchronize()
-        fused_step.check(cuda_device)
-        assert bool(torch.isfinite(h.float()).all())
+        fused_step.check(cuda_device)  # (the length past the view was not read)
+        assert h.shape == x.shape and bool(torch.isfinite(h.float()).all())
         torch.testing.assert_close(h.float(), rh.float(), rtol=2e-2, atol=2e-2)
-        for b, n in enumerate(lens):
-            torch.testing.assert_close(ka[layer, b, n], kb[layer, b, n], rtol=2e-2, atol=2e-2)
-            torch.testing.assert_close(va[layer, b, n], vb[layer, b, n], rtol=2e-2, atol=2e-2)
-            assert bool(torch.isnan(ka[layer, b, n + 1:].float()).all())  # untouched
-            assert bool(torch.isnan(va[layer, b, n + 1:].float()).all())
-            assert torch.equal(ka[layer, b, :n], kc[layer, b, :n])
-            assert torch.equal(va[layer, b, :n], vc[layer, b, :n])
+        for name, got, ref, orig in (("K", ka, kb, kc), ("V", va, vb, vc)):
+            want = orig.clone()
+            for b, n in enumerate(lens):
+                torch.testing.assert_close(got[layer, b, n], ref[layer, b, n], rtol=2e-2,
+                                           atol=2e-2)
+                want[layer, b, n] = got[layer, b, n]
+            # bit for bit: the poisoned rows are NaN, which torch.equal never calls equal
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16)), name
     groups = -(-B // fused_step.MAX_FUSED_B)
     assert fused_layer.fused_decode_layer.launches == before + cfg.num_layers * groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("where", ["first", "last"])
+def test_k5_persistent_matches_twin_and_chain_at_the_flagship_width(cuda_device, dtype, where):
+    """K5 at the flagship widths (24 layers, D=512, M=2048) at ``kv_len`` 0
+    and S-1: the persistent kernel against the twin and against its first
+    design, the chain (which counts no launch); only row ``kv_len`` of every
+    layer changes."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import fused_step
+
+    S = 1024
+    n = 0 if where == "first" else S - 1
+    cfg = t2s.T2SConfig()
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(5), dtype=torch.bfloat16,
+                             device=cuda_device)
+    table = fused_step.LayerTable(params["layers"])
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    shape = (cfg.num_layers, 1, S, cfg.num_heads, cfg.head_dim)
+    kc = (torch.randn(shape, generator=gen, device=cuda_device) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=cuda_device) * 0.5).to(torch.bfloat16)
+    x = torch.randn((1, cfg.hidden_dim), generator=gen, device=cuda_device).to(dtype)
+    kv_len = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+    before = fused_step.fused_decode_step.launches
+    outs = []
+    for fn in (fused_step.fused_decode_step, fused_step.fused_decode_step_chain):
+        ka, va = kc.clone(), vc.clone()
+        h, _, _ = fn(x, params["layers"], ka, va, kv_len, table=table)
+        outs.append((h, ka, va))
+    kb, vb = kc.clone(), vc.clone()
+    rh, _, _ = fused_step.fused_decode_step_ref(x, params["layers"], kb, vb, kv_len)
+    torch.cuda.synchronize()
+    table.check()
+    assert fused_step.fused_decode_step.launches == before + 1
+    for h, ka, va in outs:
+        assert h.dtype == dtype and h.shape == x.shape
+        # 24 bf16 layers carry a flipped rounding forward (the smoke's tolerance)
+        torch.testing.assert_close(h.float(), rh.float(), rtol=0.1, atol=0.1)
+        torch.testing.assert_close(ka[:, 0, n].float(), kb[:, 0, n].float(), rtol=0.1, atol=0.1)
+        torch.testing.assert_close(va[:, 0, n].float(), vb[:, 0, n].float(), rtol=0.1, atol=0.1)
+        for a, orig in ((ka, kc), (va, vc)):
+            assert torch.equal(a[:, 0, :n], orig[:, 0, :n])
+            assert torch.equal(a[:, 0, n + 1:], orig[:, 0, n + 1:])
+
+
+@pytest.mark.cuda
+def test_k1_k6_k5_k1_interleaved_on_one_table_equal_their_lone_calls(cuda_device):
+    """K1, K6 (one row, and a group of 4), K5 and K1 again, one after another
+    on the one table the engine keeps: each result is bit for bit what the
+    same call gives alone.  Every launch on the table's workspace takes its
+    number from one count, so no launch can take a value another left under
+    the same tag."""
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    S = 200
+    cfg, params, kc1, vc1, buf, st = _step_fixture(cuda_device, "small", 1, S, seed=7)
+    table = params["k1_table"]
+    V, D, L = cfg.vocab_size, cfg.hidden_dim, cfg.num_layers
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    g = torch.randn((1, V), generator=gen, device=cuda_device)
+    x1 = torch.randn((1, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    x4 = torch.randn((4, D), generator=gen, device=cuda_device).to(torch.bfloat16)
+    kc4 = torch.randn((L, 4, S, cfg.num_heads, cfg.head_dim), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    kv1 = torch.tensor([150], dtype=torch.int32, device=cuda_device)
+    kv4 = torch.tensor([0, 63, 150, S - 1], dtype=torch.int32, device=cuda_device)
+
+    def k1():
+        ka, va, ba = kc1.clone(), vc1.clone(), buf.clone()
+        tok, row, _, _ = fused_step.fused_decode_step_sample(
+            params, ka, va, ba, 150, 20, st["last"], 100, 3, g, sa=SampleArgs())
+        return [tok.clone(), row.clone(), table.x[:D].clone(), ka, va, ba]
+
+    def k6(x, kc, kv, layer):
+        ka, va = kc.clone(), kc.flip(0).clone()
+        h, _, _ = fused_layer.fused_decode_layer(x, params["layers"][layer], ka, va, kv, layer,
+                                                 table=table)
+        return [h, ka, va]
+
+    def k5():
+        ka, va = kc1.clone(), vc1.clone()
+        h, _, _ = fused_step.fused_decode_step(x1, params["layers"], ka, va, kv1, table=table)
+        return [h, ka, va]
+
+    calls = [k1, lambda: k6(x1, kc1, kv1, 1), lambda: k6(x4, kc4, kv4, 2), k5, k1]
+    alone = []
+    for fn in calls:
+        alone.append(fn())
+        torch.cuda.synchronize()
+    together = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    table.check()
+    for i, (a, b) in enumerate(zip(alone, together)):
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), f"call {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k5", "k6 one row", "k6 group of 5"])
+def test_k5_k6_bad_kv_len_sets_the_bit_without_a_hang(cuda_device, kernel):
+    """A ``kv_len`` outside ``[0, S)`` sets the error bit and the launch
+    comes back: that row is NaN, the other rows finite, and its cache is not
+    written."""
+    import time
+
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+
+    S = 200
+    B = 5 if kernel == "k6 group of 5" else 1
+    cfg, params, x, kc, vc = _layer_fixture(cuda_device, B, S, 9)
+    x = x.to(torch.bfloat16)
+    lens = [10, 150, S, 0, S - 1][:B] if B > 1 else [S]
+    bad = lens.index(S)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    table = fused_step.LayerTable(params["layers"])
+    ka, va = kc.clone(), vc.clone()
+    if kernel == "k5":
+        h, _, _ = fused_step.fused_decode_step(x, params["layers"], ka, va, kv_len, table=table)
+    else:
+        h, _, _ = fused_layer.fused_decode_layer(x, params["layers"][1], ka, va, kv_len, 1,
+                                                 table=table)
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.perf_counter() + 30
+    while not done.query():
+        assert time.perf_counter() < deadline, "the kernel did not come back"
+        time.sleep(0.01)
+    with pytest.raises(RuntimeError, match="kv_len outside the cache"):
+        table.check()
+    for b in range(B):
+        assert bool(torch.isnan(h[b].float()).all()) if b == bad else \
+            bool(torch.isfinite(h[b].float()).all())
+    assert torch.equal(ka[:, bad], kc[:, bad]) and torch.equal(va[:, bad], vc[:, bad])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,B,per_call", [("k5", 1, 1), ("k6", 1, 1), ("k6", 4, 1),
+                                               ("k6", 11, 2)])
+def test_k5_k6_are_one_device_kernel_a_call_or_group(cuda_device, kernel, B, per_call):
+    """By ``torch.profiler`` on the card: one device kernel (the persistent
+    kernel) per K5 call and per K6 group of rows, and no other kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsv_tts_tpu_torch.ops import fused_layer, fused_step
+
+    S, calls = 200, 6
+    cfg, params, x, kc, vc = _layer_fixture(cuda_device, B, S, 10)
+    x = x.to(torch.bfloat16)
+    kv_len = torch.tensor([(37 * b) % S for b in range(B)], dtype=torch.int32,
+                          device=cuda_device)
+    table = fused_step.LayerTable(params["layers"])
+
+    def call():
+        if kernel == "k5":
+            fused_step.fused_decode_step(x, params["layers"], kc, vc, kv_len, table=table)
+        else:
+            fused_layer.fused_decode_layer(x, params["layers"][2], kc, vc, kv_len, 2,
+                                           table=table)
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):  # (the profiler may lose a window's kernel events: take another)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if "CUDA" in str(getattr(e, "device_type", "")) and e.count > 0}
+        if sum(kernels.values()) >= calls * per_call:
+            break
+    table.check()
+    assert sum(kernels.values()) == calls * per_call, kernels
+    assert all("decode_step_persistent" in k for k in kernels), kernels
 
 
 @pytest.mark.cuda

@@ -143,18 +143,22 @@ def test_k6_rows_are_independent_and_wrapper_checks():
                                           ("fused_step", "fused_step_interpret", 1),
                                           ("fused_step", "fused_step_interpret", 3),
                                           ("fused", "fused_interpret", 1),
-                                          ("fused", "fused_interpret", 3)])
+                                          ("fused", "fused_interpret", 3),
+                                          ("fused", "fused_interpret", 5),
+                                          ("fused", "fused_interpret", 11)])
 def test_transformer_decode_step_under_each_impl_matches_jax(impl, jimpl, B):
     """Each implementation name against the JAX step under the same name in
     interpret mode and under ``"xla"``; ``"fused_step"`` at B > 1 degrades to
-    ``"flash"`` on both sides."""
+    ``"flash"`` on both sides.  Under ``"fused"``, B = 5 and 11 are the waves
+    the card's K6 runs with dead rows (a group of 5 at its 8-row size; 8 and
+    then 3 at its 4-row size)."""
     from gsv_tts_tpu.models import t2s as jt2s
     from gsv_tts_tpu_torch.models import t2s as pt2s
 
     cfg, jp = jax_t2s(7)
     pcfg, pp = port_t2s(cfg, jp)
     S = 128
-    lens = [40, 0, 127][:B]
+    lens = [40, 0, 127, 1, 64, 100, 63, 2, 126, 17, 90][:B]
     x, kc, vc = _state(cfg, B, B, S)
     jargs = (jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens, jnp.int32))
     jh, jkc, jvc = jt2s.transformer_decode_step(jp, cfg, *jargs, jimpl)

@@ -6,6 +6,9 @@ The JAX facade runs with ``sovits_cache=[]`` and ``stream_vocoder="exact"``
 so its vocoder sees the exact shapes the port uses; ``top_k=1`` and
 ``noise_scale=0`` take the randomness out.  Tolerance: rtol=2e-4, atol=2e-5
 (float32 on both sides, summation order only)."""
+import sys
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -13,7 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_assets import build_assets
+from test_torch_assets import build_assets, real_text_modules, text_modules_as_installed  # noqa: F401,E501
 from test_torch_sovits import models  # noqa: F401  (module-scoped fixture)
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -118,6 +121,45 @@ def test_infer_stream_chunks_match_jax(assets, engines, kw):
     assert pclips[-1].audio_len_s == pytest.approx(total / 32000)
     assert pclips[-1].samplerate == 32000 and pclips[-1].orig_text == TEXT
     assert 0 < ptts.last_timings["ttfa_s"] and ptts.last_timings["decode_steps"] > 0
+
+
+def test_stream_chunks_hold_after_the_frontend_oracle_stubs(assets, engines, monkeypatch):
+    """The order hazard of a whole run: ``tests/test_frontend.py``'s oracle
+    tests put stand-ins for ``pysbd`` (a whole text as one sentence) and
+    ``py3langid`` into ``sys.modules`` and leave them there.  Left in place
+    they cut this file's two-sentence text as one, and the chunk count
+    falls below what the stream tests hold (each file passed alone); within
+    :func:`real_text_modules`, which every test module of the facade runs
+    under, the stream is what it is alone, chunk for chunk JAX's."""
+    from gsv_tts_tpu_torch.frontend import text_processor as tp
+
+    jtts, ptts = engines
+    # the stand-ins of test_frontend.py:_load_ref_textprocessor, as it installs them
+    pysbd = types.ModuleType("pysbd")
+
+    class Segmenter:
+        def segment(self, text):
+            return [text]
+
+    pysbd.Segmenter = Segmenter
+    py3langid = types.ModuleType("py3langid")
+    py3langid.classify = lambda t: ("zh", 0.0)
+    monkeypatch.setitem(sys.modules, "pysbd", pysbd)
+    monkeypatch.setitem(sys.modules, "py3langid", py3langid)
+    assert len(tp._split_sentences(TEXT)) == 1  # what the hazard did
+    with real_text_modules():
+        assert "pysbd" not in sys.modules or getattr(sys.modules["pysbd"], "__file__", None)
+        assert len(tp._split_sentences(TEXT)) == 2
+        args = (assets["spk"], assets["prompt"], PROMPT_TEXT, TEXT)
+        common = dict(top_k=1, noise_scale=0.0, cut_minlen=5, stream_chunk=15,
+                      boost_first_chunk=False, overlap_len=3)
+        jchunks = [np.asarray(c.audio_data)
+                   for c in jtts.infer_stream(*args, debug=False, **common)]
+        pchunks = [c.audio_data for c in ptts.infer_stream(*args, **common)]
+    assert sys.modules["pysbd"] is pysbd  # put back as found
+    assert len(pchunks) >= 4 and [len(c) for c in pchunks] == [len(c) for c in jchunks]
+    for i, (pc, jc) in enumerate(zip(pchunks, jchunks)):
+        np.testing.assert_allclose(pc, jc, rtol=RTOL, atol=ATOL, err_msg=f"chunk {i}")
 
 
 def test_infer_stream_under_flash_matches_default(assets, engines):
