@@ -82,7 +82,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``"fused_step"`` (K5 once per step; its tokens held against the
    ``"flash"`` route's from the same states), and ``TTS.infer_stream`` twice
    with the default engine (K1) and once under ``attn_impl="flash"``: more
-   than one chunk, every chunk finite, time to first audio printed.
+   than one chunk, every chunk finite, time to first audio printed;
+6. SoVITS buckets.  Every facade above runs at the default SoVITS options
+   (``sovits_cache=[50, 55]``, ``stream_vocoder="bucketed"``): each ``infer``
+   replays two CUDA graphs (the padded core, the flow bucket), each stream
+   chunk one (the fused chunk).  Then: two equal ``infer`` requests, the
+   second capturing no graph; a padded core captured at one length and
+   replayed at another of its bucket, and a fused stream chunk, against
+   their eager runs; ``sovits_s`` and the stream's warm time to first audio
+   under ``"bucketed"`` and ``"exact"`` in turns (b, e, e, b, twice) in one process;
+   ``speed=0.8``; ``infer(return_subtitles=True)`` (non-empty, times not
+   decreasing); the graphs' count, each one's device time a replay, and
+   their memory pool's size.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 kernels' JSON record and the card.  Nothing here imports JAX.
@@ -615,9 +626,10 @@ def device_kernels(fn, calls: int = 10, want: int = None) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` (after a warm-up window of as many that
     is not recorded): {kernel name: launches}.  The profiler may lose kernel events of a
     window (one run recorded 4 of 10 launches of a kernel whose calls all ran): a window that
-    recorded fewer than ``want`` kernels is taken again, up to three in all.  (A count above
-    ``want``, or a kernel of another name, is never taken again: the caller fails on it.)"""
-    for _ in range(3):
+    recorded fewer than ``want`` kernels is taken again, up to five in all (a run has had
+    three windows in a row record nothing).  (A count above ``want``, or a kernel of another
+    name, is never taken again: the caller fails on it.)"""
+    for _ in range(5):
         got = _profiled_kernels(fn, calls)
         if want is None or sum(got.values()) >= want:
             break
@@ -1355,9 +1367,13 @@ def single_path(tts, spk, prompt):
         print(f"infer request {i}: {st['tokens']} tokens, {st['decode_steps']} decode steps in "
               f"{st['decode_s']:.3f} s = {st['decode_steps'] / st['decode_s']:.1f} tok/s, "
               f"{1000 * st['decode_s'] / st['decode_steps']:.3f} ms/step; prefill "
-              f"{1000 * st['prefill_s']:.1f} ms, SoVITS {st['sovits_s']:.3f} s; "
+              f"{1000 * st['prefill_s']:.1f} ms, SoVITS {st['sovits_s']:.3f} s (CUDA graphs: "
+              f"{st['sovits_graphs']} captured in {st['sovits_capture_s']:.3f} s, "
+              f"{st['sovits_replays']} replayed); "
               f"{clip.audio_len_s:.2f} s of audio in {wall:.3f} s, RTF "
               f"{wall / clip.audio_len_s:.4f}", flush=True)
+        if st["sovits_replays"] != 2:  # the padded core and the flow bucket
+            fail(f"infer request {i}: {st['sovits_replays']} SoVITS graph replays, not 2")
     counts = read_counts()
     if steps == 0:
         fail("infer took no decode step")
@@ -1546,9 +1562,13 @@ def stream_path(models_dir, gpt, sov, spk, prompt, dev, attn_impl, texts, warm_r
         if not 0.25 * st["decode_steps"] * 1280 < audio.size <= st["decode_steps"] * 1280 + mute:
             fail(f"{what}: {audio.size} samples for {st['decode_steps']} decode steps")
         print(f"{what}: {len(clips)} chunks, {st['decode_steps']} decode steps, time to first "
-              f"audio {1000 * st['ttfa_s']:.1f} ms, {len(audio) / 32000:.2f} s of audio in "
-              f"{wall:.3f} s, RTF {wall / (len(audio) / 32000):.4f} (warm infer RTF "
-              f"{warm_rtf:.4f})", flush=True)
+              f"audio {1000 * st['ttfa_s']:.1f} ms, SoVITS {st['sovits_s']:.3f} s (CUDA graphs: "
+              f"{st['sovits_graphs']} captured in {st['sovits_capture_s']:.3f} s, "
+              f"{st['sovits_replays']} replayed), "
+              f"{len(audio) / 32000:.2f} s of audio in {wall:.3f} s, RTF "
+              f"{wall / (len(audio) / 32000):.4f} (warm infer RTF {warm_rtf:.4f})", flush=True)
+        if st["sovits_replays"] != len(clips):  # one fused chunk program a chunk
+            fail(f"{what}: {st['sovits_replays']} SoVITS graph replays for {len(clips)} chunks")
     counts = read_counts()
     if attn_impl == "flash":
         expect_counts(f"infer_stream under flash ({steps} steps, {len(texts)} prefills)", counts,
@@ -1558,7 +1578,188 @@ def stream_path(models_dir, gpt, sov, spk, prompt, dev, attn_impl, texts, warm_r
     return counts
 
 
-def main_path_phase(dev):
+def graph_pool_bytes(pool) -> int:
+    """Bytes the CUDA graphs' shared memory pool holds (its peak: a graph
+    pool keeps its blocks while its graphs live); 0 when the allocator's
+    snapshot names no segment of it."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+               if pool is not None and tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def held_to_eager(what, got, want):
+    """Graph replay against the eager run of the same program: bf16 on the
+    same kernels, so equal but for a reduction order cuDNN may pick anew —
+    held to 2^-6 of max(1, |eager|)."""
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    scale = max(1.0, max(float(w.float().abs().max()) for w in want))
+    print(f"sovits buckets: {what}: max abs diff graph replay vs eager {err:.3g}", flush=True)
+    if not err <= scale / 64:
+        fail(f"{what}: graph replay differs from eager by {err} (scale {scale})")
+
+
+def sovits_buckets_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """The default SoVITS path (``sovits_cache=[50, 55]``, ``stream_vocoder="bucketed"``):
+    two equal ``infer`` requests, the second capturing no graph; a padded core captured at
+    one length and replayed at another of its bucket, and a fused stream chunk, each against
+    eager; ``sovits_s`` and the stream's warm time to first audio under "bucketed" and
+    "exact" in turns; ``speed=0.8``; subtitles; the graphs and their pool.  Returns the
+    launch counts of its requests (K1: one per decode step)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.models import sovits as sovits_model
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import stream_batch_fused
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    def facade(**kw):
+        tts = TTS(gpt_cache=[(1, 512)], models_dir=models_dir, device=dev, seed=SEED, **kw)
+        tts.load_gpt_model(str(gpt))
+        tts.load_sovits_model(str(sov))
+        return tts
+
+    def infer(tts, text, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, text, top_k=1, **kw)
+        torch.cuda.synchronize()
+        return clip, dict(tts.last_timings, wall_s=time.perf_counter() - t0)
+
+    def stream(tts, text):
+        clips = list(tts.infer_stream(str(spk), str(prompt), PROMPT_TEXT, text, top_k=1,
+                                      is_cut_text=False))
+        torch.cuda.synchronize()
+        return clips, dict(tts.last_timings)
+
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tts = facade()
+    steps = 0
+    reset_counts()
+    for i in range(2):
+        clip, st = infer(tts, TEXTS[3])
+        steps += st["decode_steps"]
+        check_audio(f"sovits buckets: infer {i}", clip.audio_data, int(0.2 * 32000),
+                    st["tokens"] * 1280 + int(0.2 * 32000))
+        print(f"sovits buckets: infer {i} ({st['tokens']} tokens): SoVITS {st['sovits_s']:.4f} s, "
+              f"CUDA graphs {st['sovits_graphs']} captured in {st['sovits_capture_s']:.3f} s, "
+              f"{st['sovits_replays']} replayed", flush=True)
+    if st["sovits_graphs"] != 0 or st["sovits_replays"] != 2:
+        fail(f"sovits buckets: the second equal infer captured {st['sovits_graphs']} graph(s), "
+             f"replayed {st['sovits_replays']}: it should replay the first's two")
+
+    # one padded core captured at one length and replayed at another of its bucket
+    sovits = tts.sovits_models[str(sov)]
+    cfg, p = sovits.cfg, sovits.params
+    ge = tts.spk_audio_cache[str(spk)]["ge"][str(sov)].to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    core = functools.partial(sovits_model.decode_core_stream_padded, p, cfg, overlap_len=1,
+                             blend=False)
+
+    def core_inputs(n, N):
+        i64 = dict(dtype=torch.int64, device=dev)
+        codes = torch.zeros((1, 1, 64), **i64)
+        codes[..., :n] = torch.randint(0, 1024, (n,), generator=gen, **i64)
+        text = torch.zeros((1, 32), **i64)
+        text[:, :N] = torch.randint(1, 700, (N,), generator=gen, **i64)
+        noise = torch.randn((1, cfg.inter_channels, 128), generator=gen, device=dev) * 0.5
+        return (codes, torch.tensor(n, **i64), text, torch.tensor(N, **i64), ge,
+                noise.to(torch.bfloat16),
+                torch.zeros((1, cfg.hidden_channels, 1), dtype=torch.bfloat16, device=dev),
+                torch.tensor(0, **i64))
+
+    graphs = SovitsGraphs()
+    with torch.no_grad():
+        graphs.run(("core",), core, *core_inputs(40, 20))
+        ins = core_inputs(57, 27)
+        got, want = graphs.run(("core",), core, *ins), core(*ins)
+        held_to_eager("padded core captured at n=40, N=20, replayed at n=57, N=27",
+                      [got[0][..., :114], got[2][..., :114, :27], got[3]],
+                      [want[0][..., :114], want[2][..., :114, :27], want[3]])
+        if not torch.equal(got[1], want[1]):
+            fail("sovits buckets: the replayed core's mask differs from eager")
+        # a fused stream chunk (core, flow bucket, HiFi-GAN), blended and not
+        bucket = tts._flow_bucket(84)
+        chunk = functools.partial(stream_batch_fused, p, cfg, overlap_len=5, bucket=bucket)
+        for n, vsi, blend in ((45, 6, True), (50, 16, False)):
+            c = core_inputs(n, 30)
+            ins = (c[0], c[1].reshape(1), c[2], c[3].reshape(1), ge, c[5],
+                   torch.randn((1, cfg.hidden_channels, 5), generator=gen,
+                               device=dev).to(torch.bfloat16),
+                   torch.tensor([vsi], device=dev), torch.tensor([blend], device=dev))
+            got, want = graphs.run(("chunk",), chunk, *ins), chunk(*ins)
+            t_valid = 2 * n - vsi
+            held_to_eager(f"stream chunk (bucket {bucket}) at n={n}, vsi={vsi}, blend={blend}",
+                          [got[0][..., :t_valid * cfg.samples_per_frame],
+                           got[1][..., :2 * n, :30], got[2]],
+                          [want[0][..., :t_valid * cfg.samples_per_frame],
+                           want[1][..., :2 * n, :30], want[2]])
+    if graphs.captures != 2 or graphs.replays != 4:
+        fail(f"sovits buckets: {graphs.captures} captures, {graphs.replays} replays (2, 4)")
+    del graphs
+
+    # sovits_s and the stream's warm time to first audio, both vocoder modes in turns
+    exact = facade(stream_vocoder="exact")
+    modes = {"bucketed": tts, "exact": exact}
+    for name, t in modes.items():  # warm: graphs captured, kernels' first launches paid
+        steps += infer(t, TEXTS[0])[1]["decode_steps"] + stream(t, TEXTS[1])[1]["decode_steps"]
+    for turn, name in enumerate(("bucketed", "exact", "exact", "bucketed") * 2):
+        t = modes[name]
+        clip, st = infer(t, TEXTS[0])
+        clips, sst = stream(t, TEXTS[1])
+        steps += st["decode_steps"] + sst["decode_steps"]
+        if len(clips) < 2 or not all(np.all(np.isfinite(c.audio_data)) for c in clips):
+            fail(f"sovits buckets: {name} stream of {len(clips)} chunk(s), or not finite")
+        print(f"sovits buckets: turn {turn}, {name}: infer ({st['tokens']} tokens) sovits_s "
+              f"{1000 * st['sovits_s']:.2f} ms (graphs {st['sovits_graphs']} captured, "
+              f"{st['sovits_replays']} replayed), wall {1000 * st['wall_s']:.1f} ms; "
+              f"infer_stream ({len(clips)} chunks) warm time to first audio "
+              f"{1000 * sst['ttfa_s']:.1f} ms, sovits_s {1000 * sst['sovits_s']:.2f} ms "
+              f"({1000 * sst['sovits_s'] / len(clips):.2f} ms a chunk; graphs "
+              f"{sst['sovits_graphs']} captured, {sst['sovits_replays']} replayed) [{card}]",
+              flush=True)
+    del exact, modes
+
+    clip1, _ = infer(tts, TEXTS[0])
+    clip, st = infer(tts, TEXTS[0], speed=0.8)
+    steps += 2 * st["decode_steps"]
+    ratio = clip.audio_len_s / clip1.audio_len_s
+    print(f"sovits buckets: speed=0.8: {clip.audio_len_s:.2f} s of audio against "
+          f"{clip1.audio_len_s:.2f} s at speed 1 (x{ratio:.3f}), SoVITS {st['sovits_s']:.4f} s, "
+          f"graphs {st['sovits_graphs']} captured, {st['sovits_replays']} replayed", flush=True)
+    check_audio("sovits buckets: speed=0.8", clip.audio_data, int(0.2 * 32000),
+                int(st["tokens"] * 1280 / 0.8) + 2 * 1280 + int(0.2 * 32000))
+    if not 1.1 < ratio < 1.4:
+        fail(f"sovits buckets: speed=0.8 made the audio x{ratio:.3f} as long, not ~1.25")
+    clip, st = infer(tts, TEXTS[2], return_subtitles=True)
+    steps += st["decode_steps"]
+    subs = clip.subtitles
+    starts = [sub["start_s"] for sub in subs]
+    print(f"sovits buckets: infer(return_subtitles=True): {len(subs)} subtitles, first "
+          f"{subs[:2]}, last {subs[-1:]}", flush=True)
+    if not subs or starts != sorted(starts) or any(
+            sub["end_s"] < sub["start_s"] for sub in subs):
+        fail("sovits buckets: subtitles empty or their times decrease")
+    counts = read_counts()
+    expect_counts(f"sovits buckets ({steps} decode steps)", counts, k1=steps)
+    for key, (graph, *_) in sorted(tts.sovits_graphs.graphs.items(), key=lambda kv: kv[0][2:]):
+        print(f"sovits buckets: graph {key[0]} {key[2:]}: {cuda_ms(graph.replay, 10):.3f} ms a "
+              f"replay on the device", flush=True)
+    n_graphs = len(tts.sovits_graphs.graphs)
+    pool = graph_pool_bytes(tts.sovits_graphs.pool)
+    print(f"sovits buckets: {n_graphs} CUDA graphs on the default facade "
+          f"({sorted(k[0] for k in tts.sovits_graphs.graphs)}), their pool "
+          f"{pool / 2 ** 20:.1f} MiB; peak allocated over the phase "
+          f"{(torch.cuda.max_memory_allocated() - mem0) / 2 ** 20:.1f} MiB above its start "
+          f"[{card}]", flush=True)
+    return counts
+
+
+def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
     K5 loop and ``infer_stream``; returns the launches summed over the drives (counts are
     zeroed before each drive and read after it)."""
@@ -1611,6 +1812,7 @@ def main_path_phase(dev):
         add(k5_loop_path(str(gpt), dev))
         add(stream_path(tmp, gpt, sov, spk, prompt, dev, "fused_step", TEXTS[:2], warm_rtf))
         add(stream_path(tmp, gpt, sov, spk, prompt, dev, "flash", TEXTS[2:3], warm_rtf))
+        add(sovits_buckets_phase(tmp, gpt, sov, spk, prompt, dev, card))
     return total
 
 
@@ -1835,7 +2037,7 @@ def main():
     interleave_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches = main_path_phase(dev)
+    launches = main_path_phase(dev, card)
 
     def step_record(name, source, replaces, count, err, t):
         # t: (ms, plain ms, bound ms, bound by, the first design's ms[, extras])

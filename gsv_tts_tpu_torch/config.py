@@ -46,7 +46,8 @@ class Config:
     ``device`` is a ``torch.device`` or a string such as ``"cuda:0"`` or
     ``"cpu"``; left ``None`` it is the card, and construction raises when
     there is none.  ``dtype`` defaults from the device.  ``gpt_cache`` is the list of
-    ``(batch_size, max_seq_len)`` KV-cache buckets; ``models_dir`` keys the
+    ``(batch_size, max_seq_len)`` KV-cache buckets; ``sovits_cache`` the sorted
+    frame buckets of SoVITS's flow and vocoder (empty: exact shapes); ``models_dir`` keys the
     frontend's G2P engines.  ``attn_impl`` names the t2s engine's kernels
     (``runtime/t2s_session.py``): ``"fused_step"`` (K1 / K2 whole-step
     kernels, plain prefill), ``"flash"`` (K4 prefill attention, K3b decode
@@ -56,6 +57,7 @@ class Config:
     device: Any = None
     dtype: Any = None
     gpt_cache: list = None
+    sovits_cache: list = dataclasses.field(default_factory=list)
     models_dir: Optional[Path] = None
     attn_impl: str = "fused_step"
 

@@ -1,6 +1,7 @@
 """Host-side DSP of the facade (counterpart of ``gsv_tts_tpu/dsp.py``): SOLA
-chunk stitching for the streaming mode and the RMS-threshold silence trims,
-in numpy.  The subtitle Viterbi waits with subtitles (ROADMAP Queue 1)."""
+chunk stitching for the streaming mode, the RMS-threshold silence trims and
+the subtitles' monotonic Viterbi alignment, in numpy (the JAX package's
+optional native Viterbi, ``utils/native.py``, is not ported)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -63,3 +64,53 @@ def find_tail_threshold_offset(audio: np.ndarray, threshold: float = 0.01,
     if idx.size:
         return max(1, len(tail) - int(idx[-1]) * hop_length - margin)
     return len(tail)
+
+
+def viterbi_monotonic(attn: np.ndarray) -> np.ndarray:
+    """Monotonic Viterbi over the averaged MRTE attention (reference
+    ``_viterbi_monotonic``, ``TTS.py:1744-1797``): attn [heads, T frames,
+    N phones] → frame→phone assignment [T], leading frames aligned to the
+    null key (the last column) marked -1."""
+    attn = np.asarray(attn, np.float32)
+    _, T, N = attn.shape
+    max_idx = attn.argmax(axis=-1)
+    mask = max_idx != N - 1  # heads whose argmax is not the null key
+    sum_attn = (attn * mask[:, :, None]).sum(axis=0)
+    count = mask.sum(axis=0)[:, None]
+
+    default = np.full((T, N), 1.0 / N, np.float32)
+    default[:, N - 1] = 0.9 / N
+    default[:, 1] = 1.1 / N
+    default /= default.sum(axis=-1, keepdims=True)
+    normal = np.where(count > 0, sum_attn / (count + 1e-9), default)
+
+    zeros = np.nonzero(normal.argmax(axis=-1) == 0)[0]
+    first_zero = int(zeros[0]) if zeros.size else 0
+
+    dp = np.zeros((T, N), np.float32)
+    ptr = np.zeros((T, N), np.int64)
+    dp[0] = normal[0]
+    rng = np.arange(N)
+    for t in range(1, T):
+        prev = dp[t - 1]
+        shifted = np.concatenate([[-np.inf], prev[:-1]])
+        take_shift = shifted > prev
+        dp[t] = normal[t] + np.where(take_shift, shifted, prev)
+        ptr[t] = rng - take_shift.astype(np.int64)
+    path = np.zeros(T, np.int64)
+    path[-1] = int(dp[-1].argmax())
+    for t in range(T - 2, -1, -1):
+        path[t] = ptr[t + 1, path[t + 1]]
+    path[:first_zero] = -1
+    return path
+
+
+def is_normal_assign(assign: np.ndarray, threshold: float = 0.5) -> bool:
+    """Quality gate on the alignment (reference ``_is_normal_assign``,
+    ``TTS.py:1799-1809``): too many one-frame runs mean misalignment."""
+    x = assign[assign != -1]
+    if len(x) == 0:
+        return False
+    change = np.nonzero(np.diff(x))[0]
+    run_lengths = np.diff(np.concatenate([[-1], change, [len(x) - 1]]))
+    return float((run_lengths == 1).sum()) / len(run_lengths) < threshold

@@ -20,12 +20,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.convs import (conv1d, conv_transpose1d, fold_weight_norm, interpolate_nearest_2x,
-                         leaky_relu, linear, mish)
+from ..ops.convs import (conv1d, conv_transpose1d, fold_weight_norm, interpolate_linear,
+                         interpolate_nearest, interpolate_nearest_2x, leaky_relu, linear, mish)
 
 F32 = torch.float32
 LRELU_SLOPE = 0.1
 V2PRO_SET = ("v2Pro", "v2ProPlus")
+#: codes and phones are right-padded to a multiple of this for the padded core
+STREAM_PAD_MULTIPLE = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,17 +188,21 @@ def vits_encoder(p, pfx, x, x_mask, n_layers: int, n_heads: int, kernel_size: in
     return x * x_mask
 
 
-def mrte(p, pfx, ssl_enc, ssl_mask, text, text_mask, ge, slice_indices=None):
+def mrte(p, pfx, ssl_enc, ssl_mask, text, text_mask, ge, slice_indices=None,
+         nullkey_idx=None):
     """Cross-attention fusion; returns (out, attn).  ``slice_indices`` [T, 2]
     (packed batches): frame t attends only text columns [start_t, end_t) —
-    a block-diagonal mask — plus the last column, the always-attendable
-    null key."""
+    a block-diagonal mask — plus the always-attendable null key, the last
+    column unless ``nullkey_idx`` names another (shape-padded text)."""
     if slice_indices is None:
         attn_mask = text_mask[:, :, None, :] * ssl_mask[:, :, :, None]
     else:
         text_range = torch.arange(text.shape[-1], device=text.device)[None, :]
         attn_mask = ((text_range >= slice_indices[:, :1]) & (text_range < slice_indices[:, 1:]))
-        attn_mask[:, -1] = True
+        if nullkey_idx is None:
+            attn_mask[:, -1] = True
+        else:
+            attn_mask = attn_mask | (text_range == nullkey_idx)
         attn_mask = attn_mask[None, None]
     ssl_h = conv1d(ssl_enc * ssl_mask, p[pfx + "c_pre.weight"], p[pfx + "c_pre.bias"])
     text_h = conv1d(text * text_mask, p[pfx + "text_pre.weight"], p[pfx + "text_pre.bias"])
@@ -317,7 +323,7 @@ def quantizer_decode(p, codes, n_q: int = 1):
     """codes [n_q, B, T] → summed codebook vectors [B, D, T]."""
     out = None
     for q in range(n_q):
-        vec = p[f"quantizer.vq.layers.{q}._codebook.embed"][codes[q].long()]
+        vec = F.embedding(codes[q].long(), p[f"quantizer.vq.layers.{q}._codebook.embed"])
         out = vec if out is None else out + vec
     return out.transpose(1, 2)
 
@@ -346,23 +352,30 @@ def extract_latent(p, x):
 # TextEncoder + synthesizer
 # ---------------------------------------------------------------------------
 
-def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge, slice_indices=None):
-    """``TextEncoder.infer`` core (``models.py:196-224``) at the exact shape
-    (all-ones masks): y [B, 768, T] upsampled quantized latent, text [B, N]
-    phone ids, ge [B, 512, 1 or T], ``slice_indices`` [T, 2] the per-frame
-    text span of a packed batch (see :func:`mrte`).  Returns
-    (y_latent [B, H, T], y_mask, attn [B, 4, T, N])."""
+def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge, slice_indices=None, y_mask=None,
+                       text_mask=None, nullkey_idx=None):
+    """``TextEncoder.infer`` core (``models.py:196-224``): y [B, 768, T]
+    upsampled quantized latent, text [B, N] phone ids, ge [B, 512, 1 or T],
+    ``slice_indices`` [T, 2] the per-frame text span of a packed batch and
+    ``nullkey_idx`` its null key (see :func:`mrte`).  ``y_mask`` [B, 1, T] and
+    ``text_mask`` [B, 1, N] mark the valid frames and phones of padded
+    inputs (all ones when not given: the exact shape).  A padded frame's
+    attention row is fully masked and comes out uniform, not NaN (masked
+    scores are -1e4, not -inf).  Returns (y_latent [B, H, T], y_mask,
+    attn [B, 4, T, N])."""
     pfx = "enc_p."
-    y_mask = torch.ones((y.shape[0], 1, y.shape[2]), dtype=y.dtype, device=y.device)
-    text_mask = torch.ones((text.shape[0], 1, text.shape[1]), dtype=y.dtype,
-                           device=y.device)
+    if y_mask is None:
+        y_mask = torch.ones((y.shape[0], 1, y.shape[2]), dtype=y.dtype, device=y.device)
+    if text_mask is None:
+        text_mask = torch.ones((text.shape[0], 1, text.shape[1]), dtype=y.dtype,
+                               device=y.device)
     h = conv1d(y * y_mask, p[pfx + "ssl_proj.weight"], p[pfx + "ssl_proj.bias"]) * y_mask
     h = vits_encoder(p, pfx + "encoder_ssl.", h * y_mask, y_mask, cfg.n_layers // 2,
                      cfg.n_heads, cfg.kernel_size, cfg.window_size)
-    t = p[pfx + "text_embedding.weight"][text.long()].to(h.dtype).transpose(1, 2)
+    t = F.embedding(text.long(), p[pfx + "text_embedding.weight"]).to(h.dtype).transpose(1, 2)
     t = vits_encoder(p, pfx + "encoder_text.", t * text_mask, text_mask, cfg.n_layers,
                      cfg.n_heads, cfg.kernel_size, cfg.window_size)
-    h, attn = mrte(p, pfx + "mrte.", h, y_mask, t, text_mask, ge, slice_indices)
+    h, attn = mrte(p, pfx + "mrte.", h, y_mask, t, text_mask, ge, slice_indices, nullkey_idx)
     h = vits_encoder(p, pfx + "encoder2.", h * y_mask, y_mask, cfg.n_layers // 2,
                      cfg.n_heads, cfg.kernel_size, cfg.window_size)
     return h, y_mask, attn
@@ -390,14 +403,15 @@ def flow_dec(p, cfg: SovitsConfig, z_p, y_mask, ge):
 
 
 def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None,
-                y_overlap=None, valid_start_idx: int = 0, overlap_len: Optional[int] = None):
+                y_overlap=None, valid_start_idx: int = 0, overlap_len: Optional[int] = None,
+                speed: float = 1.0, y_mask=None, text_mask=None, nullkey_idx=None):
     """Latent pipeline of ``SynthesizerTrn.decode`` (``models.py:385-404``)
-    up to ``z_p``, at the exact shape and speed 1.  ``codes`` [n_q, B, T],
-    ``text`` [B, N], ``ge`` [B, gin, 1] or per code frame [B, gin, T] (a
-    packed batch of several speakers; upsampled 2x to the latent rate here),
-    ``noise`` [B, inter, frames kept] standard normal already scaled by
-    ``noise_scale``, ``slice_indices`` [2T, 2] each latent frame's text span
-    in a packed batch.
+    up to ``z_p``.  ``codes`` [n_q, B, T], ``text`` [B, N], ``ge`` [B, gin, 1]
+    or per code frame [B, gin, T] (a packed batch of several speakers;
+    upsampled 2x to the latent rate here), ``noise`` [B, inter, frames kept]
+    standard normal already scaled by ``noise_scale``, ``slice_indices``
+    [2T, 2] each latent frame's text span in a packed batch; ``y_mask``,
+    ``text_mask`` and ``nullkey_idx`` as in :func:`text_encoder_infer`.
 
     Streaming (``overlap_len`` given): the latent of the cumulative codes is
     cut to the frames from ``valid_start_idx`` on, its first ``overlap_len``
@@ -405,11 +419,16 @@ def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None
     — when there is one (``models.py:209-215``), and its own last
     ``overlap_len`` frames returned as ``new_overlap``.
 
-    Returns (z_p, y_mask, attn, new_overlap or None, ge at the latent rate)."""
+    ``speed != 1`` resamples the latent linearly to ``int(frames / speed) + 1``
+    frames (the mask and a frame-wise ``ge`` nearest), so ``noise`` has that
+    many frames (``models.py:217-219``).
+
+    Returns (z_p, y_mask, attn, new_overlap or None, ge for ``flow_dec``)."""
     quantized = interpolate_nearest_2x(quantizer_decode(p, codes, cfg.quantizer_n_q))
     if ge.shape[-1] != 1:
         ge = interpolate_nearest_2x(ge)
-    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge, slice_indices)
+    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge, slice_indices,
+                                                y_mask, text_mask, nullkey_idx)
     new_overlap = None
     if overlap_len is not None:
         y_latent = y_latent[:, :, valid_start_idx:]
@@ -420,9 +439,80 @@ def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None
             head = y_overlap * (1 - alpha) + y_latent[:, :, :overlap_len] * alpha
             y_latent = torch.cat([head, y_latent[:, :, overlap_len:]], dim=2)
         new_overlap = y_latent[:, :, -overlap_len:]
+    if speed != 1:
+        y_latent = interpolate_linear(y_latent, int(y_latent.shape[-1] / speed) + 1)
+        y_mask = interpolate_nearest(y_mask, y_latent.shape[-1])
+        if ge.shape[-1] != 1:
+            ge = interpolate_nearest(ge, y_latent.shape[-1])
     m, logs = project_latent(p, cfg, y_latent, y_mask)
     z_p = m + noise.to(m.dtype) * torch.exp(logs)
     return z_p, y_mask, attn, new_overlap, ge
+
+
+def _take_frames(x, idx):
+    """x [B, C, T], idx [B, n] device indices → [B, C, n], row b at idx[b]."""
+    return torch.gather(x, 2, idx[:, None, :].expand(-1, x.shape[1], -1))
+
+
+def decode_core_stream_padded_batch(p, cfg: SovitsConfig, codes_pad, codes_len, text_pad,
+                                    text_len, ge, noise, y_overlap, vsi, blend, *,
+                                    overlap_len: int):
+    """:func:`decode_core`'s streaming chunk for B rows right-padded into one
+    bucket, with every length a device tensor, so one program (one CUDA
+    graph) serves every chunk of the bucket.  ``codes_pad`` [B, 1, Bc],
+    ``text_pad`` [B, Np], ``codes_len`` / ``text_len`` / ``vsi`` (the
+    chunk's first latent frame) int64 [B], ``blend`` bool [B] (cross-fade
+    with ``y_overlap`` [B, hidden, overlap_len]), ``ge`` [B, gin, 1],
+    ``noise`` [B, inter, 2·Bc].  Masking makes the padding exact: a padded
+    column is zero where the exact computation's convolutions see their
+    zero padding, and attention masks it.  Nothing here reads the host: the
+    chunk's and the overlap's offsets are gathered at device-computed
+    indices, clamped as ``jax.lax.dynamic_slice`` clamps them.
+
+    Returns (z_p [B, inter, 2·Bc], mask [B, 1, 2·Bc], attn [B, 4, 2·Bc, Np],
+    new_overlap [B, hidden, overlap_len]); row b is valid over its first
+    ``2·codes_len[b] - vsi[b]`` frames (reference: ``models/sovits.py:736``
+    of the JAX package)."""
+    Bc = codes_pad.shape[-1]
+    T50 = 2 * Bc
+    dev = codes_pad.device
+    quantized = interpolate_nearest_2x(
+        quantizer_decode(p, codes_pad.transpose(0, 1), cfg.quantizer_n_q))
+    t50_valid = 2 * codes_len
+    pos = torch.arange(T50, device=dev)
+    y_mask = (pos[None, None, :] < t50_valid[:, None, None]).to(quantized.dtype)
+    tpos = torch.arange(text_pad.shape[-1], device=dev)
+    text_mask = (tpos[None, None, :] < text_len[:, None, None]).to(quantized.dtype)
+    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text_pad, ge,
+                                                y_mask=y_mask, text_mask=text_mask)
+    # the chunk [vsi, vsi + T50) of rows right-extended by T50 zeros
+    idx = vsi.clamp(0, T50)[:, None] + pos[None, :]
+    chunk = _take_frames(F.pad(y_latent, (0, T50)), idx)
+    mask_chunk = _take_frames(F.pad(y_mask, (0, T50)), idx)
+    alpha = torch.linspace(0, 1, overlap_len, dtype=chunk.dtype, device=dev)[None, None, :]
+    blended = y_overlap * (1 - alpha) + chunk[:, :, :overlap_len] * alpha
+    head = torch.where(blend[:, None, None], blended, chunk[:, :, :overlap_len])
+    chunk = torch.cat([head, chunk[:, :, overlap_len:]], dim=2)
+    # the overlap carried to the next chunk: the blended chunk's valid tail
+    start = (t50_valid - vsi - overlap_len).clamp(0, 2 * T50 - overlap_len)
+    new_overlap = _take_frames(F.pad(chunk, (0, T50)),
+                               start[:, None] + torch.arange(overlap_len, device=dev)[None, :])
+    m, logs = project_latent(p, cfg, chunk, mask_chunk)
+    z_p = m + noise.to(m.dtype) * torch.exp(logs)
+    return z_p, mask_chunk, attn, new_overlap
+
+
+def decode_core_stream_padded(p, cfg: SovitsConfig, codes_pad, codes_len, text_pad, text_len,
+                              ge, noise, y_overlap, vsi, *, overlap_len: int, blend: bool):
+    """One row of :func:`decode_core_stream_padded_batch`: ``codes_pad``
+    [1, 1, Bc], ``text_pad`` [1, Np], ``codes_len`` / ``text_len`` / ``vsi``
+    0-dim int64 device tensors, ``blend`` fixed by the caller (JAX:
+    ``models/sovits.py:675``).  Returns (z_p [1, inter, 2·Bc], mask,
+    attn [1, 4, 2·Bc, Np], new_overlap [1, hidden, overlap_len])."""
+    blend_t = torch.full((1,), bool(blend), device=codes_pad.device)
+    return decode_core_stream_padded_batch(
+        p, cfg, codes_pad, codes_len.reshape(1), text_pad, text_len.reshape(1), ge, noise,
+        y_overlap, vsi.reshape(1), blend_t, overlap_len=overlap_len)
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,20 @@ def interpolate_nearest(x: torch.Tensor, size: int) -> torch.Tensor:
     return x.index_select(-1, torch.as_tensor(idx, device=x.device))
 
 
+def interpolate_linear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """F.interpolate(mode='linear', align_corners=False) to ``size`` on the
+    last axis (the speed change, reference ``models.py:217-219``), with the
+    JAX package's half-pixel arithmetic in float32 spelled out, so both
+    sample the same positions for every ``size``."""
+    t = x.shape[-1]
+    src = (torch.arange(size, dtype=torch.float32, device=x.device) + 0.5) * (t / size) - 0.5
+    src = src.clamp(0.0, t - 1)
+    lo = torch.floor(src).long()
+    hi = torch.clamp(lo + 1, max=t - 1)
+    w = (src - lo).to(x.dtype)
+    return x.index_select(-1, lo) * (1 - w) + x.index_select(-1, hi) * w
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return torch.where(x >= 0, x, x * slope)
 

@@ -1,37 +1,49 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
 registry, speaker/prompt audio caches, single-utterance ``infer``, streaming
-``infer_stream`` and batched ``infer_batched``.
+``infer_stream``, batched ``infer_batched`` and ``warmup``.
 
 Pipeline: text → English frontend (host) → t2s engine (prefill, then one
 whole-step kernel per decode step by default: K1 for one utterance, K2 for a
 continuous-batched wave, the generic step with K3b for waves above K2's
 limit; ``attn_impl`` selects the K4 / K3b or the K6 paths instead) → SoVITS
-decode at the exact shape (packed, with block-diagonal MRTE masks, in the
-batched mode; chunk by chunk over the cumulative tokens with a latent
-cross-fade and SOLA stitching in the streaming mode) → host trim.  Not
-ported yet (ROADMAP Queue 1): subtitles, speed != 1, the bucket-padded
-stream vocoder and batched streaming, voice conversion, Chinese and Japanese
-text, v2Pro speaker verification.
+→ host trim, subtitles from the MRTE attention by a monotonic Viterbi.
+
+SoVITS runs as the JAX facade runs it.  By default (``stream_vocoder=
+"bucketed"``) ``infer`` and each ``infer_stream`` chunk take the
+bucket-padded core, codes and phones padded to multiples of 32 with every
+length a device tensor, and flow⁻¹ + HiFi-GAN padded to a frame bucket
+(``sovits_cache``, then a ×1.5 ladder); on the card each such program is one
+CUDA graph, captured the first time its shapes are seen and replayed after.
+``speed != 1``, a frame-wise ``ge`` and ``stream_vocoder="exact"`` take the
+exact-shape core (the packed ``infer_batched`` too, with block-diagonal MRTE
+masks), whose flow still pads to the bucket ladder.  Not ported yet (ROADMAP
+Queue 1): batched streaming and the shared wave, voice conversion, Chinese
+and Japanese text, v2Pro speaker verification.
 """
 from __future__ import annotations
 
+import functools
 import logging
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import dsp
 from .config import Config, global_config
 from .frontend.pause import pause_map
-from .frontend.text_processor import cut_text, get_phones_and_bert
+from .frontend.text_processor import cut_text, get_phones_and_bert, sub2text_index
 from .loader import Gpt, Sovits, get_gpt_weights, get_sovits_weights
 from .models import sovits as sovits_model
 from .ops import stft
 from .player import AudioClip
-from .utils.audio_io import load_audio
+from .runtime.t2s_session import _round_up
+from .runtime.vocoder_batch import stream_batch_fused
+from .utils.audio_io import load_audio, save_wav
 
 logger = logging.getLogger(__name__)
 
@@ -43,35 +55,46 @@ DEFAULT_MUTE_SCALE = {"…": 2.0, ".": 1.5, "。": 1.5, "?": 1.5, "？": 1.5,
 
 class _SegStream:
     """Incremental vocoder state of one text segment of ``infer_stream``
-    (the JAX ``_SegStream`` without its subtitle and batcher branches):
-    chunked SoVITS decode over the cumulative tokens with the latent
-    cross-fade (``y_overlap``), SOLA waveform stitching, head trim on the
-    first chunk and the mute pad after the last (reference
-    ``TTS.py:415-476``)."""
+    (the JAX ``_SegStream`` without its batcher branch): chunked SoVITS
+    decode over the cumulative tokens with the latent cross-fade
+    (``y_overlap``), SOLA waveform stitching, head trim on the first chunk,
+    the mute pad after the last, and the incremental subtitles (reference
+    ``TTS.py:415-476``).
 
-    __slots__ = ("tokens", "phones2", "ge", "text_cut", "_y_overlap", "_vsi",
-                 "_last_overlap", "_chunk_idx")
+    ``req_state`` threads the request's subtitle chain through its segments:
+    ``{"last_end_s": float, "cur_text_l": int}``."""
 
-    def __init__(self, phones2, ge, text_cut):
+    __slots__ = ("tokens", "phones2", "ge", "text_cut", "word2ph", "norm_text",
+                 "want_subtitles", "_y_overlap", "_vsi", "_last_overlap", "_chunk_idx",
+                 "_head_offset", "_last_subtitles_end")
+
+    def __init__(self, phones2, ge, text_cut, word2ph=None, norm_text=None,
+                 want_subtitles: bool = False):
         self.tokens: List[int] = []
         self.phones2 = phones2
         self.ge = ge
         self.text_cut = text_cut
+        self.word2ph = word2ph
+        self.norm_text = norm_text
+        self.want_subtitles = want_subtitles
         self._y_overlap = None  # the previous chunk's last latent frames
         self._vsi = 0           # latent frames already voiced
         self._last_overlap = None  # the previous chunk's last samples
         self._chunk_idx = 0
+        self._head_offset = 0
+        self._last_subtitles_end = 0
 
-    def step(self, tts: "TTS", sovits, final: bool, *, noise_scale: float, overlap_len: int,
-             cut_mute: float, cut_mute_scale_map: dict) -> np.ndarray:
+    def step(self, tts: "TTS", sovits, final: bool, req_state: dict, *, noise_scale: float,
+             speed: float, overlap_len: int, cut_mute: float, cut_mute_scale_map: dict):
         """One vocode pass over the cumulative tokens; returns the new audio
-        (float32)."""
+        (float32) and the new subtitles."""
         overlap_samples = overlap_len * sovits.cfg.samples_per_frame
         semantic = np.asarray(self.tokens, np.int64)
+        subtitles = []
         if semantic.size:
-            audio, n_frames, self._y_overlap = tts._sovits_decode_stream(
+            audio, attn, self._y_overlap = tts._sovits_decode_stream(
                 sovits, semantic[None, None, :], np.asarray(self.phones2, np.int64)[None],
-                self.ge, noise_scale=noise_scale, y_overlap=self._y_overlap,
+                self.ge, noise_scale=noise_scale, speed=speed, y_overlap=self._y_overlap,
                 valid_start_idx=self._vsi, overlap_len=overlap_len)
             audio = audio.reshape(-1)
             if self._last_overlap is not None:
@@ -79,9 +102,19 @@ class _SegStream:
             self._last_overlap = audio[-overlap_samples:].copy()
             if not final:
                 audio = audio[:-overlap_samples]
-                self._vsi = n_frames - overlap_len
+                attn = attn[:, :-overlap_len, :]
+                self._vsi = attn.shape[1]
+            if self.want_subtitles:
+                assign = dsp.viterbi_monotonic(attn)
+                if dsp.is_normal_assign(assign) or final:
+                    subtitles = tts._get_subtitles(self.word2ph, assign, speed,
+                                                   last_end_s=req_state["last_end_s"])
             if self._chunk_idx == 0:
-                audio = audio[dsp.find_head_threshold_offset(audio):]
+                self._head_offset = dsp.find_head_threshold_offset(audio)
+                audio = audio[self._head_offset:]
+            if subtitles:
+                tts._increment_subtitle_times(subtitles, -self._head_offset / tts.samplerate)
+                subtitles[0]["start_s"] = max(req_state["last_end_s"], subtitles[0]["start_s"])
             self._chunk_idx += 1
         else:
             audio = np.zeros(0, np.float32)
@@ -89,7 +122,89 @@ class _SegStream:
             scale = tts._mute_scale(self.text_cut, cut_mute_scale_map)
             audio = np.concatenate(
                 [audio, np.zeros(int(cut_mute * scale * tts.samplerate), np.float32)])
-        return audio.astype(np.float32)
+            if subtitles:
+                if not tts._check_pause(subtitles[-1]["text"]):
+                    subtitles.append({"text": self.word2ph["word"][-1],
+                                      "start_s": subtitles[-1]["end_s"],
+                                      "end_s": subtitles[-1]["end_s"]})
+                subtitles[-1]["end_s"] += cut_mute * scale
+                req_state["last_end_s"] = subtitles[-1]["end_s"]
+        new_subtitles = []
+        if subtitles:
+            subtitles = sub2text_index(subtitles, self.norm_text, self.text_cut)
+            tts._increment_subtitle_indices(subtitles, req_state["cur_text_l"])
+            new_subtitles = subtitles[self._last_subtitles_end:]
+            self._last_subtitles_end = len(subtitles) - 1
+            if not final and new_subtitles:
+                new_subtitles[-1]["end_s"] = None
+        if final:
+            req_state["cur_text_l"] += len(self.text_cut)
+        return audio.astype(np.float32), new_subtitles
+
+
+class SovitsGraphs:
+    """One CUDA graph per padded SoVITS program (the JAX facade's one compile
+    per shape bucket; the reference captured this region too,
+    ``models.py:406-425``).  :meth:`run` captures a program the first time its
+    key is seen — a warm eager run on a side stream, then
+    ``torch.cuda.graph`` — and replays it after, the inputs copied into the
+    graph's own buffers.  The caller keys a program by every shape it takes
+    and by its parameters (the graph holds their addresses; the entry keeps
+    them alive); every length inside must be an input tensor, since a Python
+    number would be fixed at the capture's value.  All graphs share one
+    memory pool: replays are serial, and :meth:`run` returns copies of the
+    outputs before anything else replays.  A capture that fails raises.  On
+    the CPU the function runs eagerly."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, tuple] = {}
+        self.pool = None
+        self.captures = 0
+        self.replays = 0
+        self.capture_s = 0.0  # host wall time of the captures, warm runs included
+
+    def run(self, key: tuple, fn, *inputs: torch.Tensor) -> tuple:
+        if not inputs[0].is_cuda:
+            return _as_tuple(fn(*inputs))
+        entry = self.graphs.get(key)
+        if entry is None:
+            t0 = time.perf_counter()
+            entry = self.graphs[key] = self._capture(key, fn, inputs)
+            self.capture_s += time.perf_counter() - t0
+        graph, static_in, static_out, _ = entry
+        for buf, x in zip(static_in, inputs):
+            buf.copy_(x)
+        graph.replay()
+        self.replays += 1
+        return tuple(o.clone() for o in static_out)
+
+    def _capture(self, key, fn, inputs):
+        static_in = [x.clone() for x in inputs]
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):  # cuDNN's plans and the allocator, before the capture
+            fn(*static_in)
+        caller.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn(*static_in)
+        except Exception as exc:
+            # a failed capture leaves its capture stream current and its pool
+            # recording for good ("beginAllocateToPool: already recording"):
+            # the caller's stream back, and a fresh pool for the next capture
+            torch.cuda.set_stream(caller)
+            self.pool = None
+            raise RuntimeError(f"CUDA graph capture of the SoVITS program {key} failed") from exc
+        self.captures += 1
+        return graph, static_in, _as_tuple(out), fn
+
+
+def _as_tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
 
 
 #: the t2s KV-cache buckets ``TTS()`` takes, the JAX facade's: B=1 lengths for
@@ -97,6 +212,8 @@ class _SegStream:
 #: smallest bucket with B >= its texts, so without a B=4 bucket a batch would
 #: decode one text at a time)
 DEFAULT_GPT_CACHE = ((1, 512), (1, 768), (1, 1024), (4, 512), (4, 1024))
+#: the flow/vocoder frame buckets ``TTS()`` takes, the JAX facade's
+DEFAULT_SOVITS_CACHE = (50, 55)
 
 
 class TTS:
@@ -104,14 +221,23 @@ class TTS:
     the engine runs on the card in bf16 and raises when there is none, unless
     the caller asks for ``device="cpu"`` (then f32).  ``seed`` seeds the explicit generator every
     random draw (Gumbel noise, SoVITS latent noise) comes from.
-    ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``)."""
+    ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``).
+    ``sovits_cache`` lists the flow/vocoder frame buckets (empty: exact
+    shapes); ``stream_vocoder`` is ``"bucketed"`` (the padded core, one CUDA
+    graph per bucket on the card) or ``"exact"`` (the exact-shape core)."""
 
     def __init__(self, gpt_cache: List[tuple] = DEFAULT_GPT_CACHE,
+                 sovits_cache: List[int] = DEFAULT_SOVITS_CACHE,
                  models_dir: Optional[str] = None, device: Optional[str] = None,
                  dtype: Optional[str] = None, seed: Optional[int] = None,
-                 attn_impl: str = "fused_step"):
+                 attn_impl: str = "fused_step", stream_vocoder: str = "bucketed"):
+        if stream_vocoder not in ("bucketed", "exact"):
+            raise ValueError(f'stream_vocoder must be "bucketed" or "exact", not {stream_vocoder!r}')
         self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache),
-                                 attn_impl=attn_impl)
+                                 sovits_cache=sorted(sovits_cache or []), attn_impl=attn_impl)
+        self.stream_vocoder = stream_vocoder
+        #: the padded SoVITS programs' CUDA graphs (counted in ``last_timings``)
+        self.sovits_graphs = SovitsGraphs()
         if models_dir is None:
             models_dir = Path.home() / ".cache" / "gsv"
         self.models_dir = Path(models_dir)
@@ -135,9 +261,12 @@ class TTS:
         self.cnhubert_model = None
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
+        self.sovits_hz = 50
         #: stage wall times (s) and decode counts of the last ``infer``,
         #: ``infer_batched`` or ``infer_stream`` (``ttfa_s``: time to the
-        #: first audio chunk)
+        #: first audio chunk; ``sovits_graphs`` / ``sovits_replays``: CUDA
+        #: graphs captured / replayed by the call, ``sovits_capture_s`` the
+        #: part of ``sovits_s`` its captures took)
         self.last_timings: Dict[str, float] = {}
         logger.info("Device: %s, dtype: %s", self.device, self.tts_config.dtype)
 
@@ -202,10 +331,6 @@ class TTS:
               noise_scale: float = 0.5, speed: float = 1.0,
               gpt_model=None, sovits_model=None) -> AudioClip:
         """Single-utterance synthesis (reference ``TTS.py:149-286``)."""
-        if return_subtitles:
-            raise NotImplementedError("subtitles are not ported yet (ROADMAP Queue 1: subtitles)")
-        if speed != 1.0:
-            raise NotImplementedError("speed != 1 is not ported yet (ROADMAP Queue 1)")
         if not self._check_pause(text):
             text += "."
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
@@ -214,32 +339,90 @@ class TTS:
                                                  prompt_audio_text)
 
         t0 = time.perf_counter()
-        phones2, _, bert2, _ = get_phones_and_bert(text, self.tts_config)
+        phones2, word2ph, bert2, norm_text = get_phones_and_bert(text, self.tts_config)
         all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
         bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
                                np.asarray(bert2, np.float32)], axis=0)
         t1 = time.perf_counter()
+        graphs = self._graph_counts()
         with torch.no_grad():
             semantic = gpt.engine.generate(
                 all_phones, cache["prompt"], bert, top_k=top_k, top_p=top_p,
                 temperature=temperature, repetition_penalty=repetition_penalty,
                 generator=self.generator).reshape(-1)
             t2 = time.perf_counter()
-            audio = self._sovits_decode(sovits, semantic[None, None, :],
-                                        np.asarray(phones2, np.int64)[None], ge,
-                                        noise_scale=noise_scale).reshape(-1)
+            audio, attn = self._sovits_decode(sovits, semantic[None, None, :],
+                                              np.asarray(phones2, np.int64)[None], ge,
+                                              noise_scale=noise_scale, speed=speed)
+            audio = audio.reshape(-1)
         t3 = time.perf_counter()
         self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
-                             "tokens": int(semantic.size), **gpt.engine.last_stats}
+                             "tokens": int(semantic.size), **self._graph_counts(graphs),
+                             **gpt.engine.last_stats}
 
+        subtitles = []
+        if return_subtitles:
+            subtitles = self._get_subtitles(word2ph, dsp.viterbi_monotonic(attn), speed)
+            if subtitles:
+                if not self._check_pause(subtitles[-1]["text"]):
+                    subtitles.append({"text": word2ph["word"][-1],
+                                      "start_s": subtitles[-1]["end_s"],
+                                      "end_s": subtitles[-1]["end_s"]})
+                subtitles[-1]["end_s"] += 0.2
+                subtitles = sub2text_index(subtitles, norm_text, text)
         head_offset = dsp.find_head_threshold_offset(audio)
         audio = audio[head_offset:]
+        if subtitles:
+            self._increment_subtitle_times(subtitles, -head_offset / self.samplerate)
+            subtitles[0]["start_s"] = max(0, subtitles[0]["start_s"])
         max_audio = np.abs(audio).max() if audio.size else 0.0
         if max_audio > 1:
             audio = audio / max_audio
         audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
         return AudioClip(audio.astype(np.float32), self.samplerate,
-                         len(audio) / self.samplerate, [], text)
+                         len(audio) / self.samplerate, subtitles, text)
+
+    def warmup(self, voice: Optional[dict] = None, text: Optional[str] = None,
+               stream: bool = False, gpt_model=None, sovits_model=None) -> Dict[str, float]:
+        """One short ``infer`` before traffic arrives, so the CUDA graphs of
+        the SoVITS buckets its lengths hit are captured (and the kernels'
+        first launches paid) before a user waits on them.  ``voice`` is a
+        ``{"speaker_audio", "prompt_audio", "prompt_text"}`` bundle; without
+        one, synthetic sine references are written to a temporary directory
+        (graphs are keyed by shapes, not by content).  A longer first request
+        still captures its own buckets.  Returns wall seconds by phase.
+        ``stream=True`` warms the shared-wave stream, which is not ported
+        yet."""
+        if stream:
+            raise NotImplementedError("warmup(stream=True) warms stream_shared, which is not "
+                                      "ported yet (ROADMAP Queue 1 #7)")
+        if text is None:
+            text = "warm up, testing one two three."
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="gsv_warmup_") as tmp:
+            if voice:
+                spk, prompt = voice["speaker_audio"], voice["prompt_audio"]
+                ptext = voice.get("prompt_text") or "one two three four five."
+            else:
+                rng = np.random.RandomState(0)
+
+                def sine(path, seconds, freq):
+                    t = np.arange(int(self.samplerate * seconds)) / self.samplerate
+                    wav = 0.3 * np.sin(2 * np.pi * freq * t) + 0.01 * rng.randn(len(t))
+                    save_wav(path, wav.astype(np.float32), self.samplerate)
+                    return path
+
+                spk = sine(f"{tmp}/warmup_spk.wav", 0.7, 220.0)
+                prompt = sine(f"{tmp}/warmup_prompt.wav", 0.6, 330.0)
+                ptext = "one two three four five."
+            clip = self.infer(spk, prompt, ptext, text, gpt_model=gpt_model,
+                              sovits_model=sovits_model)
+            if len(clip.audio_data) == 0:
+                raise RuntimeError("warmup synthesis produced no audio")
+        stats = {"infer_s": time.perf_counter() - t0}
+        stats["total_s"] = stats["infer_s"]
+        logger.info("warmup done: %s", stats)
+        return stats
 
     def infer_stream(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
                      return_subtitles: bool = False, is_cut_text: bool = True,
@@ -255,33 +438,35 @@ class TTS:
         ``stream_chunk`` tokens (``stream_mode="sentence"``: one chunk per
         text segment); each chunk is vocoded over the cumulative tokens with
         a latent cross-fade of ``overlap_len`` frames and stitched to the
-        previous one by SOLA.  ``boost_first_chunk`` sends the first chunk of
-        the first segment out without holding it back for its successor.
-        ``last_timings["ttfa_s"]`` is the time to the first chunk."""
-        if return_subtitles:
-            raise NotImplementedError("subtitles are not ported yet (ROADMAP Queue 1: subtitles)")
-        if speed != 1.0:
-            raise NotImplementedError("speed != 1 is not ported yet (ROADMAP Queue 1)")
+        previous one by SOLA; with ``return_subtitles`` each clip carries the
+        subtitles its audio completes.  ``boost_first_chunk`` sends the first
+        chunk of the first segment out without holding it back for its
+        successor.  ``last_timings["ttfa_s"]`` is the time to the first
+        chunk, ``sovits_s`` the vocoder's time over the stream so far."""
         if not self._check_pause(text):
             text += "."
         if stream_mode == "sentence":
             stream_chunk = 10000
         if not is_cut_text:
             cut_minlen = 10000
+        cut_mute = cut_mute / speed
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
         sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
         gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
                                                  prompt_audio_text)
 
         audio_len_s = 0.0
+        req_state = {"last_end_s": 0.0, "cur_text_l": 0}
         t_start = time.perf_counter()
-        self.last_timings = {}
+        graphs = self._graph_counts()
+        self.last_timings = {"sovits_s": 0.0}
         for i, text_cut in enumerate(cut_text(text, cut_minlen)):
-            phones2, _, bert2, _ = get_phones_and_bert(text_cut, self.tts_config)
+            phones2, word2ph, bert2, norm_text = get_phones_and_bert(text_cut, self.tts_config)
             all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
             bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
                                    np.asarray(bert2, np.float32)], axis=0)
-            seg = _SegStream(phones2, ge, text_cut)
+            seg = _SegStream(phones2, ge, text_cut, word2ph, norm_text,
+                             want_subtitles=return_subtitles)
             chunks = gpt.engine.generate(
                 all_phones, cache["prompt"], bert, top_k=top_k, top_p=top_p,
                 temperature=temperature, repetition_penalty=repetition_penalty,
@@ -298,13 +483,16 @@ class TTS:
                     seg.tokens = list(np.asarray(pred_semantic).reshape(-1))
                     if not seg.tokens and not is_final:
                         continue
-                    audio = seg.step(self, sovits, is_final, noise_scale=noise_scale,
-                                     overlap_len=overlap_len, cut_mute=cut_mute,
-                                     cut_mute_scale_map=cut_mute_scale_map)
+                    t0 = time.perf_counter()
+                    audio, new_subtitles = seg.step(
+                        self, sovits, is_final, req_state, noise_scale=noise_scale,
+                        speed=speed, overlap_len=overlap_len, cut_mute=cut_mute,
+                        cut_mute_scale_map=cut_mute_scale_map)
+                    self.last_timings["sovits_s"] += time.perf_counter() - t0
                 audio_len_s += len(audio) / self.samplerate
                 self.last_timings.setdefault("ttfa_s", time.perf_counter() - t_start)
-                self.last_timings.update(gpt.engine.last_stats)
-                yield AudioClip(audio, self.samplerate, audio_len_s, [], text)
+                self.last_timings.update(gpt.engine.last_stats, **self._graph_counts(graphs))
+                yield AudioClip(audio, self.samplerate, audio_len_s, new_subtitles, text)
 
     def _prepare_batched_inputs(self, spk_audio_paths, prompt_audio_paths,
                                 prompt_audio_texts, texts, is_cut_text, cut_minlen,
@@ -342,12 +530,14 @@ class TTS:
         def expand(inp):
             return [inp[i] for i in segment_to_original]
 
-        all_phones2, all_bert2 = [], []
+        all_phones2, all_word2ph, all_bert2, all_norm_text = [], [], [], []
         for i in range(0, len(all_segments), bert_batch_size):
-            p2, _, b2, _ = get_phones_and_bert(all_segments[i: i + bert_batch_size],
-                                               self.tts_config)
+            p2, w2, b2, nt = get_phones_and_bert(all_segments[i: i + bert_batch_size],
+                                                 self.tts_config)
             all_phones2 += p2
+            all_word2ph += w2
             all_bert2 += b2
+            all_norm_text += nt
 
         xs, ys, berts, all_ge = [], [], [], []
         for spk, ppath, ptext, phones2, bert2 in zip(
@@ -363,7 +553,7 @@ class TTS:
                                          np.asarray(bert2, np.float32)], axis=0))
             all_ge.append(ge)
         return (gpt, sovits, texts, all_segments, segment_to_original, all_phones2,
-                xs, ys, berts, all_ge)
+                all_word2ph, all_norm_text, xs, ys, berts, all_ge)
 
     def infer_batched(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts,
                       return_subtitles: bool = False, is_cut_text: bool = True,
@@ -374,15 +564,13 @@ class TTS:
                       speed: float = 1.0, bert_batch_size: int = 20,
                       sovits_batch_size: int = 10, gpt_model=None, sovits_model=None):
         """Batched synthesis (reference ``TTS.py:506-868``): continuous-batched
-        t2s, then packed SoVITS decodes with block-diagonal MRTE masks.
-        Returns one ``AudioClip`` per text."""
-        if return_subtitles:
-            raise NotImplementedError("subtitles are not ported yet (ROADMAP Queue 1: subtitles)")
-        if speed != 1.0:
-            raise NotImplementedError("speed != 1 is not ported yet (ROADMAP Queue 1)")
+        t2s, then packed SoVITS decodes with block-diagonal MRTE masks, each
+        cut back into its segments by length or, with ``return_subtitles``,
+        by the segments' subtitles.  Returns one ``AudioClip`` per text."""
+        cut_mute = cut_mute / speed
         t0 = time.perf_counter()
-        (gpt, sovits, orig_texts, texts, segment_to_original, all_phones2,
-         xs, ys, berts, all_ge) = self._prepare_batched_inputs(
+        (gpt, sovits, orig_texts, texts, segment_to_original, all_phones2, all_word2ph,
+         all_norm_text, xs, ys, berts, all_ge) = self._prepare_batched_inputs(
             spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts, is_cut_text,
             cut_minlen, bert_batch_size, gpt_model, sovits_model)
         t1 = time.perf_counter()
@@ -392,6 +580,7 @@ class TTS:
                 xs, ys, berts, top_k=top_k, top_p=top_p, temperature=temperature,
                 repetition_penalty=repetition_penalty, generator=self.generator)
         t2 = time.perf_counter()
+        graphs = self._graph_counts()
 
         lengths = np.asarray([len(s) for s in pred_semantic])
         idx_map = np.argsort(lengths, kind="stable")
@@ -406,6 +595,7 @@ class TTS:
         lengths = lengths[idx_map]
 
         generated_audios: List[np.ndarray] = []
+        generated_subtitles: List[list] = []
         for i in range(0, len(pred_semantic), sovits_batch_size):
             sem_list = pred_semantic[i: i + sovits_batch_size]
             cur_orig = [int(o) for o in semantic_orig_idx[i: i + sovits_batch_size]]
@@ -424,43 +614,92 @@ class TTS:
             slice_indices = np.repeat(pairs, np.asarray(cur_lens) * 2, axis=0)
 
             with torch.no_grad():
-                audio_batch = self._sovits_decode(
+                audio_batch, attn = self._sovits_decode(
                     sovits, curr_sem, curr_phones, curr_ge, noise_scale=noise_scale,
-                    slice_indices=slice_indices).reshape(-1)
+                    speed=speed, slice_indices=slice_indices, use_buckets=False)
+            audio_batch = audio_batch.reshape(-1)
+            if return_subtitles:
+                curr_word2ph = {"word": [w for oi in cur_orig for w in all_word2ph[oi]["word"]],
+                                "ph": [p for oi in cur_orig for p in all_word2ph[oi]["ph"]]}
+                subtitles = self._get_subtitles(curr_word2ph, dsp.viterbi_monotonic(attn),
+                                                speed)
+                if subtitles and not self._check_pause(subtitles[-1]["text"]):
+                    subtitles.append({"text": curr_word2ph["word"][-1],
+                                      "start_s": subtitles[-1]["end_s"],
+                                      "end_s": subtitles[-1]["end_s"]})
             max_audio = np.abs(audio_batch).max() if audio_batch.size else 0.0
             if max_audio > 1.0:
                 audio_batch = audio_batch / max_audio
 
-            last_len = 0
-            for n in cur_lens:
-                cur_len = last_len + int(n) * 2 * sovits.cfg.samples_per_frame
-                audio = audio_batch[last_len:cur_len]
-                last_len = cur_len
-                ho = dsp.find_head_threshold_offset(audio)
-                to = dsp.find_tail_threshold_offset(audio)
-                generated_audios.append(audio[ho: len(audio) - to])
+            if return_subtitles:
+                last_i = 0
+                for oi in cur_orig:
+                    best_i = self._find_subtitles(subtitles, all_word2ph[oi], last_i)
+                    subtitle = subtitles[last_i:best_i]
+                    last_i = best_i
+                    if not subtitle:
+                        # misaligned attention left this segment unmatched:
+                        # an empty segment, not the whole batch down
+                        logger.warning("subtitle alignment failed for a batched segment; "
+                                       "emitting it empty")
+                        generated_audios.append(np.zeros(0, np.float32))
+                        generated_subtitles.append([])
+                        continue
+                    seg_start = int(subtitle[0]["start_s"] * self.samplerate)
+                    seg_end = int(subtitle[-1]["end_s"] * self.samplerate)
+                    audio = audio_batch[seg_start:seg_end]
+                    ho = dsp.find_head_threshold_offset(audio)
+                    to = dsp.find_tail_threshold_offset(audio)
+                    audio = audio[ho: len(audio) - to]
+                    subtitle[0]["start_s"] += ho / self.samplerate
+                    subtitle[-1]["end_s"] -= to / self.samplerate
+                    generated_audios.append(audio)
+                    generated_subtitles.append(
+                        sub2text_index(subtitle, all_norm_text[oi], texts[oi]))
+            else:
+                last_len = 0.0
+                for n in cur_lens:
+                    cur_len = last_len + int(n) * 2 * sovits.cfg.samples_per_frame / speed
+                    audio = audio_batch[int(last_len): int(cur_len)]
+                    last_len = cur_len
+                    ho = dsp.find_head_threshold_offset(audio)
+                    to = dsp.find_tail_threshold_offset(audio)
+                    generated_audios.append(audio[ho: len(audio) - to])
         t3 = time.perf_counter()
         self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
                              "tokens": int(lengths.sum()), "requests": len(texts),
-                             **gpt.engine.last_stats}
+                             **self._graph_counts(graphs), **gpt.engine.last_stats}
 
         ordered_audios = [None] * len(generated_audios)
+        ordered_subtitles = [None] * len(generated_audios)
         for cur_pos, orig_pos in enumerate(semantic_orig_idx.tolist()):
             ordered_audios[orig_pos] = generated_audios[cur_pos]
+            if return_subtitles:
+                ordered_subtitles[orig_pos] = generated_subtitles[cur_pos]
 
         final_audios = [[] for _ in orig_texts]
-        for i, audio_data in enumerate(ordered_audios):
+        final_subs = [[] for _ in orig_texts]
+        last_orig_idx, cur_text_l = None, 0
+        for i, (audio_data, subtitle) in enumerate(zip(ordered_audios, ordered_subtitles)):
             oi = segment_to_original[i]
             final_audios[oi].append(audio_data)
             scale = self._mute_scale(texts[i], cut_mute_scale_map)
             final_audios[oi].append(
                 np.zeros(int(cut_mute * scale * self.samplerate), audio_data.dtype))
+            if return_subtitles and subtitle:
+                if oi != last_orig_idx:
+                    cur_text_l, last_orig_idx = 0, oi
+                subtitle[-1]["end_s"] += cut_mute * scale
+                self._increment_subtitle_indices(subtitle, cur_text_l)
+                final_subs[oi].append(subtitle)
+                cur_text_l += len(texts[i])
 
         result = []
-        for audio_list, orig_text in zip(final_audios, orig_texts):
+        for audio_list, subs_list, orig_text in zip(final_audios, final_subs, orig_texts):
             audio = np.concatenate(audio_list)
+            subs = self._cat_subtitles(*subs_list) if (return_subtitles and subs_list) else []
             result.append(AudioClip(audio.astype(np.float32), self.samplerate,
-                                    len(audio) / self.samplerate, [], orig_text))
+                                    len(audio) / self.samplerate, subs, orig_text))
         return tuple(result)
 
     # -- internals -------------------------------------------------------
@@ -501,47 +740,161 @@ class TTS:
             self.cache_prompt_audio(prompt_audio_path, prompt_audio_text)
         return self.gpt_models[gpt_model], self.prompt_audio_cache[prompt_audio_path]
 
-    def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5,
-                       slice_indices=None) -> np.ndarray:
-        """Full decode at the exact shape: latent pipeline, then flow⁻¹ and
-        HiFi-GAN.  codes [1, 1, n], text [1, N], ge [1, gin, 1 or n],
-        ``slice_indices`` [2n, 2] (packed batches: each latent frame's text
-        span) → audio [1, 1, 2n·hop]."""
-        cfg = sovits.cfg
-        dtype = self.tts_config.dtype
-        codes_t = torch.as_tensor(np.asarray(codes, np.int64), device=self.device)
-        text_t = torch.as_tensor(np.asarray(text, np.int64), device=self.device)
-        n = codes_t.shape[-1]
-        noise = torch.randn((1, cfg.inter_channels, 2 * n), generator=self.generator,
-                            device=self.device, dtype=torch.float32) * noise_scale
+    # -- SoVITS ----------------------------------------------------------
+
+    def _graph_counts(self, since: Optional[dict] = None) -> dict:
+        """The CUDA graphs captured and replayed so far, and the seconds the
+        captures took, or since ``since``."""
+        now = {"sovits_graphs": self.sovits_graphs.captures,
+               "sovits_replays": self.sovits_graphs.replays,
+               "sovits_capture_s": self.sovits_graphs.capture_s}
+        return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+    def _noise(self, shape, noise_scale) -> torch.Tensor:
+        """SoVITS's latent noise, drawn from the facade's generator (outside
+        any graph capture: a graph's input, never part of it)."""
+        noise = torch.randn(shape, generator=self.generator, device=self.device,
+                            dtype=torch.float32) * noise_scale
+        return noise.to(self.tts_config.dtype)
+
+    def _padded(self, codes: np.ndarray, text: np.ndarray):
+        """codes [1, 1, n] and phones [1, N] right-padded to multiples of
+        ``STREAM_PAD_MULTIPLE``, on the device with their lengths as 0-dim
+        int64 tensors: (codes_pad, n, text_pad, N)."""
+        n, N = codes.shape[-1], text.shape[-1]
+        mult = sovits_model.STREAM_PAD_MULTIPLE
+        codes_pad = np.zeros((1, 1, _round_up(max(n, 1), mult)), np.int64)
+        codes_pad[..., :n] = codes.reshape(1, 1, -1)
+        text_pad = np.zeros((1, _round_up(max(N, 1), mult)), np.int64)
+        text_pad[..., :N] = text.reshape(1, -1)
+
+        def dev(a):
+            return torch.as_tensor(a, device=self.device)
+
+        return dev(codes_pad), dev(np.int64(n)), dev(text_pad), dev(np.int64(N))
+
+    def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5, speed=1.0,
+                       slice_indices=None, use_buckets=True):
+        """Full decode (``SynthesizerTrn.decode`` with the bucketed flow and
+        vocoder, ``models.py:406-425``).  codes [1, 1, n], text [1, N], ge
+        [1, gin, 1 or n], ``slice_indices`` [2n, 2] (packed batches: each
+        latent frame's text span).  At speed 1 with one ``ge`` and
+        ``stream_vocoder="bucketed"`` the padded core runs (one CUDA graph per
+        (codes, phones) bucket), else the exact core; either way flow⁻¹ +
+        HiFi-GAN run at ``_flow_bucket``'s frames (``use_buckets=False``:
+        past the configured buckets, the ladder only).  Returns (audio
+        [1, 1, frames·hop], MRTE attention [4, 2n, N]) in numpy."""
+        cfg, p = sovits.cfg, sovits.params
+        codes = np.asarray(codes, np.int64)
+        text = np.asarray(text, np.int64)
+        ge = ge.to(self.tts_config.dtype)
+        n, N = codes.shape[-1], text.shape[-1]
+        t50 = 2 * n
+        if (speed == 1 and slice_indices is None and ge.shape[-1] == 1
+                and self.stream_vocoder == "bucketed"):
+            codes_pad, n_t, text_pad, N_t = self._padded(codes, text)
+            Bc, Np = codes_pad.shape[-1], text_pad.shape[-1]
+            # no cross-fade: a one-frame zero overlap and vsi 0
+            y_ov = torch.zeros((1, cfg.hidden_channels, 1), dtype=ge.dtype, device=self.device)
+            core = functools.partial(sovits_model.decode_core_stream_padded, p, cfg,
+                                     overlap_len=1, blend=False)
+            z_p, mask, attn, _ = self.sovits_graphs.run(
+                ("core", id(p), Bc, Np), core, codes_pad, n_t, text_pad, N_t, ge,
+                self._noise((1, cfg.inter_channels, 2 * Bc), noise_scale), y_ov,
+                torch.zeros((), dtype=torch.int64, device=self.device))
+            audio = self._flow_dec_bucketed(sovits, z_p, mask, ge, use_buckets, t_true=t50)
+            return audio, attn[0, :, :t50, :N].float().cpu().numpy()
+        t_lat = int(t50 / speed) + 1 if speed != 1 else t50
         if slice_indices is not None:
             slice_indices = torch.as_tensor(np.asarray(slice_indices, np.int64),
                                             device=self.device)
-        z_p, y_mask, _, _, ge_out = sovits_model.decode_core(
-            sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype), slice_indices)
-        audio = sovits_model.flow_dec(sovits.params, cfg, z_p, y_mask, ge_out)
-        return audio.float().cpu().numpy()
+        z_p, y_mask, attn, _, ge_out = sovits_model.decode_core(
+            p, cfg, torch.as_tensor(codes, device=self.device),
+            torch.as_tensor(text, device=self.device), ge,
+            self._noise((1, cfg.inter_channels, t_lat), noise_scale), speed=speed,
+            slice_indices=slice_indices)
+        audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, use_buckets)
+        return audio, attn[0].float().cpu().numpy()
 
-    def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, y_overlap,
-                              valid_start_idx: int, overlap_len: int):
-        """One streaming chunk at the exact shape: the latent of the
-        cumulative ``codes`` [1, 1, n] from frame ``valid_start_idx`` on,
-        cross-faded with ``y_overlap``, through flow⁻¹ and HiFi-GAN.  Returns
-        (audio [1, 1, (2n - valid_start_idx)·hop], latent frames 2n, the new
-        overlap [1, hidden, overlap_len])."""
-        cfg = sovits.cfg
-        dtype = self.tts_config.dtype
-        codes_t = torch.as_tensor(np.asarray(codes, np.int64), device=self.device)
-        text_t = torch.as_tensor(np.asarray(text, np.int64), device=self.device)
-        n_frames = 2 * codes_t.shape[-1]
-        noise = torch.randn((1, cfg.inter_channels, n_frames - valid_start_idx),
-                            generator=self.generator, device=self.device,
-                            dtype=torch.float32) * noise_scale
-        z_p, y_mask, _, new_overlap, ge_out = sovits_model.decode_core(
-            sovits.params, cfg, codes_t, text_t, ge.to(dtype), noise.to(dtype),
+    def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, speed,
+                              y_overlap, valid_start_idx: int, overlap_len: int):
+        """One streaming chunk: the latent of the cumulative ``codes``
+        [1, 1, n] from frame ``valid_start_idx`` on, cross-faded with
+        ``y_overlap``, through flow⁻¹ and HiFi-GAN.  Bucketed (speed 1, one
+        ``ge``, ``stream_vocoder="bucketed"``): the whole chunk as one
+        :func:`runtime.vocoder_batch.stream_batch_fused` call at B=1, one CUDA
+        graph per (codes, phones, flow bucket, overlap); else the exact core.
+        Returns (audio [1, 1, valid frames·hop], MRTE attention [4, 2n, N],
+        the new overlap [1, hidden, overlap_len] on the device)."""
+        cfg, p = sovits.cfg, sovits.params
+        codes = np.asarray(codes, np.int64)
+        text = np.asarray(text, np.int64)
+        ge = ge.to(self.tts_config.dtype)
+        n, N = codes.shape[-1], text.shape[-1]
+        t_valid = 2 * n - valid_start_idx
+        if speed == 1 and ge.shape[-1] == 1 and self.stream_vocoder == "bucketed":
+            codes_pad, n_t, text_pad, N_t = self._padded(codes, text)
+            Bc, Np = codes_pad.shape[-1], text_pad.shape[-1]
+            blend = y_overlap is not None
+            y_ov = y_overlap if blend else torch.zeros(
+                (1, cfg.hidden_channels, overlap_len), dtype=ge.dtype, device=self.device)
+            bucket = self._flow_bucket(t_valid)
+            chunk = functools.partial(stream_batch_fused, p, cfg, overlap_len=overlap_len,
+                                      bucket=bucket)
+            audio, attn, new_overlap = self.sovits_graphs.run(
+                ("chunk", id(p), Bc, Np, bucket, overlap_len), chunk, codes_pad,
+                n_t.reshape(1), text_pad, N_t.reshape(1), ge,
+                self._noise((1, cfg.inter_channels, 2 * Bc), noise_scale), y_ov,
+                torch.full((1,), valid_start_idx, device=self.device),
+                torch.full((1,), blend, device=self.device))
+            audio = audio.float().cpu().numpy()[:, :, : t_valid * cfg.samples_per_frame]
+            return audio, attn[0, :, :2 * n, :N].float().cpu().numpy(), new_overlap
+        t_lat = int(t_valid / speed) + 1 if speed != 1 else t_valid
+        z_p, y_mask, attn, new_overlap, ge_out = sovits_model.decode_core(
+            p, cfg, torch.as_tensor(codes, device=self.device),
+            torch.as_tensor(text, device=self.device), ge,
+            self._noise((1, cfg.inter_channels, t_lat), noise_scale), speed=speed,
             y_overlap=y_overlap, valid_start_idx=valid_start_idx, overlap_len=overlap_len)
-        audio = sovits_model.flow_dec(sovits.params, cfg, z_p, y_mask, ge_out)
-        return audio.float().cpu().numpy(), n_frames, new_overlap
+        audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, True)
+        return audio, attn[0].float().cpu().numpy(), new_overlap
+
+    def _flow_bucket(self, t: int, use_buckets: bool = True) -> int:
+        """Frame bucket of a t-frame flow/vocoder run: the first configured
+        ``sovits_cache`` bucket that fits (with ``use_buckets``), else the
+        ×1.5 ladder above the largest rounded up to 64, else t itself
+        (``sovits_cache=[]``: exact shapes)."""
+        buckets = self.tts_config.sovits_cache
+        if use_buckets:
+            for b in buckets:
+                if b >= t:
+                    return b
+        if not buckets:
+            return t
+        target = max(buckets)
+        while target < t:
+            target = _round_up(int(target * 1.5) + 1, 64)
+        return target
+
+    def _flow_dec_bucketed(self, sovits: Sovits, z_p, y_mask, ge, use_buckets: bool,
+                           t_true: Optional[int] = None) -> np.ndarray:
+        """flow⁻¹ + HiFi-GAN with ``z_p`` and its mask padded with zeros (or
+        cut) to ``_flow_bucket`` frames, then the audio trimmed to the ``t``
+        valid frames on the host; ``t_true`` names them when ``z_p`` arrives
+        padded.  With one ``ge`` the run is a CUDA graph per bucket on the
+        card; a frame-wise ``ge`` (a packed batch) is padded too and runs
+        eagerly.  Returns audio [1, 1, t·hop] in numpy."""
+        cfg, p = sovits.cfg, sovits.params
+        t = t_true if t_true is not None else z_p.shape[-1]
+        target = self._flow_bucket(t, use_buckets)
+        pad = target - z_p.shape[-1]  # negative: cut
+        z_p, y_mask = F.pad(z_p, (0, pad)), F.pad(y_mask, (0, pad))
+        if ge.shape[-1] == 1:
+            audio, = self.sovits_graphs.run(("flow", id(p), target),
+                                            functools.partial(sovits_model.flow_dec, p, cfg),
+                                            z_p, y_mask, ge)
+        else:
+            audio = sovits_model.flow_dec(p, cfg, z_p, y_mask, F.pad(ge, (0, pad)))
+        return audio.float().cpu().numpy()[:, :, : t * cfg.samples_per_frame]
 
     def _get_spec(self, hps, filename) -> torch.Tensor:
         """Linear spectrogram of the speaker audio at the model's rate."""
@@ -581,6 +934,79 @@ class TTS:
 
     def _check_pause(self, text: str) -> bool:
         return text.endswith(self.punctuation) or text[-3:] in ("...", "。。。")
+
+    # -- subtitles -------------------------------------------------------
+
+    def _get_subtitles(self, word2ph, assign, speed, last_end_s=0.0) -> List[dict]:
+        """Word timings from the frame→phone assignment (reference
+        ``_get_subtitles``, ``TTS.py:1664-1707``)."""
+        frame_time = (1 / self.sovits_hz) / speed
+        assign = np.asarray(assign)
+        ph_end_s = []
+        cur_ph = int(assign[0])
+        for f in range(1, assign.shape[-1]):
+            ph = int(assign[f])
+            if ph != cur_ph:
+                ph_end_s.append(f * frame_time)
+                cur_ph = ph
+        ph_end_s.append(assign.shape[-1] * frame_time)
+
+        idx = -1
+        end_s = last_end_s + ph_end_s.pop(0) if assign[0] == -1 else last_end_s
+        subtitles = []
+        word = ""
+        for word, ph in zip(word2ph["word"], word2ph["ph"]):
+            idx += ph
+            if idx >= len(ph_end_s):
+                break
+            start_s, end_s = end_s, ph_end_s[idx] + last_end_s
+            subtitles.append({"text": word, "start_s": start_s, "end_s": end_s})
+        # the entry covering the tail (``TTS.py:1697-1705``), also when the
+        # loop broke before its first entry; an assignment all on the null
+        # key (``ph_end_s`` emptied above) gives no subtitles
+        if word and ph_end_s and end_s - last_end_s != ph_end_s[-1]:
+            subtitles.append({"text": word, "start_s": end_s,
+                              "end_s": ph_end_s[-1] + last_end_s})
+        return subtitles
+
+    def _find_subtitles(self, subtitles, word2ph, last_i) -> int:
+        """End index of the run of ``subtitles`` from ``last_i`` on whose
+        words are ``word2ph``'s (a packed batch's segment)."""
+        target = " ".join(word2ph["word"])
+        w = len(word2ph["word"])
+        for i in range(last_i, len(subtitles) - w + 1):
+            if " ".join(s["text"] for s in subtitles[i:i + w]) == target:
+                break
+        else:
+            i = len(subtitles) - w
+        return i + w
+
+    def _cat_subtitles(self, *subtitles_list) -> List[dict]:
+        """Segments' subtitles chained in time, each list shifted to start
+        where the previous ended."""
+        last_end_s = 0.0
+        result = []
+        for subtitles in subtitles_list:
+            if not subtitles:
+                continue
+            m = subtitles[0]["start_s"] - last_end_s
+            for s in subtitles:
+                s["start_s"] -= m
+                s["end_s"] -= m
+                result.append(s)
+            last_end_s = subtitles[-1]["end_s"]
+        return result
+
+    def _increment_subtitle_indices(self, subtitles, increment):
+        for s in subtitles:
+            s["orig_idx_start"] += increment
+            s["orig_idx_end"] += increment
+
+    def _increment_subtitle_times(self, subtitles, increment):
+        for s in subtitles:
+            s["start_s"] += increment
+            if s["end_s"]:
+                s["end_s"] += increment
 
 
 def sovits_model_ge(model: Sovits, refers: torch.Tensor) -> torch.Tensor:

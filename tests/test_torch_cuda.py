@@ -977,3 +977,71 @@ def test_persistent_step_error_bits_return_without_a_hang(cuda_device, what, mat
         torch.cuda.synchronize()
         with pytest.raises(RuntimeError, match=match):
             p1["k1_table"].check()
+
+
+def _small_sovits(dev, dtype=torch.float32):
+    from gsv_tts_tpu_torch.models import sovits
+
+    cfg = sovits.SovitsConfig(inter_channels=64, hidden_channels=64, filter_channels=96,
+                              n_layers=2, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3, 5),), upsample_rates=(4, 4),
+                              upsample_initial_channel=32, upsample_kernel_sizes=(8, 8),
+                              flow_n_layers=2)
+    return cfg, sovits.init_params(cfg, torch.Generator().manual_seed(0), dtype, dev)
+
+
+def _chunk_inputs(cfg, dev, n, N, vsi, blend, Bc=32, Np=32, ov=5, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    codes = torch.zeros((1, 1, Bc), dtype=torch.int64)
+    codes[..., :n] = torch.randint(0, 1024, (n,), generator=g)
+    text = torch.zeros((1, Np), dtype=torch.int64)
+    text[:, :N] = torch.randint(1, 700, (N,), generator=g)
+    ins = (codes, torch.tensor([n]), text, torch.tensor([N]),
+           torch.randn((1, cfg.gin_channels, 1), generator=g) * 0.5,
+           torch.randn((1, cfg.inter_channels, 2 * Bc), generator=g) * 0.5,
+           torch.randn((1, cfg.hidden_channels, ov), generator=g) * 0.5,
+           torch.tensor([vsi]), torch.tensor([blend]))
+    return [x.to(dev) for x in ins]
+
+
+@pytest.mark.cuda
+def test_sovits_graph_replay_at_another_length_equals_eager(cuda_device):
+    """One padded streaming chunk captured as a CUDA graph at one length of its
+    bucket and replayed at others (lengths, offset and blend are input
+    tensors) equals the eager run at those lengths."""
+    import functools
+
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import stream_batch_fused
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p = _small_sovits(cuda_device)
+    fn = functools.partial(stream_batch_fused, p, cfg, overlap_len=5, bucket=55)
+    graphs = SovitsGraphs()
+    with torch.no_grad():
+        for i, (n, N, vsi, blend) in enumerate([(20, 13, 0, False), (27, 30, 16, True),
+                                                (31, 5, 40, True)]):
+            ins = _chunk_inputs(cfg, cuda_device, n, N, vsi, blend, seed=i)
+            got = graphs.run(("chunk",), fn, *ins)
+            want = fn(*ins)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+            assert torch.isfinite(got[0]).all()
+    assert graphs.captures == 1 and graphs.replays == 3
+
+
+@pytest.mark.cuda
+def test_failed_sovits_graph_capture_raises(cuda_device):
+    """A program that reads the host inside the capture fails to capture:
+    ``run`` raises, keeps nothing and leaves the caller's stream current, and
+    the next capture works (in a fresh pool: the failed one stays recording)."""
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    graphs = SovitsGraphs()
+    x = torch.arange(8.0, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture of the SoVITS program"):
+        graphs.run(("bad",), lambda a: a * float(a.sum().item()), x)
+    assert graphs.captures == 0 and not graphs.graphs
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    out, = graphs.run(("good",), lambda a: a * 2, x)
+    assert torch.equal(out, x * 2) and graphs.captures == 1

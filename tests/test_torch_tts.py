@@ -2,9 +2,9 @@
 same tiny ``save_trained_*`` checkpoints, HuBERT directory and wavs, and the
 port running with JAX made unimportable.
 
-The JAX facade runs with ``sovits_cache=[]`` and ``stream_vocoder="exact"``
-so its vocoder sees the exact shapes the port uses (its bucket padding lets
-the vocoder's unmasked convs see the padded tail)."""
+Both facades run with ``sovits_cache=[]`` and ``stream_vocoder="exact"``:
+the exact-shape path (the bucket padding lets the vocoder's unmasked convs
+see the padded tail; ``test_torch_tts_defaults.py`` holds the defaults)."""
 import os
 import subprocess
 import sys
@@ -48,7 +48,8 @@ def both(assets):
     jtts.load_gpt_model(assets["gpt"])
     jtts.load_sovits_model(assets["sovits"])
     jtts._rng = jax.random.PRNGKey(0)
-    ptts = TTS(gpt_cache=[(1, 128)], models_dir=str(assets["root"]), device="cpu", seed=0)
+    ptts = TTS(gpt_cache=[(1, 128)], sovits_cache=[], models_dir=str(assets["root"]),
+               device="cpu", seed=0, stream_vocoder="exact")
     ptts.load_gpt_model(assets["gpt"])
     ptts.load_sovits_model(assets["sovits"])
     jtoks, ptoks = [], []
@@ -92,18 +93,16 @@ def test_sovits_stage_fed_jax_tokens_matches_jax(assets, both):
     jge = jtts.spk_audio_cache[assets["spk"]]["ge"][assets["sovits"]]
     pge = ptts.spk_audio_cache[assets["spk"]]["ge"][assets["sovits"]]
     codes = jtoks[None, None, :]
-    ja, _ = jtts._sovits_decode(jsov, codes, phones2[None], jge, noise_scale=0.0)
-    pa = ptts._sovits_decode(psov, codes, phones2[None], pge, noise_scale=0.0)
+    ja, jattn = jtts._sovits_decode(jsov, codes, phones2[None], jge, noise_scale=0.0)
+    pa, pattn = ptts._sovits_decode(psov, codes, phones2[None], pge, noise_scale=0.0)
     assert pa.shape == np.asarray(ja).shape == (1, 1, 2 * len(jtoks) * 640)
     np.testing.assert_allclose(pa, np.asarray(ja), rtol=2e-4, atol=2e-5)
+    assert pattn.shape == jattn.shape == (4, 2 * len(jtoks), len(phones2))
+    np.testing.assert_allclose(pattn, jattn, rtol=2e-4, atol=2e-5)
 
 
 def test_infer_rejects_what_is_not_ported(assets, both):
     _, ptts, *_ = both
-    with pytest.raises(NotImplementedError, match="subtitles"):
-        ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, TEXT, return_subtitles=True)
-    with pytest.raises(NotImplementedError, match="speed"):
-        ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, TEXT, speed=1.2)
     with pytest.raises(NotImplementedError, match="zh BERT"):
         ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, "你好。")
 

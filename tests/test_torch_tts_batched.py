@@ -3,9 +3,10 @@ the same tiny ``save_trained_*`` checkpoints, HuBERT directory and wavs; the
 port running from a copy of its package alone with JAX unimportable; and the
 device policy (the card unless the caller asks for the CPU).
 
-The JAX facade runs with ``sovits_cache=[]`` and ``stream_vocoder="exact"``
-so its vocoder sees the exact shapes the port uses.  Tolerance of the audio:
-rtol=2e-4, atol=2e-5 (float32 on both sides, summation order only)."""
+Both facades run with ``sovits_cache=[]`` and ``stream_vocoder="exact"``:
+the exact-shape path (``test_torch_tts_defaults.py`` holds the defaults).
+Tolerance of the audio: rtol=2e-4, atol=2e-5 (float32 on both sides,
+summation order only)."""
 import os
 import shutil
 import subprocess
@@ -66,7 +67,8 @@ def both(assets):
         jtts.load_gpt_model(assets["gpt"])
         jtts.load_sovits_model(assets["sovits"])
         jtts._rng = jax.random.PRNGKey(0)
-        ptts = TTS(gpt_cache=GPT_CACHE, models_dir=str(assets["root"]), device="cpu", seed=0)
+        ptts = TTS(gpt_cache=GPT_CACHE, sovits_cache=[], models_dir=str(assets["root"]),
+                   device="cpu", seed=0, stream_vocoder="exact")
         ptts.load_gpt_model(assets["gpt"])
         ptts.load_sovits_model(assets["sovits"])
         jout, pout = [], []
@@ -132,10 +134,8 @@ def test_infer_batched_sovits_stage_fed_jax_tokens_matches_jax(both, monkeypatch
 def test_infer_batched_rejects_what_is_not_ported(assets, both):
     _, ptts, *_ = both
     args = (assets["spk"], assets["prompt"], PROMPT_TEXT, TEXTS)
-    with pytest.raises(NotImplementedError, match="subtitles"):
-        ptts.infer_batched(*args, return_subtitles=True)
-    with pytest.raises(NotImplementedError, match="speed"):
-        ptts.infer_batched(*args, speed=0.9)
+    with pytest.raises(NotImplementedError, match="zh BERT"):
+        ptts.infer_batched(*args[:3], TEXTS + ["你好。"])
 
 
 def test_copied_package_runs_alone_without_jax(assets, tmp_path):

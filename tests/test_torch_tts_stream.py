@@ -2,9 +2,9 @@
 ``dsp.sola_align`` and ``TTS.infer_stream`` of the port against the JAX
 package, on the tiny ``save_trained_*`` checkpoints of ``test_torch_assets``.
 
-The JAX facade runs with ``sovits_cache=[]`` and ``stream_vocoder="exact"``
-so its vocoder sees the exact shapes the port uses; ``top_k=1`` and
-``noise_scale=0`` take the randomness out.  Tolerance: rtol=2e-4, atol=2e-5
+Both facades run with ``sovits_cache=[]`` and ``stream_vocoder="exact"``,
+the exact-shape path (``test_torch_tts_defaults.py`` holds the defaults);
+``top_k=1`` and ``noise_scale=0`` take the randomness out.  Tolerance: rtol=2e-4, atol=2e-5
 (float32 on both sides, summation order only)."""
 import sys
 import types
@@ -91,7 +91,8 @@ def engines(assets):
     jtts.load_gpt_model(assets["gpt"])
     jtts.load_sovits_model(assets["sovits"])
     jtts._rng = jax.random.PRNGKey(0)
-    ptts = TTS(gpt_cache=[(1, 128)], models_dir=str(assets["root"]), device="cpu", seed=0)
+    ptts = TTS(gpt_cache=[(1, 128)], sovits_cache=[], models_dir=str(assets["root"]),
+               device="cpu", seed=0, stream_vocoder="exact")
     ptts.load_gpt_model(assets["gpt"])
     ptts.load_sovits_model(assets["sovits"])
     return jtts, ptts
@@ -168,8 +169,8 @@ def test_infer_stream_under_flash_matches_default(assets, engines):
     from gsv_tts_tpu_torch import TTS
 
     _, ptts = engines
-    ftts = TTS(gpt_cache=[(1, 128)], models_dir=str(assets["root"]), device="cpu", seed=0,
-               attn_impl="flash")
+    ftts = TTS(gpt_cache=[(1, 128)], sovits_cache=[], models_dir=str(assets["root"]),
+               device="cpu", seed=0, attn_impl="flash", stream_vocoder="exact")
     ftts.load_gpt_model(assets["gpt"])
     ftts.load_sovits_model(assets["sovits"])
     args = (assets["spk"], assets["prompt"], PROMPT_TEXT, "a short test.")
@@ -183,11 +184,8 @@ def test_infer_stream_under_flash_matches_default(assets, engines):
 
 def test_infer_stream_rejects_what_is_not_ported(assets, engines):
     _, ptts = engines
-    args = (assets["spk"], assets["prompt"], PROMPT_TEXT, TEXT)
-    with pytest.raises(NotImplementedError, match="subtitles"):
-        next(ptts.infer_stream(*args, return_subtitles=True))
-    with pytest.raises(NotImplementedError, match="speed"):
-        next(ptts.infer_stream(*args, speed=1.2))
+    with pytest.raises(NotImplementedError, match="zh BERT"):
+        next(ptts.infer_stream(assets["spk"], assets["prompt"], PROMPT_TEXT, "你好。"))
 
 
 def test_infer_stream_leaves_grad_mode_alone(assets, engines):
