@@ -32,7 +32,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer index,
      cache rows past ``kv_len`` poisoned, at B=1 also forced to the largest
      cluster (8); at B=12, S=512 and at B=1, S=1024 the device kernels of 10
-     calls (one each, by ``torch.profiler``), the time a call in turns with
+     calls (one each: the kernel nodes of a CUDA graph captured around them,
+     read through libcuda; ``torch.profiler``'s count printed beside
+     it), the time a call in turns with
      the twin, the device time from a CUDA graph of 50 launches beside the
      first design's (a split grid and a merge: two launches), the library
      call's and, at B=1, the same launch forced to each other cluster size;
@@ -55,7 +57,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      wave does, every other cache entry bit for bit; hidden rows and appended
      rows within the whole-step tolerances; a ``kv_len`` past the cache sets
      its bit with NaN in that row alone; one device kernel a call (K6: a
-     group) by ``torch.profiler``; the time a call in turns with the twin and
+     group), counted as K3b's are; the time a call in turns with the twin and
      the first design (a chain of 194 / 10 launches; K6's calls walk the
      layers as the ``"fused"`` path does), the device time of both (CUDA
      graphs of many calls, replayed in turns), the host's time per call;
@@ -93,7 +95,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under ``"bucketed"`` and ``"exact"`` in turns (b, e, e, b, twice) in one process;
    ``speed=0.8``; ``infer(return_subtitles=True)`` (non-empty, times not
    decreasing); the graphs' count, each one's device time a replay, and
-   their memory pool's size.
+   their memory pool's size;
+7. v2ProPlus: a full-width random v2ProPlus SoVITS (``gin_channels`` 1024)
+   and ERes2NetV2 checkpoint from SEED; the card's bf16 speaker embedding and
+   ``ge`` held against a float32 evaluation of the same weights (K1's
+   tolerance form), the embedder's time a clip; one facade with the v2 and
+   the v2ProPlus model: ``infer`` twice on each, in turns (the second
+   capturing no graph; RTF and ``sovits_s`` of both), ``infer_batched`` of 4
+   texts (K2), one ``infer_stream``, ``infer_vc`` (audio of about the
+   prompt's length, subtitles; its wall time), ``verify_speaker`` (self
+   ≥ 0.999, cross in [-1, 1]) and ``unload_sovits_model`` (its graphs and
+   their pool gone, the v2 model's still replaying).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 kernels' JSON record and the card.  Nothing here imports JAX.
@@ -622,21 +634,97 @@ class forced_clusters:
         self.fd.launch_plan.cache_clear()
 
 
-def device_kernels(fn, calls: int = 10, want: int = None) -> dict:
+_CU = {}
+
+
+def _libcuda():
+    """libcuda (``libcuda.so.1``), its functions typed on first use."""
+    import ctypes
+
+    if not _CU:
+        cu = ctypes.CDLL("libcuda.so.1")
+        p, vp = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+        for name, args in (("cuStreamBeginCapture_v2", [p, ctypes.c_int]),
+                           ("cuStreamEndCapture", [p, vp]),
+                           ("cuGraphGetNodes", [p, p, ctypes.POINTER(ctypes.c_size_t)]),
+                           ("cuGraphNodeGetType", [p, ctypes.POINTER(ctypes.c_int)]),
+                           ("cuGraphKernelNodeGetParams_v2", [p, p]),
+                           ("cuKernelGetFunction", [vp, p]),
+                           ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p), p]),
+                           ("cuGraphDestroy", [p])):
+            fn = getattr(cu, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+
+        class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+            _fields_ = ([("func", p)] + [(f"dim{i}", ctypes.c_uint) for i in range(7)]
+                        + [("kernelParams", p), ("extra", p), ("kern", p), ("ctx", p),
+                           ("room", ctypes.c_char * 64)])
+        _CU["cu"], _CU["params"] = cu, KernelNodeParams
+    return _CU["cu"]
+
+
+def _cu_ok(rc: int, what: str):
+    if rc != 0:
+        fail(f"{what} returned CUresult {rc}")
+
+
+def graph_kernels(fn, calls: int) -> dict:
+    """{kernel name: nodes} of a CUDA graph captured around ``calls`` calls of ``fn``: a
+    stream capture on a side stream through libcuda, counted node by node and
+    destroyed, never launched.  Every launch a call puts on the stream is a node of the
+    graph, so nothing is lost as a profiler window can lose events; a node that is not a
+    kernel counts under its type.  ``fn`` must be safe to capture (no host read of the
+    device), as it is for the CUDA graphs the timings take."""
+    import ctypes
+
+    import torch
+
+    cu = _libcuda()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    stream, graph = ctypes.c_void_p(side.cuda_stream), ctypes.c_void_p()
+    with torch.cuda.stream(side):
+        _cu_ok(cu.cuStreamBeginCapture_v2(stream, 2), "cuStreamBeginCapture")  # relaxed mode
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            _cu_ok(cu.cuStreamEndCapture(stream, ctypes.byref(graph)), "cuStreamEndCapture")
+    try:
+        n = ctypes.c_size_t(0)
+        _cu_ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        _cu_ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        got = {}
+        for i in range(n.value):
+            kind = ctypes.c_int(-1)
+            _cu_ok(cu.cuGraphNodeGetType(nodes[i], ctypes.byref(kind)), "cuGraphNodeGetType")
+            if kind.value == 0:
+                prm = _CU["params"]()
+                _cu_ok(cu.cuGraphKernelNodeGetParams_v2(nodes[i], ctypes.byref(prm)),
+                       "cuGraphKernelNodeGetParams")
+                func = ctypes.c_void_p(prm.func)
+                if not func.value:
+                    _cu_ok(cu.cuKernelGetFunction(ctypes.byref(func), ctypes.c_void_p(prm.kern)),
+                           "cuKernelGetFunction")
+                name = ctypes.c_char_p()
+                _cu_ok(cu.cuFuncGetName(ctypes.byref(name), func), "cuFuncGetName")
+                key = name.value.decode()
+            else:  # a CUgraphNodeType of cuda.h: 1 memcpy, 2 memset, 3 host, ...
+                key = f"graph node of type {kind.value}"
+            got[key] = got.get(key, 0) + 1
+        return got
+    finally:
+        _cu_ok(cu.cuGraphDestroy(graph), "cuGraphDestroy")
+
+
+def device_kernels(fn, calls: int = 10) -> dict:
     """torch.profiler over ``calls`` calls of ``fn`` (after a warm-up window of as many that
-    is not recorded): {kernel name: launches}.  The profiler may lose kernel events of a
-    window (one run recorded 4 of 10 launches of a kernel whose calls all ran): a window that
-    recorded fewer than ``want`` kernels is taken again, up to five in all (a run has had
-    three windows in a row record nothing).  (A count above ``want``, or a kernel of another
-    name, is never taken again: the caller fails on it.)"""
-    for _ in range(5):
-        got = _profiled_kernels(fn, calls)
-        if want is None or sum(got.values()) >= want:
-            break
-    return got
-
-
-def _profiled_kernels(fn, calls: int) -> dict:
+    is not recorded): {kernel name: launches} — a printed reading only, since a window may
+    lose kernel events (one run recorded 4 of 10 launches of a kernel whose calls all ran,
+    another nothing in three windows in a row); the checks count the nodes of a captured
+    graph (:func:`graph_kernels`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -744,10 +832,12 @@ def k3_phase(dev, cfg):
 
         held("k3b", k3b(), library()[:, :, 0], "bfloat16", f"the library call at B={B}")
         held("k3b", split(), k3b(), "bfloat16", f"the first design at B={B}")
-        kernels = device_kernels(k3b, want=10)
+        kernels = graph_kernels(k3b, 10)
         if sum(kernels.values()) != 10 or len(kernels) != 1:
-            fail(f"K3b at B={B}: 10 calls ran the device kernels {kernels}, one each is the design")
-        first = device_kernels(split)
+            fail(f"K3b at B={B}: 10 calls put the device kernels {kernels} in a captured graph, "
+                 f"one each is the design")
+        profiled = device_kernels(k3b)
+        first = graph_kernels(split, 10)
         b_ms, b_by = attn_bound(H, Dh, lens, 2)
         twin = lambda: fd.decode_attention_ref(q, k1, v1, kv_len)  # noqa: E731
         if B == 12:  # K3a shares K3b's body: timed where K3b's record is taken
@@ -774,8 +864,9 @@ def k3_phase(dev, cfg):
               f"{b_ms:.5f} ms ({b_by})"
               + "".join(f"; forced {k}: {v:.4f} ms on the device" for k, v in dev_ms.items()
                         if k.startswith("C=")), flush=True)
-        print(f"k3b device kernels of 10 calls at B={B}: {kernels}; host {host:.1f} us per call, "
-              f"{host_scale(q)}", flush=True)
+        print(f"k3b device kernels of 10 calls at B={B}: {kernels} (nodes of a captured graph; "
+              f"torch.profiler read {profiled}); host {host:.1f} us per call, {host_scale(q)}",
+              flush=True)
         if B == 12:
             if dev_ms["one launch"] >= dev_ms["first design"]:
                 fail(f"K3b at B=12 takes {dev_ms['one launch']:.4f} ms on the device, its first "
@@ -975,12 +1066,16 @@ def layers_bound(cfg, n_layers, kv_lens, x_bytes):
 
 def one_kernel_a_launch(name, fn, calls, per_call):
     """Fail unless ``calls`` calls of ``fn`` put ``per_call`` device kernels each, all of
-    them the persistent kernel, on the card (torch.profiler)."""
-    got = device_kernels(fn, calls, want=calls * per_call)
+    them the persistent kernel, in a graph captured around them (:func:`graph_kernels`);
+    torch.profiler's count of the same calls is printed beside it."""
+    got = graph_kernels(fn, calls)
     if sum(got.values()) != calls * per_call or not all("decode_step_persistent" in k
                                                         for k in got):
-        fail(f"{name}: {calls} calls ran the device kernels {got}, expected {per_call} "
-             f"persistent kernel(s) a call")
+        fail(f"{name}: {calls} calls put the device kernels {got} in a captured graph, "
+             f"expected {per_call} persistent kernel(s) a call")
+    print(f"{name}: {calls} calls, {sum(got.values())} persistent kernel nodes in a captured "
+          f"graph; torch.profiler read {device_kernels(fn, calls)}",
+          flush=True)
     return got
 
 
@@ -1048,8 +1143,8 @@ def k5_phase(bench: StepBench):
                   f"({dev_ms['kernel']:.4f} on the device), chain of 194 launches {c_ms:.4f} "
                   f"({dev_ms['chain']:.4f} on the device), plain twin {p_ms:.4f} ms, bound "
                   f"{times[2]:.4f} ms ({times[3]}); host {host:.1f} us per call; one device "
-                  f"kernel a call (torch.profiler); device times from CUDA graphs of 20 calls "
-                  f"replayed in turns; {host_scale(x)}", flush=True)
+                  f"kernel a call (a captured graph's nodes); device times from CUDA graphs "
+                  f"of 20 calls replayed in turns; {host_scale(x)}", flush=True)
     # a kv_len past the cache: the bit, NaN, no append, and the kernel comes back
     st = bench.state(512, [300], [0], [17], [5])
     ka, va = st["kc"].clone(), st["vc"].clone()
@@ -1168,8 +1263,8 @@ def k6_phase(bench: StepBench):
               f"{k_ms:.4f} ms a call ({dev_ms['kernel']:.4f} on the device, {groups} launch(es) "
               f"a call), chain {c_ms:.4f} ({dev_ms['chain']:.4f} on the device), plain twin "
               f"{p_ms:.4f} ms, bound {times[B][2]:.5f} ms ({times[B][3]}); host {host:.1f} us per "
-              f"call; one device kernel a group (torch.profiler); device times from CUDA graphs of "
-              f"{2 * L} calls replayed in turns", flush=True)
+              f"call; one device kernel a group (a captured graph's nodes); device times from "
+              f"CUDA graphs of {2 * L} calls replayed in turns", flush=True)
     # a kv_len past the cache in a group of 5: that row's bit and NaN, the rest as before
     st = bench.state(512, [10, 150, 300, 0, 511], [0] * 5, [17] * 5, [5] * 5)
     st["kv"][2] = 512
@@ -1251,6 +1346,18 @@ def interleave_phase(bench: StepBench):
 # main path
 # ---------------------------------------------------------------------------
 
+# the published v2 s2 config (GPT-SoVITS s2.json): 32 kHz, 2048-pt STFT
+V2_HPS = {"data": {"sampling_rate": 32000, "filter_length": 2048, "hop_length": 640,
+                   "win_length": 2048, "n_mel_channels": 128},
+          "model": {"inter_channels": 192, "hidden_channels": 192, "filter_channels": 768,
+                    "n_heads": 2, "n_layers": 6, "kernel_size": 3, "p_dropout": 0.1,
+                    "resblock": "1", "resblock_kernel_sizes": [3, 7, 11],
+                    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                    "upsample_rates": [10, 8, 2, 2, 2], "upsample_initial_channel": 512,
+                    "upsample_kernel_sizes": [16, 16, 8, 2, 2], "gin_channels": 512,
+                    "semantic_frame_rate": "25hz", "version": "v2"}}
+
+
 def write_checkpoints(root: Path):
     """Full-width random s1v3 t2s, v2 SoVITS and HuBERT-base checkpoints
     plus speaker/prompt wavs, all from SEED."""
@@ -1266,20 +1373,10 @@ def write_checkpoints(root: Path):
     gen = torch.Generator().manual_seed(SEED)
     tcfg = t2s.T2SConfig()
     save_trained_gpt(t2s.init_params(tcfg, gen), tcfg, root / "s1v3")
-    # the published v2 s2 config (GPT-SoVITS s2.json): 32 kHz, 2048-pt STFT
-    hps = {"data": {"sampling_rate": 32000, "filter_length": 2048, "hop_length": 640,
-                    "win_length": 2048, "n_mel_channels": 128},
-           "model": {"inter_channels": 192, "hidden_channels": 192, "filter_channels": 768,
-                     "n_heads": 2, "n_layers": 6, "kernel_size": 3, "p_dropout": 0.1,
-                     "resblock": "1", "resblock_kernel_sizes": [3, 7, 11],
-                     "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
-                     "upsample_rates": [10, 8, 2, 2, 2], "upsample_initial_channel": 512,
-                     "upsample_kernel_sizes": [16, 16, 8, 2, 2], "gin_channels": 512,
-                     "semantic_frame_rate": "25hz", "version": "v2"}}
-    scfg = sovits.SovitsConfig.from_hps(hps["model"], 1025)
+    scfg = sovits.SovitsConfig.from_hps(V2_HPS["model"], 1025)
     sp = sovits.init_params(scfg, gen)
     sp["dec.conv_post.weight"] *= 10.0  # lift the random vocoder above the trim threshold
-    save_trained_sovits(sp, HParams(hps), root / "s2v2")
+    save_trained_sovits(sp, HParams(V2_HPS), root / "s2v2")
     hcfg = hubert.HubertConfig()
     hdir = root / "chinese-hubert-base"
     hdir.mkdir()
@@ -1579,7 +1676,7 @@ def stream_path(models_dir, gpt, sov, spk, prompt, dev, attn_impl, texts, warm_r
 
 
 def graph_pool_bytes(pool) -> int:
-    """Bytes the CUDA graphs' shared memory pool holds (its peak: a graph
+    """Bytes a CUDA graph memory pool holds (its peak: a graph
     pool keeps its blocks while its graphs live); 0 when the allocator's
     snapshot names no segment of it."""
     import torch
@@ -1674,9 +1771,9 @@ def sovits_buckets_phase(models_dir, gpt, sov, spk, prompt, dev, card):
 
     graphs = SovitsGraphs()
     with torch.no_grad():
-        graphs.run(("core",), core, *core_inputs(40, 20))
+        graphs.run(p, ("core",), core, *core_inputs(40, 20))
         ins = core_inputs(57, 27)
-        got, want = graphs.run(("core",), core, *ins), core(*ins)
+        got, want = graphs.run(p, ("core",), core, *ins), core(*ins)
         held_to_eager("padded core captured at n=40, N=20, replayed at n=57, N=27",
                       [got[0][..., :114], got[2][..., :114, :27], got[3]],
                       [want[0][..., :114], want[2][..., :114, :27], want[3]])
@@ -1691,7 +1788,7 @@ def sovits_buckets_phase(models_dir, gpt, sov, spk, prompt, dev, card):
                    torch.randn((1, cfg.hidden_channels, 5), generator=gen,
                                device=dev).to(torch.bfloat16),
                    torch.tensor([vsi], device=dev), torch.tensor([blend], device=dev))
-            got, want = graphs.run(("chunk",), chunk, *ins), chunk(*ins)
+            got, want = graphs.run(p, ("chunk",), chunk, *ins), chunk(*ins)
             t_valid = 2 * n - vsi
             held_to_eager(f"stream chunk (bucket {bucket}) at n={n}, vsi={vsi}, blend={blend}",
                           [got[0][..., :t_valid * cfg.samples_per_frame],
@@ -1750,12 +1847,270 @@ def sovits_buckets_phase(models_dir, gpt, sov, spk, prompt, dev, card):
         print(f"sovits buckets: graph {key[0]} {key[2:]}: {cuda_ms(graph.replay, 10):.3f} ms a "
               f"replay on the device", flush=True)
     n_graphs = len(tts.sovits_graphs.graphs)
-    pool = graph_pool_bytes(tts.sovits_graphs.pool)
+    pool = sum(graph_pool_bytes(pl) for pl in tts.sovits_graphs.pools.values())
     print(f"sovits buckets: {n_graphs} CUDA graphs on the default facade "
           f"({sorted(k[0] for k in tts.sovits_graphs.graphs)}), their pool "
           f"{pool / 2 ** 20:.1f} MiB; peak allocated over the phase "
           f"{(torch.cuda.max_memory_allocated() - mem0) / 2 ** 20:.1f} MiB above its start "
           f"[{card}]", flush=True)
+    return counts
+
+
+def write_v2pro(root: Path):
+    """A full-width random v2ProPlus SoVITS (the published v2 widths with
+    ``gin_channels`` 1024: the flow and HiFi-GAN take ``ge`` at 1024, MRTE
+    ``ge_to512(ge)``) and a full-width ERes2NetV2 checkpoint where ``TTS``
+    looks for it, from SEED."""
+    import torch
+
+    from gsv_tts_tpu_torch.hparams import HParams
+    from gsv_tts_tpu_torch.loader import save_trained_sovits
+    from gsv_tts_tpu_torch.models import sovits, sv
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    hps = {**V2_HPS, "model": {**V2_HPS["model"], "gin_channels": 1024, "version": "v2ProPlus"}}
+    p = sovits.init_params(sovits.SovitsConfig.from_hps(hps["model"], 1025), gen)
+    p["dec.conv_post.weight"] *= 10.0  # as the v2 model: above the trim threshold
+    p["sv_emb.weight"] *= 0.1  # its 20480 inputs would swamp the style vector
+    save_trained_sovits(p, HParams(hps), root / "s2v2ProPlus")
+    (root / "sv").mkdir()
+    torch.save(sv.init_params(sv.SVConfig(), gen),
+               str(root / "sv" / "pretrained_eres2netv2w24s4ep4.ckpt"))
+    return root / "s2v2ProPlus"
+
+
+def v2pro_phase(models_dir, gpt, v2, spk, prompt, dev, card):
+    """The v2ProPlus family: the card's bf16 speaker embedding and ``ge`` held against a
+    float32 evaluation of the same weights, the audio with the port's bf16 ``ge`` against
+    JAX's float32 one (a reading), the embedder's time a clip; then one facade
+    at the SoVITS defaults with the v2 and the v2ProPlus model loaded: ``infer`` twice
+    with each (the second capturing no graph), ``infer_batched`` of 4 texts (K2), one
+    ``infer_stream``, ``infer_vc``, ``verify_speaker``, and ``unload_sovits_model``
+    (that model's graphs and pool gone, the other's replaying).  Returns the launch
+    counts of its drives."""
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.config import Config
+    from gsv_tts_tpu_torch.loader import get_sovits_weights
+    from gsv_tts_tpu_torch.models import sovits as sovits_model
+    from gsv_tts_tpu_torch.models import sv as sv_model
+    from gsv_tts_tpu_torch.ops.convs import linear, prelu
+    from gsv_tts_tpu_torch.utils.audio_io import load_audio
+
+    t0 = time.perf_counter()
+    pro = str(write_v2pro(Path(models_dir)))
+    tts = TTS(gpt_cache=[(1, 512), (4, 512)], models_dir=models_dir, device=dev, seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(v2), pro)
+    print(f"v2ProPlus: checkpoints written and loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # the embedder and ge in bf16 (the engine's) against float32 on the card; the bf16
+    # embedder is the facade's own, loaded here on first use and kept
+    f32 = Config(device=dev, dtype=torch.float32)
+    t1 = time.perf_counter()
+    sv16 = tts._get_sv_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    sv32 = sv_model.ERes2Net(tts.sv_path, f32)
+    model16, model32 = tts.sovits_models[pro], get_sovits_weights(pro, f32)
+    spec16, wav16k = tts._get_spec(model16.hps, str(spk))
+    e16, e32 = sv16.compute_embedding3(wav16k), sv32.compute_embedding3(wav16k)
+    with torch.no_grad():
+        ge16 = sovits_model.get_ge(model16.params, model16.cfg, spec16, e16)
+        ge32 = sovits_model.get_ge(model32.params, model32.cfg, spec16.float(), e32)
+    if e16.dtype != torch.float32 or e16.shape != (1, sv_model.EMBED_DIM) or not e16.is_cuda:
+        fail(f"v2ProPlus: the embedding is {e16.dtype} {tuple(e16.shape)} on {e16.device}")
+    if ge16.dtype != torch.bfloat16 or ge16.shape != (1, 1024, 1):
+        fail(f"v2ProPlus: ge is {ge16.dtype} {tuple(ge16.shape)}, the model's bf16 [1, 1024, 1]")
+    for name, a, b in (("embedding", e16, e32), ("ge", ge16, ge32)):
+        err, rel = float((a.float() - b).abs().max()), rel_err(a, b)
+        print(f"v2ProPlus: bf16 {name} against float32 on the card: max abs {err:.4g}, relative "
+              f"L2 {rel:.4g} (tolerance {TOL_ABS} / {TOL_REL}; |float32| max "
+              f"{float(b.abs().max()):.3g})", flush=True)
+        if not (err <= TOL_ABS and rel <= TOL_REL):
+            fail(f"v2ProPlus: the bf16 {name} is max abs {err:.4g}, relative L2 {rel:.4g} from "
+                 f"float32")
+    # what the port's bf16 ge (ROADMAP Queue 3) does to the audio: the flow and HiFi-GAN on
+    # the same bf16 weights, z_p and mask, once with the port's bf16 ge and once with ge
+    # left in float32, as JAX leaves it, which promotes them to float32 from the first
+    # conditioning add (the port's ops cast each weight to the input's dtype, as JAX's do)
+    cfg, p16 = model16.cfg, model16.params
+    with torch.no_grad():
+        mel = sovits_model.mel_style_encoder(p16, cfg, spec16[:, :cfg.ref_enc_in])
+        sv_term = linear(e16, p16["sv_emb.weight"], p16["sv_emb.bias"])[:, :, None]
+        ge_f32 = prelu(mel.float() + sv_term, p16["prelu.weight"])
+        if not torch.equal(ge_f32.to(torch.bfloat16), ge16):
+            fail("v2ProPlus: get_ge's bf16 ge is not the float32 ge rounded once")
+        frames = 500  # 10 s of audio at 50 latent frames a second
+        z_p = torch.randn(1, cfg.inter_channels, frames, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(SEED))
+        z_p = z_p.to(torch.bfloat16)
+        mask = torch.ones(1, 1, frames, device=dev, dtype=torch.bfloat16)
+        a16 = sovits_model.flow_dec(p16, cfg, z_p, mask, ge16)
+        a32 = sovits_model.flow_dec(p16, cfg, z_p, mask, ge_f32)
+    if (a16.dtype, a32.dtype) != (torch.bfloat16, torch.float32) or not (
+            torch.isfinite(a16).all() and torch.isfinite(a32).all()):
+        fail(f"v2ProPlus: the flow and HiFi-GAN gave {a16.dtype} / {a32.dtype} audio, or not "
+             f"finite")
+    print(f"v2ProPlus: the audio of {frames} latent frames with the port's bf16 ge against "
+          f"JAX's float32 ge (the flow and HiFi-GAN then in float32), same bf16 weights: "
+          f"relative L2 {rel_err(a16, a32):.4g}, max abs "
+          f"{float((a16.float() - a32).abs().max()):.4g} (|float32| max "
+          f"{float(a32.abs().max()):.3g}) [{card}]", flush=True)
+    del a16, a32, z_p, mask
+
+    feat = torch.as_tensor(np.stack([sv_model.kaldi_fbank(wav16k[0])]), device=dev)
+    feat = feat.to(torch.bfloat16)
+    with torch.no_grad():
+        clip_ms = cuda_ms(lambda: sv16.compute_embedding3(wav16k), 10)
+        net = graph_of(lambda: sv_model.eres2netv2_forward3(sv16.params, feat), 5)
+        dev_ms = cuda_ms(net.replay, 10) / 5
+        del net
+        ops = sum(graph_kernels(lambda: sv_model.eres2netv2_forward3(sv16.params, feat),
+                                1).values())
+    t1 = time.perf_counter()
+    sv_model.kaldi_fbank(wav16k[0])
+    fbank_ms = 1000 * (time.perf_counter() - t1)
+    print(f"v2ProPlus: ERes2NetV2 embedding of a {wav16k.shape[1] / 16000:.1f} s clip "
+          f"({feat.shape[1]} frames): the facade's first-use load {load_s:.2f} s (once), "
+          f"{clip_ms:.2f} ms a clip by CUDA events around the call "
+          f"(the host's fbank {fbank_ms:.2f} ms of it), the network {dev_ms:.2f} ms on the "
+          f"device (a CUDA graph of 5 calls, replayed) in {ops} device operations (the nodes "
+          f"of a graph captured around one call) [{card}]", flush=True)
+    sv_kept = id(sv16)
+    del sv16, sv32, model16, model32, p16
+
+    counts = {name: 0 for name in launch_counts()}
+
+    def infer(model, text):
+        t = time.perf_counter()
+        clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, text, top_k=1, sovits_model=model)
+        torch.cuda.synchronize()
+        return clip, dict(tts.last_timings, wall_s=time.perf_counter() - t)
+
+    warm = {}
+    for label, model in (("v2ProPlus", pro), ("v2", str(v2)), ("v2ProPlus", pro), ("v2", str(v2))):
+        for i in range(2):
+            reset_counts()
+            clip, st = infer(model, TEXTS[0])
+            expect_counts(f"v2ProPlus phase: infer on {label} ({st['decode_steps']} steps)",
+                          read_counts(), k1=st["decode_steps"])
+            counts["k1"] += st["decode_steps"]
+            check_audio(f"v2ProPlus phase: infer on {label}", clip.audio_data, int(0.2 * 32000),
+                        st["tokens"] * 1280 + int(0.2 * 32000))
+            rtf = st["wall_s"] / clip.audio_len_s
+            print(f"v2ProPlus phase: infer {i} on {label}: {st['tokens']} tokens, RTF {rtf:.4f}, "
+                  f"sovits_s {1000 * st['sovits_s']:.2f} ms (graphs {st['sovits_graphs']} "
+                  f"captured, {st['sovits_replays']} replayed), wall {st['wall_s']:.3f} s "
+                  f"[{card}]", flush=True)
+            if i == 1:
+                if st["sovits_graphs"] != 0 or st["sovits_replays"] != 2:
+                    fail(f"v2ProPlus phase: the second equal infer on {label} captured "
+                         f"{st['sovits_graphs']} graph(s), replayed {st['sovits_replays']}")
+                warm.setdefault(label, []).append((rtf, st["sovits_s"]))
+    if id(tts.sv_model) != sv_kept:
+        fail("v2ProPlus phase: the facade loaded its speaker embedder again")
+    ge = tts.spk_audio_cache[str(spk)]["ge"][pro]
+    if ge.dtype != torch.bfloat16 or tts.spk_audio_cache[str(spk)]["sv_emb"] is None:
+        fail(f"v2ProPlus phase: the cached ge is {ge.dtype}, or no embedding was cached")
+    p = tts.sovits_models[pro].params
+    not_bf16 = [key for key, entry in tts.sovits_graphs.graphs.items()
+                if key[1] == id(p) and key[0] in ("core", "flow")
+                and entry[2][0].dtype != torch.bfloat16]
+    if not_bf16:  # z_p of the core, the flow's audio: the model's dtype, not float32
+        fail(f"v2ProPlus phase: the graphs {not_bf16} return no bf16 z_p / audio")
+
+    reset_counts()
+    clips = tts.infer_batched(str(spk), str(prompt), PROMPT_TEXT, TEXTS[:4], is_cut_text=False,
+                              sovits_model=pro)
+    torch.cuda.synchronize()
+    st = tts.last_timings
+    expect_counts(f"v2ProPlus phase: infer_batched of 4", read_counts(), k1=st["k1_steps"],
+                  k2=st["k2_steps"])
+    if st["k2_steps"] == 0 or len(clips) != 4:
+        fail(f"v2ProPlus phase: infer_batched of 4 gave {len(clips)} clips, K2 steps "
+             f"{st['k2_steps']}")
+    for i, c in enumerate(clips):
+        check_audio(f"v2ProPlus phase: infer_batched request {i}", c.audio_data, int(0.2 * 32000),
+                    1024 * 1280 + int(0.8 * 32000))
+    counts["k1"] += st["k1_steps"]
+    counts["k2"] += st["k2_steps"]
+    print(f"v2ProPlus phase: infer_batched of 4: {st['tokens']} tokens, K2 steps "
+          f"{st['k2_steps']}, K1 steps {st['k1_steps']}, SoVITS {st['sovits_s']:.3f} s", flush=True)
+
+    reset_counts()
+    chunks = list(tts.infer_stream(str(spk), str(prompt), PROMPT_TEXT, TEXTS[1],
+                                   is_cut_text=False, sovits_model=pro))
+    torch.cuda.synchronize()
+    st = tts.last_timings
+    expect_counts("v2ProPlus phase: infer_stream", read_counts(), k1=st["decode_steps"])
+    counts["k1"] += st["decode_steps"]
+    if len(chunks) < 2 or not all(np.all(np.isfinite(c.audio_data)) for c in chunks):
+        fail(f"v2ProPlus phase: a stream of {len(chunks)} chunk(s), or not finite")
+    print(f"v2ProPlus phase: infer_stream: {len(chunks)} chunks, time to first audio "
+          f"{1000 * st['ttfa_s']:.1f} ms, sovits_s {1000 * st['sovits_s']:.1f} ms", flush=True)
+
+    prompt_s = len(load_audio(str(prompt))[0].reshape(-1)) / 32000
+    for i in range(2):
+        reset_counts()
+        t = time.perf_counter()
+        clip = tts.infer_vc(str(spk), str(prompt), PROMPT_TEXT, sovits_model=pro)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        expect_counts("v2ProPlus phase: infer_vc", read_counts())
+        st = tts.last_timings
+        # the prompt's codes (HuBERT at 50 Hz over the clip and 0.3 s of padding, 25 Hz codes)
+        # voiced at 1280 samples a code, and 0.2 s of tail
+        if not prompt_s < clip.audio_len_s <= prompt_s + 0.6:
+            fail(f"v2ProPlus phase: infer_vc gave {clip.audio_len_s:.2f} s for a {prompt_s:.2f} s "
+                 f"prompt")
+        check_audio("v2ProPlus phase: infer_vc", clip.audio_data, int(prompt_s * 32000),
+                    int((prompt_s + 0.6) * 32000))
+        if not clip.subtitles:
+            fail("v2ProPlus phase: infer_vc returned no subtitles")
+        print(f"v2ProPlus phase: infer_vc {i}: {clip.audio_len_s:.2f} s of audio for a "
+              f"{prompt_s:.2f} s prompt ({st['tokens']} codes), {len(clip.subtitles)} subtitles; "
+              f"wall {1000 * wall:.1f} ms (codes and phones {1000 * st['prompt_s']:.1f}, "
+              f"sovits_s {1000 * st['sovits_s']:.1f}; graphs {st['sovits_graphs']} captured, "
+              f"{st['sovits_replays']} replayed) [{card}]", flush=True)
+
+    same = tts.verify_speaker(str(spk), str(spk))
+    cross = tts.verify_speaker(str(spk), str(prompt))
+    print(f"v2ProPlus phase: verify_speaker: self {same:.6f}, cross {cross:.6f}", flush=True)
+    if id(tts.sv_model) != sv_kept:
+        fail("v2ProPlus phase: verify_speaker loaded the speaker embedder again")
+    if not (same >= 0.999 and -1.0 <= cross <= 1.0):
+        fail(f"v2ProPlus phase: verify_speaker self {same}, cross {cross}")
+
+    graphs = tts.sovits_graphs
+    pool = graphs.pools[id(p)]
+    n_pro = sum(k[1] == id(p) for k in graphs.graphs)
+    before = (len(graphs.graphs), graph_pool_bytes(pool), torch.cuda.memory_reserved())
+    del p, ge
+    tts.unload_sovits_model(pro)
+    after = (len(graphs.graphs), graph_pool_bytes(pool), torch.cuda.memory_reserved())
+    print(f"v2ProPlus phase: unload_sovits_model: graphs {before[0]} -> {after[0]} "
+          f"({n_pro} of the model), its pool {before[1] / 2 ** 20:.1f} -> "
+          f"{after[1] / 2 ** 20:.1f} MiB, reserved {before[2] / 2 ** 20:.0f} -> "
+          f"{after[2] / 2 ** 20:.0f} MiB", flush=True)
+    if not (n_pro > 0 and after[0] == before[0] - n_pro and before[1] > 0 and after[1] == 0
+            and after[2] < before[2]):
+        fail("v2ProPlus phase: unload_sovits_model left the model's graphs or pool")
+    reset_counts()
+    clip, st = infer(str(v2), TEXTS[0])
+    expect_counts("v2ProPlus phase: infer on v2 after the unload", read_counts(),
+                  k1=st["decode_steps"])
+    counts["k1"] += st["decode_steps"]
+    if st["sovits_graphs"] != 0 or st["sovits_replays"] != 2:
+        fail(f"v2ProPlus phase: after the unload, v2's infer captured {st['sovits_graphs']}, "
+             f"replayed {st['sovits_replays']}")
+    for label, runs in warm.items():
+        print(f"v2ProPlus phase: warm infer on {label} in turns: RTF "
+              f"{', '.join(f'{r:.4f}' for r, _ in runs)}; sovits_s "
+              f"{', '.join(f'{1000 * s:.2f}' for _, s in runs)} ms [{card}]", flush=True)
     return counts
 
 
@@ -1813,6 +2168,7 @@ def main_path_phase(dev, card):
         add(stream_path(tmp, gpt, sov, spk, prompt, dev, "fused_step", TEXTS[:2], warm_rtf))
         add(stream_path(tmp, gpt, sov, spk, prompt, dev, "flash", TEXTS[2:3], warm_rtf))
         add(sovits_buckets_phase(tmp, gpt, sov, spk, prompt, dev, card))
+        add(v2pro_phase(tmp, gpt, sov, spk, prompt, dev, card))
     return total
 
 

@@ -1,8 +1,9 @@
 """Parameters of the JAX package → parameters of this port.
 
 The JAX package keeps t2s weights as a pytree with the layers stacked on a
-leading axis and matrices as ``[in, out]``; SoVITS and HuBERT as flat dicts
-keyed by the reference state-dict names (weight norm already folded).  Given
+leading axis and matrices as ``[in, out]``; SoVITS, HuBERT and the ERes2NetV2
+speaker embedder as flat dicts keyed by the reference state-dict names
+(weight norm already folded).  Given
 those as numpy arrays (``jax.tree.map(np.asarray, params)``), these
 functions build the port's parameters, so both packages can compute with the
 same weights.  No JAX import is needed here.
@@ -16,6 +17,7 @@ import torch
 
 from .models import hubert as hubert_model
 from .models import sovits as sovits_model
+from .models import sv as sv_model
 from .models import t2s as t2s_model
 from .models.t2s import LAYER_KEYS, T2SConfig
 
@@ -61,3 +63,11 @@ def hubert_from_jax(params: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """Flat JAX HuBERT params (numpy) → port params (same keys)."""
     return hubert_model.params_from_torch_state_dict(_flat(params), dtype=dtype, device=device)
+
+
+def sv_from_jax(params: Dict[str, Any], cfg: sv_model.SVConfig = sv_model.SVConfig(),
+                dtype=torch.float32, device="cpu") -> Dict[str, torch.Tensor]:
+    """Flat JAX ERes2NetV2 params (``ERes2Net.params``, numpy) → port params:
+    the keys the forward pass reads (a missing one raises, naming it)."""
+    return sv_model.params_from_state_dict(_flat(params), cfg, dtype=dtype, device=device,
+                                           where="the JAX SV params")

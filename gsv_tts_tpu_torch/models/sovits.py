@@ -1,14 +1,16 @@
-"""Stage-2 SoVITS, v2 inference (counterpart of ``gsv_tts_tpu/models/sovits.py``;
-reference ``SoVITS/models.py:235-434`` and ``module/``).
+"""Stage-2 SoVITS inference, v2 / v2Pro / v2ProPlus (counterpart of
+``gsv_tts_tpu/models/sovits.py``; reference ``SoVITS/models.py:235-434`` and
+``module/``).
 
 Semantic tokens → waveform: RVQ codebook decode, the VITS relative-position
 encoders, MRTE cross-attention (returning its attention matrix), the
 reversed residual-coupling flow and the HiFi-GAN generator, all
-channels-first ``[B, C, T]``.  Parameters are a flat dict keyed by the
+channels-first ``[B, C, T]``.  v2Pro adds the speaker-verification term to
+``ge`` (``sv_emb`` linear, PReLU) and feeds MRTE ``ge_to512(ge)``; the flow
+and HiFi-GAN take ``ge`` as it is.  Parameters are a flat dict keyed by the
 reference state-dict names with weight norm folded at load.  The JAX
 package computes all of this in XLA (no Pallas), so the port is plain
-PyTorch.  Not ported yet: the streaming/bucket-padded variants, the speed
-change and v2Pro's speaker-verification branch (ROADMAP Queue 1).
+PyTorch.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.convs import (conv1d, conv_transpose1d, fold_weight_norm, interpolate_linear,
-                         interpolate_nearest, interpolate_nearest_2x, leaky_relu, linear, mish)
+                         interpolate_nearest, interpolate_nearest_2x, leaky_relu, linear, mish,
+                         prelu)
+from .sv import EMBED_DIM as SV_EMBED_DIM
 
 F32 = torch.float32
 LRELU_SLOPE = 0.1
@@ -355,7 +359,8 @@ def extract_latent(p, x):
 def text_encoder_infer(p, cfg: SovitsConfig, y, text, ge, slice_indices=None, y_mask=None,
                        text_mask=None, nullkey_idx=None):
     """``TextEncoder.infer`` core (``models.py:196-224``): y [B, 768, T]
-    upsampled quantized latent, text [B, N] phone ids, ge [B, 512, 1 or T],
+    upsampled quantized latent, text [B, N] phone ids, ge [B, 512, 1 or T]
+    (v2Pro: already through :func:`ge_for_mrte`),
     ``slice_indices`` [T, 2] the per-frame text span of a packed batch and
     ``nullkey_idx`` its null key (see :func:`mrte`).  ``y_mask`` [B, 1, T] and
     ``text_mask`` [B, 1, N] mark the valid frames and phones of padded
@@ -386,14 +391,28 @@ def project_latent(p, cfg: SovitsConfig, y_latent, y_mask):
     return stats[:, :cfg.inter_channels], stats[:, cfg.inter_channels:]
 
 
-def get_ge(p, cfg: SovitsConfig, refer):
-    """Speaker conditioning from the linear spectrogram (``models.py:371-378``;
-    v2 only: v2Pro's speaker-verification term is not ported)."""
+def get_ge(p, cfg: SovitsConfig, refer, sv_emb=None):
+    """Speaker conditioning [B, gin, 1] from the linear spectrogram
+    (``models.py:371-378``).  v2Pro / v2ProPlus with ``sv_emb`` [B, 20480]
+    (``models/sv.py``'s float32 embedding): ``prelu(ge + sv_emb·W + b)``.
+    JAX computes that in the embedding's float32 and returns float32 (its
+    ``linear`` casts the weight to the input's dtype), which would carry
+    float32 into a bf16 flow and HiFi-GAN; the port computes it in float32
+    and returns ``ge`` in the style encoder's dtype, the model's."""
+    ge = mel_style_encoder(p, cfg, refer[:, :cfg.ref_enc_in])
+    if cfg.is_v2pro and sv_emb is not None:
+        sv = linear(sv_emb.float(), p["sv_emb.weight"], p["sv_emb.bias"])
+        ge = prelu(ge.float() + sv[:, :, None], p["prelu.weight"]).to(ge.dtype)
+    return ge
+
+
+def ge_for_mrte(p, cfg: SovitsConfig, ge):
+    """The ``ge`` MRTE takes: v2Pro routes it through ``ge_to512``
+    (``models.py:394``), [B, gin, T] → [B, 512, T]; v2 takes it as it is."""
     if cfg.is_v2pro:
-        raise NotImplementedError(
-            "v2Pro/v2ProPlus speaker conditioning (ERes2NetV2) is not ported yet "
-            "(ROADMAP Queue 1: v2Pro/ERes2NetV2)")
-    return mel_style_encoder(p, cfg, refer[:, :cfg.ref_enc_in])
+        return linear(ge.transpose(1, 2), p["ge_to512.weight"],
+                      p["ge_to512.bias"]).transpose(1, 2)
+    return ge
 
 
 def flow_dec(p, cfg: SovitsConfig, z_p, y_mask, ge):
@@ -427,8 +446,8 @@ def decode_core(p, cfg: SovitsConfig, codes, text, ge, noise, slice_indices=None
     quantized = interpolate_nearest_2x(quantizer_decode(p, codes, cfg.quantizer_n_q))
     if ge.shape[-1] != 1:
         ge = interpolate_nearest_2x(ge)
-    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge, slice_indices,
-                                                y_mask, text_mask, nullkey_idx)
+    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text, ge_for_mrte(p, cfg, ge),
+                                                slice_indices, y_mask, text_mask, nullkey_idx)
     new_overlap = None
     if overlap_len is not None:
         y_latent = y_latent[:, :, valid_start_idx:]
@@ -483,8 +502,9 @@ def decode_core_stream_padded_batch(p, cfg: SovitsConfig, codes_pad, codes_len, 
     y_mask = (pos[None, None, :] < t50_valid[:, None, None]).to(quantized.dtype)
     tpos = torch.arange(text_pad.shape[-1], device=dev)
     text_mask = (tpos[None, None, :] < text_len[:, None, None]).to(quantized.dtype)
-    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text_pad, ge,
-                                                y_mask=y_mask, text_mask=text_mask)
+    y_latent, y_mask, attn = text_encoder_infer(p, cfg, quantized, text_pad,
+                                                ge_for_mrte(p, cfg, ge), y_mask=y_mask,
+                                                text_mask=text_mask)
     # the chunk [vsi, vsi + T50) of rows right-extended by T50 zeros
     idx = vsi.clamp(0, T50)[:, None] + pos[None, :]
     chunk = _take_frames(F.pad(y_latent, (0, T50)), idx)
@@ -540,9 +560,10 @@ def params_from_torch_state_dict(state_dict: Dict[str, Any], dtype=F32,
 
 def init_params(cfg: SovitsConfig, generator: torch.Generator, dtype=F32,
                 device="cpu") -> Dict[str, torch.Tensor]:
-    """Random v2 inference parameters with the reference keys and shapes
-    (the JAX ``init_params`` layout, N(0, 0.05) weights), drawn on the CPU
-    from ``generator``."""
+    """Random inference parameters with the reference keys and shapes (the
+    JAX ``init_params`` layout, N(0, 0.05) weights; v2Pro / v2ProPlus add
+    ``sv_emb``, ``ge_to512`` and ``prelu``), drawn on the CPU from
+    ``generator``."""
     p: Dict[str, torch.Tensor] = {}
 
     def nrm(*shape):
@@ -622,4 +643,8 @@ def init_params(cfg: SovitsConfig, generator: torch.Generator, dtype=F32,
     p["quantizer.vq.layers.0._codebook.embed"] = torch.randn(
         (cfg.quantizer_bins, cfg.ssl_dim), generator=generator)
     conv("ssl_proj", cfg.ssl_dim, cfg.ssl_dim, 2)
+    if cfg.is_v2pro:
+        lin("sv_emb", cfg.gin_channels, SV_EMBED_DIM)  # takes models/sv.py's embedding
+        lin("ge_to512", 512, cfg.gin_channels)
+        p["prelu.weight"] = torch.full((cfg.gin_channels,), 0.25)
     return {k: v.to(device=device, dtype=dtype) for k, v in p.items()}

@@ -1,9 +1,10 @@
-"""1-D convolution helpers with the JAX package's signatures (counterpart of
+"""Convolution helpers with the JAX package's signatures (counterpart of
 ``gsv_tts_tpu/ops/convs.py``).
 
 Torch layouts throughout: Conv1d weight [C_out, C_in/g, K], ConvTranspose1d
-weight [C_in, C_out, K], x [B, C, T].  JAX computes these in XLA, outside any
-Pallas kernel, so the port leaves them to ``torch.nn.functional``.
+weight [C_in, C_out, K], x [B, C, T]; Conv2d weight [C_out, C_in, kH, kW],
+x [B, C, H, W].  JAX computes these in XLA, outside any Pallas kernel, so
+the port leaves them to ``torch.nn.functional``.
 """
 from __future__ import annotations
 
@@ -78,3 +79,32 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(F.softplus(x))
+
+
+def prelu(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """torch PReLU with a per-channel weight; x [B, C, T]."""
+    return torch.where(x >= 0, x, x * weight.to(x.dtype)[None, :, None])
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+           stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """``F.conv2d`` in x's dtype (JAX accumulates in float32 and casts back, as
+    cuDNN does for bf16); the bias is added after, in x's dtype, as JAX adds it."""
+    out = F.conv2d(x, weight.to(x.dtype), stride=stride, padding=padding)
+    if bias is not None:
+        out = out + bias.to(x.dtype)[None, :, None, None]
+    return out
+
+
+def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+               gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
+               eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode BatchNorm over the channel axis (axis 1), computed in
+    float32 and cast back to x's dtype."""
+    shape = [1, -1] + [1] * (x.ndim - 2)
+    out = (x.float() - mean.float().reshape(shape)) * torch.rsqrt(var.float() + eps).reshape(shape)
+    if gamma is not None:
+        out = out * gamma.float().reshape(shape)
+    if beta is not None:
+        out = out + beta.float().reshape(shape)
+    return out.to(x.dtype)

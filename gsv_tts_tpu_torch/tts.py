@@ -1,12 +1,16 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
-registry, speaker/prompt audio caches, single-utterance ``infer``, streaming
-``infer_stream``, batched ``infer_batched`` and ``warmup``.
+registry (load, unload, list), speaker/prompt audio caches, single-utterance
+``infer``, streaming ``infer_stream``, batched ``infer_batched``, voice
+conversion ``infer_vc``, ``verify_speaker`` and ``warmup``.
 
 Pipeline: text → English frontend (host) → t2s engine (prefill, then one
 whole-step kernel per decode step by default: K1 for one utterance, K2 for a
 continuous-batched wave, the generic step with K3b for waves above K2's
 limit; ``attn_impl`` selects the K4 / K3b or the K6 paths instead) → SoVITS
 → host trim, subtitles from the MRTE attention by a monotonic Viterbi.
+v2 / v2Pro / v2ProPlus SoVITS models: a v2Pro model's speaker conditioning
+adds the ERes2NetV2 embedding of the speaker clip (``models/sv.py``, the
+checkpoint at ``models_dir/sv/pretrained_eres2netv2w24s4ep4.ckpt``).
 
 SoVITS runs as the JAX facade runs it.  By default (``stream_vocoder=
 "bucketed"``) ``infer`` and each ``infer_stream`` chunk take the
@@ -17,8 +21,8 @@ CUDA graph, captured the first time its shapes are seen and replayed after.
 ``speed != 1``, a frame-wise ``ge`` and ``stream_vocoder="exact"`` take the
 exact-shape core (the packed ``infer_batched`` too, with block-diagonal MRTE
 masks), whose flow still pads to the bucket ladder.  Not ported yet (ROADMAP
-Queue 1): batched streaming and the shared wave, voice conversion, Chinese
-and Japanese text, v2Pro speaker verification.
+Queue 1): batched streaming and the shared wave, Chinese and Japanese text,
+``get_timings``, ``to_safetensors`` and the ``*_async`` wrappers.
 """
 from __future__ import annotations
 
@@ -146,30 +150,38 @@ class SovitsGraphs:
     """One CUDA graph per padded SoVITS program (the JAX facade's one compile
     per shape bucket; the reference captured this region too,
     ``models.py:406-425``).  :meth:`run` captures a program the first time its
-    key is seen — a warm eager run on a side stream, then
-    ``torch.cuda.graph`` — and replays it after, the inputs copied into the
-    graph's own buffers.  The caller keys a program by every shape it takes
-    and by its parameters (the graph holds their addresses; the entry keeps
-    them alive); every length inside must be an input tensor, since a Python
-    number would be fixed at the capture's value.  All graphs share one
-    memory pool: replays are serial, and :meth:`run` returns copies of the
-    outputs before anything else replays.  A capture that fails raises.  On
-    the CPU the function runs eagerly."""
+    key is seen for a model's parameters — a warm eager run on a side stream,
+    then ``torch.cuda.graph`` — and replays it after, the inputs copied into
+    the graph's own buffers.  The caller keys a program by every shape it
+    takes; the graphs are stored under ``(kind, id(params), *shapes)`` (a
+    graph holds the parameters' addresses, and its entry keeps them alive);
+    every length inside must be an input tensor, since a Python number would
+    be fixed at the capture's value.  A model's graphs share one memory pool
+    of their own: replays are serial, and :meth:`run` returns copies of the
+    outputs before anything else replays.  :meth:`evict` drops a model's
+    graphs and its pool, so an unloaded model's memory can return to the
+    card.  A capture that fails raises, and so do inputs on more than one
+    device.  On the CPU the function runs eagerly."""
 
     def __init__(self):
         self.graphs: Dict[tuple, tuple] = {}
-        self.pool = None
+        self.pools: Dict[int, tuple] = {}  # id(params) → that model's pool handle
+        self.stream = None  # the side stream every capture and its warm run take
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0  # host wall time of the captures, warm runs included
 
-    def run(self, key: tuple, fn, *inputs: torch.Tensor) -> tuple:
+    def run(self, params, key: tuple, fn, *inputs: torch.Tensor) -> tuple:
+        if len({x.device for x in inputs}) != 1:
+            raise ValueError(f"the SoVITS program {key} takes inputs on one device, not on "
+                             f"{sorted({str(x.device) for x in inputs})}")
         if not inputs[0].is_cuda:
             return _as_tuple(fn(*inputs))
+        key = (key[0], id(params)) + tuple(key[1:])
         entry = self.graphs.get(key)
         if entry is None:
             t0 = time.perf_counter()
-            entry = self.graphs[key] = self._capture(key, fn, inputs)
+            entry = self.graphs[key] = self._capture(params, key, fn, inputs)
             self.capture_s += time.perf_counter() - t0
         graph, static_in, static_out, _ = entry
         for buf, x in zip(static_in, inputs):
@@ -178,29 +190,46 @@ class SovitsGraphs:
         self.replays += 1
         return tuple(o.clone() for o in static_out)
 
-    def _capture(self, key, fn, inputs):
+    def evict(self, params) -> int:
+        """Drop the graphs of the model whose parameters are ``params``, and
+        its pool; returns how many.  Its memory returns to the card at the
+        next ``torch.cuda.empty_cache()``."""
+        keys = [k for k in self.graphs if k[1] == id(params)]
+        for k in keys:
+            del self.graphs[k]
+        self.pools.pop(id(params), None)
+        return len(keys)
+
+    def _capture(self, params, key, fn, inputs):
         static_in = [x.clone() for x in inputs]
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
+        pool = self.pools.get(id(params))
+        if pool is None:
+            pool = self.pools[id(params)] = torch.cuda.graph_pool_handle()
         caller = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+        side = self.stream
         side.wait_stream(caller)
-        with torch.cuda.stream(side):  # cuDNN's plans and the allocator, before the capture
+        # a warm run on the stream the capture takes: cuDNN's plans, the
+        # allocator, and the cuBLAS workspaces of that stream, which would
+        # otherwise be made inside the capture, in the model's pool, and
+        # outlive it in cuBLAS's cache
+        with torch.cuda.stream(side):
             fn(*static_in)
         caller.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=pool, stream=side):
                 out = fn(*static_in)
         except Exception as exc:
             # a failed capture leaves its capture stream current and its pool
             # recording for good ("beginAllocateToPool: already recording"):
             # the caller's stream back, and a fresh pool for the next capture
             torch.cuda.set_stream(caller)
-            self.pool = None
+            del self.pools[id(params)]
             raise RuntimeError(f"CUDA graph capture of the SoVITS program {key} failed") from exc
         self.captures += 1
-        return graph, static_in, _as_tuple(out), fn
+        return graph, static_in, _as_tuple(out), params
 
 
 def _as_tuple(out) -> tuple:
@@ -224,7 +253,9 @@ class TTS:
     ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``).
     ``sovits_cache`` lists the flow/vocoder frame buckets (empty: exact
     shapes); ``stream_vocoder`` is ``"bucketed"`` (the padded core, one CUDA
-    graph per bucket on the card) or ``"exact"`` (the exact-shape core)."""
+    graph per bucket on the card) or ``"exact"`` (the exact-shape core).
+    The ERes2NetV2 speaker embedder (``models_dir/sv/``) is loaded the first
+    time an embedding has to be computed and kept, as HuBERT is."""
 
     def __init__(self, gpt_cache: List[tuple] = DEFAULT_GPT_CACHE,
                  sovits_cache: List[int] = DEFAULT_SOVITS_CACHE,
@@ -256,9 +287,11 @@ class TTS:
         self.spk_audio_cache: Dict[str, dict] = {}
         self.prompt_audio_cache: Dict[str, dict] = {}
         self.cnhubert_path = self.models_dir / "chinese-hubert-base"
+        self.sv_path = self.models_dir / "sv" / "pretrained_eres2netv2w24s4ep4.ckpt"
         self.default_gpt_path = self.models_dir / "s1v3.ckpt"
         self.default_sovits_path = self.models_dir / "s2Gv2ProPlus.pth"
         self.cnhubert_model = None
+        self.sv_model = None
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
         self.sovits_hz = 50
@@ -282,6 +315,37 @@ class TTS:
             self.sovits_models[path] = get_sovits_weights(path, self.tts_config)
             logger.info("Loaded SoVITS model: %s", path)
 
+    def unload_gpt_model(self, *model_paths):
+        for path in model_paths:
+            if path in self.gpt_models:
+                del self.gpt_models[path]
+                logger.info("Unloaded GPT model: %s", path)
+            else:
+                logger.warning("GPT model %s not found.", path)
+
+    def unload_sovits_model(self, *model_paths):
+        """Drop each model, its ``ge`` from every speaker cache entry (the
+        entries and their embeddings stay), and its CUDA graphs, whose memory
+        returns to the card."""
+        for path in model_paths:
+            if path in self.sovits_models:
+                params = self.sovits_models.pop(path).params
+                for audio in self.spk_audio_cache.values():
+                    audio["ge"].pop(path, None)
+                self.sovits_graphs.evict(params)
+                del params  # its last reference: the weights go with the graphs
+                logger.info("Unloaded SoVITS model: %s", path)
+            else:
+                logger.warning("SoVITS model %s not found.", path)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def get_gpt_list(self):
+        return list(self.gpt_models.keys())
+
+    def get_sovits_list(self):
+        return list(self.sovits_models.keys())
+
     def _get_cnhubert(self):
         if self.cnhubert_model is None:
             from .models.hubert import CNHubert
@@ -289,24 +353,52 @@ class TTS:
             self.cnhubert_model = CNHubert(str(self.cnhubert_path), self.tts_config)
         return self.cnhubert_model
 
+    def _get_sv_model(self):
+        """The ERes2NetV2 embedder (``sv_path``), loaded on first use and kept;
+        a missing or incomplete checkpoint raises."""
+        if self.sv_model is None:
+            from .models.sv import ERes2Net
+
+            if not self.sv_path.exists():
+                raise FileNotFoundError(
+                    f"speaker-verification checkpoint not found: {self.sv_path}")
+            self.sv_model = ERes2Net(self.sv_path, self.tts_config)
+        return self.sv_model
+
     # -- caches ----------------------------------------------------------
 
     def cache_spk_audio(self, *spk_audio_paths, sovits_model: Optional[str] = None):
+        """Speaker conditioning of each clip under a loaded SoVITS model (the
+        first by default): ``spk_audio_cache[path] = {"ge": {model: ge},
+        "sv_emb": embedding or None}``.  A v2Pro model adds the clip's
+        ERes2NetV2 embedding, computed once per clip and reused by every
+        model; a clip already cached for the model is left as it is.  With no
+        such model loaded it logs an error and caches nothing, as JAX does."""
         if not self.sovits_models:
-            raise RuntimeError("No SoVITS model is loaded; cannot cache speaker audio.")
+            logger.error("No SoVITS models are currently loaded! Cannot cache speaker audio.")
+            return
         if sovits_model is None:
             sovits_model = next(iter(self.sovits_models))
+        if sovits_model not in self.sovits_models:
+            logger.error("The SoVITS model %s is not loaded!", sovits_model)
+            return
         model = self.sovits_models[sovits_model]
         for path in spk_audio_paths:
-            refers = self._get_spec(model.hps, path)
-            with torch.no_grad():
-                ge = sovits_model_ge(model, refers)
-            self.spk_audio_cache.setdefault(path, {"ge": {}})["ge"][sovits_model] = ge
+            entry = self.spk_audio_cache.get(path)
+            if entry is None or sovits_model not in entry["ge"]:
+                refers, audio16k = self._get_spec(model.hps, path)
+                if entry is None:
+                    entry = self.spk_audio_cache[path] = {"ge": {}, "sv_emb": None}
+                if model.cfg.is_v2pro and entry["sv_emb"] is None:
+                    entry["sv_emb"] = self._get_sv_model().compute_embedding3(audio16k)
+                with torch.no_grad():
+                    entry["ge"][sovits_model] = sovits_model_ge(model, refers, entry["sv_emb"])
             logger.info("Cached speaker audio: %s", path)
 
     def cache_prompt_audio(self, prompt_audio_paths, prompt_audio_texts):
         if not self.sovits_models:
-            raise RuntimeError("No SoVITS model is loaded; cannot cache prompt audio.")
+            logger.error("No SoVITS models are currently loaded! Cannot cache prompt audio.")
+            return
         model = self.sovits_models[next(iter(self.sovits_models))]
         hub = self._get_cnhubert()
         if isinstance(prompt_audio_paths, (str, Path)):
@@ -322,6 +414,22 @@ class TTS:
             self.prompt_audio_cache[path] = {"prompt": prompt, "phones1": phones1,
                                              "bert1": bert1}
             logger.info("Cached prompt audio: %s", path)
+
+    def del_spk_audio(self, *spk_audio_list):
+        for path in spk_audio_list:
+            if self.spk_audio_cache.pop(path, None) is None:
+                logger.warning("Speaker audio %s not found in cache.", path)
+
+    def del_prompt_audio(self, *prompt_audio_list):
+        for path in prompt_audio_list:
+            if self.prompt_audio_cache.pop(path, None) is None:
+                logger.warning("Prompt audio %s not found in cache.", path)
+
+    def get_spk_audio_list(self):
+        return list(self.spk_audio_cache.keys())
+
+    def get_prompt_audio_list(self):
+        return list(self.prompt_audio_cache.keys())
 
     # -- inference -------------------------------------------------------
 
@@ -362,14 +470,7 @@ class TTS:
 
         subtitles = []
         if return_subtitles:
-            subtitles = self._get_subtitles(word2ph, dsp.viterbi_monotonic(attn), speed)
-            if subtitles:
-                if not self._check_pause(subtitles[-1]["text"]):
-                    subtitles.append({"text": word2ph["word"][-1],
-                                      "start_s": subtitles[-1]["end_s"],
-                                      "end_s": subtitles[-1]["end_s"]})
-                subtitles[-1]["end_s"] += 0.2
-                subtitles = sub2text_index(subtitles, norm_text, text)
+            subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, text)
         head_offset = dsp.find_head_threshold_offset(audio)
         audio = audio[head_offset:]
         if subtitles:
@@ -702,6 +803,60 @@ class TTS:
                                     len(audio) / self.samplerate, subs, orig_text))
         return tuple(result)
 
+    def infer_vc(self, spk_audio_path, prompt_audio_path, prompt_audio_text,
+                 noise_scale: float = 0.5, speed: float = 1.0, sovits_model=None) -> AudioClip:
+        """Zero-shot voice conversion (reference ``TTS.py:870-964``): the
+        prompt clip's own semantic codes (HuBERT → RVQ) decoded by SoVITS in
+        the speaker's voice, against the phones of ``prompt_audio_text``,
+        with that text's subtitles.  ``last_timings``: ``prompt_s`` (codes
+        and phones), ``sovits_s`` and the CUDA graphs of the call."""
+        if not self._check_pause(prompt_audio_text):
+            prompt_audio_text += "."
+        _, sovits_model = self._default_models(None, sovits_model)
+        sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
+        t0 = time.perf_counter()
+        codes = self._get_prompt(self._get_cnhubert(), sovits, prompt_audio_path)
+        phones, word2ph, _, norm_text = get_phones_and_bert(prompt_audio_text, self.tts_config)
+        t1 = time.perf_counter()
+        graphs = self._graph_counts()
+        with torch.no_grad():
+            audio, attn = self._sovits_decode(sovits, np.asarray(codes, np.int64).reshape(1, 1, -1),
+                                              np.asarray(phones, np.int64)[None], ge,
+                                              noise_scale=noise_scale, speed=speed)
+        audio = audio.reshape(-1)
+        self.last_timings = {"prompt_s": t1 - t0, "sovits_s": time.perf_counter() - t1,
+                             "tokens": int(np.asarray(codes).size), **self._graph_counts(graphs)}
+        subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, prompt_audio_text)
+        max_audio = np.abs(audio).max() if audio.size else 0.0
+        if max_audio > 1:
+            audio = audio / max_audio
+        audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
+        return AudioClip(audio.astype(np.float32), self.samplerate,
+                         len(audio) / self.samplerate, subtitles, prompt_audio_text)
+
+    def verify_speaker(self, speaker1_audio, speaker2_audio) -> Optional[float]:
+        """Cosine similarity of two clips' ERes2NetV2 embeddings (reference
+        ``TTS.py:1205-1247``), the clips read at the first loaded SoVITS
+        model's rate.  An embedding in the speaker cache is reused; one
+        computed for a cached clip is memoized into its entry.  With no SoVITS
+        model loaded it logs an error and returns None, as JAX does."""
+        if not self.sovits_models:
+            logger.error("No SoVITS models are currently loaded! Cannot verify speaker.")
+            return None
+        model = self.sovits_models[next(iter(self.sovits_models))]
+
+        def emb(path):
+            entry = self.spk_audio_cache.get(path)
+            if entry is not None and entry["sv_emb"] is not None:
+                return entry["sv_emb"]
+            e = self._get_sv_model().compute_embedding3(self._get_spec(model.hps, path)[1])
+            if entry is not None:
+                entry["sv_emb"] = e
+            return e
+
+        e1, e2 = (emb(p).float().cpu().numpy() for p in (speaker1_audio, speaker2_audio))
+        return float(np.sum(e1 * e2) / (np.linalg.norm(e1) * np.linalg.norm(e2) + 1e-6))
+
     # -- internals -------------------------------------------------------
 
     def _default_models(self, gpt_model, sovits_model):
@@ -799,7 +954,7 @@ class TTS:
             core = functools.partial(sovits_model.decode_core_stream_padded, p, cfg,
                                      overlap_len=1, blend=False)
             z_p, mask, attn, _ = self.sovits_graphs.run(
-                ("core", id(p), Bc, Np), core, codes_pad, n_t, text_pad, N_t, ge,
+                p, ("core", Bc, Np), core, codes_pad, n_t, text_pad, N_t, ge,
                 self._noise((1, cfg.inter_channels, 2 * Bc), noise_scale), y_ov,
                 torch.zeros((), dtype=torch.int64, device=self.device))
             audio = self._flow_dec_bucketed(sovits, z_p, mask, ge, use_buckets, t_true=t50)
@@ -842,7 +997,7 @@ class TTS:
             chunk = functools.partial(stream_batch_fused, p, cfg, overlap_len=overlap_len,
                                       bucket=bucket)
             audio, attn, new_overlap = self.sovits_graphs.run(
-                ("chunk", id(p), Bc, Np, bucket, overlap_len), chunk, codes_pad,
+                p, ("chunk", Bc, Np, bucket, overlap_len), chunk, codes_pad,
                 n_t.reshape(1), text_pad, N_t.reshape(1), ge,
                 self._noise((1, cfg.inter_channels, 2 * Bc), noise_scale), y_ov,
                 torch.full((1,), valid_start_idx, device=self.device),
@@ -889,15 +1044,17 @@ class TTS:
         pad = target - z_p.shape[-1]  # negative: cut
         z_p, y_mask = F.pad(z_p, (0, pad)), F.pad(y_mask, (0, pad))
         if ge.shape[-1] == 1:
-            audio, = self.sovits_graphs.run(("flow", id(p), target),
+            audio, = self.sovits_graphs.run(p, ("flow", target),
                                             functools.partial(sovits_model.flow_dec, p, cfg),
                                             z_p, y_mask, ge)
         else:
             audio = sovits_model.flow_dec(p, cfg, z_p, y_mask, F.pad(ge, (0, pad)))
         return audio.float().cpu().numpy()[:, :, : t * cfg.samples_per_frame]
 
-    def _get_spec(self, hps, filename) -> torch.Tensor:
-        """Linear spectrogram of the speaker audio at the model's rate."""
+    def _get_spec(self, hps, filename):
+        """Linear spectrogram of the speaker audio at the model's rate, on the
+        device, and the audio resampled to 16 kHz (numpy [1, T]) for the
+        speaker embedder (reference ``TTS.py:1578-1610``)."""
         sr1 = int(hps.data.sampling_rate)
         audio, sr0 = load_audio(filename)
         audio = np.asarray(audio, np.float32)
@@ -913,7 +1070,7 @@ class TTS:
         spec = stft.spectrogram(torch.as_tensor(audio, device=self.device),
                                 hps.data.filter_length, hps.data.hop_length,
                                 hps.data.win_length)
-        return spec.to(self.tts_config.dtype)
+        return spec.to(self.tts_config.dtype), stft.resample(audio, sr1, 16000)
 
     def _get_prompt(self, cnhubert_model, sovits: Sovits, audio_path) -> np.ndarray:
         """Prompt semantic tokens: HuBERT features → RVQ codes."""
@@ -936,6 +1093,20 @@ class TTS:
         return text.endswith(self.punctuation) or text[-3:] in ("...", "。。。")
 
     # -- subtitles -------------------------------------------------------
+
+    def _utterance_subtitles(self, word2ph, attn, speed, norm_text, text) -> List[dict]:
+        """Subtitles of one whole utterance from its MRTE attention, with the
+        tail rule (``TTS.py:262-270``): the last word appended when the last
+        subtitle is no pause, its end +0.2 s, then text indices."""
+        subtitles = self._get_subtitles(word2ph, dsp.viterbi_monotonic(attn), speed)
+        if subtitles:
+            if not self._check_pause(subtitles[-1]["text"]):
+                subtitles.append({"text": word2ph["word"][-1],
+                                  "start_s": subtitles[-1]["end_s"],
+                                  "end_s": subtitles[-1]["end_s"]})
+            subtitles[-1]["end_s"] += 0.2
+            subtitles = sub2text_index(subtitles, norm_text, text)
+        return subtitles
 
     def _get_subtitles(self, word2ph, assign, speed, last_end_s=0.0) -> List[dict]:
         """Word timings from the frame→phone assignment (reference
@@ -1009,6 +1180,7 @@ class TTS:
                 s["end_s"] += increment
 
 
-def sovits_model_ge(model: Sovits, refers: torch.Tensor) -> torch.Tensor:
-    """Speaker conditioning vector [1, gin, 1] for a loaded SoVITS model."""
-    return sovits_model.get_ge(model.params, model.cfg, refers)
+def sovits_model_ge(model: Sovits, refers: torch.Tensor, sv_emb=None) -> torch.Tensor:
+    """Speaker conditioning vector [1, gin, 1] for a loaded SoVITS model
+    (``sv_emb``: the clip's speaker embedding, which a v2Pro model adds)."""
+    return sovits_model.get_ge(model.params, model.cfg, refers, sv_emb)

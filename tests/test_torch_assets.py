@@ -71,6 +71,11 @@ HPS = {
     },
 }
 
+#: the tiny SoVITS as a v2ProPlus model, with ``gin_channels`` 1024 rather than
+#: 512: the flow and HiFi-GAN take ``ge`` at 1024, MRTE ``ge_to512(ge)`` at 512,
+#: so a projection left out or misplaced fails on a shape, not only on a value
+HPS_V2PRO = {**HPS, "model": {**HPS["model"], "gin_channels": 1024, "version": "v2ProPlus"}}
+
 TINY_HUBERT = dict(hidden_size=768, num_hidden_layers=1, num_attention_heads=4,
                    intermediate_size=128, conv_dim=[32, 32, 32, 32],
                    conv_kernel=[10, 8, 4, 4], conv_stride=[5, 4, 4, 4],
@@ -85,16 +90,18 @@ def jax_t2s(seed=0, **over):
     return cfg, t2s.init_params(jax.random.PRNGKey(seed), cfg, dtype=jnp.float32)
 
 
-def jax_sovits(seed=1):
-    """Tiny v2 SoVITS params with the keys and shapes of the JAX
-    ``init_params`` (taken abstractly with ``jax.eval_shape``; drawing them
-    through it costs ~20 s of eager key splits): N(0, 0.05) weights —
-    including the flow's ``post`` convs, which the JAX init zeroes — zero
-    biases and betas, unit gammas, an N(0, 1) codebook, and a louder
-    vocoder output so the audio clears the trim thresholds."""
+def jax_sovits(seed=1, hps=HPS):
+    """Tiny SoVITS params (v2, or v2Pro with ``HPS_V2PRO``) with the keys and
+    shapes of the JAX ``init_params`` (taken abstractly with
+    ``jax.eval_shape``; drawing them through it costs ~20 s of eager key
+    splits): N(0, 0.05) weights — including the flow's ``post`` convs, which
+    the JAX init zeroes, and v2Pro's PReLU slopes — zero biases and betas,
+    unit gammas, an N(0, 1) codebook, and a louder vocoder output so the
+    audio clears the trim thresholds.  v2Pro's ``sv_emb`` weight is N(0,
+    0.005): its 20480 inputs would otherwise swamp the style vector."""
     from gsv_tts_tpu.models import sovits
 
-    cfg = sovits.SovitsConfig.from_hps(HPS["model"], HPS["data"]["filter_length"] // 2 + 1)
+    cfg = sovits.SovitsConfig.from_hps(hps["model"], hps["data"]["filter_length"] // 2 + 1)
     shapes = jax.eval_shape(lambda: sovits.init_params(jax.random.PRNGKey(seed), cfg))
     rng = np.random.RandomState(seed)
     p = {}
@@ -109,7 +116,27 @@ def jax_sovits(seed=1):
         else:
             p[k] = (rng.randn(*shape) * 0.05).astype(np.float32)
     p["dec.conv_post.weight"] *= 30.0
+    if cfg.is_v2pro:
+        p["sv_emb.weight"] *= 0.1
     return cfg, {k: jnp.asarray(v) for k, v in p.items()}
+
+
+def write_sv_checkpoint(root, seed=6):
+    """A full-width random ERes2NetV2 checkpoint where ``TTS`` looks for it
+    (``root/sv/pretrained_eres2netv2w24s4ep4.ckpt``), a flat state dict
+    written with ``torch.save`` as the published file is, with keys the
+    forward pass never reads (BatchNorm ``num_batches_tracked``, a bias of
+    the pooling head)."""
+    from gsv_tts_tpu_torch.models import sv
+
+    sd = sv.init_params(sv.SVConfig(), torch.Generator().manual_seed(seed))
+    sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(7)
+               for k in list(sd) if k.endswith("running_mean")})
+    sd["seg_1.bias"] = torch.zeros(192)
+    path = root / "sv" / "pretrained_eres2netv2w24s4ep4.ckpt"
+    path.parent.mkdir(exist_ok=True)
+    torch.save(sd, str(path))
+    return str(path)
 
 
 def tiny_hubert_dir(path, seed=2):

@@ -1022,7 +1022,7 @@ def test_sovits_graph_replay_at_another_length_equals_eager(cuda_device):
         for i, (n, N, vsi, blend) in enumerate([(20, 13, 0, False), (27, 30, 16, True),
                                                 (31, 5, 40, True)]):
             ins = _chunk_inputs(cfg, cuda_device, n, N, vsi, blend, seed=i)
-            got = graphs.run(("chunk",), fn, *ins)
+            got = graphs.run(p, ("chunk",), fn, *ins)
             want = fn(*ins)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
@@ -1038,10 +1038,110 @@ def test_failed_sovits_graph_capture_raises(cuda_device):
     from gsv_tts_tpu_torch.tts import SovitsGraphs
 
     graphs = SovitsGraphs()
-    x = torch.arange(8.0, device=cuda_device)
+    x, params = torch.arange(8.0, device=cuda_device), {}
     with pytest.raises(RuntimeError, match="capture of the SoVITS program"):
-        graphs.run(("bad",), lambda a: a * float(a.sum().item()), x)
-    assert graphs.captures == 0 and not graphs.graphs
+        graphs.run(params, ("bad",), lambda a: a * float(a.sum().item()), x)
+    assert graphs.captures == 0 and not graphs.graphs and not graphs.pools
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
-    out, = graphs.run(("good",), lambda a: a * 2, x)
+    out, = graphs.run(params, ("good",), lambda a: a * 2, x)
     assert torch.equal(out, x * 2) and graphs.captures == 1
+
+
+# bf16 against float32 on the card, as chip_smoke.py holds K1: an absolute bound per
+# element and a relative L2 bound (the embedding and ge are O(1); bf16 rounds each
+# activation to 2^-9 relative, some 40 convolutions deep)
+SV_TOL_ABS, SV_TOL_REL = 0.1, 2e-2
+
+
+@pytest.mark.cuda
+def test_sv_embedding_in_bf16_holds_to_float32_on_the_card(cuda_device):
+    """The full-width ERes2NetV2 embedding of a 2 s clip, and a v2ProPlus
+    ``ge`` built on it, computed in bf16 on the card against the same weights
+    in float32: within the stated bounds; the embedding float32 either way,
+    ``ge`` in the model's dtype."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch.models import sovits, sv
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    p32 = sv.init_params(sv.SVConfig(), torch.Generator().manual_seed(0), device=cuda_device)
+    p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    rng = np.random.RandomState(0)
+    t = np.arange(32000) / 16000
+    wav = (0.1 * rng.randn(32000) + 0.2 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
+    feat = torch.as_tensor(sv.kaldi_fbank(wav)[None], device=cuda_device)
+    e32 = sv.eres2netv2_forward3(p32, feat)
+    e16 = sv.eres2netv2_forward3(p16, feat.to(torch.bfloat16))
+    cfg = sovits.SovitsConfig(gin_channels=1024, version="v2ProPlus")
+    s32 = sovits.init_params(cfg, torch.Generator().manual_seed(1), device=cuda_device)
+    s32["sv_emb.weight"] *= 0.1
+    s16 = {k: v.to(torch.bfloat16) for k, v in s32.items()}
+    refer = torch.rand((1, cfg.spec_channels, 150), generator=torch.Generator().manual_seed(2))
+    g32 = sovits.get_ge(s32, cfg, refer.to(cuda_device), e32)
+    g16 = sovits.get_ge(s16, cfg, refer.to(cuda_device, torch.bfloat16), e16)
+    assert e16.dtype == torch.float32 and e16.shape == (1, sv.EMBED_DIM)
+    assert g16.dtype == torch.bfloat16 and g16.shape == (1, 1024, 1)
+    for got, want in ((e16, e32), (g16, g32)):
+        got = got.float()
+        assert float((got - want).abs().max()) <= SV_TOL_ABS
+        assert float((got - want).norm() / want.norm()) <= SV_TOL_REL
+
+
+@pytest.mark.cuda
+def test_unload_sovits_model_evicts_its_graphs_while_another_replays(cuda_device, tmp_path):
+    """Two SoVITS models (v2 and v2ProPlus) on one facade, each with the CUDA
+    graphs of a padded core and a flow bucket in a pool of its own: unloading
+    one drops its graphs and its pool (the pool's memory returns to the
+    card), and the other's graphs replay as before, capturing nothing."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.hparams import HParams
+    from gsv_tts_tpu_torch.loader import save_trained_sovits
+    from gsv_tts_tpu_torch.models import sovits
+
+    hps = {"data": {"filter_length": 1408, "hop_length": 320, "win_length": 1408,
+                    "sampling_rate": 32000},
+           "model": {"inter_channels": 64, "hidden_channels": 64, "filter_channels": 96,
+                     "n_heads": 2, "n_layers": 2, "kernel_size": 3, "p_dropout": 0.0,
+                     "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3, 5]],
+                     "upsample_rates": [8, 5, 4, 4], "upsample_initial_channel": 32,
+                     "upsample_kernel_sizes": [16, 11, 8, 8]}}
+    paths = []
+    for version, gin in (("v2", 512), ("v2ProPlus", 1024)):
+        h = {**hps, "model": {**hps["model"], "gin_channels": gin, "version": version}}
+        cfg = sovits.SovitsConfig.from_hps(h["model"], 705)
+        save_trained_sovits(sovits.init_params(cfg, torch.Generator().manual_seed(0)),
+                            HParams(h), tmp_path / version)
+        paths.append(str(tmp_path / version))
+    tts = TTS(models_dir=str(tmp_path), device=cuda_device, seed=0)
+    tts.load_sovits_model(*paths)
+    rng = np.random.RandomState(0)
+    codes, text = rng.randint(0, 1024, (1, 1, 40)), rng.randint(1, 700, (1, 20))
+
+    def decode(path):
+        model = tts.sovits_models[path]
+        ge = torch.randn((1, model.cfg.gin_channels, 1), generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            return tts._sovits_decode(model, codes, text, ge.to(cuda_device), noise_scale=0.0)[0]
+
+    def pool_bytes(pool):
+        return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+    before = {path: decode(path) for path in paths}
+    graphs = tts.sovits_graphs
+    owners = {path: id(tts.sovits_models[path].params) for path in paths}
+
+    def count(path):
+        return sum(k[1] == owners[path] for k in graphs.graphs)
+
+    assert [count(path) for path in paths] == [2, 2] and graphs.captures == 4
+    pool = graphs.pools[owners[paths[1]]]
+    assert pool_bytes(pool) > 0
+    tts.unload_sovits_model(paths[1])
+    assert count(paths[1]) == 0 and owners[paths[1]] not in graphs.pools
+    assert pool_bytes(pool) == 0 and tts.get_sovits_list() == paths[:1]
+    again = decode(paths[0])
+    assert graphs.captures == 4 and count(paths[0]) == 2
+    assert np.array_equal(again, before[paths[0]])

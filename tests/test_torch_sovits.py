@@ -158,12 +158,3 @@ def test_flow_reverse_and_generator_channels_first(models):
     pg = ps.generator(pp, pcfg, torch.tensor(jf), g=torch.tensor(ge)).numpy()
     np.testing.assert_allclose(pg, jg, rtol=RTOL, atol=ATOL)
 
-
-def test_v2pro_speaker_conditioning_not_ported(models):
-    import dataclasses
-
-    from gsv_tts_tpu_torch.models import sovits as ps
-
-    _, _, pcfg, pp = models
-    with pytest.raises(NotImplementedError, match="v2Pro"):
-        ps.get_ge(pp, dataclasses.replace(pcfg, version="v2Pro"), torch.ones(1, 705, 10))

@@ -28,12 +28,12 @@ def close(got, want, what=""):
 
 
 def inputs(cfg, n, N, seed, frames=None, ge_frames=1):
-    """Codes [1, 1, n], phones [1, N], ge [1, 512, ge_frames] and noise
+    """Codes [1, 1, n], phones [1, N], ge [1, gin, ge_frames] and noise
     [1, inter, frames] from one numpy seed."""
     rng = np.random.RandomState(seed)
     codes = rng.randint(0, 1024, size=(1, 1, n)).astype(np.int32)
     text = rng.randint(1, 700, size=(1, N)).astype(np.int32)
-    ge = (rng.randn(1, 512, ge_frames) * 0.5).astype(np.float32)
+    ge = (rng.randn(1, cfg.gin_channels, ge_frames) * 0.5).astype(np.float32)
     noise = (rng.randn(1, cfg.inter_channels, frames or 2 * n) * 0.5).astype(np.float32)
     return codes, text, ge, noise
 
@@ -260,7 +260,9 @@ def test_sovits_graphs_run_eagerly_on_the_cpu():
     from gsv_tts_tpu_torch.tts import SovitsGraphs
 
     graphs = SovitsGraphs()
-    x = torch.arange(4.0)
-    assert graphs.run(("k",), lambda a: a * 2, x)[0].tolist() == [0.0, 2.0, 4.0, 6.0]
-    assert graphs.run(("k",), lambda a, b: (a + b, a - b), x, x)[1].tolist() == [0.0] * 4
-    assert graphs.captures == graphs.replays == 0 and not graphs.graphs
+    x, params = torch.arange(4.0), {}
+    assert graphs.run(params, ("k",), lambda a: a * 2, x)[0].tolist() == [0.0, 2.0, 4.0, 6.0]
+    assert graphs.run(params, ("k",), lambda a, b: (a + b, a - b), x, x)[1].tolist() == [0.0] * 4
+    assert graphs.captures == graphs.replays == 0 and not graphs.graphs and not graphs.pools
+    with pytest.raises(ValueError, match="one device"):
+        graphs.run(params, ("k",), lambda a, b: a + b, x, torch.zeros(4, device="meta"))

@@ -122,23 +122,10 @@ def same_clip(got, want, frame_s):
     same_subtitles(got.subtitles, want.subtitles, frame_s)
 
 
-@pytest.fixture(scope="module")
-def default_pair(assets):
-    """Both facades at their SoVITS defaults, on small KV-cache buckets; the
-    port's engine returns what the JAX engine returned for the same call."""
-    import jax
-
-    from gsv_tts_tpu import TTS as JaxTTS
-    from gsv_tts_tpu_torch import TTS
-
-    cache = [(1, 128), (2, 128)]
-    jtts = JaxTTS(gpt_cache=cache, models_dir=str(assets["root"]), dtype="float32")
-    ptts = TTS(gpt_cache=cache, models_dir=str(assets["root"]), device="cpu", seed=0)
-    for tts in (jtts, ptts):
-        tts.load_gpt_model(assets["gpt"])
-        tts.load_sovits_model(assets["sovits"])
-    jtts._rng = jax.random.PRNGKey(0)
-    jeng, peng = jtts.gpt_models[assets["gpt"]].engine, ptts.gpt_models[assets["gpt"]].engine
+def feed_jax_tokens(jeng, peng) -> list:
+    """The port's engine ``peng`` returns what the JAX engine ``jeng``
+    returned for the same call (``generate``, streamed or not, and
+    ``generate_batched``); returns the list of JAX results not yet replayed."""
     harvest = []
 
     def record(name, wrap):
@@ -165,6 +152,27 @@ def default_pair(assets):
         return out.astype(np.int64)
 
     peng.generate = peng.generate_batched = replay
+    return harvest
+
+
+@pytest.fixture(scope="module")
+def default_pair(assets):
+    """Both facades at their SoVITS defaults, on small KV-cache buckets; the
+    port's engine returns what the JAX engine returned for the same call."""
+    import jax
+
+    from gsv_tts_tpu import TTS as JaxTTS
+    from gsv_tts_tpu_torch import TTS
+
+    cache = [(1, 128), (2, 128)]
+    jtts = JaxTTS(gpt_cache=cache, models_dir=str(assets["root"]), dtype="float32")
+    ptts = TTS(gpt_cache=cache, models_dir=str(assets["root"]), device="cpu", seed=0)
+    for tts in (jtts, ptts):
+        tts.load_gpt_model(assets["gpt"])
+        tts.load_sovits_model(assets["sovits"])
+    jtts._rng = jax.random.PRNGKey(0)
+    harvest = feed_jax_tokens(jtts.gpt_models[assets["gpt"]].engine,
+                              ptts.gpt_models[assets["gpt"]].engine)
     return jtts, ptts, harvest
 
 
