@@ -63,6 +63,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      graphs of many calls, replayed in turns), the host's time per call;
      then K1, K6, K5 and K1 interleaved on the engine's one table, each bit
      for bit its lone call;
+   * K1 and K2 on the int8 and int4 weight pages (``quant_t2s``; K2 at B = 2,
+     4 and 6): caches of 512 and 1024 rows, ragged ``kv_len`` with a frozen
+     slot and the cache's last row, each step against the quantized twin and
+     a float32 evaluation of the same quantized chain in K1's tolerance form,
+     every other cache row untouched, three error bits through each stream;
+     the time a step in turns with the bf16 kernel and the device time of
+     both from CUDA graphs, beside the bound of the pages' bytes;
    CUDA-event times of kernel and twin (and, for K3 and K4, of one
    ``scaled_dot_product_attention`` call as a yardstick), beside the least
    time the card could take for the bytes the call must move; on the device
@@ -105,7 +112,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    texts (K2), one ``infer_stream``, ``infer_vc`` (audio of about the
    prompt's length, subtitles; its wall time), ``verify_speaker`` (self
    ≥ 0.999, cross in [-1, 1]) and ``unload_sovits_model`` (its graphs and
-   their pool gone, the v2 model's still replaying).
+   their pool gone, the v2 model's still replaying);
+8. ``quant_t2s``: ``TTS(quant_t2s="int8").infer`` three times in turns with a
+   bf16 facade's (ms a step of both), ``infer_batched`` of 4 texts (the int8 K2
+   and K1) and of 7 (a 7-slot wave: the bf16 K2, then the int8 kernels as
+   it compacts), one ``infer_stream``, ``TTS(quant_t2s="int4")``'s ``infer``
+   and ``infer_batched`` of 4, and ``unload_gpt_model`` freeing at least the
+   pages' bytes; every quantized
+   launch count equals the decode steps its path took.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 kernels' JSON record and the card.  Nothing here imports JAX.
@@ -241,19 +255,24 @@ def bound(n_bytes: float, n_flops: float):
     return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def step_bound(cfg, S, kv_lens):
+def step_bound(cfg, S, kv_lens, quant=None):
     """Bound of one whole decode step (K1, K2) for slots at ``kv_lens``:
-    every weight read once whatever B is; per slot its embedding and
-    positional rows, the attended cache rows (K and V, bf16) and the appended
-    row, the noise and the filtered row, its ``tok_buf`` row and counters."""
+    every weight read once whatever B is (the layers' matrices as bf16, or
+    as int8 / int4 pages with a float32 scale a lane under ``quant``; the
+    head bf16); per slot its embedding and positional rows, the attended
+    cache rows (K and V, bf16) and the appended row, the noise and the
+    filtered row, its ``tok_buf`` row and counters."""
     L, D, M, V = cfg.num_layers, cfg.hidden_dim, cfg.hidden_dim * cfg.mlp_ratio, cfg.vocab_size
     B = len(kv_lens)
-    n_w = L * (4 * D * D + 2 * D * M) + V * D  # matrix entries, bf16
+    n_layer, n_head = L * (4 * D * D + 2 * D * M), V * D  # matrix entries
+    w_bytes = {None: 2 * n_layer, "int8": n_layer, "int4": n_layer // 2}[quant] + 2 * n_head
+    if quant is not None:
+        w_bytes += 4 * L * (3 * D + D + M + M)  # the scales
     small = L * (2 * (3 * D + D + M + D) + 4 * 4 * D)  # biases bf16, LayerNorm affines f32
     per_slot = sum(2 * D + 4 * D + 4 * L * kv * D + 4 * L * D + 8 * V + 4 * S + 24
                    for kv in kv_lens)
-    flops = 2 * B * n_w + sum(4 * L * (kv + 1) * D for kv in kv_lens)
-    return bound(2 * n_w + small + per_slot, flops)
+    flops = 2 * B * (n_layer + n_head) + sum(4 * L * (kv + 1) * D for kv in kv_lens)
+    return bound(w_bytes + small + per_slot, flops)
 
 
 def attn_bound(H, Dh, kv_lens, q_bytes):
@@ -305,6 +324,22 @@ class StepBench:
         self.table = self.params["k1_table"] = fused_step.K1Table(self.params)
         self.sup = cfg.suppressed_tokens + (cfg.eos,)
         self.dgen = torch.Generator(device=dev).manual_seed(SEED)
+        self.quant_sets = {}
+
+    def params_for(self, quant=None):
+        """(parameters with their table, float32 parameters) of the bf16 stream, or of the
+        ``quant`` pages (packed once, with a table of their own; the float32 set carries the
+        same pages: a float32 evaluation of the same quantized chain)."""
+        from gsv_tts_tpu_torch.ops import fused_step
+
+        if quant is None:
+            return self.params, self.params32
+        if quant not in self.quant_sets:
+            pages = {fused_step.QUANT_KEYS[quant]: fused_step.quant_layers(self.params, quant)}
+            p = dict(self.params, **pages)
+            p["k1_table"] = fused_step.K1Table(p, quant)
+            self.quant_sets[quant] = (p, dict(self.params32, **pages))
+        return self.quant_sets[quant]
 
     def state(self, S, kv_lens, x_lens, lasts, step_idx):
         """Random caches and token histories for slots at ``kv_lens``."""
@@ -329,50 +364,58 @@ class StepBench:
                     kv_lens=list(kv_lens), x_lens=list(x_lens), buf_lens=buf_lens,
                     steps=list(step_idx))
 
-    def kernel(self, st, kc, vc, tok_buf, g, sa, su, chain=False, **out):
-        """K1 for one slot (its counters as host ints), K2 for a wave; with ``chain`` their
-        first design, the chain of 195 launches (timed beside them, nothing else)."""
+    def kernel(self, st, kc, vc, tok_buf, g, sa, su, chain=False, quant=None, **out):
+        """K1 for one slot (its counters as host ints), K2 for a wave, on the bf16 weights or
+        the ``quant`` pages; with ``chain`` their first design, the chain of 195 launches
+        (timed beside them, nothing else)."""
         from gsv_tts_tpu_torch.ops import fused_step
 
         kw = dict(sa=sa, suppress_until=su, suppressed=self.sup, **out)
+        if not chain:
+            kw["quant"] = quant
+        params = self.params_for(quant)[0]
         if len(st["kv_lens"]) == 1:
             fn = (fused_step.fused_decode_step_sample_chain if chain
                   else fused_step.fused_decode_step_sample)
-            return fn(self.params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0],
+            return fn(params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0],
                       st["last"], st["buf_lens"][0], st["steps"][0], g, **kw)
         fn = (fused_step.fused_decode_step_sample_batched_chain if chain
               else fused_step.fused_decode_step_sample_batched)
-        return fn(self.params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"],
+        return fn(params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"],
                   st["step"], g, **kw)
 
-    def twin(self, st, kc, vc, tok_buf, g, sa, su, **out):
+    def twin(self, st, kc, vc, tok_buf, g, sa, su, quant=None, **out):
         from gsv_tts_tpu_torch.ops import fused_step
 
         return fused_step.fused_decode_step_sample_batched_ref(
-            self.params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"], st["step"],
-            g, sa=sa, suppress_until=su, suppressed=self.sup, **out)
+            self.params_for(quant)[0], kc, vc, tok_buf, st["kv"], st["x"], st["last"],
+            st["buf"], st["step"], g, sa=sa, suppress_until=su, suppressed=self.sup,
+            quant=quant, **out)
 
-    def compare(self, st, sa, su, is_plain, where) -> float:
+    def compare(self, st, sa, su, is_plain, where, quant=None) -> float:
         """One step through the kernel and through the twin from the same
-        state; fails on any disagreement, returns the max abs error."""
+        state (on the ``quant`` pages when given, held to a float32
+        evaluation of the same quantized chain); fails on any disagreement,
+        returns the max abs error."""
         import torch
 
         from gsv_tts_tpu_torch.ops import fused_step
         from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
 
         B, V, D = len(st["kv_lens"]), self.cfg.vocab_size, self.cfg.hidden_dim
+        params, params32 = self.params_for(quant)
         g = gumbel_noise((B, V), self.dgen, self.dev)
         kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
-        tok, row, _, _ = self.kernel(st, kk, kv, kt, g, sa, su)
-        hid = self.table.x[:B * D].clone().reshape(B, D)
+        tok, row, _, _ = self.kernel(st, kk, kv, kt, g, sa, su, quant=quant)
+        hid = params["k1_table"].x[:B * D].clone().reshape(B, D)
         rk, rv, rt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
         ref_h, ref_logits = fused_step.decode_hidden_ref(
-            self.params, rk.clone(), rv.clone(), st["kv"], st["x"], st["last"])
+            params, rk.clone(), rv.clone(), st["kv"], st["x"], st["last"], quant)
         f32_h, f32_logits = fused_step.decode_hidden_ref(
-            self.params32, st["kc"].float(), st["vc"].float(), st["kv"], st["x"], st["last"])
-        rtok, rrow, _, _ = self.twin(st, rk, rv, rt, g, sa, su)
+            params32, st["kc"].float(), st["vc"].float(), st["kv"], st["x"], st["last"], quant)
+        rtok, rrow, _, _ = self.twin(st, rk, rv, rt, g, sa, su, quant=quant)
         torch.cuda.synchronize()
-        self.table.check()
+        params["k1_table"].check()
         worst = check_close("hidden", hid, ref_h, f32_h, where)
         if is_plain:  # no filter: the row is the logits
             worst = max(worst, check_close("logits", row, ref_logits, f32_logits, where))
@@ -441,6 +484,42 @@ class StepBench:
               f"chain of 195 launches {c_ms:.4f} ms/step, plain twin {p_ms:.4f} ms/step, bound "
               f"{b_ms:.4f} ms ({b_by}); host {host_us(run_kernel):.1f} us per call", flush=True)
         return k_ms, p_ms, b_ms, b_by, c_ms
+
+    def quant_times(self, name, st, sa, su, S, quant, k_iters=100, p_iters=10):
+        """Times of one step from ``st`` on the ``quant`` pages, in turns with the bf16 kernel
+        and the quantized twin (twin, bf16, quantized, quantized, bf16, twin), each the mean
+        of its two turns; the device alone from CUDA graphs of 20 steps of each, replayed in
+        turns; the host's time per call.  Returns (ms, twin ms, bound ms, bound by, bf16 ms,
+        extras)."""
+        import torch
+
+        from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+
+        B, V = len(st["kv_lens"]), self.cfg.vocab_size
+        g = gumbel_noise((B, V), self.dgen, self.dev)
+        kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
+        out = dict(tok_out=torch.empty(B, dtype=torch.int32, device=self.dev),
+                   row_out=torch.empty((B, V), dtype=torch.float32, device=self.dev))
+
+        def run(q):
+            return lambda: self.kernel(st, kk, kv, kt, g, sa, su, quant=q, **out)
+
+        k_ms, p_ms, bf_ms = chain_turns(
+            run(quant), run(None), lambda: self.twin(st, kk, kv, kt, g, sa, su, quant=quant, **out),
+            k_iters, p_iters)
+        dev_ms = graph_turns({"q": graph_of(run(quant), 20), "bf16": graph_of(run(None), 20)}, 20)
+        self.params_for(quant)[0]["k1_table"].check()
+        self.table.check()
+        b_ms, b_by = step_bound(self.cfg, S, st["kv_lens"], quant)
+        bf_b_ms, _ = step_bound(self.cfg, S, st["kv_lens"])
+        host = host_us(run(quant))
+        print(f"{name} time B={B} S={S} kv_len={st['kv_lens']}: {quant} kernel {k_ms:.4f} "
+              f"ms/step ({dev_ms['q']:.4f} on the device), bf16 kernel {bf_ms:.4f} ms/step "
+              f"({dev_ms['bf16']:.4f} on the device), plain twin {p_ms:.4f} ms/step, bound "
+              f"{b_ms:.4f} ms ({b_by}; bf16 {bf_b_ms:.4f}); host {host:.1f} us per call; device "
+              f"times from CUDA graphs of 20 steps replayed in turns", flush=True)
+        return k_ms, p_ms, b_ms, b_by, bf_ms, dict(device_ms=dev_ms["q"],
+                                                     bf16_device_ms=dev_ms["bf16"], host_us=host)
 
 
 def sampling_settings():
@@ -522,53 +601,115 @@ def returned_within(seconds: float) -> bool:
     return True
 
 
-def error_bits_phase(bench: StepBench):
-    """Out-of-range device values through the persistent kernels: the launch comes back, the
-    error word holds the value's bit, the slot's row is NaN where promised (a bad ``kv_len``
-    appends nothing) and the other slots are untouched by it."""
+def error_cases(bench: StepBench):
+    """(what is wrong, B, slot, field, value, the message's words, the slot's cache row stays)
+    for :func:`error_case`."""
+    V, P, S = bench.cfg.vocab_size, bench.params["pe"].shape[0], 512
+    return [("last_tok = V", 1, 0, "last", V, "last_tok", False),
+            ("last_tok = -1", 4, 1, "last", -1, "last_tok", False),
+            ("kv_len = S", 4, 2, "kv", S, "kv_len", True),
+            ("kv_len = S", 2, 0, "kv", S, "kv_len", True),
+            ("positional index = P", 4, 3, "x", 296 - P, "positional", False),
+            ("kv_len = -1", 8, 5, "kv", -1, "kv_len", True)]
+
+
+def error_case(bench: StepBench, what, B, slot, field, value, words, row_stays, quant=None):
+    """One out-of-range device value through a persistent kernel (on the ``quant`` pages when
+    given): the launch comes back, the error word holds the value's bit, the slot's row is NaN
+    where promised (a bad ``kv_len`` appends nothing) and the other slots are untouched."""
     import torch
 
     from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
 
     cfg, V, S = bench.cfg, bench.cfg.vocab_size, 512
-    P = bench.params["pe"].shape[0]
     sa, su, _ = sampling_settings()[3]
-    # (what is wrong, B, slot, field, value, the message's words, the slot's cache row stays)
-    cases = [("last_tok = V", 1, 0, "last", V, "last_tok", False),
-             ("last_tok = -1", 4, 1, "last", -1, "last_tok", False),
-             ("kv_len = S", 4, 2, "kv", S, "kv_len", True),
-             ("kv_len = S", 2, 0, "kv", S, "kv_len", True),
-             ("positional index = P", 4, 3, "x", 296 - P, "positional", False),
-             ("kv_len = -1", 8, 5, "kv", -1, "kv_len", True)]
-    for what, B, slot, field, value, words, row_stays in cases:
-        kv_lens = [300, 287, 313, 296, 305, 291, 320, 279][:B]
-        st = bench.state(S, kv_lens, [60] * B, [17] * B, [20] * B)
-        st[field][slot] = value
-        if B == 1:  # K1's counters are host ints, checked on the host: only last_tok is left
-            st["last"][0] = value
-        g = gumbel_noise((B, V), bench.dgen, bench.dev)
-        kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
-        _, row, _, _ = bench.kernel(st, kk, kv, kt, g, sa, su)
-        if not returned_within(30.0):
-            fail(f"the persistent kernel did not come back from {what} at B={B}")
-        try:
-            bench.table.check()
-        except RuntimeError as e:
-            if words not in str(e) or "gave up" in str(e):
-                fail(f"{what} at B={B} raised {e}")
-        else:
-            fail(f"{what} at B={B} set no error bit")
-        hid = bench.table.x[:B * cfg.hidden_dim].reshape(B, cfg.hidden_dim)
-        for b in range(B):
-            nan = bool(torch.isnan(hid[b]).all()) and bool(torch.isnan(row[b]).any())
-            fine = bool(torch.isfinite(hid[b]).all())
-            if (b == slot and not nan) or (b != slot and not fine):
-                fail(f"{what} at B={B}: slot {b} {'is not NaN' if b == slot else 'is not finite'}")
-        if row_stays and not (torch.equal(kk[:, slot], st["kc"][:, slot])
-                              and torch.equal(kv[:, slot], st["vc"][:, slot])):
-            fail(f"{what} at B={B}: the slot's cache was written")
+    what = f"{what} at B={B}" + (f" ({quant})" if quant else "")
+    kv_lens = [300, 287, 313, 296, 305, 291, 320, 279][:B]
+    st = bench.state(S, kv_lens, [60] * B, [17] * B, [20] * B)
+    st[field][slot] = value
+    if B == 1:  # K1's counters are host ints, checked on the host: only last_tok is left
+        st["last"][0] = value
+    g = gumbel_noise((B, V), bench.dgen, bench.dev)
+    kk, kv, kt = st["kc"].clone(), st["vc"].clone(), st["tok_buf"].clone()
+    _, row, _, _ = bench.kernel(st, kk, kv, kt, g, sa, su, quant=quant)
+    if not returned_within(30.0):
+        fail(f"the persistent kernel did not come back from {what}")
+    table = bench.params_for(quant)[0]["k1_table"]
+    try:
+        table.check()
+    except RuntimeError as e:
+        if words not in str(e) or "gave up" in str(e):
+            fail(f"{what} raised {e}")
+    else:
+        fail(f"{what} set no error bit")
+    hid = table.x[:B * cfg.hidden_dim].reshape(B, cfg.hidden_dim)
+    for b in range(B):
+        nan = bool(torch.isnan(hid[b]).all()) and bool(torch.isnan(row[b]).any())
+        fine = bool(torch.isfinite(hid[b]).all())
+        if (b == slot and not nan) or (b != slot and not fine):
+            fail(f"{what}: slot {b} {'is not NaN' if b == slot else 'is not finite'}")
+    if row_stays and not (torch.equal(kk[:, slot], st["kc"][:, slot])
+                          and torch.equal(kv[:, slot], st["vc"][:, slot])):
+        fail(f"{what}: the slot's cache was written")
+
+
+def error_bits_phase(bench: StepBench):
+    """Out-of-range device values through the persistent kernels (:func:`error_case`)."""
+    cases = error_cases(bench)
+    for case in cases:
+        error_case(bench, *case)
     print(f"K1/K2 error bits: {len(cases)} launches with an out-of-range last_tok, kv_len or "
           f"positional index came back with their bit set and NaN in that slot alone", flush=True)
+
+
+QUANTS = ("int8", "int4")
+
+
+def quant_kernel_phase(bench: StepBench):
+    """K1 and K2 (B = 2, 4, 6) on the int8 and int4 pages against their quantized twins, each
+    also held to a float32 evaluation of the same quantized chain (:meth:`StepBench.compare`):
+    caches of 512 and 1024 rows, ragged ``kv_len`` with a frozen slot and the cache's last
+    row, repetition penalty on and off; three error bits through each stream; times in turns
+    with the bf16 kernel.  Returns {(kernel, quant): (max abs err, times)}."""
+    V = bench.cfg.vocab_size
+    settings = sampling_settings()
+    out = {}
+    for quant in QUANTS:
+        worst, steps = {"k1": 0.0, "k2": 0.0}, 0
+        for S, kv_len, x_len in [(512, 1, 0), (512, 300, 60), (512, 511, 60),
+                                 (1024, 512, 60), (1024, 777, 60), (1024, 1023, 60)]:
+            last = V - 1 if kv_len % 2 else 17
+            st = bench.state(S, [kv_len], [x_len], [last], [5])
+            for sa, su, is_plain in settings[:2]:
+                where = f"K1 {quant} S={S} kv_len={kv_len} last_tok={last} sa={sa} su={su}"
+                worst["k1"] = max(worst["k1"], bench.compare(st, sa, su, is_plain, where, quant))
+                steps += 1
+        for S in (512, 1024):
+            half = S // 2
+            for kv_lens in ([0, S - 1], [0, 300, S - 1, half], [0, S - 1, 64, 300, half, 1]):
+                B = len(kv_lens)
+                x_lens = [40] + [min(60, kv) for kv in kv_lens[1:]]
+                st = bench.state(S, kv_lens, x_lens, [17] * (B - 1) + [V - 1],
+                                 [5 + 7 * b for b in range(B)])
+                for sa, su, is_plain in (settings[0], settings[3]):
+                    where = f"K2 {quant} B={B} S={S} kv_len={kv_lens} sa={sa} su={su}"
+                    worst["k2"] = max(worst["k2"],
+                                      bench.compare(st, sa, su, is_plain, where, quant))
+                    steps += 1
+        cases = error_cases(bench)
+        for case in (cases[0], cases[2], cases[4]):
+            error_case(bench, *case, quant=quant)
+        sa, su, _ = settings[1]
+        k1 = bench.quant_times(f"K1-{quant}", bench.state(1024, [777], [60], [17], [5]), sa, su,
+                               1024, quant)
+        sa, su, _ = settings[3]
+        k2 = bench.quant_times(f"K2-{quant}", bench.state(1024, [777, 761, 790, 770], [60] * 4,
+                                                          [17] * 4, [20] * 4), sa, su, 1024, quant)
+        out[("k1", quant)], out[("k2", quant)] = (worst["k1"], k1), (worst["k2"], k2)
+        print(f"K1/K2 on {quant} pages match their twins on {steps} flagship steps (K2 at B=2, 4, "
+              f"6) and set their error bits; max abs err K1 {worst['k1']:.4g}, K2 "
+              f"{worst['k2']:.4g} (tolerance {TOL_ABS})", flush=True)
+    return out
 
 
 def barrier_phase(bench: StepBench):
@@ -1407,15 +1548,19 @@ BIG_WAVE = 12  # slots of the wave above K2's limit
 
 
 def launch_counts():
+    """name -> (wrapper, the attribute its launches count in): K1 and K2 count their int8 and
+    int4 streams apart from the bf16 one."""
     from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
 
-    return {"k1": fused_step.fused_decode_step_sample,
-            "k2": fused_step.fused_decode_step_sample_batched,
-            "k3a": flash_decode.flash_decode_attention,
-            "k3b": flash_decode.flash_decode_attention_layered,
-            "k4": flash_prefill.flash_prefill_attention,
-            "k5": fused_step.fused_decode_step,
-            "k6": fused_layer.fused_decode_layer}
+    k1, k2 = fused_step.fused_decode_step_sample, fused_step.fused_decode_step_sample_batched
+    return {"k1": (k1, "launches"), "k2": (k2, "launches"),
+            "k1q8": (k1, "launches_q8"), "k1q4": (k1, "launches_q4"),
+            "k2q8": (k2, "launches_q8"), "k2q4": (k2, "launches_q4"),
+            "k3a": (flash_decode.flash_decode_attention, "launches"),
+            "k3b": (flash_decode.flash_decode_attention_layered, "launches"),
+            "k4": (flash_prefill.flash_prefill_attention, "launches"),
+            "k5": (fused_step.fused_decode_step, "launches"),
+            "k6": (fused_layer.fused_decode_layer, "launches")}
 
 
 def expect_counts(what, counts, **want):
@@ -1427,12 +1572,12 @@ def expect_counts(what, counts, **want):
 
 
 def reset_counts():
-    for fn in launch_counts().values():
-        fn.launches = 0
+    for fn, attr in launch_counts().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in launch_counts().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counts().items()}
 
 
 def check_audio(what, audio, lo, hi):
@@ -2114,6 +2259,128 @@ def v2pro_phase(models_dir, gpt, v2, spk, prompt, dev, card):
     return counts
 
 
+def quant_path_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """The facade under ``quant_t2s``: ``TTS(quant_t2s="int8").infer`` three times in turns
+    with a bf16 facade's (ms a step side by side), ``infer_batched`` of 4 texts (the int8 K2 and K1),
+    a 7-text wave (the bf16 K2 at seven slots, then the int8 kernels as it compacts), one
+    ``infer_stream``; ``TTS(quant_t2s="int4")``: ``infer`` and ``infer_batched`` of 4 texts;
+    and ``unload_gpt_model`` giving the pages back.  Every quantized launch count equals the decode steps its path took; returns
+    the launches summed over the drives."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+
+    total = {name: 0 for name in launch_counts()}
+
+    def facade(quant):
+        tts = TTS(gpt_cache=[(1, 512), (1, 1024), (2, 512), (4, 512), (7, 512)],
+                  models_dir=models_dir, device=dev, seed=SEED, quant_t2s=quant)
+        tts.load_gpt_model(str(gpt))
+        tts.load_sovits_model(str(sov))
+        return tts
+
+    tts8, tts16 = facade("int8"), facade(False)
+    if tts8.gpt_models[str(gpt)].engine.attn_impl != "fused_step_q8":
+        fail("quant phase: quant_t2s='int8' did not reach the engine")
+    ms, in_turns = {"int8": [], "bf16": []}, []
+    turns = (("int8", tts8), ("bf16", tts16), ("bf16", tts16), ("int8", tts8), ("int8", tts8),
+             ("bf16", tts16))  # a, b, b, a, a, b: a drift of the card's clocks cancels
+    for label, tts in turns:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, TEXTS[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = tts.last_timings
+        check_audio(f"quant phase: infer ({label})", clip.audio_data, int(0.2 * 32000),
+                    st["tokens"] * 1280 + int(0.2 * 32000))
+        counts = read_counts()
+        expect_counts(f"quant phase: infer ({label}, {st['decode_steps']} decode steps)", counts,
+                      **{"k1q8" if label == "int8" else "k1": st["decode_steps"]})
+        for name, n in counts.items():
+            total[name] += n
+        ms[label].append(1000 * st["decode_s"] / st["decode_steps"])
+        in_turns.append(ms[label][-1])
+        print(f"quant phase: infer ({label}): {st['decode_steps']} decode steps, "
+              f"{ms[label][-1]:.3f} ms/step, RTF {wall / clip.audio_len_s:.4f}", flush=True)
+    print(f"quant phase: infer ms/step in turns (int8, bf16, bf16, int8, int8, bf16): "
+          f"{', '.join(f'{t:.3f}' for t in in_turns)}"
+          f"; mean int8 {sum(ms['int8']) / 3:.3f}, bf16 {sum(ms['bf16']) / 3:.3f} [{card}]",
+          flush=True)
+    del tts16
+    tts4 = facade("int4")
+
+    for quant, tts, texts in (("int8", tts8, TEXTS[:4]), ("int8", tts8, TEXTS[:7]),
+                              ("int4", tts4, TEXTS[:4])):
+        reset_counts()
+        clips = tts.infer_batched(str(spk), str(prompt), PROMPT_TEXT, texts, is_cut_text=False)
+        torch.cuda.synchronize()
+        st, n, tag = tts.last_timings, len(texts), "q8" if quant == "int8" else "q4"
+        counts = read_counts()
+        expect_counts(f"quant phase: infer_batched of {n} ({quant})", counts,
+                      **{"k1" + tag: st["k1q_steps"], "k2" + tag: st["k2q_steps"]},
+                      k2=st["k2_steps"])
+        # (four texts: the quantized K2 and K1; seven: the bf16 K2 until the wave compacts)
+        if len(clips) != n or st["k2q_steps" if n == 4 else "k2_steps"] == 0 or (
+                n == 4 and st["k2_steps"] > 0):
+            fail(f"quant phase: infer_batched of {n} ({quant}): {len(clips)} clips, steps {st}")
+        for i, c in enumerate(clips):
+            check_audio(f"quant phase: infer_batched({n}, {quant}) request {i}", c.audio_data,
+                        int(0.2 * 32000), 1024 * 1280 + int(0.8 * 32000))
+        for name, c in counts.items():
+            total[name] += c
+        print(f"quant phase: infer_batched of {n} ({quant}): {st['tokens']} tokens; steps: "
+              f"{quant} K2 {st['k2q_steps']}, bf16 K2 {st['k2_steps']}, {quant} K1 "
+              f"{st['k1q_steps']}; {1000 * st['decode_s'] / st['decode_steps']:.3f} ms/step",
+              flush=True)
+
+    reset_counts()
+    chunks = list(tts8.infer_stream(str(spk), str(prompt), PROMPT_TEXT, TEXTS[1],
+                                    is_cut_text=False))
+    torch.cuda.synchronize()
+    st = tts8.last_timings
+    counts = read_counts()
+    expect_counts(f"quant phase: infer_stream ({st['decode_steps']} steps)", counts,
+                  k1q8=st["decode_steps"])
+    if len(chunks) < 2 or not all(np.all(np.isfinite(c.audio_data)) for c in chunks):
+        fail(f"quant phase: infer_stream gave {len(chunks)} chunks or a chunk not finite")
+    for name, c in counts.items():
+        total[name] += c
+    print(f"quant phase: infer_stream (int8): {len(chunks)} chunks, {st['decode_steps']} decode "
+          f"steps, time to first audio {1000 * st['ttfa_s']:.1f} ms", flush=True)
+
+    reset_counts()
+    clip = tts4.infer(str(spk), str(prompt), PROMPT_TEXT, TEXTS[0])
+    torch.cuda.synchronize()
+    st = tts4.last_timings
+    check_audio("quant phase: infer (int4)", clip.audio_data, int(0.2 * 32000),
+                st["tokens"] * 1280 + int(0.2 * 32000))
+    counts = read_counts()
+    expect_counts(f"quant phase: infer (int4, {st['decode_steps']} decode steps)", counts,
+                  k1q4=st["decode_steps"])
+    for name, c in counts.items():
+        total[name] += c
+    print(f"quant phase: infer (int4): {st['decode_steps']} decode steps, "
+          f"{1000 * st['decode_s'] / st['decode_steps']:.3f} ms/step", flush=True)
+    del tts4
+
+    pages = sum(t.numel() * t.element_size()
+                for ql in tts8.gpt_models[str(gpt)].engine.params["layers_q8"] for t in ql.values())
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    tts8.unload_gpt_model(str(gpt))
+    freed = before - torch.cuda.memory_allocated()
+    print(f"quant phase: unload_gpt_model freed {freed / 2**20:.1f} MiB (int8 pages and scales "
+          f"{pages / 2**20:.1f} MiB)", flush=True)
+    if freed < pages:
+        fail(f"quant phase: unload_gpt_model freed {freed} bytes, the pages hold {pages}")
+    return total
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
     K5 loop and ``infer_stream``; returns the launches summed over the drives (counts are
@@ -2169,6 +2436,7 @@ def main_path_phase(dev, card):
         add(stream_path(tmp, gpt, sov, spk, prompt, dev, "flash", TEXTS[2:3], warm_rtf))
         add(sovits_buckets_phase(tmp, gpt, sov, spk, prompt, dev, card))
         add(v2pro_phase(tmp, gpt, sov, spk, prompt, dev, card))
+        add(quant_path_phase(tmp, gpt, sov, spk, prompt, dev, card))
     return total
 
 
@@ -2391,6 +2659,7 @@ def main():
     k5 = k5_phase(bench)
     k6 = k6_phase(bench)
     interleave_phase(bench)
+    quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
     launches = main_path_phase(dev, card)
@@ -2431,7 +2700,22 @@ def main():
                     "gsv_tts_tpu/ops/fused_step.py:255", launches["k5"], k5[0], k5[1:]),
         step_record("k6_decode_layer", "gsv_tts_tpu_torch/csrc/k6_decode_layer.cu",
                     "gsv_tts_tpu/ops/fused_layer.py:208", launches["k6"], k6[0], k6[1:])]}
-    for name in ("k1", "k2", "k3b", "k4", "k5", "k6"):  # the kernels of the main paths
+    # the int8 / int4 streams of K1 and K2 (the TPU kernels' quant / quant4 modes): times at
+    # S=1024, kv_len ~777 (K2 at B=4), beside the bf16 kernel's in the same turns
+    for kernel, source, line in (("k1", "k1_decode_step", 897),
+                                 ("k2", "k2_decode_step_batched", 1641)):
+        for q in QUANTS:
+            err, t = quant[(kernel, q)]
+            tag = "q8" if q == "int8" else "q4"
+            record["kernels"].append({
+                "name": f"{source}_{tag}", "route": "cuda",
+                "source": f"gsv_tts_tpu_torch/csrc/{source}.cu",
+                "replaces": f"gsv_tts_tpu/ops/fused_step.py:{line}",
+                "launches": launches[kernel + tag], "max_abs_err": err, "ms": t[0],
+                "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], "library_ms": None,
+                "bf16_ms": t[4], **t[5]})
+    for name in ("k1", "k2", "k3b", "k4", "k5", "k6", "k1q8", "k1q4", "k2q8", "k2q4"):
+        # the kernels of the main paths
         if launches[name] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps(record), flush=True)

@@ -51,7 +51,11 @@ class Config:
     frontend's G2P engines.  ``attn_impl`` names the t2s engine's kernels
     (``runtime/t2s_session.py``): ``"fused_step"`` (K1 / K2 whole-step
     kernels, plain prefill), ``"flash"`` (K4 prefill attention, K3b decode
-    attention) or ``"fused"`` (K6, one call per layer).
+    attention) or ``"fused"`` (K6, one call per layer).  ``quant_t2s``
+    (``False``, ``True`` = ``"int8"``, ``"int8"`` or ``"int4"``) streams K1's
+    and K2's layer weights quantized (``loader.resolve_t2s_attn_impl`` maps
+    it to the engine's ``"fused_step_q8"`` / ``"fused_step_q4"``; it needs
+    ``attn_impl="fused_step"``).
     """
 
     device: Any = None
@@ -60,6 +64,7 @@ class Config:
     sovits_cache: list = dataclasses.field(default_factory=list)
     models_dir: Optional[Path] = None
     attn_impl: str = "fused_step"
+    quant_t2s: Any = False
 
     def __post_init__(self):
         self.device = (default_device() if self.device is None

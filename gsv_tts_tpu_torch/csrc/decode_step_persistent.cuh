@@ -103,6 +103,23 @@
 // Precision as in the chain: bf16 weights and caches, activations rounded to
 // bf16 only where they enter a product, float32 accumulation, LayerNorm and
 // attention.
+//
+// The quantized weight streams (template argument WQ: 0 bf16, 1 int8, 2
+// int4; the whole step only, k1/k2 *_quant entries) replace the int8 / int4
+// pages of the TPU kernels' quant / quant4 modes (_kernel_sample and
+// _kernel_sample_b, gsv_tts_tpu/ops/fused_step.py:486-522, :589-607,
+// :1154-1189, :1323-1344).  The four layer matrices stream as int8 values,
+// or as int4 values two to a byte (element 2i in the low nibble, 2i + 1 in
+// the high one, along K), with one float32 scale per lane; the head stays
+// bf16.  A stage then holds two or four times the rows (PsPlan::row_bytes),
+// which cuts the bytes a step reads by the same factor on the layers.  A
+// lane still takes 8 weights a chunk (8 or 4 bytes from shared memory
+// instead of 16), so the chunking and split-K are the bf16 kernel's.  The
+// chain is the TPU kernel's: qkv = (x q) s + b, h = x + (a q) s + b,
+// m1 = relu((h q) s + b) s_m2 in float32 (mlp2's lane is its contracted
+// channel, so its scale moves onto the activation, in the MLP-1 epilogue,
+// before the bf16 rounding of the staging), h2 = h + m1 q + b.  The scales
+// are requested a phase ahead with the biases (PsEpi).
 #pragma once
 #include "decode_common.cuh"
 
@@ -126,6 +143,15 @@ typedef uint2 PsTagged;
 template <int NB>
 struct PsHandOver {
   static constexpr bool TAGGED = NB == 1;
+};
+
+// A quantized layer's per-lane float32 scales: [3D] | [D] | [M] (rows of
+// qkv, out, mlp1) | [M] (columns of mlp2).
+struct PsQuantScales {
+  const float* qkv;
+  const float* out;
+  const float* mlp1;
+  const float* mlp2;
 };
 
 struct StepArgs {
@@ -163,6 +189,9 @@ struct StepArgs {
   const void* x_in;
   void* x_out;
   int x_f32;
+  // A quantized stream (WQ > 0): ``layers`` points the four matrices at the
+  // int8 / int4 pages, and these are their scales ([L], on the device).
+  const PsQuantScales* scales;
 };
 
 // The products on the tile list: four a layer, and the head after them when
@@ -172,9 +201,18 @@ static __host__ __device__ __forceinline__ int ps_products(const StepArgs& a) {
   return 4 * a.L + (a.x_in == nullptr ? 1 : 0);
 }
 
+// A block's share of one product shape (see "The weight stream" below).
+struct PsPlan {
+  int N, K;
+  int r0, r1;     // the block's rows
+  int row_bytes;  // of a weight row: 2 K (bf16), K (int8), K / 2 (int4)
+  int tile_rows;  // rows a ring stage holds
+  int nch;        // ceil(K / 256): warp steps of 8 weights a lane over a row
+};
+
 // Shared-memory layout (bytes from the dynamic base), the same on both sides.
 struct PsLayout {
-  size_t full, stream, plan, layers, psum, stats, gb, resid, scratch, total;
+  size_t full, stream, plan, layers, scales, psum, stats, gb, resid, scratch, total;
 };
 
 static __host__ __device__ inline PsLayout ps_layout(int NB, int L, int D, int M) {
@@ -185,9 +223,11 @@ static __host__ __device__ inline PsLayout ps_layout(int NB, int L, int D, int M
   o.stream = at;
   at += 16;  // PsStream
   o.plan = at;
-  at += 24 * 5 + 8;  // PsPlan[5]
+  at += (sizeof(PsPlan) * 5 + 15) / 16 * 16;
   o.layers = at;
   at += sizeof(LayerWeights) * (size_t)L;
+  o.scales = at;  // (read by the quantized streams only)
+  at += sizeof(PsQuantScales) * (size_t)L;
   o.psum = at;
   at += sizeof(float) * 2 * PS_MAX_TILE_ROWS * NB;
   o.stats = at;
@@ -352,40 +392,64 @@ static __device__ __forceinline__ unsigned long long ps_first_target(unsigned lo
 // a whole step's last is the head.  A block's rows of a product [N, K] are
 // [N bid / G, N (bid + 1) / G), taken PsPlan::tile_rows at a time.  The five
 // shapes' plans are worked out once, at the kernel's start (integer
-// divisions are slow enough to show in a phase of two microseconds).
+// divisions are slow enough to show in a phase of two microseconds).  Under
+// a quantized stream (wq 1 int8, 2 int4) a layer's row is K or K / 2 bytes,
+// the head's stays bf16.
 // ---------------------------------------------------------------------------
-struct PsPlan {
-  int N, K;
-  int r0, r1;     // the block's rows
-  int tile_rows;  // rows a ring stage holds
-  int nch;        // ceil(K / 256): warp steps of 16 bytes a lane over a row
-};
-
 static __device__ __forceinline__ int ps_kind(const StepArgs& a, int p) {
   return p >= 4 * a.L ? 4 : p & 3;  // qkv, out, mlp1, mlp2, head
 }
 
-static __device__ void ps_make_plan(const StepArgs& a, PsPlan* plan, int kind) {
+static __device__ void ps_make_plan(const StepArgs& a, PsPlan* plan, int kind, int wq) {
   const int N = kind == 0 ? 3 * a.D : kind == 2 ? a.M : kind == 4 ? a.V : a.D;
   const int K = kind == 3 ? a.M : a.D;
+  const int fmt = kind == 4 ? 0 : wq;
   PsPlan& o = plan[kind];
   o.N = N;
   o.K = K;
   o.r0 = (int)((unsigned)N * blockIdx.x / gridDim.x);  // (N <= 3 * 8192: a row fits a stage)
   o.r1 = (int)((unsigned)N * (blockIdx.x + 1) / gridDim.x);
-  o.tile_rows = min(PS_MAX_TILE_ROWS, PS_STAGE_BYTES / (2 * K));
+  o.row_bytes = fmt == 0 ? 2 * K : fmt == 1 ? K : K / 2;
+  o.tile_rows = min(PS_MAX_TILE_ROWS, PS_STAGE_BYTES / o.row_bytes);
   o.nch = (K + 255) >> 8;
 }
 
-static __device__ __forceinline__ const bf16* ps_weights(const StepArgs& a, const LayerWeights* lw,
-                                                         int p) {
-  if (p >= 4 * a.L) return a.predict_w;
-  const LayerWeights& w = lw[p >> 2];
-  switch (p & 3) {
-    case 0: return w.qkv_w;
-    case 1: return w.out_w;
-    case 2: return w.mlp1_w;
-    default: return w.mlp2_w;
+static __device__ __forceinline__ const unsigned char* ps_weights(const StepArgs& a,
+                                                                  const LayerWeights* lw, int p) {
+  const void* w;
+  if (p >= 4 * a.L) {
+    w = a.predict_w;
+  } else {
+    const LayerWeights& l = lw[p >> 2];
+    switch (p & 3) {
+      case 0: w = l.qkv_w; break;
+      case 1: w = l.out_w; break;
+      case 2: w = l.mlp1_w; break;
+      default: w = l.mlp2_w; break;
+    }
+  }
+  return static_cast<const unsigned char*>(w);
+}
+
+// Weights k .. k + 7 of a row in shared memory (k a multiple of 8) as float:
+// bf16 (16 bytes), int8 (8 bytes) or int4 (4 bytes, element k + j in nibble
+// j).  Every int8 and int4 value is exact in float.
+template <int WQ>
+static __device__ __forceinline__ void ps_weights8(const unsigned char* row, int k,
+                                                   float (&f)[8]) {
+  if (WQ == 0) {
+    bf16x8_to_float(*reinterpret_cast<const uint4*>(row + 2 * k), f);
+  } else if (WQ == 1) {
+    const uint2 r = *reinterpret_cast<const uint2*>(row + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      f[j] = (float)((int)(r.x << (24 - 8 * j)) >> 24);
+      f[4 + j] = (float)((int)(r.y << (24 - 8 * j)) >> 24);
+    }
+  } else {
+    const unsigned r = *reinterpret_cast<const unsigned*>(row + k / 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) f[j] = (float)((int)(r << (28 - 4 * j)) >> 28);
   }
 }
 
@@ -408,8 +472,8 @@ struct PsStream {  // the issuing thread's cursor over the tile list
       const int rows = min(pl.tile_rows, pl.r1 - row);
       const int stage = issued % PS_STAGES;
       ps_bulk_load(ring + (size_t)stage * PS_STAGE_BYTES,
-                   ps_weights(a, lw, p) + (size_t)row * pl.K, (uint32_t)rows * pl.K * 2,
-                   full + stage);
+                   ps_weights(a, lw, p) + (size_t)row * pl.row_bytes,
+                   (uint32_t)rows * pl.row_bytes, full + stage);
       ++issued;
       row += rows;
     }
@@ -428,6 +492,7 @@ struct PsBlock {
   PsStream* stream;  // the issuing thread's
   PsPlan* plan;      // [5] by product shape
   LayerWeights* lw;  // the layer table
+  PsQuantScales* qs;  // a quantized stream's scale table
   float* psum;       // [2][PS_MAX_TILE_ROWS * NB]
   float* stats;      // [NB][2] mean, 1 / std
   float* gb;         // [2][D] the next LayerNorm's scale and shift
@@ -445,6 +510,7 @@ static __device__ __forceinline__ PsBlock<NB> ps_block(const StepArgs& a) {
   s.stream = reinterpret_cast<PsStream*>(ps_smem + lay.stream);
   s.plan = reinterpret_cast<PsPlan*>(ps_smem + lay.plan);
   s.lw = reinterpret_cast<LayerWeights*>(ps_smem + lay.layers);
+  s.qs = reinterpret_cast<PsQuantScales*>(ps_smem + lay.scales);
   s.psum = reinterpret_cast<float*>(ps_smem + lay.psum);
   s.stats = reinterpret_cast<float*>(ps_smem + lay.stats);
   s.gb = reinterpret_cast<float*>(ps_smem + lay.gb);
@@ -454,35 +520,58 @@ static __device__ __forceinline__ PsBlock<NB> ps_block(const StepArgs& a) {
   return s;
 }
 
-// The first tile's bias of this thread's epilogue entry (0 where it has none):
-// requested a phase ahead, so that its way from device memory hides.
-// Epilogue entry t is (row t / NB, slot t % NB) of the tile.
+// What this thread's epilogue entry of a tile adds: the bias (0 where there
+// is none), the row's scale (1 where there is none) and the scale after the
+// ReLU (MLP-1 of a quantized stream: mlp2's column scale; else 1).
+struct PsEpi {
+  float bias, scale, post;
+};
+
+// Epilogue entry t is (row t / NB, slot t % NB) of the tile at row ``n0``.
 template <int NB>
-static __device__ __forceinline__ float ps_bias_first(const StepArgs& a, int p, const bf16* bias) {
-  const PsPlan& pl = ps_block<NB>(a).plan[ps_kind(a, p)];
-  const int R = min(pl.tile_rows, pl.r1 - pl.r0);
+static __device__ __forceinline__ PsEpi ps_epi_at(int n0, int R, const bf16* bias,
+                                                  const float* scale, const float* post) {
   const int row = threadIdx.x / NB;
-  return row < R ? __bfloat162float(bias[pl.r0 + row]) : 0.f;
+  PsEpi e = {0.f, 1.f, 1.f};
+  if (row < R) {
+    if (bias != nullptr) e.bias = __bfloat162float(bias[n0 + row]);
+    if (scale != nullptr) e.scale = __ldg(scale + n0 + row);
+    if (post != nullptr) e.post = __ldg(post + n0 + row);
+  }
+  return e;
+}
+
+// The first tile's entry: requested a phase ahead, so that its way from
+// device memory hides.
+template <int NB>
+static __device__ __forceinline__ PsEpi ps_epi_first(const StepArgs& a, int p, const bf16* bias,
+                                                     const float* scale = nullptr,
+                                                     const float* post = nullptr) {
+  const PsPlan& pl = ps_block<NB>(a).plan[ps_kind(a, p)];
+  return ps_epi_at<NB>(pl.r0, min(pl.tile_rows, pl.r1 - pl.r0), bias, scale, post);
 }
 
 // ---------------------------------------------------------------------------
-// y[b, n] = (res[b, n] +) sum_k act[b, k] W[n, k] (+ bias[n]) (relu) for the
-// block's rows n of product p, b < B, streaming W from the ring.  The
-// residual is s.resid ([NB][N], shared memory); the result goes to global
-// memory ([B][N]): into ``y`` for the next phase (under ``tag`` at one row),
-// or, for the head, into ``y_plain``.  ``consumed`` counts the tiles the
-// block has consumed so far (the same in every thread); the new count is
-// returned.
+// y[b, n] = (res[b, n] +) scale[n] sum_k act[b, k] W[n, k] (+ bias[n]) (relu)
+// (* post[n]) for the block's rows n of product p, b < B, streaming W (in
+// format WQ) from the ring.  The residual is s.resid ([NB][N], shared
+// memory); the result goes to global memory ([B][N]): into ``y`` for the
+// next phase (under ``tag`` at one row), or, for the head, into
+// ``y_plain``.  ``first`` is the first tile's epilogue entry (ps_epi_first).
+// ``consumed`` counts the tiles the block has consumed so far (the same in
+// every thread); the new count is returned.
 // ---------------------------------------------------------------------------
-template <int NB>
+template <int NB, int WQ>
 static __device__ __noinline__ int ps_product_rows(const StepArgs& a, int p, const bf16* bias,
-                                                   float bias_first, bool residual, void* y,
+                                                   const float* scale, const float* post,
+                                                   PsEpi first, bool residual, void* y,
                                                    unsigned tag, float* y_plain, bool relu,
                                                    int consumed) {
   static_assert(PS_MAX_TILE_ROWS * NB <= PS_THREADS, "one epilogue entry a thread");
   const PsBlock<NB> s = ps_block<NB>(a);
   const PsPlan pl = s.plan[ps_kind(a, p)];
   const int N = pl.N, K = pl.K, r0 = pl.r0, r1 = pl.r1, tile_rows = pl.tile_rows, nch = pl.nch;
+  const int row_bytes = pl.row_bytes;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
   const int e_row = t / NB, e_b = t % NB;  // this thread's epilogue entry
 #pragma unroll 1
@@ -496,16 +585,15 @@ static __device__ __noinline__ int ps_product_rows(const StepArgs& a, int p, con
     const int cps = (nch + KS - 1) >> ks_shift;
     const int stage = consumed % PS_STAGES;
     float* psum = s.psum + (consumed & 1) * PS_MAX_TILE_ROWS * NB;
-    // the epilogue's bias: the first tile's came with the call, a later
-    // tile's is requested before the wait for the tile
-    float bv = bias_first;
-    if (n0 != r0) bv = (bias != nullptr && e_row < R) ? __bfloat162float(bias[n0 + e_row]) : 0.f;
+    // the epilogue's bias and scales: the first tile's came with the call, a
+    // later tile's are requested before the wait for the tile
+    const PsEpi ep = n0 == r0 ? first : ps_epi_at<NB>(n0, R, bias, scale, post);
     ps_mbar_wait(s.full + stage, (consumed / PS_STAGES) & 1, a.err);
-    const bf16* tile = reinterpret_cast<const bf16*>(s.ring + (size_t)stage * PS_STAGE_BYTES);
+    const unsigned char* tile = s.ring + (size_t)stage * PS_STAGE_BYTES;
 #pragma unroll 1
     for (int u = warp; u < R * KS; u += PS_WARPS) {
       const int row = u >> ks_shift, ks = u & (KS - 1);
-      const bf16* w = tile + (size_t)row * K;
+      const unsigned char* w = tile + (size_t)row * row_bytes;
       float acc[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0.f;
@@ -515,7 +603,7 @@ static __device__ __noinline__ int ps_product_rows(const StepArgs& a, int p, con
         const int k = (c << 8) + lane * 8;
         if (k < K) {
           float wf[8];
-          bf16x8_to_float(*reinterpret_cast<const uint4*>(w + k), wf);
+          ps_weights8<WQ>(w, k, wf);
 #pragma unroll
           for (int b = 0; b < NB; ++b) {
             float xf[8];
@@ -539,9 +627,11 @@ static __device__ __noinline__ int ps_product_rows(const StepArgs& a, int p, con
       const int n = n0 + e_row;
       float v = 0.f;
       for (int ks = 0; ks < KS; ++ks) v += psum[((e_row << ks_shift) + ks) * NB + e_b];
+      if (WQ != 0) v *= ep.scale;  // before the residual and the bias
       if (residual) v = s.resid[(size_t)e_b * N + n] + v;
-      if (bias != nullptr) v += bv;
+      if (bias != nullptr) v += ep.bias;
       if (relu) v = fmaxf(v, 0.f);
+      if (WQ != 0) v *= ep.post;
       if (y == nullptr)
         y_plain[(size_t)e_b * N + n] = v;
       else if (PsHandOver<NB>::TAGGED)
@@ -865,19 +955,25 @@ constexpr int PS_TRACE_BYTES = 4096;
 #endif
 
 // ---------------------------------------------------------------------------
-// The kernel: a.B <= NB rows.
+// The kernel: a.B <= NB rows; the layers' weights streamed in format WQ.
 // ---------------------------------------------------------------------------
-template <int NB>
+template <int NB, int WQ = 0>
 __global__ void __launch_bounds__(PS_THREADS, 1)
 decode_step_persistent(const __grid_constant__ StepArgs a) {
   const PsBlock<NB> s = ps_block<NB>(a);
-  {  // the layer table (pointers only) into shared memory
+  {  // the layer table (pointers only) into shared memory, and a quantized stream's scales
     const unsigned long long* src = reinterpret_cast<const unsigned long long*>(a.layers);
     unsigned long long* dst = reinterpret_cast<unsigned long long*>(s.lw);
     for (int i = threadIdx.x; i < a.L * (int)(sizeof(LayerWeights) / 8); i += PS_THREADS)
       dst[i] = src[i];
+    if (WQ != 0) {
+      const unsigned long long* qsrc = reinterpret_cast<const unsigned long long*>(a.scales);
+      unsigned long long* qdst = reinterpret_cast<unsigned long long*>(s.qs);
+      for (int i = threadIdx.x; i < a.L * (int)(sizeof(PsQuantScales) / 8); i += PS_THREADS)
+        qdst[i] = qsrc[i];
+    }
   }
-  if (threadIdx.x >= 32 && threadIdx.x < 32 + 5) ps_make_plan(a, s.plan, threadIdx.x - 32);
+  if (threadIdx.x >= 32 && threadIdx.x < 32 + 5) ps_make_plan(a, s.plan, threadIdx.x - 32, WQ);
   if (threadIdx.x == 0) {
     for (int i = 0; i < PS_STAGES; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
@@ -893,10 +989,10 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
   __syncthreads();
 
   // What does not depend on the activations is requested a phase ahead of
-  // its use: each product's bias (a register a thread) and each LayerNorm's
-  // scale and shift (s.gb).  PS_HAND_OVER() stands where a phase's output
-  // must have reached the next phase: a grid barrier for a wave, nothing at
-  // one row, whose values carry their tags.
+  // its use: each product's bias and scales (PsEpi, registers) and each
+  // LayerNorm's scale and shift (s.gb).  PS_HAND_OVER() stands where a
+  // phase's output must have reached the next phase: a grid barrier for a
+  // wave, nothing at one row, whose values carry their tags.
   constexpr bool TAGGED = PsHandOver<NB>::TAGGED;
   unsigned long long target = 0;
   if (!TAGGED) target = ps_first_target(a.bar, reinterpret_cast<unsigned long long*>(s.psum));
@@ -912,7 +1008,9 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
 #ifdef PS_TRACE
   int n_marks = 0;
 #endif
-  float bias = ps_bias_first<NB>(a, 0, s.lw[0].qkv_b);
+  // layer l's scales of a quantized stream (none for bf16)
+#define PS_SCALES(l, m) (WQ != 0 ? s.qs[l].m : nullptr)
+  PsEpi epi = ps_epi_first<NB>(a, 0, s.lw[0].qkv_b, PS_SCALES(0, qkv));
   PS_MARK();
 #pragma unroll 1
   for (int l = 0; l < L; ++l) {
@@ -925,9 +1023,9 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
     else
       ps_stage_layernorm<NB>(a, a.pre, tag - 1, nullptr);
     PS_MARK();
-    consumed = ps_product_rows<NB>(a, 4 * l, w.qkv_b, bias, false, a.qkv, tag, nullptr, false,
-                                   consumed);
-    bias = ps_bias_first<NB>(a, 4 * l + 1, w.out_b);
+    consumed = ps_product_rows<NB, WQ>(a, 4 * l, w.qkv_b, PS_SCALES(l, qkv), nullptr, epi, false,
+                                       a.qkv, tag, nullptr, false, consumed);
+    epi = ps_epi_first<NB>(a, 4 * l + 1, w.out_b, PS_SCALES(l, out));
     PS_MARK();
     PS_HAND_OVER();
     ps_attention<TAGGED>(a, s.scratch, l, tag);
@@ -935,32 +1033,35 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
     PS_HAND_OVER();
     ps_stage_rows<NB>(a, a.attn, tag, D);
     PS_MARK();
-    consumed = ps_product_rows<NB>(a, 4 * l + 1, w.out_b, bias, true, a.h, tag, nullptr, false,
-                                   consumed);
-    bias = ps_bias_first<NB>(a, 4 * l + 2, w.mlp1_b);
+    consumed = ps_product_rows<NB, WQ>(a, 4 * l + 1, w.out_b, PS_SCALES(l, out), nullptr, epi,
+                                       true, a.h, tag, nullptr, false, consumed);
+    epi = ps_epi_first<NB>(a, 4 * l + 2, w.mlp1_b, PS_SCALES(l, mlp1), PS_SCALES(l, mlp2));
     ps_prefetch_layernorm<NB>(a, w.ln1_g, w.ln1_b);
     PS_MARK();
     PS_HAND_OVER();
     ps_stage_layernorm<NB>(a, a.h, tag, nullptr);
     PS_MARK();
-    consumed = ps_product_rows<NB>(a, 4 * l + 2, w.mlp1_b, bias, false, a.mlp, tag, nullptr,
-                                   true, consumed);
-    bias = ps_bias_first<NB>(a, 4 * l + 3, w.mlp2_b);
+    consumed = ps_product_rows<NB, WQ>(a, 4 * l + 2, w.mlp1_b, PS_SCALES(l, mlp1),
+                                       PS_SCALES(l, mlp2), epi, false, a.mlp, tag, nullptr, true,
+                                       consumed);
+    epi = ps_epi_first<NB>(a, 4 * l + 3, w.mlp2_b);
     PS_MARK();
     PS_HAND_OVER();
     ps_stage_rows<NB>(a, a.mlp, tag, M);
     PS_MARK();
-    consumed = ps_product_rows<NB>(a, 4 * l + 3, w.mlp2_b, bias, true, a.pre, tag, nullptr,
-                                   false, consumed);
-    if (l + 1 < L) bias = ps_bias_first<NB>(a, 4 * l + 4, s.lw[l + 1].qkv_b);
+    consumed = ps_product_rows<NB, WQ>(a, 4 * l + 3, w.mlp2_b, nullptr, nullptr, epi, true, a.pre,
+                                       tag, nullptr, false, consumed);
+    if (l + 1 < L) epi = ps_epi_first<NB>(a, 4 * l + 4, s.lw[l + 1].qkv_b, PS_SCALES(l + 1, qkv));
     ps_prefetch_layernorm<NB>(a, w.ln2_g, w.ln2_b);
     PS_MARK();
     PS_HAND_OVER();
   }
+#undef PS_SCALES
 #undef PS_HAND_OVER
   if (a.x_in == nullptr) {  // the whole step: every block normalises the rows for the head
     ps_stage_layernorm<NB>(a, a.pre, (a.epoch << 8) + L - 1, a.x);
-    ps_product_rows<NB>(a, 4 * L, nullptr, 0.f, false, nullptr, 0u, a.row_out, false, consumed);
+    ps_product_rows<NB, 0>(a, 4 * L, nullptr, nullptr, nullptr, PsEpi{0.f, 1.f, 1.f}, false,
+                           nullptr, 0u, a.row_out, false, consumed);
   } else if (blockIdx.x == 0) {  // a layer stack: nobody else needs the last rows
     ps_stage_layernorm<NB>(a, a.pre, (a.epoch << 8) + L - 1, nullptr);
     ps_store_rows<NB>(a);
@@ -1023,20 +1124,24 @@ static int ps_grid(const void* kernel, size_t smem, int* grid) {
   return 0;
 }
 
-// Launch the step for a.B <= NB rows on ``st``.  Returns the CUDA error (a
-// grid that cannot be co-resident is cudaErrorCooperativeLaunchTooLarge).
-template <int NB>
+// Launch the step for a.B <= NB rows, the layers' weights in format WQ, on
+// ``st``.  Returns the CUDA error (a grid that cannot be co-resident is
+// cudaErrorCooperativeLaunchTooLarge).  A quantized stream needs its scale
+// table and widths whose int4 rows are whole 16-byte runs (D, M multiples
+// of 32), as the bulk copies are.
+template <int NB, int WQ = 0>
 static int launch_decode_step_persistent(const StepArgs& a, cudaStream_t st) {
   static int cached_dev = -1, cached_grid = 0;  // queried once per process and device
   static size_t cached_smem = 0;
   constexpr bool TAGGED = PsHandOver<NB>::TAGGED;
   if (a.B < 1 || a.B > NB || a.L < 1 || 2 * a.D > PS_STAGE_BYTES || 2 * a.M > PS_STAGE_BYTES ||
       (a.x_in != nullptr && a.x_out == nullptr) ||
-      (TAGGED && (a.L > 255 || a.epoch == 0 || a.epoch >= (1u << 24))))
+      (TAGGED && (a.L > 255 || a.epoch == 0 || a.epoch >= (1u << 24))) ||
+      (WQ != 0 && (a.scales == nullptr || a.D % 32 != 0 || a.M % 32 != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ps_layout(NB, a.L, a.D, a.M).total;
   if (smem > PS_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)decode_step_persistent<NB>;
+  const void* kernel = (const void*)decode_step_persistent<NB, WQ>;
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev != cached_dev || smem != cached_smem) {

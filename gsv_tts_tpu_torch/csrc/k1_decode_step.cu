@@ -24,6 +24,10 @@
 // below as k1_decode_step_chain, for timing beside the persistent kernel in
 // one process; nothing in the package calls it.
 //
+// k1_decode_step_quant runs the same step on the int8 or int4 weight
+// stream of the TPU kernel's quant / quant4 modes (decode_step_persistent.cuh
+// says how); the sampling launch is the same.
+//
 // Precision follows the TPU kernel: bf16 weights and caches, activations
 // rounded to bf16 only where they enter a matrix product, float32
 // accumulation, float32 LayerNorm, float32 single-query attention with an
@@ -67,6 +71,7 @@ struct K1Args {
   float* pre;                      // [B, D]  workspace
   unsigned long long* bar;         // [1]  the grid barrier's counter
   unsigned epoch;                  // StepArgs::epoch
+  const PsQuantScales* scales;     // [L] a quantized stream's scales (layers_dev: its pages)
 };
 
 // ---------------------------------------------------------------------------
@@ -109,12 +114,7 @@ static int launch_k1_sample(const K1Args* a, cudaStream_t st) {
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// Host entry point: the whole step in two launches on ``stream``.  Returns
-// the first CUDA error raised by a launch (0 when both were accepted).
-// ---------------------------------------------------------------------------
-extern "C" int k1_decode_step(const K1Args* a, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+static StepArgs k1_step_args(const K1Args* a) {
   StepArgs s = {};  // (a field left unset is 0: no x_in, a whole step)
   s.B = 1;
   s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.V = a->V, s.S = a->S, s.P = a->P;
@@ -129,8 +129,34 @@ extern "C" int k1_decode_step(const K1Args* a, void* stream) {
   s.h = t, s.pre = t + a->D, s.qkv = t + 2 * a->D, s.attn = t + 5 * a->D, s.mlp = t + 6 * a->D;
   s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
   s.epoch = a->epoch, s.bar = nullptr;
+  s.scales = a->scales;
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// Host entry points: the whole step in two launches on ``stream``, the
+// layers' weights as bf16 or (k1_decode_step_quant, wq 1 / 2) as int8 /
+// int4 pages.  Return the first CUDA error raised by a launch (0 when both
+// were accepted).
+// ---------------------------------------------------------------------------
+extern "C" int k1_decode_step(const K1Args* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if ((rc = launch_decode_step_persistent<1>(s, st))) return rc;
+  if ((rc = launch_decode_step_persistent<1>(k1_step_args(a), st))) return rc;
+  return launch_k1_sample(a, st);
+}
+
+extern "C" int k1_decode_step_quant(const K1Args* a, int wq, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const StepArgs s = k1_step_args(a);
+  int rc;
+  if (wq == 1)
+    rc = launch_decode_step_persistent<1, 1>(s, st);
+  else if (wq == 2)
+    rc = launch_decode_step_persistent<1, 2>(s, st);
+  else
+    rc = (int)cudaErrorInvalidValue;
+  if (rc) return rc;
   return launch_k1_sample(a, st);
 }
 

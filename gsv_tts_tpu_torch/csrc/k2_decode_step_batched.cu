@@ -40,6 +40,11 @@
 // bit-identical, "shared" trades a shared running max for fewer vector ops
 // on the TPU -- so one kernel computes the exact per-row online softmax.
 //
+// k2_decode_step_batched_quant runs the same step on the int8 or int4
+// weight stream of the TPU kernel's quant / quant4 modes
+// (decode_step_persistent.cuh says how): at 2, 4 and 8 rows, like the bf16
+// stream (the engine takes it for waves of 2..6 slots, the TPU kernel's).
+//
 // Out-of-range values are flagged, never clamped: a last_tok outside
 // [0, V), a kv_len outside [0, S) or a positional index outside [0, P) sets
 // a bit in ``err`` (the slot then produces NaN or skips its append), which
@@ -85,6 +90,7 @@ struct K2Args {
   float* pre;                      // [B, D]  workspace
   unsigned long long* bar;         // [1]  the grid barrier's counter
   unsigned epoch;                  // StepArgs::epoch
+  const PsQuantScales* scales;     // [L] a quantized stream's scales (layers_dev: its pages)
 };
 
 // ---------------------------------------------------------------------------
@@ -133,12 +139,7 @@ static int launch_k2_sample(const K2Args* a, cudaStream_t st) {
   return 0;
 }
 
-// ---------------------------------------------------------------------------
-// Host entry point: the whole step in two launches on ``stream``.  Returns
-// the first CUDA error raised by a launch (0 when both were accepted).
-// ---------------------------------------------------------------------------
-extern "C" int k2_decode_step_batched(const K2Args* a, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+static StepArgs k2_step_args(const K2Args* a) {
   StepArgs s = {};  // (a field left unset is 0: no x_in, a whole step)
   s.B = a->B;
   s.L = a->L, s.D = a->D, s.H = a->H, s.M = a->M, s.V = a->V, s.S = a->S, s.P = a->P;
@@ -151,15 +152,42 @@ extern "C" int k2_decode_step_batched(const K2Args* a, void* stream) {
   s.x = a->x, s.h = a->h, s.pre = a->pre, s.qkv = a->qkv, s.attn = a->attn, s.mlp = a->mlp;
   s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
   s.epoch = 0, s.bar = a->bar;  // a wave: barriers between the phases
+  s.scales = a->scales;
+  return s;
+}
+
+// The persistent kernel at the smallest of 2, 4, 8 rows that holds the wave.
+template <int WQ>
+static int k2_launch(const StepArgs& s, cudaStream_t st) {
+  if (s.B < 1 || s.B > 8) return (int)cudaErrorInvalidValue;
+  if (s.B <= 2) return launch_decode_step_persistent<2, WQ>(s, st);
+  if (s.B <= 4) return launch_decode_step_persistent<4, WQ>(s, st);
+  return launch_decode_step_persistent<8, WQ>(s, st);
+}
+
+// ---------------------------------------------------------------------------
+// Host entry points: the whole step in two launches on ``stream``, the
+// layers' weights as bf16 or (k2_decode_step_batched_quant, wq 1 / 2) as
+// int8 / int4 pages.  Return the first CUDA error raised by a launch (0 when
+// both were accepted).
+// ---------------------------------------------------------------------------
+extern "C" int k2_decode_step_batched(const K2Args* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   int rc;
-  if (a->B < 1 || a->B > 8)
-    rc = (int)cudaErrorInvalidValue;
-  else if (a->B <= 2)
-    rc = launch_decode_step_persistent<2>(s, st);
-  else if (a->B <= 4)
-    rc = launch_decode_step_persistent<4>(s, st);
+  if ((rc = k2_launch<0>(k2_step_args(a), st))) return rc;
+  return launch_k2_sample(a, st);
+}
+
+extern "C" int k2_decode_step_batched_quant(const K2Args* a, int wq, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const StepArgs s = k2_step_args(a);
+  int rc;
+  if (wq == 1)
+    rc = k2_launch<1>(s, st);
+  else if (wq == 2)
+    rc = k2_launch<2>(s, st);
   else
-    rc = launch_decode_step_persistent<8>(s, st);
+    rc = (int)cudaErrorInvalidValue;
   if (rc) return rc;
   return launch_k2_sample(a, st);
 }

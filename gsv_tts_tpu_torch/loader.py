@@ -89,6 +89,28 @@ def _float_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             else torch.as_tensor(v) for k, v in sd.items()}
 
 
+def resolve_t2s_attn_impl(tts_config: Config) -> str:
+    """The engine's ``attn_impl`` for a config: ``attn_impl``, or under
+    ``quant_t2s`` the quantized whole-step stream (``True`` and ``"int8"``:
+    ``"fused_step_q8"``, ``"int4"``: ``"fused_step_q4"``).  Validates
+    unconditionally, as the JAX package does (``loader.py:191-215``): a
+    ``quant_t2s`` outside ``False, True, "int8", "int4"`` raises, and so does
+    ``quant_t2s`` with an ``attn_impl`` other than ``"fused_step"``, which
+    has no quantized kernels."""
+    quant_mode = getattr(tts_config, "quant_t2s", False)
+    if quant_mode not in (False, True, "int8", "int4"):
+        raise ValueError(
+            f"quant_t2s must be False, True ('int8'), 'int8' or 'int4', "
+            f"got {quant_mode!r}")
+    if not quant_mode:
+        return tts_config.attn_impl
+    if tts_config.attn_impl != "fused_step":
+        raise ValueError(
+            f"quant_t2s={quant_mode!r} quantizes the whole-step kernels' weight stream: it "
+            f"needs attn_impl='fused_step', not {tts_config.attn_impl!r}")
+    return "fused_step_q4" if quant_mode == "int4" else "fused_step_q8"
+
+
 def get_hash_from_file(path: str) -> str:
     with open(path, "rb") as f:
         return hashlib.md5(f.read(8192)).hexdigest()
@@ -148,6 +170,7 @@ def remap_gpt_state_dict(weight: Dict[str, Any], n_layer: int) -> Dict[str, Any]
 
 def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
     gpt_path = str(gpt_path)
+    attn_impl = resolve_t2s_attn_impl(tts_config)
     if os.path.isdir(gpt_path):
         with open(_require(os.path.join(gpt_path, "config.json"))) as f:
             config = json.load(f)
@@ -161,7 +184,7 @@ def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
     params = t2s_model.params_from_torch_state_dict(
         weights, cfg, dtype=tts_config.dtype, device=tts_config.device)
     engine = T2SEngine(params, cfg, gpt_cache=tts_config.gpt_cache or [(1, 512), (1, 1024)],
-                       dtype=tts_config.dtype, attn_impl=tts_config.attn_impl)
+                       dtype=tts_config.dtype, attn_impl=attn_impl)
     return Gpt(engine, params, cfg, config)
 
 

@@ -21,6 +21,15 @@
   a layer stack; ``kv_len`` is a ``[1]`` tensor that stays on the device.
   Its first design, a chain of 194 launches, is bound as
   :func:`fused_decode_step_chain` for timing beside it; nothing calls it.
+* The quantized weight streams of K1 and K2 (the TPU kernels' ``quant`` /
+  ``quant4`` modes): :func:`pack_layer_weights_int8` / ``_int4`` quantize
+  each layer's four matrices per lane (one float32 scale per output channel
+  of qkv, out and mlp1, per contracted channel of mlp2), and the wrappers
+  given ``quant="int8"`` or ``"int4"`` stream those pages instead of the
+  bf16 matrices (``k1_decode_step_quant`` / ``k2_decode_step_batched_quant``
+  entries of the same sources; the table built with ``quant=`` holds them).
+  Their launches count in ``.launches_q8`` / ``.launches_q4``, the bf16
+  kernels' in ``.launches``.
 
 On CUDA tensors the wrappers launch the hand-written Hopper kernels (built
 with ``nvcc`` at first use); on CPU tensors they run the plain PyTorch twins
@@ -72,6 +81,89 @@ K5_LIBRARY = ("gsv_k5", ["k5_decode_layers.cu"])
 
 _LAYER_FIELDS = ("qkv_w", "qkv_b", "out_w", "out_b", "mlp1_w", "mlp1_b",
                  "mlp2_w", "mlp2_b", "ln1_g", "ln1_b", "ln2_g", "ln2_b")
+#: the quantized streams: where the engine keeps a parameter set's packed
+#: layers, the kernels' weight format, the launch counter, the largest value
+QUANT_KEYS = {"int8": "layers_q8", "int4": "layers_q4"}
+_WQ = {"int8": 1, "int4": 2}
+_LAUNCHES = {None: "launches", "int8": "launches_q8", "int4": "launches_q4"}
+_QMAX = {"int8": 127.0, "int4": 7.0}
+#: the four matrices of a quantized layer and the axis their scale reduces:
+#: a lane is a row (output channel) of qkv, out and mlp1 and a column
+#: (contracted channel) of mlp2, as in the TPU kernels' packed layout
+_QUANT_MATS = (("qkv", 1), ("out", 1), ("mlp1", 1), ("mlp2", 0))
+
+
+# ---------------------------------------------------------------------------
+# Quantized weight pages
+# ---------------------------------------------------------------------------
+
+def _quantize(w: torch.Tensor, qmax: float, axis: int):
+    """Symmetric per-lane quantization of ``w``, in float32 from the model
+    dtype: ``s = max|w| over axis / qmax`` (1 where that is 0) and ``q =
+    clip(round(w / s), ±qmax)`` (half to even).  Returns (q int8, s)."""
+    w = w.float()
+    s = w.abs().amax(dim=axis) / qmax
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.clamp(torch.round(w / s.unsqueeze(axis)), -qmax, qmax).to(torch.int8)
+    return q, s
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values [N, K] (K even) → bytes [N, K/2] (uint8): element ``2i``
+    in the low nibble of byte ``i``, ``2i + 1`` in the high one (the order
+    the kernels read along K; the TPU kernels' pairing of lane ``j`` with
+    ``j + N/2`` is a TPU layout)."""
+    q = q.to(torch.int32)
+    return ((q[:, 0::2] & 15) | ((q[:, 1::2] & 15) << 4)).to(torch.uint8)
+
+
+def unpack_int4(b: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_int4`'s bytes [N, K/2] → int8 values [N, K]."""
+    b = b.to(torch.int32)
+    lo, hi = ((b & 15) ^ 8) - 8, ((b >> 4) ^ 8) - 8
+    return torch.stack([lo, hi], dim=-1).reshape(b.shape[0], -1).to(torch.int8)
+
+
+def _pack_layers(layers, quant: str):
+    qmax = _QMAX[quant]
+    out = []
+    for lp in layers:
+        ql = {}
+        for name, axis in _QUANT_MATS:
+            q, s = _quantize(lp[name + "_w"], qmax, axis)
+            ql[name + "_q"] = pack_int4(q) if quant == "int4" else q
+            ql[name + "_s"] = s
+        out.append(ql)
+    return out
+
+
+def pack_layer_weights_int8(layers):
+    """Per-lane int8 quantization of each layer's four matrices (JAX
+    ``pack_layer_weights_int8``'s values and scales in the port's layout):
+    a list of per-layer dicts of ``qkv_q`` [3D, D], ``out_q`` [D, D],
+    ``mlp1_q`` [M, D], ``mlp2_q`` [D, M] int8 and their float32 scales
+    ``qkv_s`` [3D], ``out_s`` [D], ``mlp1_s`` [M] (rows) and ``mlp2_s`` [M]
+    (columns), so that ``w ≈ q * s`` along each lane."""
+    return _pack_layers(layers, "int8")
+
+
+def pack_layer_weights_int4(layers):
+    """As :func:`pack_layer_weights_int8` with int4 values (``s = max|w| /
+    7``), two to a byte along K (:func:`pack_int4`): ``qkv_q`` [3D, D/2],
+    ``out_q`` [D, D/2], ``mlp1_q`` [M, D/2], ``mlp2_q`` [D, M/2] uint8."""
+    return _pack_layers(layers, "int4")
+
+
+def quant_layers(params, quant: str):
+    """The packed layers of ``params`` for ``quant`` (``"int8"`` /
+    ``"int4"``): the ones the owner keeps under :data:`QUANT_KEYS`, else
+    packed now."""
+    if quant not in QUANT_KEYS:
+        raise ValueError(f"quant {quant!r}: expected one of {tuple(QUANT_KEYS)}")
+    packed = params.get(QUANT_KEYS[quant])
+    if packed is None:
+        packed = _pack_layers(params["layers"], quant)
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -134,12 +226,17 @@ def filter_row_ref(logits: torch.Tensor, tok_buf: torch.Tensor, buf_len, suppres
     return row
 
 
-def decode_layers_ref(x, layers, k_cache, v_cache, kv, first_layer: int = 0):
+def decode_layers_ref(x, layers, k_cache, v_cache, kv, first_layer: int = 0, qlayers=None):
     """The twins' layer loop: float32 ``x`` [B, D] through ``layers`` (a list
     of per-layer dicts, applied to cache layers ``first_layer`` onwards).
     Each slot's K/V row is written in place at ``kv[b]`` ([B] int64);
     attention runs over the cache rows below it plus the token's own float32
-    K/V.  Returns the final hidden [B, D] in float32."""
+    K/V.  With ``qlayers`` (:func:`pack_layer_weights_int8` / ``_int4``'s
+    list) the four products read the packed values, the inputs rounded to
+    the model dtype, and the scales enter as the quantized kernels apply
+    them: on the sums of qkv, out and mlp1 before residual and bias, and
+    mlp2's on the ReLU'd activation in float32.  Returns the final hidden
+    [B, D] in float32."""
     _, B, S, H, Dh = k_cache.shape
     D = H * Dh
     cd = k_cache.dtype
@@ -148,7 +245,19 @@ def decode_layers_ref(x, layers, k_cache, v_cache, kv, first_layer: int = 0):
     bidx = torch.arange(B, device=dev)
     below = (torch.arange(S, device=dev)[None, :] < kv[:, None])[:, :, None]  # [B, S, 1]
     for i, lp in enumerate(layers, first_layer):
-        qkv = _mm(x, lp["qkv_w"]) + lp["qkv_b"].float()
+        ql = None if qlayers is None else qlayers[i - first_layer]
+
+        def prod(v, name):
+            """``v`` times the layer's matrix ``name`` (on the pages: scaled per
+            output lane; mlp2's scale is on ``v``)."""
+            if ql is None:
+                return _mm(v, lp[name + "_w"])
+            q = ql[name + "_q"]
+            q = unpack_int4(q) if q.dtype == torch.uint8 else q
+            y = F.linear(v.to(lp[name + "_w"].dtype).float(), q.float())
+            return y if name == "mlp2" else y * ql[name + "_s"]
+
+        qkv = prod(x, "qkv") + lp["qkv_b"].float()
         q, k_new, v_new = (t.reshape(B, H, Dh) for t in qkv.split(D, dim=-1))
         k_cache[i, bidx, kv] = k_new.to(cd)
         v_cache[i, bidx, kv] = v_new.to(cd)
@@ -157,20 +266,23 @@ def decode_layers_ref(x, layers, k_cache, v_cache, kv, first_layer: int = 0):
         p = torch.softmax(scores, dim=1)
         attn = ((p[:, :S, :, None] * v_cache[i].float()).sum(1)
                 + p[:, S, :, None] * v_new).reshape(B, D)
-        h = x + _mm(attn, lp["out_w"]) + lp["out_b"].float()
+        h = x + prod(attn, "out") + lp["out_b"].float()
         h = layer_norm(h, lp["ln1_g"], lp["ln1_b"])
-        m1 = torch.relu(_mm(h, lp["mlp1_w"]) + lp["mlp1_b"].float())
-        h2 = h + _mm(m1, lp["mlp2_w"]) + lp["mlp2_b"].float()
+        m1 = torch.relu(prod(h, "mlp1") + lp["mlp1_b"].float())
+        if ql is not None:  # mlp2's lane is its contracted channel
+            m1 = m1 * ql["mlp2_s"]
+        h2 = h + prod(m1, "mlp2") + lp["mlp2_b"].float()
         x = layer_norm(h2, lp["ln2_g"], lp["ln2_b"])
     return x
 
 
-def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
+def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok, quant=None):
     """The twins' model half for B slots: embedding with the positional
     entry ``max(kv_len - x_len, 0)`` (the clamp serves frozen slots, whose
-    ``kv_len < x_len``), every layer (:func:`decode_layers_ref`) and the
-    head.  ``kv_len``/``x_len``: host ints (B=1) or [B] tensors.  Returns
-    (final hidden [B, D], logits [B, V]), both float32."""
+    ``kv_len < x_len``), every layer (:func:`decode_layers_ref`, on the
+    ``quant`` pages when given) and the head.  ``kv_len``/``x_len``: host
+    ints (B=1) or [B] tensors.  Returns (final hidden [B, D], logits [B, V]),
+    both float32."""
     B = k_cache.shape[1]
     cd = k_cache.dtype
     dev = k_cache.device
@@ -178,7 +290,8 @@ def decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok):
     pe_idx = (kv - _as_counter(x_len, B, dev)).clamp_min(0)
     emb = params["audio_emb"][last_tok.long()].to(cd)
     pe_q = (params["audio_pos_alpha"].float() * params["pe"][pe_idx].float()).to(cd)
-    x = decode_layers_ref((emb + pe_q).float(), params["layers"], k_cache, v_cache, kv)
+    x = decode_layers_ref((emb + pe_q).float(), params["layers"], k_cache, v_cache, kv,
+                          qlayers=quant_layers(params, quant) if quant else None)
     return x, _mm(x, params["predict_w"])
 
 
@@ -194,15 +307,16 @@ def fused_decode_step_ref(x, layers, k_cache, v_cache, kv_len):
 def fused_decode_step_sample_batched_ref(params, k_cache, v_cache, tok_buf, kv_len, x_len,
                                          last_tok, buf_len, step_idx, gumbel, *, sa,
                                          suppress_until: int = 0, suppressed=(),
-                                         tok_out=None, row_out=None):
+                                         tok_out=None, row_out=None, quant=None):
     """Plain PyTorch twin of both kernels (same effects): each slot's K/V
     row is written at ``kv_len[b]`` and its token at
     ``tok_buf[b, buf_len[b]]`` in place.  Counters are host ints (B=1) or
-    [B] tensors.  Returns ``(tok [B] int32, row [B, V] float32, k_cache,
-    v_cache)``."""
+    [B] tensors.  ``quant`` (``"int8"`` / ``"int4"``): the layers on their
+    quantized pages (:func:`quant_layers`).  Returns ``(tok [B] int32, row
+    [B, V] float32, k_cache, v_cache)``."""
     B, S = tok_buf.shape
     dev = tok_buf.device
-    _, logits = decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok)
+    _, logits = decode_hidden_ref(params, k_cache, v_cache, kv_len, x_len, last_tok, quant)
     sup = tuple(suppressed) if suppress_until else ()
     row = filter_row_ref(logits, tok_buf, buf_len,
                           _as_counter(step_idx, B, dev) < suppress_until, sup, sa)
@@ -231,6 +345,10 @@ class _LayerWeights(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _LAYER_FIELDS]
 
 
+class _QuantScales(ctypes.Structure):  # csrc PsQuantScales
+    _fields_ = [(n, ctypes.c_void_p) for n, _ in _QUANT_MATS]
+
+
 _SAMPLE_FIELDS = ([("n_suppressed", ctypes.c_int),
                    ("suppressed", ctypes.c_int * MAX_SUPPRESSED), ("use_prev", ctypes.c_int)]
                   + [(n, ctypes.c_float) for n in ("rep_penalty", "top_p", "inv_temperature")]
@@ -257,6 +375,7 @@ class _K1Args(ctypes.Structure):
                                           "v_cache", "tok_buf", "last_tok", "gumbel")]
         + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress")]
         + _SAMPLE_FIELDS + _WORK_FIELDS + [("kv_word", ctypes.c_void_p)] + _PERSISTENT_FIELDS
+        + [("scales", ctypes.c_void_p)]
     )
 
 
@@ -268,7 +387,7 @@ class _K2Args(ctypes.Structure):
                                           "v_cache", "tok_buf", "kv_len", "x_len",
                                           "last_tok", "buf_len", "step_idx", "gumbel")]
         + [("suppress_until", ctypes.c_int)]
-        + _SAMPLE_FIELDS + _WORK_FIELDS + _PERSISTENT_FIELDS
+        + _SAMPLE_FIELDS + _WORK_FIELDS + _PERSISTENT_FIELDS + [("scales", ctypes.c_void_p)]
     )
 
 
@@ -283,9 +402,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.c_void_p]
     lib.k1_decode_step_chain.argtypes = [ctypes.POINTER(_K1Args),
                                          ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
+    lib.k1_decode_step_quant.argtypes = [ctypes.POINTER(_K1Args), ctypes.c_int, ctypes.c_void_p]
     lib.k1_barrier_loop.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p]
-    for fn in (lib.k1_decode_step, lib.k1_decode_step_chain, lib.k1_barrier_loop):
+    for fn in (lib.k1_decode_step, lib.k1_decode_step_chain, lib.k1_decode_step_quant,
+               lib.k1_barrier_loop):
         fn.restype = ctypes.c_int
     return lib
 
@@ -297,7 +418,10 @@ def load_batched_kernels() -> ctypes.CDLL:
     lib.k2_decode_step_batched.argtypes = [ctypes.POINTER(_K2Args), ctypes.c_void_p]
     lib.k2_decode_step_batched_chain.argtypes = [ctypes.POINTER(_K2Args),
                                                  ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
-    for fn in (lib.k2_decode_step_batched, lib.k2_decode_step_batched_chain):
+    lib.k2_decode_step_batched_quant.argtypes = [ctypes.POINTER(_K2Args), ctypes.c_int,
+                                                 ctypes.c_void_p]
+    for fn in (lib.k2_decode_step_batched, lib.k2_decode_step_batched_chain,
+               lib.k2_decode_step_batched_quant):
         fn.restype = ctypes.c_int
     return lib
 
@@ -353,6 +477,11 @@ def check(dev) -> None:
         raise RuntimeError("t2s kernel: " + ", ".join(what))
 
 
+def _device_bytes(struct_array, dev) -> torch.Tensor:
+    """A ctypes array's bytes copied to ``dev``."""
+    return torch.frombuffer(bytearray(bytes(struct_array)), dtype=torch.uint8).to(dev)
+
+
 class LayerTable:
     """What the layer kernels (K1, K2, K5, K6) read besides the per-step
     tensors: a table of the layers' weight pointers (on the host for the
@@ -398,8 +527,7 @@ class LayerTable:
         # the older launch's value) and the layer that wrote the value; and
         # the counter of the grid barrier between a wave's phases (it only
         # grows)
-        self.layers_dev = torch.frombuffer(bytearray(bytes(self.layers)),
-                                           dtype=torch.uint8).to(self.device)
+        self.layers_dev = _device_bytes(self.layers, self.device)
         self.tagged = torch.zeros((6 * D + M, 2), dtype=torch.int32, device=self.device)
         self.epoch = 0
         self.bar = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -465,9 +593,12 @@ class K1Table(LayerTable):
     """The layer table plus what the whole-step kernels (K1 and K2) read
     around the layers: embedding, positional table and head.  Build it once
     per parameter set (the engine keeps it under ``params["k1_table"]``); it
-    holds the parameters alive."""
+    holds the parameters alive.  Built with ``quant="int8"`` / ``"int4"`` it
+    also holds that stream's pages and scales (:func:`quant_layers`) and a
+    second device table pointing the four matrices at them; the bf16 weights
+    stay, for the launches that stream them."""
 
-    def __init__(self, params):
+    def __init__(self, params, quant=None):
         pw = params["predict_w"]
         _need(pw.device.type == "cuda", "K1Table needs CUDA parameters")
         super().__init__(params["layers"])
@@ -484,10 +615,42 @@ class K1Table(LayerTable):
         # K1's kv_len is a host int; the chain's layer kernels read it from this word
         self.kv_word = torch.zeros(1, dtype=torch.int32, device=self.device)
         self.params = params
+        self.quant = quant
+        if quant is not None:
+            self._add_quant(quant, quant_layers(params, quant))
 
-    def fill(self, a, sa, sup):
+    def _add_quant(self, quant, qlayers):
+        D, M = self.D, self.M
+        _need(D % 32 == 0 and M % 32 == 0,
+              f"D={D} and M={M} must be multiples of 32 for a quantized stream (its int4 rows "
+              f"are whole 16-byte runs)")
+        _need(len(qlayers) == self.L, f"{len(qlayers)} packed layers for {self.L}")
+        per, qd = (2, torch.uint8) if quant == "int4" else (1, torch.int8)
+        shapes = {"qkv": (3 * D, D), "out": (D, D), "mlp1": (M, D), "mlp2": (D, M)}
+        lanes = {"qkv": 3 * D, "out": D, "mlp1": M, "mlp2": M}
+        entries, scales = [], []
+        for w, ql in zip(self.layers, qlayers):
+            e = _LayerWeights.from_buffer_copy(bytes(w))
+            sc = _QuantScales()
+            for name, _ in _QUANT_MATS:
+                n, k = shapes[name]
+                setattr(e, name + "_w", self.ptr(ql[name + "_q"], (n, k // per), qd))
+                setattr(sc, name, self.ptr(ql[name + "_s"], (lanes[name],), torch.float32))
+            entries.append(e)
+            scales.append(sc)
+        self.layers_dev_q = _device_bytes((_LayerWeights * self.L)(*entries), self.device)
+        self.scales_dev = _device_bytes((_QuantScales * self.L)(*scales), self.device)
+        self.qlayers = qlayers
+
+    def check_quant(self, quant):
+        _need(quant is None or quant in QUANT_KEYS, f"quant {quant!r}")
+        _need(quant is None or quant == self.quant,
+              f"the table holds no {quant} pages (built with quant={self.quant!r})")
+
+    def fill(self, a, sa, sup, quant=None):
         """The fields both whole-step argument structs share: widths,
-        weights and the sampling settings."""
+        weights (the ``quant`` pages' table when given) and the sampling
+        settings."""
         a.L, a.D, a.M, a.V, a.P = self.L, self.D, self.M, self.V, self.P
         a.alpha = self.alpha
         a.audio_emb, a.pe, a.predict_w = self.audio_emb, self.pe, self.predict_w
@@ -500,6 +663,8 @@ class K1Table(LayerTable):
         a.inv_temperature = 1.0 / max(sa.temperature, 1e-5)
         a.top_k = sa.top_k
         self.persistent(a)
+        if quant is not None:
+            a.layers_dev, a.scales = self.layers_dev_q.data_ptr(), self.scales_dev.data_ptr()
 
 
 def _check_step_args(params, k_cache, v_cache, tok_buf, gumbel, sa, suppress_until, suppressed):
@@ -540,7 +705,7 @@ def _launch(entry, what: str, a, dev, *table_layers):
 
 
 def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx,
-             gumbel, sa, suppress_until, suppressed, tok_out, row_out):
+             gumbel, sa, suppress_until, suppressed, tok_out, row_out, quant=None):
     """Check K1's arguments; on the CPU return None, else the filled argument
     struct with its table and outputs ``(a, table, tok_out, row_out)``."""
     L, B, S, H, Dh = k_cache.shape
@@ -557,7 +722,8 @@ def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
 
     table = params.get("k1_table")
     if table is None:
-        table = K1Table(params)
+        table = K1Table(params, quant)
+    table.check_quant(quant)
     table.check_persistent(tagged=True)
     if tok_out is None:
         tok_out = torch.empty(1, dtype=torch.int32, device=dev)
@@ -572,7 +738,7 @@ def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
           and tuple(row_out.shape) == (1, V), "last_tok/tok_out/row_out shapes")
 
     a = _K1Args()
-    table.fill(a, sa, sup)
+    table.fill(a, sa, sup, quant)
     a.H, a.S = H, S
     a.attn_scale = 1.0 / math.sqrt(Dh)
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
@@ -585,10 +751,15 @@ def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
     return a, table, tok_out, row_out
 
 
+def _count(wrapper, quant):
+    name = _LAUNCHES[quant]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
 def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
                              x_len: int, last_tok, buf_len: int, step_idx: int,
                              gumbel, *, sa, suppress_until: int = 0,
-                             suppressed=(), tok_out=None, row_out=None):
+                             suppressed=(), tok_out=None, row_out=None, quant=None):
     """K1: one full decode step at B=1.
 
     ``k_cache``/``v_cache`` [L, 1, S, H, Dh] (updated in place at row
@@ -596,18 +767,24 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     ``last_tok`` [1] int32 on the device; ``gumbel`` [1, V] float32 noise;
     ``kv_len``/``x_len``/``buf_len``/``step_idx`` host ints.  ``tok_out``
     [1] int32 / ``row_out`` [1, V] float32 receive the results when given.
-    Returns ``(tok, row, k_cache, v_cache)``.
+    ``quant`` (``"int8"`` / ``"int4"``): the layers stream their quantized
+    pages (on the card the table must hold them: ``K1Table(params,
+    quant)``).  Returns ``(tok, row, k_cache, v_cache)``.
     """
     prepared = _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
-                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out)
+                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out, quant)
     if prepared is None:
         return fused_decode_step_sample_ref(
             params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
             step_idx, gumbel, sa=sa, suppress_until=suppress_until,
-            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+            suppressed=suppressed, tok_out=tok_out, row_out=row_out, quant=quant)
     a, _, tok_out, row_out = prepared
-    _launch(load_kernels().k1_decode_step, "K1", a, k_cache.device)
-    fused_decode_step_sample.launches += 1
+    lib = load_kernels()
+    if quant is None:
+        _launch(lib.k1_decode_step, "K1", a, k_cache.device)
+    else:
+        _launch(lib.k1_decode_step_quant, f"K1 {quant}", a, k_cache.device, _WQ[quant])
+    _count(fused_decode_step_sample, quant)
     return tok_out, row_out, k_cache, v_cache
 
 
@@ -628,7 +805,7 @@ def fused_decode_step_sample_chain(params, k_cache, v_cache, tok_buf, kv_len: in
 
 
 def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx,
-             gumbel, sa, suppress_until, suppressed, tok_out, row_out):
+             gumbel, sa, suppress_until, suppressed, tok_out, row_out, quant=None):
     """Check K2's arguments; on the CPU return None, else the filled argument
     struct with its table and outputs ``(a, table, tok_out, row_out)``."""
     L, B, S, H, Dh = k_cache.shape
@@ -649,7 +826,8 @@ def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
 
     table = params.get("k1_table")
     if table is None:
-        table = K1Table(params)
+        table = K1Table(params, quant)
+    table.check_quant(quant)
     _need(2 * B * max(table.D, table.M) <= GEMV_SMEM,
           f"{B} activation rows of {max(table.D, table.M)} bf16 exceed {GEMV_SMEM} bytes")
     table.check_persistent(tagged=False)
@@ -666,7 +844,7 @@ def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
           "tok_out/row_out shapes")
 
     a = _K2Args()
-    table.fill(a, sa, sup)
+    table.fill(a, sa, sup, quant)
     a.B, a.H, a.S = B, H, S
     a.attn_scale = 1.0 / math.sqrt(Dh)
     a.k_cache, a.v_cache = k_cache.data_ptr(), v_cache.data_ptr()
@@ -682,7 +860,7 @@ def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
 def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, x_len,
                                      last_tok, buf_len, step_idx, gumbel, *, sa,
                                      suppress_until: int = 0, suppressed=(),
-                                     tok_out=None, row_out=None):
+                                     tok_out=None, row_out=None, quant=None):
     """K2: one full decode step for a wave of ``B <= MAX_FUSED_B`` slots.
 
     ``k_cache``/``v_cache`` [L, B, S, H, Dh] (slot b updated in place at row
@@ -692,19 +870,23 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     ``gumbel`` [B, V] float32 noise.  A frozen slot (``kv_len < x_len``)
     takes positional entry 0; slot b is suppressed while ``step_idx[b] <
     suppress_until``.  ``tok_out`` [B] int32 / ``row_out`` [B, V] float32
-    receive the results when given.  Returns ``(tok, row, k_cache,
-    v_cache)``.
+    receive the results when given.  ``quant``: as K1's.  Returns ``(tok,
+    row, k_cache, v_cache)``.
     """
     prepared = _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
-                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out)
+                        step_idx, gumbel, sa, suppress_until, suppressed, tok_out, row_out, quant)
     if prepared is None:
         return fused_decode_step_sample_batched_ref(
             params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len,
             step_idx, gumbel, sa=sa, suppress_until=suppress_until,
-            suppressed=suppressed, tok_out=tok_out, row_out=row_out)
+            suppressed=suppressed, tok_out=tok_out, row_out=row_out, quant=quant)
     a, _, tok_out, row_out = prepared
-    _launch(load_batched_kernels().k2_decode_step_batched, "K2", a, k_cache.device)
-    fused_decode_step_sample_batched.launches += 1
+    lib = load_batched_kernels()
+    if quant is None:
+        _launch(lib.k2_decode_step_batched, "K2", a, k_cache.device)
+    else:
+        _launch(lib.k2_decode_step_batched_quant, f"K2 {quant}", a, k_cache.device, _WQ[quant])
+    _count(fused_decode_step_sample_batched, quant)
     return tok_out, row_out, k_cache, v_cache
 
 
@@ -827,7 +1009,9 @@ def fused_decode_step_chain(x, layers, k_cache, v_cache, kv_len, *, table=None):
     return out, k_cache, v_cache
 
 
-#: kernel launches (whole steps) since the last reset; the twins never count
-fused_decode_step_sample.launches = 0
-fused_decode_step_sample_batched.launches = 0
+#: kernel launches (whole steps) since the last reset, the quantized streams'
+#: apart; the twins never count
+for _fn in (fused_decode_step_sample, fused_decode_step_sample_batched):
+    for _name in _LAUNCHES.values():
+        setattr(_fn, _name, 0)
 fused_decode_step.launches = 0

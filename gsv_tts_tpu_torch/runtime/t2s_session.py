@@ -18,7 +18,13 @@ twins on the CPU), as in the JAX engine:
 * ``"flash"``: the prefill's attention is K4 (``ops/flash_prefill.py``) and
   every wave, B=1 included, decodes through the generic step with K3b;
 * ``"fused"``: plain prefill attention; the generic step with K6, one
-  whole-layer call per layer (``ops/fused_layer.py``).
+  whole-layer call per layer (``ops/fused_layer.py``);
+* ``"fused_step_q8"`` / ``"fused_step_q4"``: ``"fused_step"`` with the t2s
+  layers' weights streamed as int8 / int4 pages (packed once, at
+  construction) by K1 and by K2 for waves of 2..``MAX_QUANT_B`` slots, as the
+  JAX engine's quantized kernels are; the prefill, waves of 7..8 slots
+  (the bf16 K2: JAX's generic step on the unquantized weights computes the
+  same function) and larger waves (the generic step) use the bf16 weights.
 
 The per-slot counters (``kv_len``, ``x_len``, ``buf_len``, ``last_tok``,
 ``step_idx``) are ``[B]`` int32 tensors on the device; the kernels read
@@ -53,26 +59,39 @@ import torch
 from ..models import t2s as t2s_model
 from ..models.t2s import ATTN_IMPLS, T2SConfig
 from ..ops import flash_decode, sampling
-from ..ops.fused_step import (MAX_FUSED_B, K1Table, fused_decode_step_sample,
-                              fused_decode_step_sample_batched)
+from ..ops.fused_step import (MAX_FUSED_B, QUANT_KEYS, K1Table, fused_decode_step_sample,
+                              fused_decode_step_sample_batched, quant_layers)
 
 PAD_MULTIPLE = 32
 CHECK_INTERVAL = 5  # decode steps per dispatch: the host checks EOS this often
 INITIAL_SUPPRESSION_STEPS = 10  # steps during which 280, 486 and EOS are barred
 I32 = torch.int32
+#: the engine's quantized whole-step names and the weight stream each takes
+QUANT_IMPLS = {"fused_step_q8": "int8", "fused_step_q4": "int4"}
+#: the largest wave the quantized K2 takes (the JAX engine's ``max_fused_b``
+#: under the per-row softmax); waves of 7..8 run the bf16 K2
+MAX_QUANT_B = 6
 
 
 def resolve_attn_impl(attn_impl: str) -> str:
     """Validate an engine ``attn_impl`` name at construction (the JAX
-    ``loader.resolve_t2s_attn_impl``); the q8/q4 modes of K1/K2 are not
-    ported."""
-    if attn_impl in ("fused_step_q8", "fused_step_q4"):
-        raise NotImplementedError(
-            f"attn_impl {attn_impl!r}: the quantised whole-step kernels are not ported yet "
-            "(ROADMAP Queue 1: q8/q4)")
-    if attn_impl not in ATTN_IMPLS:
-        raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
+    ``loader.resolve_t2s_attn_impl``)."""
+    if attn_impl not in ATTN_IMPLS + tuple(QUANT_IMPLS):
+        raise ValueError(f"attn_impl {attn_impl!r}: expected one of "
+                         f"{ATTN_IMPLS + tuple(QUANT_IMPLS)}")
     return attn_impl
+
+
+def step_path(attn_impl: str, B: int) -> str:
+    """The kernel a decode step of a ``B``-slot wave takes under
+    ``attn_impl``: ``"k1"`` / ``"k2"`` (bf16 weights), ``"k1q"`` / ``"k2q"``
+    (a quantized stream) or ``"generic"``."""
+    quant = attn_impl in QUANT_IMPLS
+    if attn_impl != "fused_step" and not quant or B > MAX_FUSED_B:
+        return "generic"
+    if B == 1:
+        return "k1q" if quant else "k1"
+    return "k2q" if quant and B <= MAX_QUANT_B else "k2"
 
 
 def _prefill_impl(attn_impl: str) -> str:
@@ -374,11 +393,13 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
     """Generate ``n_steps`` tokens per slot (the caches, ``tok_buf`` and the
     counters are updated in place).  Under ``"fused_step"``: one K1 call per
     step at B=1, one K2 call per step for 2..``MAX_FUSED_B`` slots, the
-    generic step with K3b above.  Under ``"flash"`` the generic step with
-    K3b, under ``"fused"`` the generic step with K6, at every B.  Every slot
-    advances, dead ones too.  ``gumbel`` [n_steps, B, V] float32.  Returns
-    ``(state, toks [B, n_steps] int32)`` with ``toks`` on the device (no
-    host synchronisation here except K1's one counter readback)."""
+    generic step with K3b above; ``"fused_step_q8"`` / ``"_q4"`` the same,
+    K1 and K2 up to ``MAX_QUANT_B`` slots on the quantized pages
+    (:func:`step_path`).  Under ``"flash"`` the generic step with K3b, under
+    ``"fused"`` the generic step with K6, at every B.  Every slot advances,
+    dead ones too.  ``gumbel`` [n_steps, B, V] float32.  Returns ``(state,
+    toks [B, n_steps] int32)`` with ``toks`` on the device (no host
+    synchronisation here except K1's one counter readback)."""
     dev = state.k_cache.device
     B, S = state.tok_buf.shape
     V = cfg.vocab_size
@@ -386,8 +407,9 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
         raise ValueError(f"gumbel {tuple(gumbel.shape)} is not ({n_steps}, {B}, {V})")
     toks = torch.empty((n_steps, B), dtype=I32, device=dev)
     suppressed = cfg.suppressed_tokens + (cfg.eos,)
-    whole_step = attn_impl == "fused_step"
-    if whole_step and B == 1:
+    path = step_path(attn_impl, B)
+    quant = QUANT_IMPLS.get(attn_impl) if path in ("k1q", "k2q") else None
+    if path in ("k1", "k1q"):
         kv_len, x_len, buf_len, step_idx = torch.stack(
             [state.kv_len, state.x_len, state.buf_len, state.step_idx]).flatten().tolist()
         if kv_len + n_steps > S:
@@ -398,12 +420,12 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
                 params, state.k_cache, state.v_cache, state.tok_buf, kv_len + i, x_len,
                 state.last_tok, buf_len + i, step_idx + i, gumbel[i], sa=sa,
                 suppress_until=suppress_until, suppressed=suppressed, tok_out=toks[i],
-                row_out=row)
+                row_out=row, quant=quant)
             state.last_tok = toks[i]
         for t in (state.kv_len, state.buf_len, state.step_idx):
             t += n_steps
         return state, toks.T
-    fused = whole_step and B <= MAX_FUSED_B
+    fused = path in ("k2", "k2q")
     if fused:
         row = torch.empty((B, V), dtype=torch.float32, device=dev)
     for i in range(n_steps):
@@ -412,11 +434,11 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
                 params, state.k_cache, state.v_cache, state.tok_buf, state.kv_len,
                 state.x_len, state.last_tok, state.buf_len, state.step_idx, gumbel[i],
                 sa=sa, suppress_until=suppress_until, suppressed=suppressed,
-                tok_out=toks[i], row_out=row)
+                tok_out=toks[i], row_out=row, quant=quant)
         else:
             # (a wave above K2's limit: "fused_step" degrades to "flash" at B > 1)
             _generic_step(params, cfg, state, gumbel[i], sa, suppress_until, dtype, toks[i],
-                          attn_impl)
+                          "fused_step" if attn_impl in QUANT_IMPLS else attn_impl)
         state.last_tok = toks[i]
         for t in (state.kv_len, state.buf_len, state.step_idx):
             t += 1
@@ -440,9 +462,13 @@ class T2SEngine:
         # observability counters of the batched path
         self.compactions = 0
         self.refills = 0
+        #: the quantized weight stream of K1 / K2, or None
+        self.quant = QUANT_IMPLS.get(self.attn_impl)
+        if self.quant is not None:  # packed once, from the model-dtype weights
+            self.params = dict(params, **{QUANT_KEYS[self.quant]: quant_layers(params, self.quant)})
         if self.device.type == "cuda":
             # the kernels' pointer table and workspace, built once
-            self.params = dict(params, k1_table=K1Table(params))
+            self.params = dict(self.params, k1_table=K1Table(self.params, self.quant))
         self.buckets: Dict[int, List[int]] = {}
         for b, s in gpt_cache:
             self.buckets.setdefault(b, [])
@@ -816,7 +842,8 @@ class T2SEngine:
         # decode steps in all and by the path that took them (the wave's size
         # changes with compaction), and steps x slots
         stats = {"prefill_s": time.perf_counter() - t_start, "decode_steps": 0,
-                 "slot_steps": 0, "k1_steps": 0, "k2_steps": 0, "generic_steps": 0}
+                 "slot_steps": 0, "k1_steps": 0, "k2_steps": 0, "k1q_steps": 0,
+                 "k2q_steps": 0, "generic_steps": 0}
         t_decode = time.perf_counter()
 
         # the reference's decode loop checks at GLOBAL steps 1, 6, 11, ...
@@ -838,8 +865,7 @@ class T2SEngine:
             self._check_kernels()
             stats["decode_steps"] += n_steps
             stats["slot_steps"] += n_steps * B
-            stats["generic_steps" if self.attn_impl != "fused_step" or B > MAX_FUSED_B
-                  else "k1_steps" if B == 1 else "k2_steps"] += n_steps
+            stats[step_path(self.attn_impl, B) + "_steps"] += n_steps
             stats["decode_s"] = time.perf_counter() - t_decode
             self.last_stats = stats
             for j in range(B):

@@ -41,7 +41,7 @@ from . import dsp
 from .config import Config, global_config
 from .frontend.pause import pause_map
 from .frontend.text_processor import cut_text, get_phones_and_bert, sub2text_index
-from .loader import Gpt, Sovits, get_gpt_weights, get_sovits_weights
+from .loader import Gpt, Sovits, get_gpt_weights, get_sovits_weights, resolve_t2s_attn_impl
 from .models import sovits as sovits_model
 from .ops import stft
 from .player import AudioClip
@@ -250,8 +250,11 @@ class TTS:
     the engine runs on the card in bf16 and raises when there is none, unless
     the caller asks for ``device="cpu"`` (then f32).  ``seed`` seeds the explicit generator every
     random draw (Gumbel noise, SoVITS latent noise) comes from.
-    ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``).
-    ``sovits_cache`` lists the flow/vocoder frame buckets (empty: exact
+    ``attn_impl`` names the t2s engine's kernels (``Config.attn_impl``);
+    ``quant_t2s`` (``False``, ``True`` = ``"int8"``, ``"int8"``, ``"int4"``)
+    streams K1's and K2's layer weights quantized (``Config.quant_t2s``; with
+    an ``attn_impl`` other than ``"fused_step"`` it raises, as does any other
+    value).  ``sovits_cache`` lists the flow/vocoder frame buckets (empty: exact
     shapes); ``stream_vocoder`` is ``"bucketed"`` (the padded core, one CUDA
     graph per bucket on the card) or ``"exact"`` (the exact-shape core).
     The ERes2NetV2 speaker embedder (``models_dir/sv/``) is loaded the first
@@ -261,11 +264,14 @@ class TTS:
                  sovits_cache: List[int] = DEFAULT_SOVITS_CACHE,
                  models_dir: Optional[str] = None, device: Optional[str] = None,
                  dtype: Optional[str] = None, seed: Optional[int] = None,
-                 attn_impl: str = "fused_step", stream_vocoder: str = "bucketed"):
+                 attn_impl: str = "fused_step", stream_vocoder: str = "bucketed",
+                 quant_t2s=False):
         if stream_vocoder not in ("bucketed", "exact"):
             raise ValueError(f'stream_vocoder must be "bucketed" or "exact", not {stream_vocoder!r}')
         self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache),
-                                 sovits_cache=sorted(sovits_cache or []), attn_impl=attn_impl)
+                                 sovits_cache=sorted(sovits_cache or []), attn_impl=attn_impl,
+                                 quant_t2s=quant_t2s)
+        resolve_t2s_attn_impl(self.tts_config)  # a bad combination fails here, not at load
         self.stream_vocoder = stream_vocoder
         #: the padded SoVITS programs' CUDA graphs (counted in ``last_timings``)
         self.sovits_graphs = SovitsGraphs()
@@ -316,12 +322,16 @@ class TTS:
             logger.info("Loaded SoVITS model: %s", path)
 
     def unload_gpt_model(self, *model_paths):
+        """Drop each model: its weights, its kernels' table and, under
+        ``quant_t2s``, its packed pages, whose memory returns to the card."""
         for path in model_paths:
             if path in self.gpt_models:
                 del self.gpt_models[path]
                 logger.info("Unloaded GPT model: %s", path)
             else:
                 logger.warning("GPT model %s not found.", path)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def unload_sovits_model(self, *model_paths):
         """Drop each model, its ``ge`` from every speaker cache entry (the

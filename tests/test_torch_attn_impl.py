@@ -74,19 +74,26 @@ def _count_kernels(monkeypatch):
 
 
 def test_engine_accepts_the_three_names_and_rejects_the_rest(models):
-    from gsv_tts_tpu_torch.runtime.t2s_session import ATTN_IMPLS, T2SEngine
+    """The three names and the two quantized whole-step names construct an
+    engine (the quantized ones with their pages packed); any other name
+    raises."""
+    from gsv_tts_tpu_torch.ops.fused_step import QUANT_KEYS
+    from gsv_tts_tpu_torch.runtime.t2s_session import ATTN_IMPLS, QUANT_IMPLS, T2SEngine
 
     _, _, pcfg, pp = models
     assert ATTN_IMPLS == ("fused_step", "flash", "fused")
     assert T2SEngine(pp, pcfg, gpt_cache=[(1, 128)]).attn_impl == "fused_step"
     for name in ATTN_IMPLS:
         assert T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name).attn_impl == name
-    for name in ("xla", "flash_interpret", "fused_step:vec", ""):
+    for name in ("xla", "flash_interpret", "fused_step:vec", "", "fused_step_q8_interpret",
+                 "fused_step_q3", "fused_q8"):
         with pytest.raises(ValueError, match="attn_impl"):
             T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name)
-    for name in ("fused_step_q8", "fused_step_q4"):
-        with pytest.raises(NotImplementedError, match="q8/q4"):
-            T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name)
+    assert QUANT_IMPLS == {"fused_step_q8": "int8", "fused_step_q4": "int4"}
+    for name, quant in QUANT_IMPLS.items():
+        eng = T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name)
+        assert eng.attn_impl == name and eng.quant == quant
+        assert len(eng.params[QUANT_KEYS[quant]]) == pcfg.num_layers
 
 
 def test_config_attn_impl_reaches_the_engine(tmp_path):

@@ -837,6 +837,99 @@ def test_persistent_step_matches_twin_and_chain(cuda_device, width, S, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("B", [1, 2, 4, 6, 8])
+def test_quantized_step_matches_twin(cuda_device, quant, B):
+    """K1 and K2 on the int8 / int4 pages against the quantized twin: final
+    hidden rows, filtered rows and appended K/V rows within the bf16
+    tolerance, tokens where the twin's top-2 margin is clear of it; only row
+    ``kv_len[b]`` of a slot's cache changes; the launch counts in
+    ``launches_q8`` / ``launches_q4``; a table without the pages refuses."""
+    import functools
+
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
+
+    cfg, params, kc, vc, buf, st = _step_fixture(cuda_device, "small", B, 200)
+    V, tol = cfg.vocab_size, 2e-2
+    sup = cfg.suppressed_tokens + (cfg.eos,)
+    g = torch.zeros((B, V), device=cuda_device)
+    sa = SampleArgs(use_prev=B == 1)
+    fns = [functools.partial(f, quant=quant) for f in (
+        fused_step.fused_decode_step_sample, fused_step.fused_decode_step_sample_batched)]
+    with pytest.raises(ValueError, match=f"holds no {quant} pages"):
+        _run_step(*fns, params, kc, vc, buf, st, g, sa, sup)
+    params[fused_step.QUANT_KEYS[quant]] = fused_step.quant_layers(params, quant)
+    params["k1_table"] = fused_step.K1Table(params, quant)
+    wrapper = fused_step.fused_decode_step_sample if B == 1 else \
+        fused_step.fused_decode_step_sample_batched
+    name = {"int8": "launches_q8", "int4": "launches_q4"}[quant]
+    before = (getattr(wrapper, name), wrapper.launches)
+    tok, row, ka, va, ba, hid = _run_step(*fns, params, kc, vc, buf, st, g, sa, sup)
+    assert (getattr(wrapper, name), wrapper.launches) == (before[0] + 1, before[1])
+    kb, vb, bb = kc.clone(), vc.clone(), buf.clone()
+    rtok, rrow, _, _ = fused_step.fused_decode_step_sample_batched_ref(
+        params, kb, vb, bb, st["kv"], st["x"], st["last"], st["buf"], st["step"], g, sa=sa,
+        suppress_until=10, suppressed=sup, quant=quant)
+    rhid, _ = fused_step.decode_hidden_ref(params, kc.clone(), vc.clone(), st["kv"], st["x"],
+                                           st["last"], quant)
+    bhid, _ = fused_step.decode_hidden_ref(params, kc.clone(), vc.clone(), st["kv"], st["x"],
+                                           st["last"])
+    torch.testing.assert_close(hid, rhid, rtol=tol, atol=tol)
+    assert float((hid - bhid).abs().max()) > tol  # the pages, not the bf16 weights
+    keep = (row > -1e29) & (rrow > -1e29)
+    assert float((row - rrow)[keep].abs().max()) <= tol and bool(keep.any())
+    torch.testing.assert_close(ka.float(), kb.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(va.float(), vb.float(), rtol=tol, atol=tol)
+    for b, n in enumerate(st["kv_lens"]):
+        assert int(ba[b, int(st["buf"][b])]) == int(tok[b])
+        for a, orig in ((ka, kc), (va, vc)):
+            assert torch.equal(a[:, b, :n], orig[:, b, :n])
+            assert torch.equal(a[:, b, n + 1:], orig[:, b, n + 1:])
+    top2 = torch.topk(rrow, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    assert torch.equal(tok[clear], rtok[clear])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,path", [(1, "k1q"), (4, "k2q"), (7, "k2")])
+def test_engine_q4_on_cuda_counts_its_kernels(cuda_device, B, path):
+    """``decode_chunk`` under ``"fused_step_q4"`` on CUDA: the int4 K1 / K2
+    once a step up to six slots, the bf16 K2 at seven."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                             device=cuda_device)
+    eng = ts.T2SEngine(params, cfg, gpt_cache=[(B, 96)], dtype=torch.bfloat16,
+                       attn_impl="fused_step_q4")
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randint(1, 700, (B, 32), generator=gen, device=cuda_device)
+    y = torch.randint(0, 1024, (B, 32), generator=gen, device=cuda_device)
+    bert = torch.zeros((B, 32, cfg.bert_dim), device=cuda_device)
+    k, v = eng._alloc_cache(B, 96)
+    sa = ts.SampleArgs(use_prev=B == 1)
+    state, _ = ts.prefill_batch(eng.params, cfg, x, y, bert,
+                                torch.arange(10, 10 + B, device=cuda_device),
+                                torch.arange(5, 5 + B, device=cuda_device), k, v,
+                                gumbel_noise((B, 1025), gen, cuda_device), sa, False,
+                                torch.bfloat16)
+    wrapper = (fused_step.fused_decode_step_sample if B == 1
+               else fused_step.fused_decode_step_sample_batched)
+    before = (wrapper.launches_q4, wrapper.launches)
+    state, toks = ts.decode_chunk(eng.params, cfg, state, 5, sa,
+                                  gumbel_noise((5, B, 1025), gen, cuda_device), 0,
+                                  torch.bfloat16, eng.attn_impl)
+    eng._check_kernels()
+    want = (5, 0) if path.endswith("q") else (0, 5)
+    assert (wrapper.launches_q4 - before[0], wrapper.launches - before[1]) == want
+    assert toks.shape == (B, 5) and int(toks.min()) >= 0 and int(toks.max()) < 1025
+
+
+@pytest.mark.cuda
 def test_persistent_steps_of_two_tables_interleave_on_one_stream(cuda_device):
     """Two decodes, each on its own parameters and table, taking turns on
     one stream give what each gives alone (a table's workspace and barrier
