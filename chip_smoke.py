@@ -11,7 +11,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per library, all started together, from
-   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3, K4, K5, K6);
+   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3, K4, K5, K6, and the probes P1-P3);
 3. kernels, each against its plain PyTorch twin at the flagship t2s widths
    (L=24, D=512, H=16, M=2048, V=1025) in bf16:
    * K1 (whole B=1 decode step) and K2 (whole step for a wave of B slots,
@@ -119,7 +119,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    it compacts), one ``infer_stream``, ``TTS(quant_t2s="int4")``'s ``infer``
    and ``infer_batched`` of 4, and ``unload_gpt_model`` freeing at least the
    pages' bytes; every quantized
-   launch count equals the decode steps its path took.
+   launch count equals the decode steps its path took;
+9. the probes (``gsv_tts_tpu_torch/tools``, counterparts of the TPU probes
+   under ``tools/``), their path being each tool's entry: P1's and P2's
+   ``run_variant`` (the probe's input against its reference), P3's (a step
+   against its twin, then the 100-step chain from one CUDA graph) at the full
+   [24, 512, 6144] bf16 weight for every variant (the TPU tool's, and
+   ``k1ring``: K1's ring of 8 slots of 16 KB), xla and fori in turns;
+   launches counted there (a replayed step counts, a captured one does not).
+   Then P1 (both variants, at the probe's shape and
+   the flagship MLP-1's), P2 (four variants) and every P3 kernel variant
+   against their twins, with a call's time in turns with the twin and the
+   device's from CUDA graphs, and each P3 step alone on the device.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 kernels' JSON record and the card.  Nothing here imports JAX.
@@ -165,6 +176,7 @@ K4_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # the card's published peaks (NVIDIA H100 SXM data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # outside the tensor cores
 
 
 def fail(msg: str):
@@ -248,10 +260,11 @@ def weight_bytes(cfg) -> int:
     return 2 * (L * (4 * D * D + 2 * D * M) + V * D)
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak: float = BF16_FLOPS):
     """Least time (ms) the card could take: the larger of the bytes over the
-    memory rate and the operations over the bf16 peak, and which it is."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS
+    memory rate and the operations over ``peak`` (the bf16 tensor cores'
+    unless given), and which it is."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return 1000 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -2609,6 +2622,197 @@ def profile_layer_stacks(bench: StepBench):
         phase_trace(bench, label, phases, L if label.startswith("K5") else 1, tail=STACK_TAIL)
 
 
+# ---------------------------------------------------------------------------
+# P1-P3: the measurement probes (gsv_tts_tpu_torch/tools)
+# ---------------------------------------------------------------------------
+
+# The probe kernels against their twins.  P1 and P3 sum the same exact products in float32
+# in other orders (relative to max |twin|); P2 sums at most 256 terms in another order
+# (relative to max(1, |twin|), which holds bcastcmp's -5.4e10 to its float32 resolution).
+P1_TOL, P2_TOL, P3_TOL = 1e-5, 1e-5, 1e-4
+P1_FLAGSHIP = (512, 2048)  # the s1v3 t2s MLP-1: D -> N
+
+
+def probes_path(dev, p3_inputs):
+    """The probes' path: each tool's entry as its command runs it (P1's and P2's
+    ``run_variant``: the probe's input against its reference; P3's: a step against its twin,
+    then the 100-step chain from a CUDA graph, three replays), xla and fori in turns (xla,
+    fori, the others, fori, xla); counts zeroed just before, read just after.  Returns
+    (launches, P3's results by variant)."""
+    from gsv_tts_tpu_torch.tools import int4_probe, mosaic_probe, stream_probe
+
+    wrappers = {"p1": int4_probe.int4_unpack_matmul, "p2": mosaic_probe.mosaic_reduce,
+                "p3": stream_probe.stream_step}
+    for fn in wrappers.values():
+        fn.launches = 0
+    for v in int4_probe.VARIANTS:
+        int4_probe.run_variant(v, dev)
+    for v in mosaic_probe.VARIANTS:
+        mosaic_probe.run_variant(v, dev)
+    others = [v for v in stream_probe.VARIANTS if v not in ("xla", "fori")]
+    p3 = {}
+    for v in ["xla", "fori", *others, "fori", "xla"]:
+        p3.setdefault(v, []).append(stream_probe.run_variant(v, dev, inputs=p3_inputs))
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"probes path: launches {launches}", flush=True)
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{name}: no launch on the probes' path")
+    return launches, p3
+
+
+def p1_phase(dev):
+    """P1 at the probe's shape and the flagship MLP-1's, both variants against the twin; a
+    call's time in turns with the twin, the device's from CUDA graphs of 50 launches."""
+    import torch
+
+    from gsv_tts_tpu_torch import tools
+    from gsv_tts_tpu_torch.tools import int4_probe as p1
+
+    errs, res = [], {}
+    for d, n in ((p1.D, p1.N), P1_FLAGSHIP):
+        x, _, packed, scale = p1.make_inputs(1, d=d, n=n)
+        args = [torch.from_numpy(a).to(dev) for a in (x, packed, scale)]
+        want = p1.int4_unpack_matmul_plain(*args)
+        calls = {v: (lambda v=v: p1.int4_unpack_matmul(*args, variant=v)) for v in p1.VARIANTS}
+        for v, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            tools.check(dev)
+            err = float((got - want).abs().max())
+            if not err <= P1_TOL * float(want.abs().max()):
+                fail(f"P1 {v} at D={d}, N={n}: max abs error {err:.3e} against the twin")
+            errs.append(err)
+        plain = lambda: p1.int4_unpack_matmul_plain(*args)  # noqa: E731
+        ms = {v: timed_turns(call, plain, 200, 50) for v, call in calls.items()}
+        dev_ms = graph_turns({v: graph_of(call) for v, call in calls.items()})
+        b_ms, b_by = bound(4 * 8 * d + d * n // 2 + 4 * n + 4 * 8 * n, 2 * 8 * d * n)
+        res[(d, n)] = {"ms": ms, "device_ms": dev_ms, "bound": (b_ms, b_by)}
+        print(f"P1 at D={d}, N={n} (block width {p1.block_cols(d, n // 2)} bytes): "
+              + ", ".join(f"{v} {ms[v][0]:.4f} ms a call, {dev_ms[v]:.4f} on the device"
+                          for v in calls)
+              + f"; the twin {ms['unpack'][1]:.4f}; bound {b_ms:.6f} ({b_by}); "
+              f"host {host_us(calls['unpack']):.1f} us a call", flush=True)
+    return max(errs), res
+
+
+def p2_phase(dev):
+    """P2's four variants against the twin; a call's time in turns with the twin, the
+    device's from CUDA graphs of 50 launches."""
+    import torch
+
+    from gsv_tts_tpu_torch.tools import mosaic_probe as p2
+
+    x = torch.from_numpy(p2.make_input(2)).to(dev)
+    calls = {v: (lambda v=v: p2.mosaic_reduce(x, v)) for v in p2.VARIANTS}
+    errs, ms = [], {}
+    for v, call in calls.items():
+        got, want = call(), p2.mosaic_reduce_plain(x, v)
+        torch.cuda.synchronize()
+        err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+        if not err <= P2_TOL:
+            fail(f"P2 {v}: error {err:.3e} against the twin (relative to max(1, |twin|))")
+        errs.append(float((got - want).abs().max()))
+        ms[v] = timed_turns(call, lambda v=v: p2.mosaic_reduce_plain(x, v), 200, 50)
+    dev_ms = graph_turns({v: graph_of(call) for v, call in calls.items()})
+    b_ms, b_by = bound(4 * x.numel() + 4 * p2.H, 0)
+    print("P2: " + ", ".join(f"{v} {ms[v][0]:.4f} ms a call ({dev_ms[v]:.4f} on the device; "
+                             f"twin {ms[v][1]:.4f})" for v in calls)
+          + f"; bound {b_ms:.6f} ({b_by}); host {host_us(calls['combined']):.1f} us a call",
+          flush=True)
+    return max(errs), ms, dev_ms, (b_ms, b_by)
+
+
+def p3_phase(dev, p3_inputs, p3):
+    """P3's kernel variants at the full size against the twin (one step each, both rows of
+    the result: every column of w enters it); each variant's step alone on the device (CUDA
+    graphs of 20 steps, in turns), the twin's step; the chains' times come from the probes'
+    path."""
+    import torch
+
+    from gsv_tts_tpu_torch import tools
+    from gsv_tts_tpu_torch.tools import stream_probe as p3m
+
+    w, x_all = p3_inputs
+    xs = {v: x_all[:, :p3m.rows_of(v, p3m.D)].contiguous() for v in p3m.VARIANTS}
+    errs = {}
+    for v in p3m.VARIANTS:
+        if v == "xla":
+            continue
+        got, want = p3m.stream_step(xs[v], w, v), p3m.stream_step_plain(xs[v], w, v)
+        torch.cuda.synchronize()
+        tools.check(dev)
+        errs[v] = float((got - want).abs().max())
+        if not errs[v] <= P3_TOL * float(want.abs().max()):
+            fail(f"P3 {v}: max abs error {errs[v]:.3e} against the twin")
+    alone = graph_turns({v: graph_of(lambda v=v: p3m.stream_step(xs[v], w, v), 20)
+                         for v in p3m.VARIANTS}, n=20, reps=5)
+    plain_ms = cuda_ms(lambda: p3m.stream_step_plain(xs["fori"], w, "fori"), 10)
+    chain = {v: sum(r["ms"] for r in runs) / len(runs) for v, runs in p3.items()}
+    n_l, d, width = w.shape
+    # w and x read once, the [2, D] result written once; y's float32 FMAs on the CUDA cores
+    b_ms, b_by = bound(2 * w.numel() + 2 * d + 8 * d, 2 * n_l * d * width, FP32_FLOPS)
+    for v in p3m.VARIANTS:
+        r = p3[v][0]
+        extra = (f", {r['stages']} slots of {r['copy_bytes']} B, {r['copies_per_page']} "
+                 f"copies a page a block" if "copy_bytes" in r else "")
+        print(f"P3 {v}: {chain[v]:.4f} ms a step in the chain (mean of {len(p3[v])} runs' "
+              f"best rounds), {2 * w.numel() / chain[v] / 1e6:.0f} GB/s, "
+              f"{b_ms / chain[v]:.3f} of the bound; the step alone {alone[v]:.4f} ms on the "
+              f"device ({2 * w.numel() / alone[v] / 1e6:.0f} GB/s, {b_ms / alone[v]:.3f} of "
+              f"the bound){extra}", flush=True)
+    print(f"P3: bound {b_ms:.4f} ms ({b_by}, {2 * w.numel()} bytes of w); the twin's fori step "
+          f"{plain_ms:.3f} ms", flush=True)
+    return max(errs.values()), chain, alone, plain_ms, (b_ms, b_by)
+
+
+def probes_phase(dev):
+    """Build P3's weights once, drive the probes' path, then hold every probe kernel against
+    its twin and time it; returns (the path's launches, the kernels' JSON records)."""
+    import torch
+
+    from gsv_tts_tpu_torch.tools import int4_probe, stream_probe
+
+    t0 = time.perf_counter()
+    w, x = stream_probe.make_inputs(max(stream_probe.rows_of(v, stream_probe.D)
+                                        for v in stream_probe.VARIANTS))
+    p3_inputs = (w.to(dev), x.to(dev))
+    print(f"probes: P3's weights {tuple(w.shape)} built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches, p3 = probes_path(dev, p3_inputs)
+    p1_err, p1 = p1_phase(dev)
+    p2_err, p2_ms, p2_dev, p2_bound = p2_phase(dev)
+    p3_err, chain, alone, p3_plain, p3_bound = p3_phase(dev, p3_inputs, p3)
+    del p3_inputs
+    torch.cuda.empty_cache()
+
+    def rec(name, source, replaces, err, ms, plain_ms, b, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name[:2]], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": library_ms, **extra}
+
+    small, flag = p1[(int4_probe.D, int4_probe.N)], p1[P1_FLAGSHIP]
+    records = [
+        # P1: a call of ``unpack`` at the probe's shape; the other variant, the device's time
+        # and the flagship MLP-1 beside it
+        rec("p1_int4_probe", "p1_int4_probe.cu", "tools/int4_probe.py:83", p1_err,
+            small["ms"]["unpack"][0], small["ms"]["unpack"][1], small["bound"], None,
+            unpack_dma_ms=small["ms"]["unpack_dma"][0], device_ms=small["device_ms"],
+            mlp1_ms={v: t[0] for v, t in flag["ms"].items()}, mlp1_device_ms=flag["device_ms"],
+            mlp1_bound_ms=flag["bound"][0]),
+        # P2: a call of ``combined`` (the construct that hung Mosaic); every variant beside it
+        rec("p2_mosaic_probe", "p2_mosaic_probe.cu", "tools/mosaic_probe.py:88", p2_err,
+            p2_ms["combined"][0], p2_ms["combined"][1], p2_bound, None,
+            variant_ms={v: t[0] for v, t in p2_ms.items()}, device_ms=p2_dev),
+        # P3: fori's step in the chain (the TPU tool's metric); xla's, the same function
+        # through one torch.matmul, as the library call; launches: steps, eager or replayed
+        rec("p3_stream_probe", "p3_stream_probe.cu", "tools/stream_probe.py:99", p3_err,
+            chain["fori"], p3_plain, p3_bound, chain["xla"],
+            grid_replaces="tools/stream_probe.py:140", chain_ms=chain, step_device_ms=alone)]
+    return launches, records
+
+
 def main():
     if not (HERE / "gsv_tts_tpu_torch" / "csrc").is_dir():
         fail(f"the gsv_tts_tpu_torch package is not beside {__file__}")
@@ -2623,6 +2827,7 @@ def main():
     card = card_line()
     print(f"card: {card}", flush=True)
 
+    from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
     from gsv_tts_tpu_torch.utils import cuda_build
 
@@ -2631,11 +2836,12 @@ def main():
         cuda_build.NVCC_FLAGS += ("-DPS_TRACE",)
     t0 = time.perf_counter()
     libraries = [fused_step.K1_LIBRARY, fused_step.K2_LIBRARY, flash_decode.LIBRARY,
-                 flash_prefill.LIBRARY, fused_step.K5_LIBRARY, fused_layer.LIBRARY]
+                 flash_prefill.LIBRARY, fused_step.K5_LIBRARY, fused_layer.LIBRARY,
+                 tools.PROBES_LIBRARY]
     cuda_build.load_libraries(libraries)
     for bind in (fused_step.load_kernels, fused_step.load_batched_kernels,
                  flash_decode.load_kernels, flash_prefill.load_kernels,
-                 fused_step.load_layers_kernels, fused_layer.load_kernels):
+                 fused_step.load_layers_kernels, fused_layer.load_kernels, tools.load_kernels):
         bind()
     print(f"build: {len(libraries)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, _ in libraries:
@@ -2663,6 +2869,9 @@ def main():
     del bench
     torch.cuda.empty_cache()
     launches = main_path_phase(dev, card)
+    torch.cuda.empty_cache()
+    probe_launches, probe_records = probes_phase(dev)
+    launches.update(probe_launches)
 
     def step_record(name, source, replaces, count, err, t):
         # t: (ms, plain ms, bound ms, bound by, the first design's ms[, extras])
@@ -2714,8 +2923,10 @@ def main():
                 "launches": launches[kernel + tag], "max_abs_err": err, "ms": t[0],
                 "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], "library_ms": None,
                 "bf16_ms": t[4], **t[5]})
-    for name in ("k1", "k2", "k3b", "k4", "k5", "k6", "k1q8", "k1q4", "k2q8", "k2q4"):
-        # the kernels of the main paths
+    record["kernels"] += probe_records
+    for name in ("k1", "k2", "k3b", "k4", "k5", "k6", "k1q8", "k1q4", "k2q8", "k2q4",
+                 "p1", "p2", "p3"):
+        # the kernels of the main paths and of the probes' path
         if launches[name] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps(record), flush=True)

@@ -121,6 +121,7 @@
 // before the bf16 rounding of the staging), h2 = h + m1 q + b.  The scales
 // are requested a phase ahead with the biases (PsEpi).
 #pragma once
+#include "bulk_copy.cuh"
 #include "decode_common.cuh"
 
 constexpr int PS_THREADS = 512;
@@ -130,7 +131,6 @@ constexpr int PS_STAGES = 8;
 constexpr int PS_STAGE_BYTES = 16384;
 constexpr int PS_MAX_TILE_ROWS = 64;  // bounds the partial sums a tile leaves
 constexpr int PS_ATTN_FLOATS = 2 * PS_WARPS + PS_WARPS * 128;  // the attention's merge scratch
-constexpr size_t PS_MAX_SMEM = 232448;  // what a block may use on sm_90
 
 // A float32 value (x) and the tag of the launch and layer that wrote it (y),
 // always stored and loaded as ONE aligned 64-bit word, which no reader sees
@@ -248,10 +248,6 @@ static __host__ __device__ inline PsLayout ps_layout(int NB, int L, int D, int M
 // ---------------------------------------------------------------------------
 // Waiting: for a bulk copy (mbarrier), for a tagged value, for the grid
 // ---------------------------------------------------------------------------
-static __device__ __forceinline__ uint32_t ps_smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // A wait that does not end within PS_SPIN_LIMIT polls (seconds; a step takes
 // well under a millisecond) gives up instead of hanging the card: it sets
 // ERR_SYNC, which the host raises on at its next check, and marks the block
@@ -274,28 +270,10 @@ static __device__ __noinline__ bool ps_give_up(unsigned spins, int* err) {
 
 static __device__ __forceinline__ void ps_mbar_wait(unsigned long long* bar, uint32_t parity,
                                                     int* err) {
-  const uint32_t addr = ps_smem_addr(bar);
-  uint32_t done;
+  const uint32_t addr = smem_u32(bar);
   unsigned spins = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done && !((++spins & 1023u) == 0 && ps_give_up(spins, err)));
-}
-
-// One contiguous run of ``bytes`` (a multiple of 16, both ends 16-byte
-// aligned) from global to shared memory; completion lands on ``bar``.
-static __device__ __forceinline__ void ps_bulk_load(void* dst, const void* src, uint32_t bytes,
-                                                    unsigned long long* bar) {
-  const uint32_t b = ps_smem_addr(bar);
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(b), "r"(bytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(ps_smem_addr(dst)), "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(b)
-      : "memory");
+  while (!mbar_test(addr, parity) && !((++spins & 1023u) == 0 && ps_give_up(spins, err))) {
+  }
 }
 
 // A value for the phase that waits for it / the value once its tag has come
@@ -471,9 +449,9 @@ struct PsStream {  // the issuing thread's cursor over the tile list
       }
       const int rows = min(pl.tile_rows, pl.r1 - row);
       const int stage = issued % PS_STAGES;
-      ps_bulk_load(ring + (size_t)stage * PS_STAGE_BYTES,
-                   ps_weights(a, lw, p) + (size_t)row * pl.row_bytes,
-                   (uint32_t)rows * pl.row_bytes, full + stage);
+      bulk_load(ring + (size_t)stage * PS_STAGE_BYTES,
+                ps_weights(a, lw, p) + (size_t)row * pl.row_bytes,
+                (uint32_t)rows * pl.row_bytes, full + stage);
       ++issued;
       row += rows;
     }
@@ -723,7 +701,7 @@ static __device__ __forceinline__ void ps_prefetch_layernorm(const StepArgs& a, 
     const int c = i < D / 4 ? i : i - D / 4;
     const float* src = (i < D / 4 ? g : bt) + 4 * c;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
-                 :: "r"(ps_smem_addr(gb + 4 * i)), "l"(__cvta_generic_to_global(src)) : "memory");
+                 :: "r"(smem_u32(gb + 4 * i)), "l"(__cvta_generic_to_global(src)) : "memory");
   }
 }
 
@@ -975,11 +953,7 @@ decode_step_persistent(const __grid_constant__ StepArgs a) {
   }
   if (threadIdx.x >= 32 && threadIdx.x < 32 + 5) ps_make_plan(a, s.plan, threadIdx.x - 32, WQ);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < PS_STAGES; ++i)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(ps_smem_addr(s.full + i)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init(s.full, PS_STAGES);
   }
   __syncthreads();
   if (threadIdx.x == PS_LOADER) {
@@ -1140,7 +1114,7 @@ static int launch_decode_step_persistent(const StepArgs& a, cudaStream_t st) {
       (WQ != 0 && (a.scales == nullptr || a.D % 32 != 0 || a.M % 32 != 0)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = ps_layout(NB, a.L, a.D, a.M).total;
-  if (smem > PS_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_OPTIN) return (int)cudaErrorInvalidValue;
   const void* kernel = (const void*)decode_step_persistent<NB, WQ>;
   int dev = 0;
   cudaGetDevice(&dev);

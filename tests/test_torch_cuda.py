@@ -1238,3 +1238,120 @@ def test_unload_sovits_model_evicts_its_graphs_while_another_replays(cuda_device
     again = decode(paths[0])
     assert graphs.captures == 4 and count(paths[0]) == 2
     assert np.array_equal(again, before[paths[0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512), (512, 2048)])
+@pytest.mark.parametrize("variant", ["unpack", "unpack_dma"])
+def test_p1_probe_kernel_matches_twin(cuda_device, variant, shape):
+    """P1 at the probe's shape (one block, one bulk copy of the 64 KB page)
+    and at the flagship MLP-1 (D=512, N=2048: 8 blocks, a copy of 128 bytes
+    a row): within 1e-5 of max |twin| (float32 sums of exact bf16 products
+    in other orders)."""
+    from gsv_tts_tpu_torch import tools
+    from gsv_tts_tpu_torch.tools import int4_probe
+
+    d, n = shape
+    x, _, packed, scale = int4_probe.make_inputs(1, d=d, n=n)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, packed, scale)]
+    before = int4_probe.int4_unpack_matmul.launches
+    got = int4_probe.int4_unpack_matmul(*args, variant=variant)
+    want = int4_probe.int4_unpack_matmul_plain(*args)
+    torch.cuda.synchronize()
+    tools.check(cuda_device)
+    assert int4_probe.int4_unpack_matmul.launches == before + 1
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["baseline", "reduce3d", "bcastcmp", "combined"])
+def test_p2_probe_kernel_matches_twin(cuda_device, variant):
+    """P2 within 1e-5 of max(1, |twin|) (bcastcmp's -5.4e10: within its
+    float32 resolution)."""
+    from gsv_tts_tpu_torch.tools import mosaic_probe
+
+    x = torch.from_numpy(mosaic_probe.make_input(2)).to(cuda_device)
+    got = mosaic_probe.mosaic_reduce(x, variant)
+    want = mosaic_probe.mosaic_reduce_plain(x, variant)
+    torch.cuda.synchronize()
+    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,variant", [("small", "fori"), ("small", "fori64"),
+                                          ("small", "grid"), ("small", "k1ring"),
+                                          ("full", "fori"), ("full", "fori256"),
+                                          ("full", "fori1024"), ("full", "fori2048"),
+                                          ("full", "grid"), ("full", "k1ring")])
+def test_p3_probe_kernel_matches_twin(cuda_device, size, variant):
+    """One P3 step, both rows (y[:rows] and y folded, so every column of w),
+    against its twin within 1e-4 of max |twin| (float32 sums over up to
+    12,288 rows in other orders), and a 3-step chain bit for bit equal to its
+    repeat (the partials are summed in a fixed order)."""
+    from gsv_tts_tpu_torch import tools
+    from gsv_tts_tpu_torch.tools import stream_probe
+
+    L, D, W = (2, 128, 512) if size == "small" else (24, 512, 6144)
+    rows = stream_probe.rows_of(variant, D)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w = (0.02 * torch.randn((L, D, W), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    x = (0.1 * torch.randn((1, rows), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    got = stream_probe.stream_step(x, w, variant)
+    want = stream_probe.stream_step_plain(x, w, variant)
+    torch.cuda.synchronize()
+    tools.check(cuda_device)
+    assert got.shape == want.shape == (2, rows)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    a = stream_probe.chain(x, w, variant, 3)
+    b = stream_probe.chain(x, w, variant, 3)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_p3_counts_replayed_steps_not_captures(cuda_device, monkeypatch):
+    """A step captured into a CUDA graph launches nothing and counts nothing;
+    each replay of the chain's graph counts its REPS steps."""
+    from gsv_tts_tpu_torch.tools import stream_probe
+
+    monkeypatch.setattr(stream_probe, "REPS", 4)
+    monkeypatch.setattr(stream_probe, "ROUNDS", 2)
+    w = torch.zeros((2, 128, 512), dtype=torch.bfloat16, device=cuda_device)
+    x = torch.zeros((1, 128), dtype=torch.bfloat16, device=cuda_device)
+    before = stream_probe.stream_step.launches
+    stream_probe.stream_step(x, w, "fori")  # build and warm outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream_probe.stream_step(x, w, "fori")
+    assert stream_probe.stream_step.launches == before + 1
+    stream_probe.time_chain(x, w, "fori")
+    assert stream_probe.stream_step.launches == before + 1 + 4 + 2 * 4
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_misaligned_or_strided_inputs(cuda_device):
+    """A non-contiguous or misaligned input raises before any launch."""
+    from gsv_tts_tpu_torch.tools import int4_probe, mosaic_probe, stream_probe
+
+    x, _, packed, scale = (torch.from_numpy(a).to(cuda_device)
+                           for a in int4_probe.make_inputs(0))
+    counts = (int4_probe.int4_unpack_matmul.launches, mosaic_probe.mosaic_reduce.launches,
+              stream_probe.stream_step.launches)
+    strided = torch.empty((x.shape[1], 8), device=cuda_device).t().copy_(x)
+    shifted = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x).copy_(x)
+    for bad in (strided, shifted):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            int4_probe.int4_unpack_matmul(bad, packed, scale, variant="unpack_dma")
+    xm = torch.empty(256 * 16 + 1, device=cuda_device)[1:].view(256, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mosaic_probe.mosaic_reduce(xm, "combined")
+    w = torch.zeros((2, 128, 512), dtype=torch.bfloat16, device=cuda_device)
+    xs = torch.zeros((1, 128), dtype=torch.bfloat16, device=cuda_device)
+    for bad_w in (w.transpose(1, 2).contiguous().transpose(1, 2),
+                  torch.zeros(w.numel() + 1, dtype=torch.bfloat16,
+                              device=cuda_device)[1:].view_as(w)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            stream_probe.stream_step(xs, bad_w, "fori")
+    assert counts == (int4_probe.int4_unpack_matmul.launches,
+                      mosaic_probe.mosaic_reduce.launches, stream_probe.stream_step.launches)
