@@ -130,10 +130,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
    Then P1 (both variants, at the probe's shape and
    the flagship MLP-1's), P2 (four variants) and every P3 kernel variant
    against their twins, with a call's time in turns with the twin and the
-   device's from CUDA graphs, and each P3 step alone on the device.
+   device's from CUDA graphs, and each P3 step alone on the device;
+10. zh: a full-width random CNRoberta from SEED (``BertConfig()``: vocab 21128,
+   hidden 1024, 24 layers, 16 heads, FFN 4096; ~325 M parameters, ~650 MB as
+   bf16 safetensors) and a synthesized ``vocab.txt`` beside the v2 checkpoints
+   of phase 4; the host has no ``jieba``, so a stand-in zh G2P
+   (``StandInZhG2P``: the port's ``zh_norm``, a pinyin table of the phase's
+   texts and ``split_full_pinyin``, no sandhi) is installed as
+   ``global_config.chinese_g2p`` (the real G2P is held to JAX's on the CPU).
+   ``TTS(use_bert=True)``: English and Chinese ``infer`` in turns (ms a step,
+   RTF) and a mixed zh/en one (K1 a step), ``infer_batched`` of four Chinese
+   texts (K2, then K1 for the tail), a Chinese ``infer_stream`` (K1),
+   ``infer_async`` twice from ``asyncio.run`` (the SoVITS graphs evicted first:
+   the first call captures in its worker thread, the second replays) and
+   ``infer_stream_async``; ``TTS(quant_bert=True)`` and
+   ``TTS(featurizer_buckets=True)``, one ``infer`` each, the BERT loaded on the
+   first Han text; the bf16 and int8 BERT features of the four texts against a
+   float32 evaluation of the same weights on the card (``BERT_BF16_TOL``,
+   ``BERT_Q8_TOL``), a BERT call's time at two text lengths (CUDA events), the
+   encoder's device time (a CUDA graph of it) and its bound;
+   ``TTS(use_flash_attn=False).infer`` (the ``"xla"`` engine: no launch of any
+   kernel) with its ms a step.  Every launch count equals the decode steps its
+   path took.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record and the card.  Nothing here imports JAX.
+kernels' JSON record, phase 10's readings (``zh readings: {...}``) and the
+card.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -2394,6 +2416,357 @@ def quant_path_phase(models_dir, gpt, sov, spk, prompt, dev, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# zh: Chinese text, the CNRoberta BERT featurizer, and the facade's other entry points
+# ---------------------------------------------------------------------------
+
+# toned pinyin of every Han character of the phase's texts (the stand-in G2P's table)
+ZH_PINYIN = {
+    "今": "jin1", "天": "tian1", "气": "qi4", "很": "hen3", "好": "hao3", "我": "wo3",
+    "们": "men5", "一": "yi4", "起": "qi3", "去": "qu4", "公": "gong1", "园": "yuan2",
+    "散": "san4", "步": "bu4", "吧": "ba5", "人": "ren2", "工": "gong1", "智": "zhi4",
+    "能": "neng2", "正": "zheng4", "在": "zai4", "改": "gai3", "变": "bian4", "的": "de5",
+    "生": "sheng1", "活": "huo2", "和": "he2", "作": "zuo4", "方": "fang1", "式": "shi4",
+    "他": "ta1", "说": "shuo1", "这": "zhe4", "本": "ben3", "书": "shu1", "非": "fei1",
+    "常": "chang2", "有": "you3", "意": "yi4", "思": "si5", "值": "zhi2", "得": "de2",
+    "读": "du2", "再": "zai4", "春": "chun1", "来": "lai2", "了": "le5", "花": "hua1",
+    "儿": "er5", "都": "dou1", "开": "kai1", "小": "xiao3", "鸟": "niao3", "树": "shu4",
+    "上": "shang4", "唱": "chang4", "歌": "ge1", "最": "zui4", "喜": "xi3", "欢": "huan5",
+    "电": "dian4", "影": "ying3", "是": "shi4", "你": "ni3", "呢": "ne5",
+}
+ZH_TEXTS = ["今天天气很好，我们一起去公园散步吧。",
+            "人工智能正在改变我们的生活和工作方式。",
+            "他说这本书非常有意思，值得一读再读。",
+            "春天来了，花儿都开了，小鸟在树上唱歌。"]
+ZH_MIXED = "我最喜欢的电影是 The Matrix，你呢？"
+# the bf16 BERT features against a float32 evaluation of the same weights, and the int8
+# ones: relative L2 over the valid rows and the largest element error.  On the CPU at
+# width 1024 (random N(0, 0.02) weights, 40 tokens) bf16 sat 0.0064 / 0.0093 / 0.0111 from
+# float32 after 2 / 6 / 10 layers (max 0.043-0.066) and int8 0.0136 / 0.0227 / 0.0287 (max
+# 0.059-0.120), growing about as the root of the depth: 22 layers should stay near 0.016
+# and 0.04; the bounds leave 2.5x
+BERT_BF16_TOL = (4e-2, 0.3)
+BERT_Q8_TOL = (1e-1, 0.6)
+
+
+class StandInZhG2P:
+    """The card's host has no ``jieba``, which the Chinese G2P segments with: this stand-in
+    takes its place as ``global_config.chinese_g2p`` (the injection the CPU tests use).  It
+    normalizes with the port's ``zh_norm`` as the real one does and reads each Han
+    character's pinyin from ``ZH_PINYIN`` through the port's ``split_full_pinyin``, without
+    word segmentation, tone sandhi or erhua (the real G2P is held to JAX's on the CPU)."""
+
+    def text_normalize(self, text: str) -> str:
+        import re
+
+        from gsv_tts_tpu_torch.frontend.g2p import zh_norm
+        from gsv_tts_tpu_torch.frontend.pause import escaped_pause
+
+        return re.sub(f"[^一-龥{escaped_pause}]", "", zh_norm.normalize(text))
+
+    def g2p(self, text: str):
+        from gsv_tts_tpu_torch.frontend.g2p.chinese import split_full_pinyin
+        from gsv_tts_tpu_torch.frontend.pause import pause_map
+
+        phones, word2ph = [], {"word": [], "ph": []}
+        for ch in text:
+            word2ph["word"].append(ch)
+            if ch in pause_map:
+                phones.append(ch)
+                word2ph["ph"].append(1)
+                continue
+            py = ZH_PINYIN[ch]
+            ini, fin = split_full_pinyin(py[:-1])
+            phones += [ini, fin + py[-1]]
+            word2ph["ph"].append(2)
+        return phones, word2ph
+
+
+def write_bert(root: Path):
+    """A full-width random CNRoberta (``BertConfig()``: vocab 21128, hidden 1024, 24 layers,
+    16 heads, FFN 4096, 512 positions) from SEED, stored as bf16 safetensors under the
+    published ``bert.`` prefix, with a ``vocab.txt`` of 21128 lines: BERT's special tokens,
+    ASCII, full-width punctuation, ``##`` pieces, then CJK characters from U+4E00."""
+    import torch
+
+    from gsv_tts_tpu_torch.models import roberta
+    from gsv_tts_tpu_torch.utils.safetensors import save_file
+
+    cfg = roberta.BertConfig()
+    d = root / "chinese-roberta-wwm-ext-large"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps(cfg.to_dict()))
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + [chr(c) for c in range(33, 127)] + list("，。！？、；：（）《》“”…")
+             + ["##" + chr(c) for c in range(97, 123)])
+    vocab += [chr(0x4E00 + i) for i in range(cfg.vocab_size - len(vocab))]
+    (d / "vocab.txt").write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    params = roberta.init_params(cfg, torch.Generator().manual_seed(SEED))
+    save_file({"bert." + k: v.to(torch.bfloat16) for k, v in params.items()},
+              d / "model.safetensors")
+    n = sum(v.numel() for v in params.values())
+    return d, n
+
+
+def bert_bound(cfg, T: int, rows: int = 1):
+    """Bound of one BERT call: the ``N - 2`` layers' bf16 matrices read once, and their
+    products' operations (2 a multiply-add) plus the attention's, for ``rows`` x ``T``
+    tokens."""
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers - 2
+    n_w = L * (4 * D * D + 2 * D * I)
+    flops = 2 * rows * T * n_w + L * rows * 4 * T * T * D
+    return bound(2 * n_w + 2 * rows * T * D, flops)
+
+
+def encoder_graph(bert, ids, mask):
+    """A CUDA graph of one bf16 encoder call on ``ids`` / ``mask`` (device tensors), after a
+    warm run on the capture's stream (cuBLAS's workspace is made outside the capture)."""
+    import torch
+
+    from gsv_tts_tpu_torch.models.roberta import bert_hidden_minus3
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.stream(side):
+        bert_hidden_minus3(bert.params, bert.cfg, ids, mask)
+        with torch.cuda.graph(graph, stream=side):
+            bert_hidden_minus3(bert.params, bert.cfg, ids, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    return graph
+
+
+def zh_bert_checks(tts_bf16, tts_q8, dev):
+    """The card's bf16 and int8 BERT features of the four texts against a float32
+    evaluation of the same weights on the card; a call's time at two text lengths (CUDA
+    events), the device time of a call (a CUDA graph of it), beside the bound."""
+    import torch
+
+    from gsv_tts_tpu_torch.frontend.g2p import text_to_phonemes
+    from gsv_tts_tpu_torch.models.roberta import bert_hidden_minus3
+
+    bert, q8 = tts_bf16.tts_config.cnroberta, tts_q8.tts_config.cnroberta
+    w2p = [text_to_phonemes(t, "zh")[1] for t in ZH_TEXTS]
+    ids, mask = bert.batch(["".join(w["word"]) for w in w2p])
+    ids_d, mask_d = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+    p32 = {k: v.float() for k, v in bert.params.items()}  # the bf16 weights, upcast
+    with torch.no_grad():
+        f32 = bert_hidden_minus3(p32, bert.cfg, ids_d, mask_d)
+        b16 = bert_hidden_minus3(bert.params, bert.cfg, ids_d, mask_d).float()
+        i8 = q8._fwd(q8.params, q8.cfg, ids_d, mask_d)
+    valid = mask_d.bool()
+    errs = {}
+    for name, got, (tol_rel, tol_abs) in (("bf16", b16, BERT_BF16_TOL),
+                                          ("int8", i8, BERT_Q8_TOL)):
+        if not torch.isfinite(got).all():
+            fail(f"zh phase: the {name} BERT features are not finite")
+        d = got[valid] - f32[valid]
+        rel, mx = float(d.norm() / f32[valid].norm()), float(d.abs().max())
+        errs[name] = (rel, mx)
+        print(f"zh phase: BERT {name} features of {len(ZH_TEXTS)} texts ({int(valid.sum())} "
+              f"tokens) against float32 on the card: relative L2 {rel:.5f} (bound {tol_rel}), "
+              f"max abs {mx:.4f} (bound {tol_abs}); |float32| max "
+              f"{float(f32[valid].abs().max()):.3f}", flush=True)
+        if not (rel <= tol_rel and mx <= tol_abs):
+            fail(f"zh phase: the {name} BERT features sit {rel:.4g} (max {mx:.4g}) from float32")
+    times = {}
+    for label, texts in (("short", ZH_TEXTS[:1]), ("long", ["".join(ZH_TEXTS * 2)])):
+        w = [text_to_phonemes(t, "zh")[1] for t in texts]
+        i_, m_ = bert.batch(["".join(x["word"]) for x in w])
+        T = i_.shape[1]
+        call_ms = cuda_ms(lambda: bert(w), 20)
+        i_d, m_d = torch.as_tensor(i_, device=dev), torch.as_tensor(m_, device=dev)
+        dev_ms = cuda_ms(encoder_graph(bert, i_d, m_d).replay, 10)
+        b_ms, b_by = bert_bound(bert.cfg, T)
+        q8_ms = cuda_ms(lambda: q8(w), 5)
+        times[label] = (T, call_ms, dev_ms, b_ms, q8_ms)
+        print(f"zh phase: BERT, {T} tokens: {call_ms:.3f} ms a call (bf16, CUDA events, host "
+              f"tokenization and the copy back included), {dev_ms:.3f} ms on the device (a "
+              f"CUDA graph of the encoder); bound {b_ms:.4f} ms ({b_by}); int8 "
+              f"{q8_ms:.3f} ms a call", flush=True)
+    return errs, times
+
+
+def zh_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """Chinese text on the main path (phase 10): a full-width random CNRoberta beside the v2
+    checkpoints, a stand-in zh G2P; ``TTS(use_bert=True)``: English and Chinese ``infer`` in
+    turns and a mixed zh/en one (K1), ``infer_batched`` of four Chinese texts (K2 and K1), a
+    Chinese ``infer_stream`` (K1), ``infer_async`` twice (a CUDA graph captured in the
+    worker thread, then replayed) and ``infer_stream_async`` from ``asyncio.run``;
+    ``TTS(quant_bert=True)`` and ``TTS(featurizer_buckets=True)``, one ``infer`` each; the
+    BERT features held to float32 and timed; ``TTS(use_flash_attn=False).infer`` launching
+    no kernel.  Counts are zeroed just before each drive and read just after; returns the
+    launches summed over the drives."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.config import global_config
+
+    total = {name: 0 for name in launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    bert_dir, n_params = write_bert(Path(models_dir))
+    print(f"zh phase: a full-width random CNRoberta ({n_params / 1e6:.1f} M parameters, "
+          f"{(bert_dir / 'model.safetensors').stat().st_size / 1e6:.0f} MB bf16) written in "
+          f"{time.perf_counter() - t0:.1f} s; the zh frontend is a stand-in (the host has no "
+          f"jieba): zh_norm, a pinyin table and split_full_pinyin, no sandhi", flush=True)
+    saved_g2p = global_config.chinese_g2p
+    global_config.chinese_g2p = StandInZhG2P()
+    small = [(1, 512), (1, 1024), (2, 512), (4, 512)]
+    try:
+        t0 = time.perf_counter()
+        tts = TTS(gpt_cache=small, models_dir=models_dir, device=dev, seed=SEED, use_bert=True)
+        tts.load_gpt_model(str(gpt))
+        tts.load_sovits_model(str(sov))
+        engine = tts.gpt_models[str(gpt)].engine
+        if tts.tts_config.cnroberta is None:
+            fail("zh phase: TTS(use_bert=True) loaded no BERT")
+        print(f"zh phase: TTS(use_bert=True) built and loaded in {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+        # English and Chinese in turns, then a mixed text: every step one K1 launch
+        reset_counts()
+        steps, per = 0, {"en": [], "zh": []}
+        for i, (lang, text) in enumerate((("en", TEXTS[0]), ("zh", ZH_TEXTS[0]),
+                                          ("zh", ZH_TEXTS[1]), ("en", TEXTS[1]),
+                                          ("mixed", ZH_MIXED))):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, text)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            st = tts.last_timings
+            steps += st["decode_steps"]
+            check_audio(f"zh phase: infer {i} ({lang})", clip.audio_data, int(0.2 * 32000),
+                        st["tokens"] * 1280 + int(0.2 * 32000))
+            ms_step = 1000 * st["decode_s"] / st["decode_steps"]
+            per.setdefault(lang, []).append((ms_step, wall / clip.audio_len_s))
+            print(f"zh phase: infer {i} ({lang}): {st['tokens']} tokens, {st['decode_steps']} "
+                  f"decode steps, {ms_step:.3f} ms/step, prefill {1000 * st['prefill_s']:.1f} "
+                  f"ms, frontend {1000 * st['frontend_s']:.1f} ms, SoVITS {st['sovits_s']:.3f} "
+                  f"s; {clip.audio_len_s:.2f} s of audio in {wall:.3f} s, RTF "
+                  f"{wall / clip.audio_len_s:.4f}", flush=True)
+        counts = read_counts()
+        expect_counts(f"zh phase: infer en/zh/zh/en/mixed ({steps} decode steps)", counts,
+                      k1=steps)
+        add(counts)
+        print("zh phase: in turns (en, zh, zh, en): ms/step en "
+              + " / ".join(f"{m:.3f}" for m, _ in per["en"]) + ", zh "
+              + " / ".join(f"{m:.3f}" for m, _ in per["zh"]) + "; RTF en "
+              + " / ".join(f"{r:.4f}" for _, r in per["en"]) + ", zh "
+              + " / ".join(f"{r:.4f}" for _, r in per["zh"]) + f" ({card})", flush=True)
+        # four Chinese texts on a four-slot wave
+        counts, st = batched_path(tts, engine, spk, prompt, ZH_TEXTS, engine.cfg.num_layers)
+        if counts["k2"] == 0:
+            fail("zh phase: infer_batched of 4 launched no K2")
+        add(counts)
+        # a Chinese stream
+        reset_counts()
+        chunks = list(tts.infer_stream(str(spk), str(prompt), PROMPT_TEXT, ZH_TEXTS[2],
+                                       is_cut_text=False))
+        st = tts.last_timings
+        expect_counts(f"zh phase: infer_stream ({st['decode_steps']} steps)", read_counts(),
+                      k1=st["decode_steps"])
+        add(read_counts())
+        if len(chunks) < 2 or not all(np.all(np.isfinite(c.audio_data)) for c in chunks):
+            fail(f"zh phase: a stream of {len(chunks)} chunk(s), or a chunk not finite")
+        print(f"zh phase: infer_stream: {len(chunks)} chunks, {st['decode_steps']} decode "
+              f"steps, time to first audio {1000 * st['ttfa_s']:.1f} ms", flush=True)
+        # the async wrappers, from an event loop: the SoVITS graphs evicted first, so the
+        # first call captures in its worker thread and the second, greedy like the first
+        # (the same tokens, so the same buckets), replays what it captured
+        tts.sovits_graphs.evict(tts.sovits_models[str(sov)].params)
+
+        async def drive():
+            out = []
+            for _ in range(2):
+                clip = await tts.infer_async(str(spk), str(prompt), PROMPT_TEXT, ZH_TEXTS[3],
+                                             top_k=1)
+                out.append((clip, dict(tts.last_timings)))
+            chunks = [c async for c in tts.infer_stream_async(
+                str(spk), str(prompt), PROMPT_TEXT, ZH_TEXTS[0], is_cut_text=False)]
+            return out, chunks, dict(tts.last_timings)
+
+        reset_counts()
+        calls, achunks, sst = asyncio.run(drive())
+        counts = read_counts()
+        steps = sum(st["decode_steps"] for _, st in calls) + sst["decode_steps"]
+        expect_counts(f"zh phase: infer_async x2 and infer_stream_async ({steps} steps)",
+                      counts, k1=steps)
+        add(counts)
+        (c1, s1), (c2, s2) = calls
+        for i, c in enumerate((c1, c2)):
+            check_audio(f"zh phase: infer_async {i}", c.audio_data, int(0.2 * 32000),
+                        1024 * 1280 + int(0.2 * 32000))
+        if not (s1["sovits_graphs"] >= 1 and s2["sovits_graphs"] == 0
+                and s2["sovits_replays"] == 2):
+            fail(f"zh phase: infer_async captured {s1['sovits_graphs']} then "
+                 f"{s2['sovits_graphs']} graphs, replayed {s2['sovits_replays']}")
+        if len(achunks) < 2 or not all(np.all(np.isfinite(c.audio_data)) for c in achunks):
+            fail(f"zh phase: infer_stream_async gave {len(achunks)} chunk(s) or a chunk not "
+                 f"finite")
+        print(f"zh phase: infer_async: the first captured {s1['sovits_graphs']} SoVITS graphs "
+              f"in its worker thread ({s1['sovits_capture_s']:.3f} s), the second replayed "
+              f"{s2['sovits_replays']} and captured none; infer_stream_async: {len(achunks)} "
+              f"chunks; get_timings: "
+              + ", ".join(f"{k} p50 {v['p50'] * 1000:.1f} ms (n={v['count']})"
+                          for k, v in tts.get_timings().items()), flush=True)
+        # quant_bert and featurizer_buckets, one infer each (BERT loaded on the first Han text)
+        variants = {}
+        for opt in ("quant_bert", "featurizer_buckets"):
+            v = TTS(gpt_cache=small, models_dir=models_dir, device=dev, seed=SEED, **{opt: True})
+            v.load_gpt_model(str(gpt))
+            v.load_sovits_model(str(sov))
+            reset_counts()
+            clip = v.infer(str(spk), str(prompt), PROMPT_TEXT, ZH_TEXTS[1])
+            st = v.last_timings
+            expect_counts(f"zh phase: TTS({opt}=True).infer ({st['decode_steps']} steps)",
+                          read_counts(), k1=st["decode_steps"])
+            add(read_counts())
+            check_audio(f"zh phase: TTS({opt}=True).infer", clip.audio_data, int(0.2 * 32000),
+                        st["tokens"] * 1280 + int(0.2 * 32000))
+            bert = v.tts_config.cnroberta
+            if bert is None or getattr(bert, "quant" if opt == "quant_bert" else "buckets") \
+                    is not True:
+                fail(f"zh phase: TTS({opt}=True) did not load its BERT with the option")
+            print(f"zh phase: TTS({opt}=True).infer: {st['decode_steps']} decode steps, "
+                  f"frontend {1000 * st['frontend_s']:.1f} ms, {clip.audio_len_s:.2f} s of "
+                  f"audio", flush=True)
+            variants[opt] = v
+        errs, times = zh_bert_checks(tts, variants["quant_bert"], dev)
+        del variants
+        # the "xla" engine: no kernel of the package
+        x = TTS(gpt_cache=small, models_dir=models_dir, device=dev, seed=SEED,
+                use_flash_attn=False)
+        x.load_gpt_model(str(gpt))
+        x.load_sovits_model(str(sov))
+        if x.gpt_models[str(gpt)].engine.attn_impl != "xla":
+            fail("zh phase: TTS(use_flash_attn=False) did not take the xla engine")
+        reset_counts()
+        clip = x.infer(str(spk), str(prompt), PROMPT_TEXT, ZH_TEXTS[2])
+        st = x.last_timings
+        expect_counts(f"zh phase: TTS(use_flash_attn=False).infer ({st['decode_steps']} steps)",
+                      read_counts())
+        check_audio("zh phase: TTS(use_flash_attn=False).infer", clip.audio_data,
+                    int(0.2 * 32000), st["tokens"] * 1280 + int(0.2 * 32000))
+        xla_ms = 1000 * st["decode_s"] / st["decode_steps"]
+        print(f"zh phase: xla engine: {st['decode_steps']} decode steps at {xla_ms:.3f} ms/step "
+              f"(plain PyTorch, no kernel launched; K1's infer above "
+              f"{per['zh'][0][0]:.3f} / {per['zh'][1][0]:.3f})", flush=True)
+        del x, tts, engine
+        torch.cuda.empty_cache()
+    finally:
+        global_config.chinese_g2p = saved_g2p
+    return total, {"bert_err": errs, "bert_ms": times, "xla_ms_step": xla_ms}
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
     K5 loop and ``infer_stream``; returns the launches summed over the drives (counts are
@@ -2450,7 +2823,9 @@ def main_path_phase(dev, card):
         add(sovits_buckets_phase(tmp, gpt, sov, spk, prompt, dev, card))
         add(v2pro_phase(tmp, gpt, sov, spk, prompt, dev, card))
         add(quant_path_phase(tmp, gpt, sov, spk, prompt, dev, card))
-    return total
+        counts, zh = zh_phase(tmp, gpt, sov, spk, prompt, dev, card)
+        add(counts)
+    return total, zh
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -2868,7 +3243,8 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches = main_path_phase(dev, card)
+    launches, zh = main_path_phase(dev, card)
+    print("zh readings: " + json.dumps(zh), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

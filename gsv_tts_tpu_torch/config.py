@@ -55,7 +55,13 @@ class Config:
     (``False``, ``True`` = ``"int8"``, ``"int8"`` or ``"int4"``) streams K1's
     and K2's layer weights quantized (``loader.resolve_t2s_attn_impl`` maps
     it to the engine's ``"fused_step_q8"`` / ``"fused_step_q4"``; it needs
-    ``attn_impl="fused_step"``).
+    ``attn_impl="fused_step"``).  ``use_flash_attn=False`` takes the
+    engine's ``"xla"`` implementation (plain PyTorch attention, no kernel)
+    whatever ``attn_impl`` and ``quant_t2s`` say, as the JAX package's does.
+    ``quant_bert`` runs the BERT featurizer's linear layers in int8;
+    ``featurizer_buckets`` pads the BERT and HuBERT inputs to a ladder of
+    shapes (``models/roberta.py``, ``models/hubert.py``); ``cnroberta`` is
+    the loaded BERT featurizer, which the frontend calls for Chinese text.
     """
 
     device: Any = None
@@ -65,6 +71,10 @@ class Config:
     models_dir: Optional[Path] = None
     attn_impl: str = "fused_step"
     quant_t2s: Any = False
+    use_flash_attn: bool = True
+    quant_bert: bool = False
+    featurizer_buckets: bool = False
+    cnroberta: Any = None
 
     def __post_init__(self):
         self.device = (default_device() if self.device is None
@@ -81,12 +91,15 @@ class Config:
 
 class GlobalConfig:
     """Process-wide frontend singletons read by the G2P dispatcher
-    (``frontend/g2p/__init__.py``): the default models directory, an
-    injected English engine, and engines built per models directory."""
+    (``frontend/g2p/__init__.py``): the default models directory, whether
+    the Chinese engine segments with ``jieba_fast``, injected English and
+    Chinese engines, and engines built per models directory."""
 
     def __init__(self):
         self.models_dir: Optional[Path] = None
+        self.use_jieba_fast: Optional[bool] = None
         self.english_g2p = None
+        self.chinese_g2p = None
         self._g2p_auto: dict = {}
 
 

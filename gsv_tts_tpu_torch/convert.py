@@ -6,7 +6,9 @@ speaker embedder as flat dicts keyed by the reference state-dict names
 (weight norm already folded).  Given
 those as numpy arrays (``jax.tree.map(np.asarray, params)``), these
 functions build the port's parameters, so both packages can compute with the
-same weights.  No JAX import is needed here.
+same weights.  The BERT featurizer's dict keeps the state-dict names and
+``[out, in]`` weights too; its int8 form adds ``::q8`` / ``::scale`` keys.
+No JAX import is needed here.
 """
 from __future__ import annotations
 
@@ -63,6 +65,18 @@ def hubert_from_jax(params: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """Flat JAX HuBERT params (numpy) → port params (same keys)."""
     return hubert_model.params_from_torch_state_dict(_flat(params), dtype=dtype, device=device)
+
+
+def roberta_params_from_jax(params: Dict[str, Any], dtype=torch.float32,
+                            device="cpu") -> Dict[str, torch.Tensor]:
+    """JAX ``CNRoberta.params`` (numpy) → the port's: the same keys, float
+    tensors in ``dtype`` (float32 for the int8 form, whose scales are
+    float32), the ``::q8`` int8 weights as they are."""
+    out = {}
+    for k, v in params.items():
+        t = torch.from_numpy(np.array(v))
+        out[k] = (t.to(dtype) if t.is_floating_point() else t).to(device)
+    return out
 
 
 def sv_from_jax(params: Dict[str, Any], cfg: sv_model.SVConfig = sv_model.SVConfig(),

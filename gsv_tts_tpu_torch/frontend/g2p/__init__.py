@@ -3,11 +3,13 @@
 Same contract as the JAX package's dispatcher — per-``models_dir`` cached
 engines, ellipsis collapse, pause-symbol mapping, UNK filtering and
 consecutive-punctuation dedup with the word2ph repair — but bound to this
-package's ``global_config``.  The English engine and its helpers
-(``english``, ``en_norm``, ``en_oov``, ``en_pos``) are this package's own
-copies, beside this file.
-Chinese and Japanese raise ``NotImplementedError``: their BERT and
-OpenJTalk paths are not ported yet (ROADMAP Queue 1: zh BERT, ja).
+package's ``global_config``.  The English and Chinese engines and their
+helpers (``english``, ``en_norm``, ``en_oov``, ``en_pos``; ``chinese``,
+``zh_norm``, ``tone_sandhi``) are this package's own copies, beside this
+file; an engine assigned to ``global_config.english_g2p`` or
+``chinese_g2p`` by the caller wins over a built one.  Japanese raises
+``NotImplementedError``: its OpenJTalk path is not ported yet (ROADMAP
+Queue 1: ja).
 """
 from __future__ import annotations
 
@@ -20,21 +22,33 @@ from ...config import global_config
 
 symbol_to_id = Symbols.symbol_to_id
 _PUNCT_SET = set(Symbols.punctuation)
-_NOT_PORTED = {"zh": "zh BERT", "ja": "ja"}
+_LANG_ATTR = {"zh": "chinese_g2p", "en": "english_g2p"}
 
 
 def phonemes_to_ids(phones_raw: List[str]) -> List[int]:
     return [symbol_to_id[s] for s in phones_raw]
 
 
+def _build_g2p(lang: str, models_dir):
+    if lang == "zh":
+        from .chinese import ChineseG2P
+
+        return ChineseG2P(models_dir, use_jieba_fast=bool(global_config.use_jieba_fast))
+    from .english import EnglishG2P
+
+    return EnglishG2P(models_dir)
+
+
 def _get_g2p(language: str, models_dir=None):
-    """The English engine: an injected ``global_config.english_g2p`` wins,
-    otherwise one cached per ``models_dir``."""
-    if language in _NOT_PORTED:
+    """The engine for ``language``: an injected ``global_config.<lang>_g2p``
+    wins, otherwise one cached per ``models_dir``."""
+    if language == "ja":
         raise NotImplementedError(
-            f"{language!r} text is not ported to the PyTorch engine yet "
-            f"(ROADMAP Queue 1: {_NOT_PORTED[language]})")
-    current = global_config.english_g2p
+            "'ja' text is not ported to the PyTorch engine yet (ROADMAP Queue 1: ja)")
+    lang = "zh" if language == "zh" else "en"
+    attr = _LANG_ATTR[lang]
+    current = getattr(global_config, attr)
+    # an instance without the _auto_models_dir marker was installed on purpose
     if current is not None and not hasattr(current, "_auto_models_dir"):
         return current
     if models_dir is None:
@@ -42,15 +56,13 @@ def _get_g2p(language: str, models_dir=None):
     key = None if models_dir is None else str(models_dir)
     if current is not None and current._auto_models_dir == key:
         return current
-    cache = global_config._g2p_auto.setdefault("en", {})
+    cache = global_config._g2p_auto.setdefault(lang, {})
     inst = cache.get(key)
     if inst is None:
-        from .english import EnglishG2P
-
-        inst = EnglishG2P(models_dir)
+        inst = _build_g2p(lang, models_dir)
         inst._auto_models_dir = key
         cache[key] = inst
-    global_config.english_g2p = inst
+    setattr(global_config, attr, inst)
     return inst
 
 

@@ -7,8 +7,10 @@ package's ``save_trained_*`` and by :func:`save_trained_gpt` /
 :func:`save_trained_sovits` here), read by the in-package reader; and the
 reference's torch pickles (GPT ``.ckpt``, SoVITS ``.pth`` with its 2-byte
 version header), read only through ``torch.load(weights_only=True)`` —
-never with arbitrary unpickling.  Nothing is downloaded: a missing file
-raises an error that names it.
+never with arbitrary unpickling.  :func:`gpt_to_safetensors` and
+:func:`sovits_to_safetensors` convert those pickles into safetensors
+directories, float32 as the JAX package's export writes them.  Nothing is
+downloaded: a missing file raises an error that names it.
 """
 from __future__ import annotations
 
@@ -90,7 +92,9 @@ def _float_state_dict(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def resolve_t2s_attn_impl(tts_config: Config) -> str:
-    """The engine's ``attn_impl`` for a config: ``attn_impl``, or under
+    """The engine's ``attn_impl`` for a config: ``"xla"`` when
+    ``use_flash_attn`` is false (the JAX package's mapping, whatever
+    ``attn_impl`` and ``quant_t2s`` say); else ``attn_impl``, or under
     ``quant_t2s`` the quantized whole-step stream (``True`` and ``"int8"``:
     ``"fused_step_q8"``, ``"int4"``: ``"fused_step_q4"``).  Validates
     unconditionally, as the JAX package does (``loader.py:191-215``): a
@@ -102,6 +106,8 @@ def resolve_t2s_attn_impl(tts_config: Config) -> str:
         raise ValueError(
             f"quant_t2s must be False, True ('int8'), 'int8' or 'int4', "
             f"got {quant_mode!r}")
+    if not getattr(tts_config, "use_flash_attn", True):
+        return "xla"
     if not quant_mode:
         return tts_config.attn_impl
     if tts_config.attn_impl != "fused_step":
@@ -128,6 +134,22 @@ def load_sovits_raw(sovits_path: str) -> Tuple[Dict[str, Any], Optional[str]]:
     return _torch_load(sovits_path), version
 
 
+def _sovits_pth(sovits_path: str) -> Tuple[Dict[str, Any], HParams, str]:
+    """A ``.pth``'s state dict, hyperparameters (25 Hz semantics, the
+    version written into them) and version; a version neither the header,
+    the hash table nor the config names raises."""
+    dict_s2, version = load_sovits_raw(sovits_path)
+    hps = HParams(dict_s2["config"])
+    hps.model.semantic_frame_rate = "25hz"
+    if version is None:
+        version = hps.model.get("version")
+        if version not in ("v2", "v2Pro", "v2ProPlus"):
+            raise ValueError("The SoVITS model is not the v2/v2Pro/v2ProPlus version. "
+                             "Please check the model file.")
+    hps.model.version = version
+    return dict_s2["weight"], hps, version
+
+
 def get_sovits_weights(sovits_path, tts_config: Config) -> Sovits:
     sovits_path = str(sovits_path)
     if os.path.isdir(sovits_path):
@@ -136,17 +158,8 @@ def get_sovits_weights(sovits_path, tts_config: Config) -> Sovits:
         weights = load_file(_require(os.path.join(sovits_path, "model.safetensors")))
         version = hps.model.get("version", "v2")
     else:
-        dict_s2, version = load_sovits_raw(sovits_path)
-        hps = HParams(dict_s2["config"])
-        hps.model.semantic_frame_rate = "25hz"
-        if version is None:
-            version = hps.model.get("version")
-            if version not in ("v2", "v2Pro", "v2ProPlus"):
-                raise ValueError("The SoVITS model is not the v2/v2Pro/v2ProPlus version. "
-                                 "Please check the model file.")
-        else:
-            hps.model.version = version
-        weights = _float_state_dict(dict_s2["weight"])
+        weight, hps, version = _sovits_pth(sovits_path)
+        weights = _float_state_dict(weight)
     model_d = hps.model.to_dict() if isinstance(hps.model, HParams) else dict(hps.model)
     model_d["version"] = version
     cfg = SovitsConfig.from_hps(model_d, hps.data.filter_length // 2 + 1)
@@ -168,6 +181,13 @@ def remap_gpt_state_dict(weight: Dict[str, Any], n_layer: int) -> Dict[str, Any]
             for k, v in weight.items()}
 
 
+def _gpt_ckpt(gpt_path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A training ``.ckpt``'s config and its state dict under runtime names."""
+    dict_s1 = _torch_load(_require(gpt_path))
+    config = dict_s1["config"]
+    return config, remap_gpt_state_dict(dict_s1["weight"], config["model"]["n_layer"])
+
+
 def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
     gpt_path = str(gpt_path)
     attn_impl = resolve_t2s_attn_impl(tts_config)
@@ -176,10 +196,8 @@ def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
             config = json.load(f)
         weights = load_file(_require(os.path.join(gpt_path, "model.safetensors")))
     else:
-        dict_s1 = _torch_load(_require(gpt_path))
-        config = dict_s1["config"]
-        weights = remap_gpt_state_dict(_float_state_dict(dict_s1["weight"]),
-                                       config["model"]["n_layer"])
+        config, weights = _gpt_ckpt(gpt_path)
+        weights = _float_state_dict(weights)
     cfg = T2SConfig.from_checkpoint_config(config)
     params = t2s_model.params_from_torch_state_dict(
         weights, cfg, dtype=tts_config.dtype, device=tts_config.device)
@@ -203,5 +221,34 @@ def save_trained_sovits(params, hps: HParams, output_dir):
     os.makedirs(output_dir, exist_ok=True)
     save_file({k: v.detach().to("cpu", torch.float32) for k, v in params.items()},
               os.path.join(output_dir, "model.safetensors"))
+    with open(os.path.join(output_dir, "hps.json"), "w") as f:
+        json.dump(hps.to_dict(), f, indent=4, ensure_ascii=False)
+
+
+# -- safetensors export (``TTS.to_safetensors``; reference ``TTS.py:1482-1523``) --
+
+def _all_float32(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Every tensor as float32 (what the JAX package's export writes)."""
+    return {k: v.detach().to("cpu", torch.float32) if torch.is_tensor(v) else torch.as_tensor(v)
+            for k, v in sd.items()}
+
+
+def gpt_to_safetensors(gpt_path, output_dir, tts_config: Optional[Config] = None):
+    """A GPT ``.ckpt`` → a safetensors directory (``model.safetensors`` under
+    runtime names, float32, and the checkpoint's ``config.json``) that both
+    packages load."""
+    config, weights = _gpt_ckpt(str(gpt_path))
+    os.makedirs(output_dir, exist_ok=True)
+    save_file(_all_float32(weights), os.path.join(output_dir, "model.safetensors"))
+    with open(os.path.join(output_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=4, ensure_ascii=False)
+
+
+def sovits_to_safetensors(sovits_path, output_dir, tts_config: Optional[Config] = None):
+    """A SoVITS ``.pth`` → a safetensors directory (float32 weights and an
+    ``hps.json`` naming the version) that both packages load."""
+    weight, hps, _ = _sovits_pth(str(sovits_path))
+    os.makedirs(output_dir, exist_ok=True)
+    save_file(_all_float32(weight), os.path.join(output_dir, "model.safetensors"))
     with open(os.path.join(output_dir, "hps.json"), "w") as f:
         json.dump(hps.to_dict(), f, indent=4, ensure_ascii=False)

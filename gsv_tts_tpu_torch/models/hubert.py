@@ -4,8 +4,11 @@
 HuBERT-base topology (conv feature extractor with a group-norm first layer,
 feature projection, convolutional positional embedding, post-LN encoder),
 driven by the Hugging Face ``config.json`` and loaded from
-``model.safetensors`` without ``transformers``.  Exact-shape path only
-(the JAX package's ``featurizer_buckets`` padding is not ported).
+``model.safetensors`` without ``transformers``.  Under
+``Config.featurizer_buckets`` ``CNHubert`` pads the waveform to a multiple of
+``BUCKET_SAMPLES`` and runs the masked forward (group-norm statistics over
+the valid frames, padded frames zeroed ahead of the positional conv and
+masked as attention keys), then trims the output to the exact frames.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import dataclasses
 import json
 import math
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,12 +74,28 @@ class HubertConfig:
         return d
 
 
-def _group_norm(x, g, b, num_groups, eps=1e-5):
-    """torch GroupNorm on [B, C, T], float32 statistics."""
+def conv_out_length(length: int, cfg: HubertConfig, n_layers: Optional[int] = None) -> int:
+    """Frames the first ``n_layers`` conv-extractor layers (all by default)
+    make of ``length`` samples (torch's floor rule)."""
+    for k, s in list(zip(cfg.conv_kernel, cfg.conv_stride))[:n_layers]:
+        length = (length - k) // s + 1
+    return int(length)
+
+
+def _group_norm(x, g, b, num_groups, eps=1e-5, valid=None):
+    """torch GroupNorm on [B, C, T], float32 statistics; ``valid`` ([B]
+    int, optional) takes them over the first ``valid[b]`` steps only."""
     B, C, T = x.shape
     x32 = x.float().reshape(B, num_groups, C // num_groups, T)
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    var = ((x32 - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    if valid is None:
+        mean = x32.mean(dim=(2, 3), keepdim=True)
+        var = ((x32 - mean) ** 2).mean(dim=(2, 3), keepdim=True)
+    else:
+        m = (torch.arange(T, device=x.device)[None, :] < valid[:, None]).float()[:, None, None]
+        cnt = (valid.float() * (C // num_groups))[:, None, None, None]
+        mean = (x32 * m).sum(dim=(2, 3), keepdim=True) / cnt
+        d = (x32 - mean) * m
+        var = (d * d).sum(dim=(2, 3), keepdim=True) / cnt
     x32 = ((x32 - mean) * torch.rsqrt(var + eps)).reshape(B, C, T)
     return (x32 * g.float()[None, :, None] + b.float()[None, :, None]).to(x.dtype)
 
@@ -85,8 +104,10 @@ def _gelu(x):
     return F.gelu(x.float()).to(x.dtype)
 
 
-def feature_extractor(p, cfg: HubertConfig, x):
-    """waveform [B, T] → [B, C, frames]."""
+def feature_extractor(p, cfg: HubertConfig, x, valid_l0=None):
+    """waveform [B, T] → [B, C, frames]; ``valid_l0`` ([B], optional): the
+    layer-0 frames whose windows lie inside the unpadded waveform, over
+    which the group norm takes its statistics."""
     h = x[:, None, :]
     for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
         h = conv1d(h, p[f"feature_extractor.conv_layers.{i}.conv.weight"],
@@ -94,7 +115,7 @@ def feature_extractor(p, cfg: HubertConfig, x):
         if i == 0 and cfg.feat_extract_norm == "group":
             h = _group_norm(h, p["feature_extractor.conv_layers.0.layer_norm.weight"],
                             p["feature_extractor.conv_layers.0.layer_norm.bias"],
-                            num_groups=cfg.conv_dim[0])
+                            num_groups=cfg.conv_dim[0], valid=valid_l0)
         elif cfg.feat_extract_norm == "layer":
             h = layer_norm(h.transpose(1, 2),
                            p[f"feature_extractor.conv_layers.{i}.layer_norm.weight"],
@@ -103,7 +124,7 @@ def feature_extractor(p, cfg: HubertConfig, x):
     return h
 
 
-def encoder_layer(p, pfx, x, n_heads, eps):
+def encoder_layer(p, pfx, x, n_heads, eps, mask_bias=None):
     B, T, D = x.shape
     Dh = D // n_heads
 
@@ -113,6 +134,8 @@ def encoder_layer(p, pfx, x, n_heads, eps):
 
     q, k, v = heads("q_proj"), heads("k_proj"), heads("v_proj")
     scores = torch.matmul(q.float(), k.float().transpose(2, 3)) / math.sqrt(Dh)
+    if mask_bias is not None:  # padded keys: -1e9, an exact 0 after the softmax
+        scores = scores + mask_bias
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     attn = torch.matmul(probs, v).transpose(1, 2).reshape(B, T, D)
     attn = linear(attn, p[pfx + "attention.out_proj.weight"], p[pfx + "attention.out_proj.bias"])
@@ -125,14 +148,24 @@ def encoder_layer(p, pfx, x, n_heads, eps):
                       p[pfx + "final_layer_norm.bias"], eps)
 
 
-def hubert_forward(p, cfg: HubertConfig, wav):
-    """wav [B, T] (16 kHz) → last_hidden_state [B, frames, hidden]."""
-    h = feature_extractor(p, cfg, wav).transpose(1, 2)
+def hubert_forward(p, cfg: HubertConfig, wav, n_frames=None, valid_l0=None):
+    """wav [B, T] (16 kHz) → last_hidden_state [B, frames, hidden].  With
+    ``n_frames`` and ``valid_l0`` ([B] int tensors) ``wav`` is zero-padded
+    past its real length: the group norm takes its statistics over the first
+    ``valid_l0`` layer-0 frames, the projected features past ``n_frames`` are
+    zeroed and masked as attention keys, so rows below ``n_frames`` match
+    the exact-shape run; the caller trims the rest."""
+    h = feature_extractor(p, cfg, wav, valid_l0=valid_l0).transpose(1, 2)
     if cfg.feat_proj_layer_norm:
         h = layer_norm(h, p["feature_projection.layer_norm.weight"],
                        p["feature_projection.layer_norm.bias"], cfg.layer_norm_eps)
     h = linear(h, p["feature_projection.projection.weight"],
                p["feature_projection.projection.bias"])
+    mask_bias = None
+    if n_frames is not None:
+        fmask = torch.arange(h.shape[1], device=h.device)[None, :] < n_frames[:, None]
+        h = h * fmask[:, :, None].to(h.dtype)
+        mask_bias = torch.where(fmask, 0.0, -1e9).to(F32)[:, None, None, :]
     k = cfg.num_conv_pos_embeddings
     pos = conv1d(h.transpose(1, 2), p["encoder.pos_conv_embed.conv.weight"],
                  p["encoder.pos_conv_embed.conv.bias"], padding=k // 2,
@@ -144,7 +177,7 @@ def hubert_forward(p, cfg: HubertConfig, wav):
                    cfg.layer_norm_eps)
     for i in range(cfg.num_hidden_layers):
         h = encoder_layer(p, f"encoder.layers.{i}.", h, cfg.num_attention_heads,
-                          cfg.layer_norm_eps)
+                          cfg.layer_norm_eps, mask_bias)
     return h
 
 
@@ -214,7 +247,11 @@ def init_params(cfg: HubertConfig, generator: torch.Generator) -> Dict[str, torc
 class CNHubert:
     """Loads ``config.json`` and ``model.safetensors`` (or
     ``pytorch_model.bin`` through ``torch.load(weights_only=True)``) from
-    ``base_path``; calling it maps wav [B, T] → [B, frames, hidden]."""
+    ``base_path``; calling it maps wav [B, T] → [B, frames, hidden].  With
+    ``tts_config.featurizer_buckets`` the waveform is padded to a multiple
+    of ``BUCKET_SAMPLES`` (0.5 s at 16 kHz) and the masked forward runs."""
+
+    BUCKET_SAMPLES = 8000
 
     def __init__(self, base_path, tts_config):
         cfg_path = os.path.join(base_path, "config.json")
@@ -233,6 +270,7 @@ class CNHubert:
             raise FileNotFoundError(f"HuBERT weights not found: {st_path} (or {bin_path})")
         sd = {k.removeprefix("hubert."): v for k, v in sd.items()}
         self.params = params_from_torch_state_dict(sd, self.dtype, self.device)
+        self.buckets = bool(getattr(tts_config, "featurizer_buckets", False))
 
     @torch.no_grad()
     def __call__(self, wav16k: np.ndarray, normalize: bool = False) -> torch.Tensor:
@@ -245,5 +283,17 @@ class CNHubert:
             mean = wav.mean(axis=-1, keepdims=True)
             std = wav.std(axis=-1, keepdims=True)
             wav = (wav - mean) / np.sqrt(std ** 2 + 1e-7)
-        x = torch.as_tensor(wav, device=self.device).to(self.dtype)
-        return hubert_forward(self.params, self.cfg, x)
+        if not self.buckets:
+            x = torch.as_tensor(wav, device=self.device).to(self.dtype)
+            return hubert_forward(self.params, self.cfg, x)
+        T = wav.shape[1]
+        pad_T = max(self.BUCKET_SAMPLES, -(-T // self.BUCKET_SAMPLES) * self.BUCKET_SAMPLES)
+        x = torch.as_tensor(np.pad(wav, ((0, 0), (0, pad_T - T))), device=self.device)
+        n_frames = conv_out_length(T, self.cfg)
+
+        def per_row(n):
+            return torch.full((x.shape[0],), n, dtype=torch.int64, device=self.device)
+
+        out = hubert_forward(self.params, self.cfg, x.to(self.dtype), n_frames=per_row(n_frames),
+                             valid_l0=per_row(conv_out_length(T, self.cfg, n_layers=1)))
+        return out[:, :n_frames]

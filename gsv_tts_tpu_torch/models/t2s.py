@@ -17,8 +17,11 @@ generic step calls, by implementation name as in the JAX package:
 attention K3b, ``ops/flash_decode.py``), ``"fused_step"`` (K5, all layers in
 one call at B=1, ``ops/fused_step.py:fused_decode_step``) and ``"fused"``
 (K6, one call per layer, ``ops/fused_layer.py``) — each kernel on the card,
-its twin on the CPU.  The engine's default hot paths for 1 and 2..8 slots are
-the whole-step kernels K1 and K2 (``ops/fused_step.py``).
+its twin on the CPU — and ``"xla"`` (the JAX package's path without a
+kernel: plain PyTorch throughout, the attention
+``ops/flash_decode.py:xla_decode_attention``).  The engine's default hot
+paths for 1 and 2..8 slots are the whole-step kernels K1 and K2
+(``ops/fused_step.py``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.flash_decode import flash_decode_attention_layered
+from ..ops.flash_decode import flash_decode_attention_layered, xla_decode_attention
 from ..ops.flash_prefill import flash_prefill_attention, hybrid_mask
 from ..ops.fused_layer import fused_decode_layer
 from ..ops.fused_step import fused_decode_step
@@ -242,12 +245,14 @@ def transformer_prefill(params, cfg: T2SConfig, xy_pos: torch.Tensor,
     return x, torch.stack(ks), torch.stack(vs)
 
 
-def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_heads):
+def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_heads,
+                  attn_impl="flash"):
     """One token per slot through one block.  x [B, D]; caches
     [L, B, S, H, Dh] are updated IN PLACE at row ``rows[b]`` (= ``kv_len[b]``
     as int64; ``bidx`` = arange(B)) of layer ``layer_idx``.  Each slot
     attends its rows ``s <= kv_len[b]`` through
-    ``flash_decode_attention_layered``."""
+    ``flash_decode_attention_layered`` (K3b), or under ``"xla"`` through
+    ``xla_decode_attention``."""
     B, D = x.shape
     H = num_heads
     Dh = D // H
@@ -256,8 +261,12 @@ def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_he
     q, k, v = qkv.split(D, dim=-1)
     k_cache[layer_idx, bidx, rows] = k.reshape(B, H, Dh).to(k_cache.dtype)
     v_cache[layer_idx, bidx, rows] = v.reshape(B, H, Dh).to(v_cache.dtype)
-    attn = flash_decode_attention_layered(q.reshape(B, H, Dh).contiguous(), k_cache, v_cache,
-                                          kv_len, layer_idx).reshape(B, D)
+    if attn_impl == "xla":
+        attn = xla_decode_attention(q.reshape(B, H, Dh), k_cache[layer_idx], v_cache[layer_idx],
+                                    kv_len).reshape(B, D)
+    else:
+        attn = flash_decode_attention_layered(q.reshape(B, H, Dh).contiguous(), k_cache,
+                                              v_cache, kv_len, layer_idx).reshape(B, D)
     x = residual + F.linear(attn, lp["out_w"], lp["out_b"])
     x = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     residual = x
@@ -267,7 +276,7 @@ def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_he
 
 
 #: implementation names of :func:`transformer_decode_step` and of the engine
-ATTN_IMPLS = ("fused_step", "flash", "fused")
+ATTN_IMPLS = ("fused_step", "flash", "fused", "xla")
 
 
 def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len,
@@ -280,7 +289,9 @@ def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len,
       attention K3b (``flash_decode_attention_layered``);
     * ``"fused_step"``: K5, all layers in one call, at B=1; a larger wave
       degrades to ``"flash"``;
-    * ``"fused"``: K6, one call per layer."""
+    * ``"fused"``: K6, one call per layer;
+    * ``"xla"``: plain PyTorch throughout, ``xla_decode_attention`` as the
+      attention (no kernel)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: expected one of {ATTN_IMPLS}")
     table = params.get("k1_table")  # the owner's pointer table (CUDA parameters)
@@ -293,7 +304,8 @@ def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len,
     bidx = torch.arange(x.shape[0], device=x.device)
     rows = kv_len.long()
     for i, lp in enumerate(params["layers"]):
-        x = _block_decode(x, lp, i, k_cache, v_cache, kv_len, bidx, rows, cfg.num_heads)
+        x = _block_decode(x, lp, i, k_cache, v_cache, kv_len, bidx, rows, cfg.num_heads,
+                          "xla" if attn_impl == "xla" else "flash")
     return x, k_cache, v_cache
 
 

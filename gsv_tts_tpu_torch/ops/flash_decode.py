@@ -45,6 +45,22 @@ MAX_CLUSTER = 8
 PLAN_MAX_CLUSTER = 4
 
 
+def xla_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         kv_len: torch.Tensor) -> torch.Tensor:
+    """The engine's ``"xla"`` decode attention (the JAX package's function of
+    that name, its path without a Pallas kernel): masked softmax attention
+    over ``s <= kv_len[b]`` in plain PyTorch on any device, float32 scores,
+    the probabilities in ``q``'s dtype for the value product.  q [B, H, Dh];
+    one layer's caches [B, S, H, Dh].  Launches no kernel of this package."""
+    Dh = q.shape[-1]
+    S = k_cache.shape[1]
+    scores = torch.einsum("bhd,bshd->bhs", q.float(), k_cache.float()) / math.sqrt(Dh)
+    valid = torch.arange(S, device=q.device)[None, :] <= kv_len[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhs,bshd->bhd", probs, v_cache.to(q.dtype))
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          kv_len: torch.Tensor) -> torch.Tensor:
     """Plain twin: masked softmax attention over ``s <= kv_len[b]``.

@@ -19,6 +19,9 @@ twins on the CPU), as in the JAX engine:
   every wave, B=1 included, decodes through the generic step with K3b;
 * ``"fused"``: plain prefill attention; the generic step with K6, one
   whole-layer call per layer (``ops/fused_layer.py``);
+* ``"xla"`` (``Config.use_flash_attn=False``): plain prefill attention; the
+  generic step at every B with ``ops/flash_decode.py:xla_decode_attention``,
+  plain PyTorch throughout — no kernel of this package launches;
 * ``"fused_step_q8"`` / ``"fused_step_q4"``: ``"fused_step"`` with the t2s
   layers' weights streamed as int8 / int4 pages (packed once, at
   construction) by K1 and by K2 for waves of 2..``MAX_QUANT_B`` slots, as the
@@ -373,7 +376,8 @@ def _generic_step(params, cfg: T2SConfig, st: DecodeState, g, sa: SampleArgs,
     """One step outside the whole-step kernels (the JAX generic ``step``):
     embedding, head and sampling as plain PyTorch around
     ``transformer_decode_step`` — under ``"flash"`` PyTorch layers with K3b
-    as their attention, under ``"fused"`` K6 per layer."""
+    as their attention, under ``"fused"`` K6 per layer, under ``"xla"``
+    PyTorch layers with ``xla_decode_attention``."""
     pe_idx = (st.kv_len - st.x_len).clamp_min(0).long()  # 0 for a frozen slot
     pe = (params["audio_pos_alpha"] * params["pe"][pe_idx]).to(dtype)
     x = params["audio_emb"][st.last_tok.long()].to(dtype) + pe
@@ -396,7 +400,8 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
     generic step with K3b above; ``"fused_step_q8"`` / ``"_q4"`` the same,
     K1 and K2 up to ``MAX_QUANT_B`` slots on the quantized pages
     (:func:`step_path`).  Under ``"flash"`` the generic step with K3b, under
-    ``"fused"`` the generic step with K6, at every B.  Every slot advances,
+    ``"fused"`` the generic step with K6, under ``"xla"`` the generic step in
+    plain PyTorch, at every B.  Every slot advances,
     dead ones too.  ``gumbel`` [n_steps, B, V] float32.  Returns ``(state,
     toks [B, n_steps] int32)`` with ``toks`` on the device (no host
     synchronisation here except K1's one counter readback)."""
@@ -466,8 +471,8 @@ class T2SEngine:
         self.quant = QUANT_IMPLS.get(self.attn_impl)
         if self.quant is not None:  # packed once, from the model-dtype weights
             self.params = dict(params, **{QUANT_KEYS[self.quant]: quant_layers(params, self.quant)})
-        if self.device.type == "cuda":
-            # the kernels' pointer table and workspace, built once
+        if self.device.type == "cuda" and self.attn_impl != "xla":
+            # the kernels' pointer table and workspace, built once ("xla" runs none)
             self.params = dict(self.params, k1_table=K1Table(self.params, self.quant))
         self.buckets: Dict[int, List[int]] = {}
         for b, s in gpt_cache:

@@ -4,7 +4,8 @@
 ``TTS.infer_stream`` runs every bucketed chunk as the B=1 case, captured as
 one CUDA graph per (codes bucket, text bucket, flow bucket, overlap) on the
 card.  Not ported yet: ``VocoderBatcher``, which gathers the chunks of
-concurrent streams into one call with B > 1 (ROADMAP Queue 1 #7).
+concurrent streams into one call with B > 1 (ROADMAP Queue 1: batched
+streaming and the shared wave).
 """
 from __future__ import annotations
 

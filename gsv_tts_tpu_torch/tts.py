@@ -1,13 +1,18 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
-registry (load, unload, list), speaker/prompt audio caches, single-utterance
-``infer``, streaming ``infer_stream``, batched ``infer_batched``, voice
-conversion ``infer_vc``, ``verify_speaker`` and ``warmup``.
+registry (load, unload, list, ``to_safetensors``), speaker/prompt audio
+caches, single-utterance ``infer``, streaming ``infer_stream``, batched
+``infer_batched``, voice conversion ``infer_vc``, ``verify_speaker``,
+``warmup``, ``init_language_module``, ``get_timings`` and the ``*_async``
+wrappers of the four inference calls.
 
-Pipeline: text → English frontend (host) → t2s engine (prefill, then one
-whole-step kernel per decode step by default: K1 for one utterance, K2 for a
-continuous-batched wave, the generic step with K3b for waves above K2's
-limit; ``attn_impl`` selects the K4 / K3b or the K6 paths instead) → SoVITS
-→ host trim, subtitles from the MRTE attention by a monotonic Viterbi.
+Pipeline: text → frontend (host: English and Chinese G2P; for Chinese text
+the CNRoberta BERT featurizer, ``models/roberta.py``, on the card) → t2s
+engine (prefill, then one whole-step kernel per decode step by default: K1
+for one utterance, K2 for a continuous-batched wave, the generic step with
+K3b for waves above K2's limit; ``attn_impl`` selects the K4 / K3b or the K6
+paths instead, ``use_flash_attn=False`` the ``"xla"`` path without a kernel)
+→ SoVITS → host trim, subtitles from the MRTE attention by a monotonic
+Viterbi.
 v2 / v2Pro / v2ProPlus SoVITS models: a v2Pro model's speaker conditioning
 adds the ERes2NetV2 embedding of the speaker clip (``models/sv.py``, the
 checkpoint at ``models_dir/sv/pretrained_eres2netv2w24s4ep4.ckpt``).
@@ -21,15 +26,19 @@ CUDA graph, captured the first time its shapes are seen and replayed after.
 ``speed != 1``, a frame-wise ``ge`` and ``stream_vocoder="exact"`` take the
 exact-shape core (the packed ``infer_batched`` too, with block-diagonal MRTE
 masks), whose flow still pads to the bucket ladder.  Not ported yet (ROADMAP
-Queue 1): batched streaming and the shared wave, Chinese and Japanese text,
-``get_timings``, ``to_safetensors`` and the ``*_async`` wrappers.
+Queue 1): Japanese text, batched streaming and the shared wave (with
+``stream_shared_async`` and ``infer_batched_stream_async``).
 """
 from __future__ import annotations
 
+import asyncio
 import functools
 import logging
+import os
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -39,15 +48,18 @@ import torch.nn.functional as F
 
 from . import dsp
 from .config import Config, global_config
+from .frontend.lang_segment import LangSegment
 from .frontend.pause import pause_map
 from .frontend.text_processor import cut_text, get_phones_and_bert, sub2text_index
-from .loader import Gpt, Sovits, get_gpt_weights, get_sovits_weights, resolve_t2s_attn_impl
+from .loader import (Gpt, Sovits, get_gpt_weights, get_sovits_weights, gpt_to_safetensors,
+                     resolve_t2s_attn_impl, sovits_to_safetensors)
 from .models import sovits as sovits_model
 from .ops import stft
 from .player import AudioClip
 from .runtime.t2s_session import _round_up
 from .runtime.vocoder_batch import stream_batch_fused
 from .utils.audio_io import load_audio, save_wav
+from .utils.timing import Timings
 
 logger = logging.getLogger(__name__)
 
@@ -257,20 +269,36 @@ class TTS:
     value).  ``sovits_cache`` lists the flow/vocoder frame buckets (empty: exact
     shapes); ``stream_vocoder`` is ``"bucketed"`` (the padded core, one CUDA
     graph per bucket on the card) or ``"exact"`` (the exact-shape core).
+    ``use_flash_attn=False`` takes the engine's ``"xla"`` path (plain
+    PyTorch, no kernel), whatever ``attn_impl`` and ``quant_t2s`` say.
     The ERes2NetV2 speaker embedder (``models_dir/sv/``) is loaded the first
-    time an embedding has to be computed and kept, as HuBERT is."""
+    time an embedding has to be computed and kept, as HuBERT is.
+
+    Chinese text takes BERT features from ``models_dir/
+    chinese-roberta-wwm-ext-large`` (``use_bert``: loaded now; else, with
+    ``auto_bert``, on the first text with Han characters; without the
+    directory, zero features and a warning: nothing is downloaded);
+    ``quant_bert`` runs its linear layers in int8, ``featurizer_buckets``
+    pads the BERT and HuBERT inputs to a ladder of shapes, and
+    ``use_jieba_fast`` has the Chinese G2P segment with ``jieba_fast`` when
+    it imports.  ``timings`` keeps the stages' wall times of the calls
+    (``get_timings``); the ``*_async`` wrappers run a call in an executor
+    thread under ``_infer_lock``, one at a time."""
 
     def __init__(self, gpt_cache: List[tuple] = DEFAULT_GPT_CACHE,
                  sovits_cache: List[int] = DEFAULT_SOVITS_CACHE,
                  models_dir: Optional[str] = None, device: Optional[str] = None,
                  dtype: Optional[str] = None, seed: Optional[int] = None,
                  attn_impl: str = "fused_step", stream_vocoder: str = "bucketed",
-                 quant_t2s=False):
+                 quant_t2s=False, use_flash_attn: bool = True, use_bert: bool = False,
+                 auto_bert: bool = True, use_jieba_fast: bool = False,
+                 quant_bert: bool = False, featurizer_buckets: bool = False):
         if stream_vocoder not in ("bucketed", "exact"):
             raise ValueError(f'stream_vocoder must be "bucketed" or "exact", not {stream_vocoder!r}')
         self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache),
                                  sovits_cache=sorted(sovits_cache or []), attn_impl=attn_impl,
-                                 quant_t2s=quant_t2s)
+                                 quant_t2s=quant_t2s, use_flash_attn=use_flash_attn,
+                                 quant_bert=quant_bert, featurizer_buckets=featurizer_buckets)
         resolve_t2s_attn_impl(self.tts_config)  # a bad combination fails here, not at load
         self.stream_vocoder = stream_vocoder
         #: the padded SoVITS programs' CUDA graphs (counted in ``last_timings``)
@@ -281,6 +309,8 @@ class TTS:
         self.tts_config.models_dir = self.models_dir
         if global_config.models_dir is None:
             global_config.models_dir = self.models_dir
+        if global_config.use_jieba_fast is None:
+            global_config.use_jieba_fast = use_jieba_fast
         self.device = self.tts_config.device
         self.generator = torch.Generator(device=self.device)
         if seed is None:
@@ -293,11 +323,22 @@ class TTS:
         self.spk_audio_cache: Dict[str, dict] = {}
         self.prompt_audio_cache: Dict[str, dict] = {}
         self.cnhubert_path = self.models_dir / "chinese-hubert-base"
+        self.cnroberta_path = self.models_dir / "chinese-roberta-wwm-ext-large"
         self.sv_path = self.models_dir / "sv" / "pretrained_eres2netv2w24s4ep4.ckpt"
         self.default_gpt_path = self.models_dir / "s1v3.ckpt"
         self.default_sovits_path = self.models_dir / "s2Gv2ProPlus.pth"
+        self.auto_bert = auto_bert
+        self._bert_loaded = False
+        if use_bert:
+            self._load_bert()
         self.cnhubert_model = None
         self.sv_model = None
+        #: serializes the ``*_async`` wrappers' calls (and so their CUDA work
+        #: and graph captures) in their executor threads
+        self._infer_lock = threading.Lock()
+        #: rolling wall times of the stages (``frontend``, ``t2s``, ``sovits``
+        #: of ``infer``; ``ttfa_s`` of ``infer_stream``), read by ``get_timings``
+        self.timings = Timings()
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
         self.sovits_hz = 50
@@ -355,6 +396,30 @@ class TTS:
 
     def get_sovits_list(self):
         return list(self.sovits_models.keys())
+
+    def init_language_module(self, *languages):
+        """Build the G2P engine of each language now rather than on its first
+        text; an unknown language logs a warning (``"ja"`` raises: not ported)."""
+        from .frontend.g2p import text_to_phonemes
+
+        for language in languages:
+            if language in ("en", "zh", "ja"):
+                text_to_phonemes(" .", language, models_dir=self.models_dir)
+                logger.info("Loaded language module: %s", language)
+            else:
+                logger.warning('Language "%s" not found.', language)
+
+    def to_safetensors(self, checkpoint_path, output_dir: Optional[str] = None):
+        """Convert a GPT ``.ckpt`` or a SoVITS ``.pth`` into a safetensors
+        directory (by default the checkpoint's path without its suffix) that
+        this package and the JAX package both load."""
+        if output_dir is None:
+            output_dir, _ = os.path.splitext(str(checkpoint_path))
+        if str(checkpoint_path).endswith(".pth"):
+            sovits_to_safetensors(checkpoint_path, output_dir, self.tts_config)
+        else:
+            gpt_to_safetensors(checkpoint_path, output_dir, self.tts_config)
+        logger.info("Successfully converted and saved to: %s", output_dir)
 
     def _get_cnhubert(self):
         if self.cnhubert_model is None:
@@ -449,6 +514,8 @@ class TTS:
               noise_scale: float = 0.5, speed: float = 1.0,
               gpt_model=None, sovits_model=None) -> AudioClip:
         """Single-utterance synthesis (reference ``TTS.py:149-286``)."""
+        if self._contains_chinese(text):
+            self._ensure_bert_loaded()
         if not self._check_pause(text):
             text += "."
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
@@ -474,6 +541,9 @@ class TTS:
                                               noise_scale=noise_scale, speed=speed)
             audio = audio.reshape(-1)
         t3 = time.perf_counter()
+        # each stage ends in a copy to the host, so its wall time holds its device work
+        for name, seconds in (("frontend", t1 - t0), ("t2s", t2 - t1), ("sovits", t3 - t2)):
+            self.timings.record(name, seconds)
         self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
                              "tokens": int(semantic.size), **self._graph_counts(graphs),
                              **gpt.engine.last_stats}
@@ -493,6 +563,11 @@ class TTS:
         return AudioClip(audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, subtitles, text)
 
+    def get_timings(self) -> Dict[str, Dict[str, float]]:
+        """Latency percentiles by stage (``frontend``, ``t2s``, ``sovits``,
+        ``ttfa_s``): count, p50, p95, mean and last, in seconds."""
+        return self.timings.summary()
+
     def warmup(self, voice: Optional[dict] = None, text: Optional[str] = None,
                stream: bool = False, gpt_model=None, sovits_model=None) -> Dict[str, float]:
         """One short ``infer`` before traffic arrives, so the CUDA graphs of
@@ -500,15 +575,28 @@ class TTS:
         first launches paid) before a user waits on them.  ``voice`` is a
         ``{"speaker_audio", "prompt_audio", "prompt_text"}`` bundle; without
         one, synthetic sine references are written to a temporary directory
-        (graphs are keyed by shapes, not by content).  A longer first request
-        still captures its own buckets.  Returns wall seconds by phase.
-        ``stream=True`` warms the shared-wave stream, which is not ported
-        yet."""
+        (graphs are keyed by shapes, not by content).  The default text gains
+        a Chinese prefix when the BERT directory exists and a Chinese G2P works
+        for ``models_dir``, so the BERT featurizer runs once too (a failing
+        zh G2P only drops the prefix).  A longer first request still captures
+        its own buckets.  Returns wall seconds by phase.  ``stream=True``
+        warms the shared-wave stream, which is not ported yet."""
         if stream:
             raise NotImplementedError("warmup(stream=True) warms stream_shared, which is not "
-                                      "ported yet (ROADMAP Queue 1 #7)")
+                                      "ported yet (ROADMAP Queue 1: batched streaming and "
+                                      "the shared wave)")
         if text is None:
             text = "warm up, testing one two three."
+            if self.cnroberta_path.exists():
+                zh_prefix = "预热完成。"
+                try:
+                    from .frontend.g2p import text_to_phonemes
+
+                    text_to_phonemes(zh_prefix, "zh", models_dir=self.models_dir)
+                    text = zh_prefix + " " + text
+                except Exception as exc:  # no usable zh G2P here: warm without it
+                    logger.warning("warmup: zh prefix skipped (no usable zh G2P for "
+                                   "models_dir=%s: %s)", self.models_dir, exc)
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="gsv_warmup_") as tmp:
             if voice:
@@ -543,7 +631,8 @@ class TTS:
                      overlap_len: int = 5, boost_first_chunk: bool = True, top_k: int = 15,
                      top_p: float = 1.0, temperature: float = 1.0,
                      repetition_penalty: float = 1.35, noise_scale: float = 0.5,
-                     speed: float = 1.0, gpt_model=None, sovits_model=None):
+                     speed: float = 1.0, gpt_model=None, sovits_model=None,
+                     debug: bool = True):
         """Streaming synthesis (reference ``TTS.py:288-504``): a generator
         of ``AudioClip`` chunks.  The t2s decode is cut into chunks of
         ``stream_chunk`` tokens (``stream_mode="sentence"``: one chunk per
@@ -553,7 +642,11 @@ class TTS:
         subtitles its audio completes.  ``boost_first_chunk`` sends the first
         chunk of the first segment out without holding it back for its
         successor.  ``last_timings["ttfa_s"]`` is the time to the first
-        chunk, ``sovits_s`` the vocoder's time over the stream so far."""
+        chunk (also recorded in ``timings``), ``sovits_s`` the vocoder's time
+        over the stream so far.  ``debug`` logs each segment and the stream's
+        end."""
+        if self._contains_chinese(text):
+            self._ensure_bert_loaded()
         if not self._check_pause(text):
             text += "."
         if stream_mode == "sentence":
@@ -571,7 +664,10 @@ class TTS:
         t_start = time.perf_counter()
         graphs = self._graph_counts()
         self.last_timings = {"sovits_s": 0.0}
-        for i, text_cut in enumerate(cut_text(text, cut_minlen)):
+        text_cuts = cut_text(text, cut_minlen)
+        for i, text_cut in enumerate(text_cuts):
+            if debug:
+                logger.info("Processing segment %d/%d: %r", i + 1, len(text_cuts), text_cut)
             phones2, word2ph, bert2, norm_text = get_phones_and_bert(text_cut, self.tts_config)
             all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
             bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
@@ -601,9 +697,13 @@ class TTS:
                         cut_mute_scale_map=cut_mute_scale_map)
                     self.last_timings["sovits_s"] += time.perf_counter() - t0
                 audio_len_s += len(audio) / self.samplerate
-                self.last_timings.setdefault("ttfa_s", time.perf_counter() - t_start)
+                if "ttfa_s" not in self.last_timings:
+                    self.last_timings["ttfa_s"] = time.perf_counter() - t_start
+                    self.timings.record("ttfa_s", self.last_timings["ttfa_s"])
                 self.last_timings.update(gpt.engine.last_stats, **self._graph_counts(graphs))
                 yield AudioClip(audio, self.samplerate, audio_len_s, new_subtitles, text)
+        if debug:
+            logger.info("Stream inference complete. Generated %.2fs of audio.", audio_len_s)
 
     def _prepare_batched_inputs(self, spk_audio_paths, prompt_audio_paths,
                                 prompt_audio_texts, texts, is_cut_text, cut_minlen,
@@ -613,6 +713,8 @@ class TTS:
         prompt/speaker resources per segment."""
         if isinstance(texts, str):
             texts = [texts]
+        if any(self._contains_chinese(t) for t in texts):
+            self._ensure_bert_loaded()
         texts = [t if self._check_pause(t) else t + "." for t in texts]
         if not is_cut_text:
             cut_minlen = 10000
@@ -867,6 +969,67 @@ class TTS:
         e1, e2 = (emb(p).float().cpu().numpy() for p in (speaker1_audio, speaker2_audio))
         return float(np.sum(e1 * e2) / (np.linalg.norm(e1) * np.linalg.norm(e2) + 1e-6))
 
+    # -- async wrappers (reference ``TTS.py:966-1162``) ---------------------
+    # Each call runs in an executor thread under ``_infer_lock``: one call's
+    # CUDA work (a SoVITS graph capture included) never overlaps another's.
+
+    async def _locked(self, fn, args, kwargs, executor):
+        def run():
+            with self._infer_lock:
+                return fn(*args, **kwargs)
+
+        return await asyncio.get_running_loop().run_in_executor(executor, run)
+
+    async def infer_async(self, *args, executor: Optional[ThreadPoolExecutor] = None,
+                          **kwargs):
+        return await self._locked(self.infer, args, kwargs, executor)
+
+    async def infer_batched_async(self, *args, executor: Optional[ThreadPoolExecutor] = None,
+                                  **kwargs):
+        return await self._locked(self.infer_batched, args, kwargs, executor)
+
+    async def infer_vc_async(self, *args, executor: Optional[ThreadPoolExecutor] = None,
+                             **kwargs):
+        return await self._locked(self.infer_vc, args, kwargs, executor)
+
+    async def infer_stream_async(self, *args, executor: Optional[ThreadPoolExecutor] = None,
+                                 **kwargs):
+        """``infer_stream``'s chunks as an async generator.  A worker's error
+        is raised to the consumer; a consumer that stops early sets the
+        cancel event, and the worker stops at its next chunk."""
+        loop = asyncio.get_running_loop()
+        queue: asyncio.Queue = asyncio.Queue()
+        cancel_event = threading.Event()
+
+        def run():
+            # errors travel through the queue: the executor's future is dropped
+            try:
+                with self._infer_lock:
+                    gen = self.infer_stream(*args, **kwargs)
+                    try:
+                        for chunk in gen:
+                            if cancel_event.is_set():  # the consumer went away
+                                break
+                            loop.call_soon_threadsafe(queue.put_nowait, chunk)
+                    finally:
+                        gen.close()
+            except BaseException as exc:  # noqa: BLE001 — raised to the consumer
+                loop.call_soon_threadsafe(queue.put_nowait, exc)
+            finally:
+                loop.call_soon_threadsafe(queue.put_nowait, None)
+
+        loop.run_in_executor(executor, run)
+        try:
+            while True:
+                chunk = await queue.get()
+                if chunk is None:
+                    break
+                if isinstance(chunk, BaseException):
+                    raise chunk
+                yield chunk
+        finally:
+            cancel_event.set()
+
     # -- internals -------------------------------------------------------
 
     def _default_models(self, gpt_model, sovits_model):
@@ -1089,8 +1252,39 @@ class TTS:
         wav16k = np.concatenate([wav16k, np.zeros(int(16000 * 0.3), np.float32)])
         with torch.no_grad():
             ssl = cnhubert_model(wav16k[None]).transpose(1, 2)
-            codes = sovits_model.extract_latent(sovits.params, ssl)
+            n_codes = None
+            if self.tts_config.featurizer_buckets:
+                # RVQ is per frame and ssl_proj a strided conv without
+                # padding: zero frames up to a multiple of 64, then codes cut
+                n_frames = ssl.shape[-1]
+                k = sovits.params["ssl_proj.weight"].shape[-1]
+                n_codes = (n_frames - k) // 2 + 1
+                ssl = F.pad(ssl, (0, -(-n_frames // 64) * 64 - n_frames))
+            codes = sovits_model.extract_latent(sovits.params, ssl)[..., :n_codes]
         return codes[0, 0].cpu().numpy()
+
+    def _contains_chinese(self, text: str) -> bool:
+        return any(seg["lang"] == "zh" for seg in LangSegment.getTexts(text))
+
+    def _ensure_bert_loaded(self):
+        if self._bert_loaded or not self.auto_bert:
+            return
+        self._load_bert()
+
+    def _load_bert(self):
+        """Load the BERT featurizer from ``cnroberta_path`` into the config
+        the frontend reads.  A missing file gives zero BERT features and a
+        warning, once: the JAX package tries a download first, this package
+        never downloads."""
+        from .models.roberta import CNRoberta
+
+        try:
+            self.tts_config.cnroberta = CNRoberta(self.cnroberta_path, self.tts_config)
+            logger.info("BERT model loaded for Chinese text")
+        except FileNotFoundError:
+            logger.warning("BERT model files not found; Chinese synthesis will use zero BERT "
+                           "features")
+        self._bert_loaded = True  # not retried on every call
 
     def _mute_scale(self, text_cut: str, scale_map: dict) -> float:
         if text_cut and text_cut[-1] in scale_map:

@@ -74,18 +74,19 @@ def _count_kernels(monkeypatch):
 
 
 def test_engine_accepts_the_three_names_and_rejects_the_rest(models):
-    """The three names and the two quantized whole-step names construct an
-    engine (the quantized ones with their pages packed); any other name
-    raises."""
+    """The three kernel names, ``"xla"`` (the path without a kernel, since
+    ``use_flash_attn`` is ported) and the two quantized whole-step names
+    construct an engine (the quantized ones with their pages packed); any
+    other name raises."""
     from gsv_tts_tpu_torch.ops.fused_step import QUANT_KEYS
     from gsv_tts_tpu_torch.runtime.t2s_session import ATTN_IMPLS, QUANT_IMPLS, T2SEngine
 
     _, _, pcfg, pp = models
-    assert ATTN_IMPLS == ("fused_step", "flash", "fused")
+    assert ATTN_IMPLS == ("fused_step", "flash", "fused", "xla")
     assert T2SEngine(pp, pcfg, gpt_cache=[(1, 128)]).attn_impl == "fused_step"
     for name in ATTN_IMPLS:
         assert T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name).attn_impl == name
-    for name in ("xla", "flash_interpret", "fused_step:vec", "", "fused_step_q8_interpret",
+    for name in ("xla_interpret", "flash_interpret", "fused_step:vec", "", "fused_step_q8_interpret",
                  "fused_step_q3", "fused_q8"):
         with pytest.raises(ValueError, match="attn_impl"):
             T2SEngine(pp, pcfg, gpt_cache=[(1, 128)], attn_impl=name)
@@ -105,11 +106,11 @@ def test_config_attn_impl_reaches_the_engine(tmp_path):
     cfg, jp = jax_t2s(0)
     save_trained_gpt(jp, cfg, str(tmp_path / "gpt"))
     assert Config(device="cpu").attn_impl == "fused_step"
-    for name in ("fused_step", "flash", "fused"):
+    for name in ("fused_step", "flash", "fused", "xla"):
         gpt = get_gpt_weights(tmp_path / "gpt", Config(device="cpu", attn_impl=name))
         assert gpt.engine.attn_impl == name
-    with pytest.raises(ValueError, match="attn_impl 'xla'"):
-        get_gpt_weights(tmp_path / "gpt", Config(device="cpu", attn_impl="xla"))
+    with pytest.raises(ValueError, match="attn_impl 'flash_interpret'"):
+        get_gpt_weights(tmp_path / "gpt", Config(device="cpu", attn_impl="flash_interpret"))
     tts = TTS(gpt_cache=[(1, 128)], models_dir=str(tmp_path), device="cpu", attn_impl="flash")
     tts.load_gpt_model(str(tmp_path / "gpt"))
     assert tts.gpt_models[str(tmp_path / "gpt")].engine.attn_impl == "flash"

@@ -3,6 +3,7 @@ copies of the JAX package's host code (nothing is loaded from
 ``gsv_tts_tpu/``) and must give the same phones, ``word2ph`` and normalized
 text as the JAX package's own ``get_phones_and_bert``."""
 import types
+from pathlib import Path
 
 import pytest
 
@@ -41,7 +42,7 @@ def test_frontend_modules_load_under_the_port_package():
     jax_dir = os.path.join(os.path.dirname(os.path.dirname(port_dir)), "gsv_tts_tpu", "frontend")
     assert list(frontend.__path__) == [port_dir]
     for name in ("lang_segment", "pause", "text_processor", "g2p.english", "g2p.en_norm",
-                 "g2p.en_oov", "g2p.en_pos"):
+                 "g2p.en_oov", "g2p.en_pos", "g2p.chinese", "g2p.zh_norm", "g2p.tone_sandhi"):
         mod = importlib.import_module("gsv_tts_tpu_torch.frontend." + name)
         rel = name.replace(".", os.sep) + ".py"
         assert os.path.abspath(mod.__file__) == os.path.join(port_dir, rel)
@@ -50,6 +51,13 @@ def test_frontend_modules_load_under_the_port_package():
     assert text_processor.text_to_phonemes.__module__ == "gsv_tts_tpu_torch.frontend.g2p"
     assert os.path.abspath(symbols.SYMBOLS_JSON) == os.path.join(
         os.path.dirname(port_dir), "assets", "symbols.json")
+    from gsv_tts_tpu_torch.frontend.g2p import tone_sandhi
+
+    assert tone_sandhi._ASSET == Path(port_dir).parent / "assets" / "zh_sandhi.json"
+    for asset in ("symbols.json", "zh_sandhi.json"):
+        with open(os.path.join(os.path.dirname(port_dir), "assets", asset), "rb") as a, \
+                open(os.path.join(os.path.dirname(jax_dir), "assets", asset), "rb") as b:
+            assert a.read() == b.read(), asset
 
 
 def test_port_symbols_equal_jax_symbols():
@@ -60,10 +68,20 @@ def test_port_symbols_equal_jax_symbols():
     assert len(ps.symbols) == 732
 
 
-@pytest.mark.parametrize("text,item", [("你好，世界。", "zh BERT"), ("こんにちは。", "ja")])
-def test_chinese_and_japanese_raise_with_the_roadmap_item(text, item):
-    from gsv_tts_tpu_torch.config import Config
+@pytest.mark.parametrize("text,error,item", [
+    # Chinese is ported: without a pinyin backend (no pypinyin, no lexicon)
+    # its G2P raises its own error naming the lexicon, as the JAX package's does
+    pytest.param("你好，世界。", KeyError, "provide a lexicon", id="你好，世界。-zh BERT"),
+    pytest.param("こんにちは。", NotImplementedError, "ja", id="こんにちは。-ja")])
+def test_chinese_and_japanese_raise_with_the_roadmap_item(text, error, item, monkeypatch):
+    import sys
+
+    from gsv_tts_tpu_torch.config import Config, global_config
     from gsv_tts_tpu_torch.frontend.text_processor import get_phones_and_bert
 
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.setitem(sys.modules, "pypinyin", None)
+    monkeypatch.setattr(global_config, "chinese_g2p", None)
+    monkeypatch.setattr(global_config, "models_dir", None)
+    monkeypatch.setattr(global_config, "_g2p_auto", {})
+    with pytest.raises(error, match=item):
         get_phones_and_bert(text, Config(device="cpu"))

@@ -178,6 +178,8 @@ def test_transformer_decode_step_rejects_unknown_impl():
     cfg, jp = jax_t2s(7)
     pcfg, pp = port_t2s(cfg, jp)
     x, kc, vc = (torch.tensor(a) for a in _state(cfg, 0, 1, 64))
-    with pytest.raises(ValueError, match="attn_impl 'xla'"):
+    # ("xla" is a known name since use_flash_attn is ported: the JAX
+    # package's interpret-mode names are what the port does not take)
+    with pytest.raises(ValueError, match="attn_impl 'xla_interpret'"):
         pt2s.transformer_decode_step(pp, pcfg, x, kc, vc, torch.tensor([3], dtype=torch.int32),
-                                     "xla")
+                                     "xla_interpret")

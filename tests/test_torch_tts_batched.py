@@ -134,8 +134,9 @@ def test_infer_batched_sovits_stage_fed_jax_tokens_matches_jax(both, monkeypatch
 def test_infer_batched_rejects_what_is_not_ported(assets, both):
     _, ptts, *_ = both
     args = (assets["spk"], assets["prompt"], PROMPT_TEXT, TEXTS)
-    with pytest.raises(NotImplementedError, match="zh BERT"):
-        ptts.infer_batched(*args[:3], TEXTS + ["你好。"])
+    # Chinese is ported; Japanese is what is left (ROADMAP Queue 1)
+    with pytest.raises(NotImplementedError, match="Queue 1: ja"):
+        ptts.infer_batched(*args[:3], TEXTS + ["こんにちは。"])
 
 
 def test_copied_package_runs_alone_without_jax(assets, tmp_path):
