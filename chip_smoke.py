@@ -151,11 +151,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
    encoder's device time (a CUDA graph of it) and its bound;
    ``TTS(use_flash_attn=False).infer`` (the ``"xla"`` engine: no launch of any
    kernel) with its ms a step.  Every launch count equals the decode steps its
-   path took.
+   path took;
+11. shared streams and ja, on the phase-4 checkpoints and ``[(1,512),(2,512),(4,512)]``:
+   ``infer_batched_stream`` of 4 texts (its tokens equal ``infer_batched``'s: both K2 at
+   B=4); ``VocoderBatcher.decode_many`` at 2 and 4 rows against each row's solo chunk, in
+   float32 (a float32 facade) and in bf16 against a float32 evaluation, and a batched
+   chunk of 4 rows against 4 solo chunks, replays only, in turns; 4 ``stream_shared``
+   clients 50-100 ms apart after the SoVITS graphs were evicted (captures while their K2
+   wave is live, a wave of more than one slot, batched vocoder groups, every client done
+   within ``CLIENT_DEADLINE_S``), each client's time to first audio, the wave's tok/s and
+   ms a K2 step against ``infer_batched``'s; a lone ``stream_shared`` against
+   ``infer_batched_stream`` of its text (both K1); Japanese kana through ``infer`` and
+   ``stream_shared``; ``warmup(stream=True)``, ``stream_shared_async`` and
+   ``infer_batched_stream_async``.  K1's and K2's launches equal the steps of each drive.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record, phase 10's readings (``zh readings: {...}``) and the
-card.  Nothing here imports JAX.
+kernels' JSON record, phase 10's and 11's readings (``zh readings: {...}``,
+``shared readings: {...}``) and the card.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -2767,10 +2779,471 @@ def zh_phase(models_dir, gpt, sov, spk, prompt, dev, card):
     return total, {"bert_err": errs, "bert_ms": times, "xla_ms_step": xla_ms}
 
 
+# ---------------------------------------------------------------------------
+# shared streams and ja: batched streaming, the shared wave, the vocoder batcher, Japanese
+# ---------------------------------------------------------------------------
+
+# kana-only Japanese: without pyopenjtalk (the card's host has none) the built-in converter
+JA_TEXTS = ["こんにちは、きょうはいいてんきですね。", "カタカナとひらがな、ちょっとまってね。"]
+# VocoderBatcher.decode_many against each row's solo chunk.  The batcher's semantics are
+# held in float32 on the card (a float32 facade on the same checkpoint): each batched row
+# within VOC_F32_TOL (relative L2) of its solo chunk (on the CPU they agree to 2e-5: only
+# the summation order differs).  In bf16 each row is held to a float32 evaluation of the
+# same bf16 weights: the MRTE attention (in [0, 1]) and the latent overlap (O(1)) by K1's
+# rule against its twin (check_close: within VOC_TOL_ABS of the solo row, and no further
+# from float32 than 1.5x the solo row, +1e-3).  The waveform cannot be held so: the random
+# vocoder saturates its tanh, so a relative L2 counts sign flips of samples near zero
+# before it (on an NVIDIA H100 80GB HBM3 at 700 W two bf16 evaluations of one row sat
+# 5.5 % and 10.1 % from float32, one sample 2 apart); each bf16 waveform, batched and
+# solo, must lie within VOC_BF16_AUDIO_TOL of float32, which a wrong row, offset or
+# conditioning (~100 % off) does not
+VOC_F32_TOL = 1e-3
+VOC_TOL_ABS = 0.1
+VOC_BF16_AUDIO_TOL = 0.25
+# every shared-stream client must be done within this many seconds of its start
+CLIENT_DEADLINE_S = 120.0
+
+
+def voc_check(name, got, solo, f32):
+    """A bf16 batched row against its solo row and float32 (the bounds above); returns
+    (max abs to solo, rel to solo, batched from f32, solo from f32)."""
+    import torch
+
+    got, solo, f32 = (torch.as_tensor(t).float().cpu() for t in (got, solo, f32))
+    if got.shape != solo.shape or got.shape != f32.shape:
+        fail(f"{name}: shapes {tuple(got.shape)}, solo {tuple(solo.shape)}, float32 "
+             f"{tuple(f32.shape)}")
+    err = float((got - solo).abs().max())
+    rel, noise, own = rel_err(got, solo), rel_err(solo, f32), rel_err(got, f32)
+    if name.endswith("audio"):
+        bad = max(own, noise) > VOC_BF16_AUDIO_TOL
+    else:
+        bad = err > VOC_TOL_ABS or own > 1.5 * noise + 1e-3
+    if bad:
+        fail(f"{name} differs: max abs {err:.4g}, rel {rel:.3g}; from float32: batched "
+             f"{own:.3g}, solo {noise:.3g}")
+    return err, rel, own, noise
+
+
+def batcher_rows(tts, sov, ge, ov=5):
+    """(codes, phones, vsi, overlap) of four chunks at different points of their streams:
+    two first chunks of other lengths, a cross-faded continuation (its overlap carried from
+    a solo first chunk) and a short first chunk, every row's valid frames (40, 47, 18, 48)
+    in the 50-frame flow bucket alone and in the batch.  A batch padded to a longer bucket
+    than a row's own gives HiFi-GAN the speaker conditioning on the pad frames where the
+    row alone meets the convolutions' zero padding, and the full-width vocoder sees that
+    far back into the row (float32 on an NVIDIA H100 80GB HBM3 at 700 W: a 47-frame row
+    8.4 % from its solo chunk at a 128-frame batch bucket): the JAX batcher's semantics
+    too, which this check does not isolate."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    codes = rng.randint(0, 1024, 41).astype(np.int64)
+    text = rng.randint(1, 700, 13).astype(np.int64)
+    _, _, carry = tts._sovits_decode_stream(sov, codes[None, None, :20], text[None], ge,
+                                            noise_scale=0.0, speed=1.0, y_overlap=None,
+                                            valid_start_idx=0, overlap_len=ov)
+    return [(codes[:20], text, 0, None), (codes, text, 35, carry),
+            (rng.randint(0, 1024, 9).astype(np.int64), rng.randint(1, 700, 7).astype(np.int64),
+             0, None), (codes[:24], text[:11], 0, None)]
+
+
+def batched_and_solo(tts, sov, ge, rows, ov=5):
+    """Each row's solo chunk, then the rows through one ``decode_many`` (a fresh batcher):
+    returns (batched results, solo results, the batcher's stats)."""
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import VocoderBatcher
+
+    solo = [tts._sovits_decode_stream(sov, c[None, None, :], t[None], ge, noise_scale=0.0,
+                                      speed=1.0, y_overlap=yo, valid_start_idx=v,
+                                      overlap_len=ov) for c, t, v, yo in rows]
+    b = VocoderBatcher(tts, max_batch=4)
+    try:
+        got = b.decode_many([(sov, c, t, ge, 0.0, yo, v, ov) for c, t, v, yo in rows])
+    finally:
+        b.close()
+    if b.stats["max_group"] != len(rows) or b.stats["solo_rows"]:
+        fail(f"decode_many of {len(rows)} rows ran {b.stats}")
+    return got, solo
+
+
+def f32_chunk(tts, sov, p32, codes, text, ge, y_ov, vsi, overlap_len):
+    """One streaming chunk as ``TTS._sovits_decode_stream`` builds it, evaluated eagerly in
+    float32 on ``p32`` (the bf16 weights in float32), noise zero."""
+    import torch
+
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import stream_batch_fused
+
+    cfg = sov.cfg
+    codes_pad, n_t, text_pad, N_t = tts._padded(codes[None, None, :], text[None])
+    Bc = codes_pad.shape[-1]
+    t_valid = 2 * codes.size - vsi
+    dev = codes_pad.device
+    y = (torch.zeros((1, cfg.hidden_channels, overlap_len), device=dev) if y_ov is None
+         else y_ov.float())
+    audio, attn, new_ov = stream_batch_fused(
+        p32, cfg, codes_pad, n_t.reshape(1), text_pad, N_t.reshape(1), ge.float(),
+        torch.zeros((1, cfg.inter_channels, 2 * Bc), device=dev), y,
+        torch.full((1,), vsi, device=dev), torch.full((1,), y_ov is not None, device=dev),
+        overlap_len=overlap_len, bucket=tts._flow_bucket(t_valid))
+    return (audio[..., :t_valid * cfg.samples_per_frame],
+            attn[0, :, :2 * codes.size, :text.size], new_ov)
+
+
+def replay_ms(graphs, key, reps: int = 20) -> float:
+    """Device ms of one replay of the captured graph ``key`` (CUDA events over ``reps``)."""
+    graph = graphs.graphs[key][0]
+    return cuda_ms(graph.replay, reps)
+
+
+def vocoder_batch_checks(tts, sov, ge, models_dir, sov_path, spk, card):
+    """``VocoderBatcher.decode_many`` at 2 and 4 rows against each row's solo
+    ``_sovits_decode_stream``, in float32 (a float32 facade) and in bf16 against a float32
+    evaluation; then a batched chunk of 4 rows against the 4 solo chunks, replays only
+    (after the captures), in turns."""
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.models.sovits import STREAM_PAD_MULTIPLE as CB
+
+    ov = 5
+    f32_tts = TTS(models_dir=models_dir, device=tts.device, dtype="float32", seed=SEED)
+    f32_tts.load_sovits_model(str(sov_path))
+    f32_sov, f32_ge = f32_tts._prepare_sovits_resources(str(sov_path), str(spk))
+    f32_rows = batcher_rows(f32_tts, f32_sov, f32_ge, ov)
+    f32_err = {}
+    for n_rows in (2, 4):
+        got, solo = batched_and_solo(f32_tts, f32_sov, f32_ge, f32_rows[:n_rows], ov)
+        for i, (g, s) in enumerate(zip(got, solo)):
+            for name, x, y in zip(("audio", "attn", "overlap"), g, s):
+                e = rel_err(torch.as_tensor(x).float().cpu(), torch.as_tensor(y).float().cpu())
+                f32_err[f"B{n_rows}_row{i}_{name}"] = e
+                if e > VOC_F32_TOL:
+                    fail(f"float32 decode_many B={n_rows} row {i} {name}: {e:.3g} from its "
+                         f"solo chunk (bound {VOC_F32_TOL})")
+    del f32_tts, f32_sov, f32_ge, f32_rows, got, solo
+    rows = batcher_rows(tts, sov, ge, ov)
+    p32 = {k: v.float() for k, v in sov.params.items()}
+    readings = {}
+    for n_rows in (2, 4):
+        got, solo = batched_and_solo(tts, sov, ge, rows[:n_rows], ov)
+        f32 = [f32_chunk(tts, sov, p32, c, t, ge, yo, v, ov) for c, t, v, yo in rows[:n_rows]]
+        for i, (g, s, f) in enumerate(zip(got, solo, f32)):
+            for name, x, y, z in zip(("audio", "attn", "overlap"), g, s, f):
+                r = voc_check(f"decode_many B={n_rows} row {i} {name}", x, y, z)
+                readings[f"B{n_rows}_row{i}_{name}"] = [round(v, 6) for v in r]
+    print(f"shared phase: decode_many at 2 and 4 rows: float32 batched rows from their solo "
+          f"chunks at most {max(f32_err.values()):.3g} (relative L2, bound {VOC_F32_TOL}); bf16 "
+          f"(max abs, rel to solo, batched from f32, solo from f32; attention and overlap: "
+          f"within {VOC_TOL_ABS} and batched <= 1.5x solo + 1e-3 from f32; audio: each "
+          f"<= {VOC_BF16_AUDIO_TOL} from f32): {json.dumps(readings)}", flush=True)
+    # replays only: the 4-row graph against the 4 solo graphs, in turns
+    p = sov.params
+    keys = []
+    for c, t, v, _ in rows:
+        bc, npad = -(-c.size // CB) * CB, -(-t.size // CB) * CB
+        keys.append(("chunk", id(p), bc, npad, tts._flow_bucket(2 * c.size - v), ov))
+    bc = max(k[2] for k in keys)
+    npad = max(k[3] for k in keys)
+    bkey = ("chunk", id(p), 4, bc, npad,
+            tts._flow_bucket(max(2 * c.size - v for c, _, v, _ in rows)), ov)
+    graphs = tts.sovits_graphs
+    missing = [k for k in keys + [bkey] if k not in graphs.graphs]
+    if missing:
+        fail(f"shared phase: no captured graph under {missing}")
+
+    def solo_ms():
+        return sum(replay_ms(graphs, k) for k in keys)
+
+    s1, b1, b2, s2 = solo_ms(), replay_ms(graphs, bkey), replay_ms(graphs, bkey), solo_ms()
+    batched, solo4 = (b1 + b2) / 2, (s1 + s2) / 2
+    print(f"shared phase: one batched chunk of 4 rows {batched:.3f} ms on the device against "
+          f"4 solo chunks {solo4:.3f} ms (replays of captured graphs, CUDA events, in turns "
+          f"s, b, b, s: {s1:.3f} / {b1:.3f} / {b2:.3f} / {s2:.3f}); {card}", flush=True)
+    return {"f32_max_rel": max(f32_err.values()), "bf16": readings, "batched4_ms": batched,
+            "solo4_ms": solo4}
+
+
+def wave_totals(tts, gpt):
+    return dict(tts.wave_stats().get(str(gpt), {}).get("totals", {}))
+
+
+def wave_delta(after, before):
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after if k != "max_live"}
+
+
+def shared_clients(tts, gpt, spk, prompt, texts, card):
+    """``len(texts)`` ``stream_shared`` clients on their own threads, started 50-100 ms
+    apart, with the SoVITS graphs evicted first so that clients capture while the wave
+    decodes; every capture records the live slots of the waves at that moment."""
+    import threading
+
+    import numpy as np
+
+    graphs = tts.sovits_graphs
+    sched = tts._get_wave_scheduler(str(gpt))
+    live_at_capture = []
+    capture = graphs._capture
+
+    def spy(*a, **kw):
+        waves = sched.stats["waves"]
+        live_at_capture.append(max((w["live"] for w in waves), default=0))
+        return capture(*a, **kw)
+
+    graphs._capture = spy
+    results = [None] * len(texts)
+    errors = []
+
+    def client(i):
+        t0 = time.perf_counter()
+        chunks, ttfa = [], None
+        try:
+            for c in tts.stream_shared(str(spk), str(prompt), PROMPT_TEXT, texts[i],
+                                       is_cut_text=False, debug=False):
+                if ttfa is None:
+                    ttfa = time.perf_counter() - t0
+                chunks.append(c.audio_data)
+            results[i] = (chunks, ttfa, time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 — fails the phase below
+            errors.append((i, repr(exc)))
+
+    cap0, cap_s0 = graphs.captures, graphs.capture_s
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(texts))]
+    rng = np.random.RandomState(SEED)
+    t_start = time.perf_counter()
+    try:
+        for i, t in enumerate(threads):
+            if i:
+                time.sleep(0.05 + 0.05 * rng.rand())  # 50-100 ms apart
+            t.start()
+        for t in threads:
+            t.join(timeout=max(0.1, CLIENT_DEADLINE_S - (time.perf_counter() - t_start)))
+    finally:
+        graphs._capture = capture
+    if any(t.is_alive() for t in threads):
+        fail(f"shared phase: a stream_shared client was not done within {CLIENT_DEADLINE_S} s")
+    if errors:
+        fail(f"shared phase: stream_shared clients failed: {errors}")
+    for i, (chunks, ttfa, wall) in enumerate(results):
+        audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        check_audio(f"shared phase: client {i}", audio, int(0.4 * 32000),
+                    1024 * 1280 + int(0.8 * 32000))
+        print(f"shared phase: client {i}: {len(chunks)} chunks, {audio.size / 32000:.2f} s of "
+              f"audio, time to first audio {1000 * ttfa:.1f} ms, done in {wall:.2f} s; {card}",
+              flush=True)
+    during = sum(1 for n in live_at_capture if n >= 2)
+    return {"captures": graphs.captures - cap0, "capture_s": graphs.capture_s - cap_s0,
+            "captures_beside_k2": during, "ttfa_ms": [1000 * r[1] for r in results]}
+
+
+def shared_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """Batched and shared-wave streaming and Japanese (phase 11): ``infer_batched_stream`` of
+    4 texts (its tokens equal to ``infer_batched``'s, both K2 at B=4), ``decode_many`` at 2
+    and 4 rows against solo chunks and float32, a batched chunk against 4 solo chunks, 4
+    ``stream_shared`` clients 50-100 ms apart (captures while their K2 wave decodes, a wave
+    of more than one slot, a batched vocoder group), a lone ``stream_shared`` equal to
+    ``infer_batched_stream`` of its text (both K1), Japanese ``infer`` and
+    ``stream_shared``, ``warmup(stream=True)`` and the two async wrappers.  Counts are
+    zeroed just before each drive and read just after; returns the launches summed."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+
+    total = {name: 0 for name in launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    # one 512-row bucket at each batch size: random weights sample no EOS, so every request
+    # decodes to its bucket's edge, and a 1024-row one would double the phase's B=1 work
+    tts = TTS(gpt_cache=[(1, 512), (2, 512), (4, 512)], models_dir=models_dir, device=dev,
+              seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(sov))
+    engine = tts.gpt_models[str(gpt)].engine
+    sov_m, ge = tts._prepare_sovits_resources(str(sov), str(spk))
+    args = (str(spk), str(prompt), PROMPT_TEXT)
+    greedy = dict(top_k=1, noise_scale=0.0, is_cut_text=False)
+
+    # the engine's harvests by request, for the token check (grouped: the batched stream)
+    harvest = {}
+    stream_fn = engine.generate_batched_stream
+
+    def spy(*a, grouped=False, **kw):
+        toks = harvest.setdefault(grouped, {})
+        for item in stream_fn(*a, grouped=grouped, **kw):
+            for i, t, _ in (item if grouped else [item]):
+                toks.setdefault(i, []).append(np.asarray(t))
+            yield item
+
+    engine.generate_batched_stream = spy
+    texts = TEXTS[:4]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clips = tts.infer_batched(*args, texts, **greedy)
+    torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
+    bst = dict(tts.last_timings)
+    expect_counts("shared phase: infer_batched of 4", read_counts(), k1=bst["k1_steps"],
+                  k2=bst["k2_steps"])
+    add(read_counts())
+    reset_counts()
+    t0 = time.perf_counter()
+    events = list(tts.infer_batched_stream(*args, texts, **greedy))
+    s_wall = time.perf_counter() - t0
+    sst = dict(tts.last_timings)
+    expect_counts("shared phase: infer_batched_stream of 4", read_counts(), k1=sst["k1_steps"],
+                  k2=sst["k2_steps"])
+    add(read_counts())
+    engine.generate_batched_stream = stream_fn
+    for i in range(4):
+        want = np.concatenate(harvest[False][i])
+        got = np.concatenate(harvest[True][i])
+        if not np.array_equal(got, want):
+            fail(f"shared phase: infer_batched_stream request {i}: {got.size} tokens, not "
+                 f"infer_batched's {want.size} (first difference at "
+                 f"{int(np.argmax(got[:min(got.size, want.size)] != want[:min(got.size, want.size)]))})")
+    if sorted(i for i, _, d in events if d) != [0, 1, 2, 3] or bst["k2_steps"] == 0:
+        fail(f"shared phase: infer_batched_stream ended {[i for i, _, d in events if d]}, K2 "
+             f"steps {bst['k2_steps']}")
+    for i in range(4):
+        audio = np.concatenate([c.audio_data for j, c, _ in events if j == i])
+        check_audio(f"shared phase: infer_batched_stream request {i}", audio, int(0.4 * 32000),
+                    1024 * 1280 + int(0.8 * 32000))
+    vb = tts.vocoder_batch_stats()
+    print(f"shared phase: infer_batched_stream of 4: tokens equal infer_batched's "
+          f"({sst['tokens']} tokens; K2 {sst['k2_steps']} steps, K1 {sst['k1_steps']}), "
+          f"{len(events)} events in {s_wall:.2f} s (infer_batched {b_wall:.2f} s), SoVITS "
+          f"{sst['sovits_s']:.2f} s, vocoder batches {vb}; {card}", flush=True)
+
+    voc = vocoder_batch_checks(tts, sov_m, ge, models_dir, sov, spk, card)
+
+    # 4 shared-stream clients, 50-100 ms apart
+    before = wave_totals(tts, gpt)
+    vb0 = tts.vocoder_batch_stats()
+    tts.sovits_graphs.evict(sov_m.params)
+    reset_counts()
+    clients = shared_clients(tts, gpt, spk, prompt, TEXTS[4:8], card)
+    counts = read_counts()
+    totals = wave_totals(tts, gpt)
+    d = wave_delta(totals, before)
+    expect_counts(f"shared phase: 4 stream_shared clients ({d['decode_steps']} wave steps)",
+                  counts, k1=d["k1_steps"], k2=d["k2_steps"])
+    add(counts)
+    vb = tts.vocoder_batch_stats()
+    groups = vb["rows"] - vb0["rows"] - (vb["solo_rows"] - vb0["solo_rows"])
+    if totals["max_live"] < 2 or vb["max_group"] < 2 or groups < 2:
+        fail(f"shared phase: wave totals {totals}, vocoder batches {vb}")
+    if clients["captures_beside_k2"] == 0:
+        fail(f"shared phase: no SoVITS capture ran while a wave of two or more slots was live "
+             f"({clients})")
+    wave_ms = 1000 * d["k2_s"] / max(d["k2_steps"], 1)
+    b_ms = 1000 * bst["decode_s"] / bst["decode_steps"]
+    # a chunk's host time ends in a read-back, which waits for the vocoder replays other
+    # threads queued on the same stream meanwhile
+    print(f"shared phase: the wave: {d['tokens']} tokens in {d['decode_s']:.2f} s of chunks = "
+          f"{d['tokens'] / d['decode_s']:.1f} tok/s aggregate, {wave_ms:.3f} ms per K2 step "
+          f"({d['k2_steps']} K2 steps, {d['k1_steps']} K1, most live slots "
+          f"{totals['max_live']}); infer_batched of 4 in this process: "
+          f"{bst['tokens'] / bst['decode_s']:.1f} tok/s, {b_ms:.3f} ms a step; SoVITS graphs "
+          f"captured meanwhile {clients['captures']} in {clients['capture_s']:.2f} s "
+          f"({clients['captures_beside_k2']} while a K2 wave was live); vocoder batches "
+          f"{vb}; {card}", flush=True)
+
+    # a lone shared stream equals infer_batched_stream of its text (both K1)
+    reset_counts()
+    before = wave_totals(tts, gpt)
+    lone = [c.audio_data for c in tts.stream_shared(*args, TEXTS[8], debug=False, **greedy)]
+    d = wave_delta(wave_totals(tts, gpt), before)
+    lone_counts = read_counts()
+    one = [c.audio_data for _, c, _ in tts.infer_batched_stream(*args, [TEXTS[8]], **greedy)]
+    counts = read_counts()
+    expect_counts("shared phase: a lone stream_shared and infer_batched_stream of its text",
+                  counts, k1=d["k1_steps"] + tts.last_timings["k1_steps"])
+    add(counts)
+    if d["k2_steps"] or lone_counts["k1"] != d["k1_steps"]:
+        fail(f"shared phase: the lone stream took {d}")
+    # the two vocode the same chunks, except where the wave hands a request's last tokens
+    # as an event of their own right after a chunk came due: stream_shared then vocodes
+    # that chunk and the final pass apart, infer_batched_stream (one event list a decode
+    # chunk) in one pass (the JAX facade's semantics, both ways)
+    same_split = [x.size for x in lone[:-2]] == [y.size for y in one[:len(lone) - 2]]
+    whole = np.array_equal(np.concatenate(lone), np.concatenate(one))
+    if not (whole or (same_split and len(lone) == len(one) + 1
+                      and sum(x.size for x in lone) == sum(y.size for y in one)
+                      and all(np.array_equal(x, y) for x, y in zip(lone[:-2], one)))):
+        first = next((i for i, (x, y) in enumerate(zip(lone, one))
+                      if x.shape != y.shape or not np.array_equal(x, y)), None)
+        fail(f"shared phase: a lone stream_shared differs from infer_batched_stream of its "
+             f"text: chunks {[x.size for x in lone]} against {[y.size for y in one]}, the "
+             f"first differing {first}")
+    print(f"shared phase: a lone stream_shared ({len(lone)} chunks, {d['k1_steps']} K1 steps) "
+          f"equals infer_batched_stream of its text sample for sample"
+          + ("" if whole else " up to the final pass, which the batched stream merges with "
+             "the chunk before it (same total length)"), flush=True)
+
+    # Japanese
+    reset_counts()
+    ja = tts.infer(*args, JA_TEXTS[0])
+    st = dict(tts.last_timings)
+    before = wave_totals(tts, gpt)
+    ja_chunks = [c.audio_data for c in tts.stream_shared(*args, JA_TEXTS[1], debug=False)]
+    d = wave_delta(wave_totals(tts, gpt), before)
+    expect_counts("shared phase: Japanese infer and stream_shared", read_counts(),
+                  k1=st["decode_steps"] + d["k1_steps"], k2=d["k2_steps"])
+    add(read_counts())
+    check_audio("shared phase: Japanese infer", ja.audio_data, int(0.2 * 32000),
+                st["tokens"] * 1280 + int(0.2 * 32000))
+    if not ja_chunks or not all(np.all(np.isfinite(c)) for c in ja_chunks):
+        fail("shared phase: Japanese stream_shared gave no audio or audio not finite")
+    print(f"shared phase: Japanese: infer {st['decode_steps']} K1 steps, "
+          f"{ja.audio_len_s:.2f} s of audio; stream_shared {len(ja_chunks)} chunks", flush=True)
+
+    # warmup(stream=True) and the async wrappers
+    reset_counts()
+    before = wave_totals(tts, gpt)
+    wst = tts.warmup(stream=True)
+    st = dict(tts.last_timings)
+
+    async def drive():
+        shared = [c async for c in tts.stream_shared_async(*args, TEXTS[9], debug=False)]
+        batched = [e async for e in tts.infer_batched_stream_async(*args, TEXTS[10:12],
+                                                                   is_cut_text=False)]
+        return shared, batched
+
+    shared, batched = asyncio.run(asyncio.wait_for(drive(), timeout=CLIENT_DEADLINE_S))
+    bst2 = dict(tts.last_timings)
+    d = wave_delta(wave_totals(tts, gpt), before)
+    expect_counts("shared phase: warmup(stream=True), stream_shared_async and "
+                  "infer_batched_stream_async", read_counts(),
+                  k1=st["decode_steps"] + d["k1_steps"] + bst2["k1_steps"],
+                  k2=d["k2_steps"] + bst2["k2_steps"])
+    add(read_counts())
+    if "stream_s" not in wst or not shared or sorted(i for i, _, x in batched if x) != [0, 1]:
+        fail(f"shared phase: warmup {wst}, {len(shared)} async chunks, async batched ends "
+             f"{[i for i, _, x in batched if x]}")
+    print(f"shared phase: warmup(stream=True) {json.dumps({k: round(v, 3) for k, v in wst.items()})}"
+          f"; stream_shared_async {len(shared)} chunks; infer_batched_stream_async "
+          f"{len(batched)} events", flush=True)
+    for sched in list(tts._wave_schedulers.values()):
+        sched.close()
+    if tts._vocoder_batcher is not None:
+        tts._vocoder_batcher.close()
+    del tts, engine, sov_m, ge
+    torch.cuda.empty_cache()
+    return total, {"voc": voc, "clients": clients}
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
-    K5 loop and ``infer_stream``; returns the launches summed over the drives (counts are
-    zeroed before each drive and read after it)."""
+    K5 loop, ``infer_stream`` and phases 6-11; returns the launches summed over the drives
+    (counts are zeroed before each drive and read after it) and phases 10's and 11's
+    readings."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
 
@@ -2825,7 +3298,9 @@ def main_path_phase(dev, card):
         add(quant_path_phase(tmp, gpt, sov, spk, prompt, dev, card))
         counts, zh = zh_phase(tmp, gpt, sov, spk, prompt, dev, card)
         add(counts)
-    return total, zh
+        counts, shared = shared_phase(tmp, gpt, sov, spk, prompt, dev, card)
+        add(counts)
+    return total, zh, shared
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -3243,8 +3718,9 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches, zh = main_path_phase(dev, card)
+    launches, zh, shared = main_path_phase(dev, card)
     print("zh readings: " + json.dumps(zh), flush=True)
+    print("shared readings: " + json.dumps(shared), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

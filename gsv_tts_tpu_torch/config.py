@@ -92,14 +92,15 @@ class Config:
 class GlobalConfig:
     """Process-wide frontend singletons read by the G2P dispatcher
     (``frontend/g2p/__init__.py``): the default models directory, whether
-    the Chinese engine segments with ``jieba_fast``, injected English and
-    Chinese engines, and engines built per models directory."""
+    the Chinese engine segments with ``jieba_fast``, injected English,
+    Chinese and Japanese engines, and engines built per models directory."""
 
     def __init__(self):
         self.models_dir: Optional[Path] = None
         self.use_jieba_fast: Optional[bool] = None
         self.english_g2p = None
         self.chinese_g2p = None
+        self.japanese_g2p = None
         self._g2p_auto: dict = {}
 
 

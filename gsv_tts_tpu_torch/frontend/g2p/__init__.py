@@ -5,11 +5,11 @@ engines, ellipsis collapse, pause-symbol mapping, UNK filtering and
 consecutive-punctuation dedup with the word2ph repair — but bound to this
 package's ``global_config``.  The English and Chinese engines and their
 helpers (``english``, ``en_norm``, ``en_oov``, ``en_pos``; ``chinese``,
-``zh_norm``, ``tone_sandhi``) are this package's own copies, beside this
-file; an engine assigned to ``global_config.english_g2p`` or
-``chinese_g2p`` by the caller wins over a built one.  Japanese raises
-``NotImplementedError``: its OpenJTalk path is not ported yet (ROADMAP
-Queue 1: ja).
+``zh_norm``, ``tone_sandhi``; ``japanese``) are this package's own copies,
+beside this file; an engine assigned to ``global_config.english_g2p``,
+``chinese_g2p`` or ``japanese_g2p`` by the caller wins over a built one.
+Japanese reads kana with its built-in converter when ``pyopenjtalk`` does not
+import, and then raises ``RuntimeError`` on kanji.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from ...config import global_config
 
 symbol_to_id = Symbols.symbol_to_id
 _PUNCT_SET = set(Symbols.punctuation)
-_LANG_ATTR = {"zh": "chinese_g2p", "en": "english_g2p"}
+_LANG_ATTR = {"zh": "chinese_g2p", "ja": "japanese_g2p", "en": "english_g2p"}
 
 
 def phonemes_to_ids(phones_raw: List[str]) -> List[int]:
@@ -34,6 +34,10 @@ def _build_g2p(lang: str, models_dir):
         from .chinese import ChineseG2P
 
         return ChineseG2P(models_dir, use_jieba_fast=bool(global_config.use_jieba_fast))
+    if lang == "ja":
+        from .japanese import JapaneseG2P
+
+        return JapaneseG2P()
     from .english import EnglishG2P
 
     return EnglishG2P(models_dir)
@@ -42,10 +46,7 @@ def _build_g2p(lang: str, models_dir):
 def _get_g2p(language: str, models_dir=None):
     """The engine for ``language``: an injected ``global_config.<lang>_g2p``
     wins, otherwise one cached per ``models_dir``."""
-    if language == "ja":
-        raise NotImplementedError(
-            "'ja' text is not ported to the PyTorch engine yet (ROADMAP Queue 1: ja)")
-    lang = "zh" if language == "zh" else "en"
+    lang = language if language in ("zh", "ja") else "en"
     attr = _LANG_ATTR[lang]
     current = getattr(global_config, attr)
     # an instance without the _auto_models_dir marker was installed on purpose
@@ -70,8 +71,12 @@ def text_to_phonemes(text: str, language: str,
                      models_dir=None) -> Tuple[List[str], Dict[str, list], str]:
     text = re.sub(r"\.{3,}|。{3,}", "…", text)
     g2p = _get_g2p(language, models_dir)
-    norm_text = g2p.text_normalize(text)
-    phones, word2ph = g2p.g2p(norm_text)
+    if language == "ja":
+        phones, word2ph = g2p.g2p(text)
+        norm_text = "".join(word2ph["word"])
+    else:
+        norm_text = g2p.text_normalize(text)
+        phones, word2ph = g2p.g2p(norm_text)
     if len(phones) != sum(word2ph["ph"]):
         raise RuntimeError(
             f"length mismatch: phones={len(phones)} vs word2ph total={sum(word2ph['ph'])}")

@@ -1,11 +1,12 @@
 """TTS engine facade (counterpart of ``gsv_tts_tpu/tts.py``): model
 registry (load, unload, list, ``to_safetensors``), speaker/prompt audio
 caches, single-utterance ``infer``, streaming ``infer_stream``, batched
-``infer_batched``, voice conversion ``infer_vc``, ``verify_speaker``,
-``warmup``, ``init_language_module``, ``get_timings`` and the ``*_async``
-wrappers of the four inference calls.
+``infer_batched``, batched streaming ``infer_batched_stream``, the shared
+wave's ``stream_shared`` (with its admission control and statistics), voice
+conversion ``infer_vc``, ``verify_speaker``, ``warmup``,
+``init_language_module``, ``get_timings`` and the ``*_async`` wrappers.
 
-Pipeline: text → frontend (host: English and Chinese G2P; for Chinese text
+Pipeline: text → frontend (host: English, Chinese and Japanese G2P; for Chinese text
 the CNRoberta BERT featurizer, ``models/roberta.py``, on the card) → t2s
 engine (prefill, then one whole-step kernel per decode step by default: K1
 for one utterance, K2 for a continuous-batched wave, the generic step with
@@ -25,13 +26,16 @@ length a device tensor, and flow⁻¹ + HiFi-GAN padded to a frame bucket
 CUDA graph, captured the first time its shapes are seen and replayed after.
 ``speed != 1``, a frame-wise ``ge`` and ``stream_vocoder="exact"`` take the
 exact-shape core (the packed ``infer_batched`` too, with block-diagonal MRTE
-masks), whose flow still pads to the bucket ladder.  Not ported yet (ROADMAP
-Queue 1): Japanese text, batched streaming and the shared wave (with
-``stream_shared_async`` and ``infer_batched_stream_async``).
+masks), whose flow still pads to the bucket ladder.  Concurrent streams
+(``stream_shared``) decode in one wave (``runtime/wave.py``) and vocode their
+coinciding chunks as one batched call (``runtime/vocoder_batch.py``); the
+threads involved share the card through ``DeviceGate``, which keeps every
+CUDA graph capture alone on it.
 """
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import functools
 import logging
 import os
@@ -70,23 +74,26 @@ DEFAULT_MUTE_SCALE = {"…": 2.0, ".": 1.5, "。": 1.5, "?": 1.5, "？": 1.5,
 
 
 class _SegStream:
-    """Incremental vocoder state of one text segment of ``infer_stream``
-    (the JAX ``_SegStream`` without its batcher branch): chunked SoVITS
-    decode over the cumulative tokens with the latent cross-fade
-    (``y_overlap``), SOLA waveform stitching, head trim on the first chunk,
-    the mute pad after the last, and the incremental subtitles (reference
-    ``TTS.py:415-476``).
+    """Incremental vocoder state of one text segment, shared by
+    ``infer_stream``, ``infer_batched_stream`` and ``stream_shared`` (the JAX
+    ``_SegStream``): chunked SoVITS decode over the cumulative tokens with the
+    latent cross-fade (``y_overlap``), SOLA waveform stitching, head trim on
+    the first chunk, the mute pad after the last, and the incremental
+    subtitles (reference ``TTS.py:415-476``).  ``vocoded`` counts the tokens
+    already voiced, ``done`` is set by the final pass.
 
     ``req_state`` threads the request's subtitle chain through its segments:
     ``{"last_end_s": float, "cur_text_l": int}``."""
 
-    __slots__ = ("tokens", "phones2", "ge", "text_cut", "word2ph", "norm_text",
-                 "want_subtitles", "_y_overlap", "_vsi", "_last_overlap", "_chunk_idx",
-                 "_head_offset", "_last_subtitles_end")
+    __slots__ = ("tokens", "vocoded", "done", "phones2", "ge", "text_cut", "word2ph",
+                 "norm_text", "want_subtitles", "_y_overlap", "_vsi", "_last_overlap",
+                 "_chunk_idx", "_head_offset", "_last_subtitles_end")
 
     def __init__(self, phones2, ge, text_cut, word2ph=None, norm_text=None,
                  want_subtitles: bool = False):
         self.tokens: List[int] = []
+        self.vocoded = 0
+        self.done = False
         self.phones2 = phones2
         self.ge = ge
         self.text_cut = text_cut
@@ -100,19 +107,37 @@ class _SegStream:
         self._head_offset = 0
         self._last_subtitles_end = 0
 
+    def batch_eligible(self, tts: "TTS", speed: float) -> bool:
+        """True when this segment's chunks can join a batched vocoder call
+        (the gate of the solo bucketed path)."""
+        return speed == 1 and self.ge.shape[-1] == 1 and tts.stream_vocoder == "bucketed"
+
     def step(self, tts: "TTS", sovits, final: bool, req_state: dict, *, noise_scale: float,
-             speed: float, overlap_len: int, cut_mute: float, cut_mute_scale_map: dict):
+             speed: float, overlap_len: int, cut_mute: float, cut_mute_scale_map: dict,
+             batcher=None, upto: Optional[int] = None, vocode_result=None):
         """One vocode pass over the cumulative tokens; returns the new audio
-        (float32) and the new subtitles."""
+        (float32) and the new subtitles.  With ``batcher`` (a
+        ``runtime.vocoder_batch.VocoderBatcher``) an eligible chunk joins the
+        chunks of concurrent streams; ``upto`` caps the tokens taken (a caller
+        that plans several vocodes before running any); ``vocode_result`` is
+        a ``(audio, attn, new_overlap)`` already computed by
+        ``VocoderBatcher.decode_many``, used in place of the decode."""
         overlap_samples = overlap_len * sovits.cfg.samples_per_frame
-        semantic = np.asarray(self.tokens, np.int64)
+        semantic = np.asarray(self.tokens if upto is None else self.tokens[:upto], np.int64)
         subtitles = []
         if semantic.size:
-            audio, attn, self._y_overlap = tts._sovits_decode_stream(
-                sovits, semantic[None, None, :], np.asarray(self.phones2, np.int64)[None],
-                self.ge, noise_scale=noise_scale, speed=speed, y_overlap=self._y_overlap,
-                valid_start_idx=self._vsi, overlap_len=overlap_len)
-            audio = audio.reshape(-1)
+            if vocode_result is not None:
+                audio, attn, self._y_overlap = vocode_result
+            elif batcher is not None and self.batch_eligible(tts, speed):
+                audio, attn, self._y_overlap = batcher.decode_stream(
+                    sovits, semantic, np.asarray(self.phones2, np.int64), self.ge, noise_scale,
+                    self._y_overlap, self._vsi, overlap_len)
+            else:
+                audio, attn, self._y_overlap = tts._sovits_decode_stream(
+                    sovits, semantic[None, None, :], np.asarray(self.phones2, np.int64)[None],
+                    self.ge, noise_scale=noise_scale, speed=speed, y_overlap=self._y_overlap,
+                    valid_start_idx=self._vsi, overlap_len=overlap_len)
+            audio = np.asarray(audio).reshape(-1)
             if self._last_overlap is not None:
                 audio, _ = dsp.sola_align(self._last_overlap, audio, overlap_samples)
             self._last_overlap = audio[-overlap_samples:].copy()
@@ -155,7 +180,83 @@ class _SegStream:
                 new_subtitles[-1]["end_s"] = None
         if final:
             req_state["cur_text_l"] += len(self.text_cut)
+        self.vocoded = max(self.vocoded, len(self.tokens) if upto is None else upto)
+        self.done = self.done or final
         return audio.astype(np.float32), new_subtitles
+
+
+class DeviceGate:
+    """Keeps a CUDA graph capture alone on the card.  Threads that share the
+    card through one facade (the wave scheduler's decode thread, the vocoder
+    batcher's worker, the callers' threads) do their device work inside
+    :meth:`shared`, any number at a time; a capture runs inside
+    :meth:`exclusive`, which waits until no other thread is inside a shared
+    section and holds new ones back until it ends.  Two rules keep it free of
+    deadlock: a shared section never waits on another thread (a section that
+    needs :class:`SovitsGraphs`' lock steps out of the gate while it waits for
+    it, :meth:`suspended`), and only the holder of that lock enters
+    :meth:`exclusive`, so at most one thread does.  A thread may nest shared
+    sections and may go exclusive from inside its own (its holds do not
+    count against it).  On the CPU it orders nothing that needs it, at the
+    cost of a lock."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._held = 0          # shared holds, all threads
+        self._writer = None     # the thread inside exclusive(), or waiting for it
+        self._local = threading.local()
+
+    def _mine(self) -> int:
+        return getattr(self._local, "n", 0)
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            if self._mine() == 0:  # a nested hold passes
+                self._cond.wait_for(lambda: self._writer in (None, me))
+            self._held += 1
+            self._local.n = self._mine() + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._held -= 1
+                self._local.n -= 1
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            if self._writer is not None:
+                raise RuntimeError("DeviceGate.exclusive entered twice")
+            self._writer = threading.get_ident()
+            self._cond.wait_for(lambda: self._held == self._mine())
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = None
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def suspended(self):
+        """This thread's shared holds given up for the block (while it waits
+        on a lock whose holder may go exclusive), then taken back."""
+        with self._cond:
+            n = self._mine()
+            self._held -= n
+            self._local.n = 0
+            self._cond.notify_all()
+        try:
+            yield
+        finally:
+            me = threading.get_ident()
+            with self._cond:
+                if n:
+                    self._cond.wait_for(lambda: self._writer in (None, me))
+                self._held += n
+                self._local.n = n
 
 
 class SovitsGraphs:
@@ -169,16 +270,27 @@ class SovitsGraphs:
     graph holds the parameters' addresses, and its entry keeps them alive);
     every length inside must be an input tensor, since a Python number would
     be fixed at the capture's value.  A model's graphs share one memory pool
-    of their own: replays are serial, and :meth:`run` returns copies of the
-    outputs before anything else replays.  :meth:`evict` drops a model's
-    graphs and its pool, so an unloaded model's memory can return to the
-    card.  A capture that fails raises, and so do inputs on more than one
-    device.  On the CPU the function runs eagerly."""
+    of their own, so one replay's outputs must be copied out before another
+    graph replays.  :meth:`evict` drops a model's graphs and its pool, so an
+    unloaded model's memory can return to the card.  A capture that fails
+    raises, and so do inputs on more than one device.  On the CPU the
+    function runs eagerly.
+
+    Any number of threads may call :meth:`run`.  One lock covers a call's
+    lookup, capture, input copy, replay and output copy, so replays are
+    serial and no thread sees another's buffers.  A capture (its warm run
+    included) runs inside ``gate.exclusive()``: no other thread's shared
+    section runs meanwhile, so nothing allocates, synchronises or launches a
+    whole-card kernel beside it; it is captured in ``"thread_local"`` mode,
+    so that work of a thread outside the gate cannot invalidate it either.
+    A replay runs inside ``gate.shared()``."""
 
     def __init__(self):
         self.graphs: Dict[tuple, tuple] = {}
         self.pools: Dict[int, tuple] = {}  # id(params) → that model's pool handle
         self.stream = None  # the side stream every capture and its warm run take
+        self.gate = DeviceGate()
+        self._lock = threading.Lock()
         self.captures = 0
         self.replays = 0
         self.capture_s = 0.0  # host wall time of the captures, warm runs included
@@ -190,26 +302,34 @@ class SovitsGraphs:
         if not inputs[0].is_cuda:
             return _as_tuple(fn(*inputs))
         key = (key[0], id(params)) + tuple(key[1:])
-        entry = self.graphs.get(key)
-        if entry is None:
-            t0 = time.perf_counter()
-            entry = self.graphs[key] = self._capture(params, key, fn, inputs)
-            self.capture_s += time.perf_counter() - t0
-        graph, static_in, static_out, _ = entry
-        for buf, x in zip(static_in, inputs):
-            buf.copy_(x)
-        graph.replay()
-        self.replays += 1
-        return tuple(o.clone() for o in static_out)
+        with self.gate.suspended():
+            self._lock.acquire()
+        try:
+            entry = self.graphs.get(key)
+            if entry is None:
+                t0 = time.perf_counter()
+                with self.gate.exclusive():
+                    entry = self.graphs[key] = self._capture(params, key, fn, inputs)
+                self.capture_s += time.perf_counter() - t0
+            graph, static_in, static_out, _ = entry
+            with self.gate.shared():
+                for buf, x in zip(static_in, inputs):
+                    buf.copy_(x)
+                graph.replay()
+                self.replays += 1
+                return tuple(o.clone() for o in static_out)
+        finally:
+            self._lock.release()
 
     def evict(self, params) -> int:
         """Drop the graphs of the model whose parameters are ``params``, and
         its pool; returns how many.  Its memory returns to the card at the
         next ``torch.cuda.empty_cache()``."""
-        keys = [k for k in self.graphs if k[1] == id(params)]
-        for k in keys:
-            del self.graphs[k]
-        self.pools.pop(id(params), None)
+        with self._lock:
+            keys = [k for k in self.graphs if k[1] == id(params)]
+            for k in keys:
+                del self.graphs[k]
+            self.pools.pop(id(params), None)
         return len(keys)
 
     def _capture(self, params, key, fn, inputs):
@@ -231,7 +351,8 @@ class SovitsGraphs:
         caller.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side):
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode="thread_local"):
                 out = fn(*static_in)
         except Exception as exc:
             # a failed capture leaves its capture stream current and its pool
@@ -240,12 +361,25 @@ class SovitsGraphs:
             torch.cuda.set_stream(caller)
             del self.pools[id(params)]
             raise RuntimeError(f"CUDA graph capture of the SoVITS program {key} failed") from exc
+        side.synchronize()  # the warm run is done before the gate opens
         self.captures += 1
         return graph, static_in, _as_tuple(out), params
 
 
 def _as_tuple(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
+
+
+def _on_card(method):
+    """Run a facade method's device work inside the facade's gate
+    (``DeviceGate.shared``): no SoVITS graph is captured meanwhile."""
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with self.sovits_graphs.gate.shared():
+            return method(self, *args, **kwargs)
+
+    return wrapped
 
 
 #: the t2s KV-cache buckets ``TTS()`` takes, the JAX facade's: B=1 lengths for
@@ -283,7 +417,11 @@ class TTS:
     ``use_jieba_fast`` has the Chinese G2P segment with ``jieba_fast`` when
     it imports.  ``timings`` keeps the stages' wall times of the calls
     (``get_timings``); the ``*_async`` wrappers run a call in an executor
-    thread under ``_infer_lock``, one at a time."""
+    thread under ``_infer_lock``, one at a time, but for
+    ``stream_shared_async``.  ``wave_max_batch`` caps the shared wave's batch
+    bucket (``stream_shared``), ``wave_max_clients`` its concurrent clients
+    (``None``: no cap), and ``vocoder_batch=False`` vocodes every stream chunk
+    alone instead of batching the chunks that come due together."""
 
     def __init__(self, gpt_cache: List[tuple] = DEFAULT_GPT_CACHE,
                  sovits_cache: List[int] = DEFAULT_SOVITS_CACHE,
@@ -292,7 +430,9 @@ class TTS:
                  attn_impl: str = "fused_step", stream_vocoder: str = "bucketed",
                  quant_t2s=False, use_flash_attn: bool = True, use_bert: bool = False,
                  auto_bert: bool = True, use_jieba_fast: bool = False,
-                 quant_bert: bool = False, featurizer_buckets: bool = False):
+                 quant_bert: bool = False, featurizer_buckets: bool = False,
+                 wave_max_batch: int = 4, wave_max_clients: Optional[int] = None,
+                 vocoder_batch: bool = True):
         if stream_vocoder not in ("bucketed", "exact"):
             raise ValueError(f'stream_vocoder must be "bucketed" or "exact", not {stream_vocoder!r}')
         self.tts_config = Config(device=device, dtype=dtype, gpt_cache=list(gpt_cache),
@@ -333,9 +473,22 @@ class TTS:
             self._load_bert()
         self.cnhubert_model = None
         self.sv_model = None
-        #: serializes the ``*_async`` wrappers' calls (and so their CUDA work
-        #: and graph captures) in their executor threads
+        #: serializes the ``*_async`` wrappers' calls in their executor threads
+        #: (``stream_shared_async`` takes no lock: its callers share the wave)
         self._infer_lock = threading.Lock()
+        #: shared-wave streaming: one ``runtime.wave.WaveScheduler`` per GPT
+        #: model and one ``runtime.vocoder_batch.VocoderBatcher``, made on first
+        #: use; ``_sched_lock`` guards both, ``_prep_lock`` the caches and the
+        #: frontend that concurrent ``stream_shared`` callers fill, ``_rng_lock``
+        #: the draws from ``generator``
+        self.wave_max_batch = wave_max_batch
+        self.wave_max_clients = wave_max_clients
+        self.vocoder_batch = vocoder_batch
+        self._wave_schedulers: Dict = {}
+        self._vocoder_batcher = None
+        self._sched_lock = threading.Lock()
+        self._prep_lock = threading.Lock()
+        self._rng_lock = threading.Lock()
         #: rolling wall times of the stages (``frontend``, ``t2s``, ``sovits``
         #: of ``infer``; ``ttfa_s`` of ``infer_stream``), read by ``get_timings``
         self.timings = Timings()
@@ -363,10 +516,15 @@ class TTS:
             logger.info("Loaded SoVITS model: %s", path)
 
     def unload_gpt_model(self, *model_paths):
-        """Drop each model: its weights, its kernels' table and, under
+        """Drop each model: its shared-wave scheduler (closed: its open
+        streams fail), its weights, its kernels' table and, under
         ``quant_t2s``, its packed pages, whose memory returns to the card."""
         for path in model_paths:
             if path in self.gpt_models:
+                with self._sched_lock:
+                    sched = self._wave_schedulers.pop(path, None)
+                if sched is not None:
+                    sched.close()
                 del self.gpt_models[path]
                 logger.info("Unloaded GPT model: %s", path)
             else:
@@ -399,7 +557,7 @@ class TTS:
 
     def init_language_module(self, *languages):
         """Build the G2P engine of each language now rather than on its first
-        text; an unknown language logs a warning (``"ja"`` raises: not ported)."""
+        text; an unknown language logs a warning."""
         from .frontend.g2p import text_to_phonemes
 
         for language in languages:
@@ -442,6 +600,7 @@ class TTS:
 
     # -- caches ----------------------------------------------------------
 
+    @_on_card
     def cache_spk_audio(self, *spk_audio_paths, sovits_model: Optional[str] = None):
         """Speaker conditioning of each clip under a loaded SoVITS model (the
         first by default): ``spk_audio_cache[path] = {"ge": {model: ge},
@@ -470,6 +629,7 @@ class TTS:
                     entry["ge"][sovits_model] = sovits_model_ge(model, refers, entry["sv_emb"])
             logger.info("Cached speaker audio: %s", path)
 
+    @_on_card
     def cache_prompt_audio(self, prompt_audio_paths, prompt_audio_texts):
         if not self.sovits_models:
             logger.error("No SoVITS models are currently loaded! Cannot cache prompt audio.")
@@ -508,6 +668,7 @@ class TTS:
 
     # -- inference -------------------------------------------------------
 
+    @_on_card
     def infer(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
               return_subtitles: bool = False, top_k: int = 15, top_p: float = 1.0,
               temperature: float = 1.0, repetition_penalty: float = 1.35,
@@ -579,12 +740,9 @@ class TTS:
         a Chinese prefix when the BERT directory exists and a Chinese G2P works
         for ``models_dir``, so the BERT featurizer runs once too (a failing
         zh G2P only drops the prefix).  A longer first request still captures
-        its own buckets.  Returns wall seconds by phase.  ``stream=True``
-        warms the shared-wave stream, which is not ported yet."""
-        if stream:
-            raise NotImplementedError("warmup(stream=True) warms stream_shared, which is not "
-                                      "ported yet (ROADMAP Queue 1: batched streaming and "
-                                      "the shared wave)")
+        its own buckets.  ``stream=True`` also runs one ``stream_shared`` of
+        the text (its scheduler, chunk graphs and vocoder batcher).  Returns
+        wall seconds by phase (``infer_s``, ``stream_s``, ``total_s``)."""
         if text is None:
             text = "warm up, testing one two three."
             if self.cnroberta_path.exists():
@@ -618,8 +776,16 @@ class TTS:
                               sovits_model=sovits_model)
             if len(clip.audio_data) == 0:
                 raise RuntimeError("warmup synthesis produced no audio")
-        stats = {"infer_s": time.perf_counter() - t0}
-        stats["total_s"] = stats["infer_s"]
+            stats = {"infer_s": time.perf_counter() - t0}
+            if stream:
+                t1 = time.perf_counter()
+                n = sum(len(c.audio_data) for c in self.stream_shared(
+                    spk, prompt, ptext, text, debug=False, gpt_model=gpt_model,
+                    sovits_model=sovits_model))
+                if n == 0:
+                    raise RuntimeError("warmup stream produced no audio")
+                stats["stream_s"] = time.perf_counter() - t1
+        stats["total_s"] = time.perf_counter() - t0
         logger.info("warmup done: %s", stats)
         return stats
 
@@ -659,6 +825,7 @@ class TTS:
         gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
                                                  prompt_audio_text)
 
+        gate = self.sovits_graphs.gate
         audio_len_s = 0.0
         req_state = {"last_end_s": 0.0, "cur_text_l": 0}
         t_start = time.perf_counter()
@@ -668,7 +835,9 @@ class TTS:
         for i, text_cut in enumerate(text_cuts):
             if debug:
                 logger.info("Processing segment %d/%d: %r", i + 1, len(text_cuts), text_cut)
-            phones2, word2ph, bert2, norm_text = get_phones_and_bert(text_cut, self.tts_config)
+            with gate.shared():
+                phones2, word2ph, bert2, norm_text = get_phones_and_bert(text_cut,
+                                                                         self.tts_config)
             all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
             bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
                                    np.asarray(bert2, np.float32)], axis=0)
@@ -683,7 +852,8 @@ class TTS:
                 # grad mode is switched off only while this generator runs,
                 # never across a yield
                 with torch.no_grad():
-                    item = next(chunks, None)
+                    with gate.shared():
+                        item = next(chunks, None)
                     if item is None:
                         break
                     pred_semantic, is_final = item
@@ -705,6 +875,7 @@ class TTS:
         if debug:
             logger.info("Stream inference complete. Generated %.2fs of audio.", audio_len_s)
 
+    @_on_card
     def _prepare_batched_inputs(self, spk_audio_paths, prompt_audio_paths,
                                 prompt_audio_texts, texts, is_cut_text, cut_minlen,
                                 bert_batch_size, gpt_model, sovits_model):
@@ -768,6 +939,7 @@ class TTS:
         return (gpt, sovits, texts, all_segments, segment_to_original, all_phones2,
                 all_word2ph, all_norm_text, xs, ys, berts, all_ge)
 
+    @_on_card
     def infer_batched(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts,
                       return_subtitles: bool = False, is_cut_text: bool = True,
                       cut_minlen: int = 10, cut_mute: float = 0.4,
@@ -915,6 +1087,234 @@ class TTS:
                                     len(audio) / self.samplerate, subs, orig_text))
         return tuple(result)
 
+    def infer_batched_stream(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts,
+                             texts, return_subtitles: bool = False, is_cut_text: bool = True,
+                             cut_minlen: int = 10, cut_mute: float = 0.4,
+                             cut_mute_scale_map: dict = DEFAULT_MUTE_SCALE,
+                             stream_chunk: int = 25, overlap_len: int = 5, top_k: int = 15,
+                             top_p: float = 1.0, temperature: float = 1.0,
+                             repetition_penalty: float = 1.35, noise_scale: float = 0.5,
+                             speed: float = 1.0, bert_batch_size: int = 20, gpt_model=None,
+                             sovits_model=None):
+        """Streaming continuous batching (JAX ``infer_batched_stream``): N
+        requests decode together in the engine's batched wave
+        (``generate_batched_stream``: K2 for 2..8 slots, K1 for a compacted
+        tail), and ``(request_idx, AudioClip, request_done)`` is yielded as
+        each request's audio becomes ready, interleaved across requests.
+
+        Within a request, segments stream in text order: the current segment
+        vocodes chunk by chunk (``infer_stream``'s chunked SoVITS, latent
+        cross-fade and SOLA) while later segments that other slots finished
+        wait as tokens.  The chunks that come due on one decode chunk run as
+        one batched vocoder call (``VocoderBatcher.decode_many``).  Sampling
+        has batched-mode semantics (no repetition penalty over generated
+        tokens).  With ``return_subtitles`` each clip carries
+        ``infer_stream``'s incremental subtitles.  ``last_timings`` holds the
+        engine's counts, ``tokens``, ``sovits_s`` and the CUDA graphs of the
+        call."""
+        cut_mute = cut_mute / speed
+        (gpt, sovits, orig_texts, all_segments, segment_to_original, all_phones2, all_word2ph,
+         all_norm_text, xs, ys, berts, all_ge) = self._prepare_batched_inputs(
+            spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts, is_cut_text,
+            cut_minlen, bert_batch_size, gpt_model, sovits_model)
+        gate = self.sovits_graphs.gate
+        orig_segments: Dict[int, List[int]] = {}
+        for s, oi in enumerate(segment_to_original):
+            orig_segments.setdefault(oi, []).append(s)
+        cur_pos = {oi: 0 for oi in orig_segments}
+        audio_len_s = {oi: 0.0 for oi in orig_segments}
+        req_state = {oi: {"last_end_s": 0.0, "cur_text_l": 0} for oi in orig_segments}
+        seg = [_SegStream(all_phones2[s], all_ge[s], all_segments[s], word2ph=all_word2ph[s],
+                          norm_text=all_norm_text[s], want_subtitles=return_subtitles)
+               for s in range(len(all_segments))]
+
+        def clip(oi: int, audio: np.ndarray, subtitles) -> AudioClip:
+            audio_len_s[oi] += len(audio) / self.samplerate
+            return AudioClip(audio, self.samplerate, audio_len_s[oi], subtitles, orig_texts[oi])
+
+        # the requests gain tokens in step, so their chunks come due on the same
+        # decode chunk: take the engine's events a chunk at a time, plan every
+        # vocode due, run the eligible ones as one batched call, then finish
+        # and yield them in the events' order
+        batcher = self._get_vocoder_batcher() if speed == 1 else None
+        graphs = self._graph_counts()
+        self.last_timings = {"sovits_s": 0.0, "tokens": 0}
+        events_iter = gpt.engine.generate_batched_stream(
+            xs, ys, berts, top_k=top_k, top_p=top_p, temperature=temperature,
+            repetition_penalty=repetition_penalty, generator=self._next_generator(),
+            grouped=True)
+        while True:
+            # grad mode off only while this generator runs, never across a yield
+            with torch.no_grad(), gate.shared():
+                events = next(events_iter, None)
+            if events is None:
+                break
+            self.last_timings.update(gpt.engine.last_stats)
+            plan: List[dict] = []
+            planned_idx: Dict[int, int] = {}
+
+            def plan_vocode(s: int, final: bool):
+                if s in planned_idx:
+                    # a chunk planned this step is widened to the segment's end
+                    # (one pass covers all tokens; a second would need the
+                    # first's overlap state)
+                    e = plan[planned_idx[s]]
+                    e["final"] = e["final"] or final
+                    e["upto"] = len(seg[s].tokens)
+                else:
+                    planned_idx[s] = len(plan)
+                    plan.append({"s": s, "final": final, "upto": len(seg[s].tokens),
+                                 "oi": segment_to_original[s]})
+                seg[s].vocoded = len(seg[s].tokens)
+
+            for s, new_toks, sdone in events:
+                st = seg[s]
+                st.tokens.extend(int(t) for t in new_toks)
+                self.last_timings["tokens"] += len(new_toks)
+                if sdone:
+                    st.done = True
+                oi = segment_to_original[s]
+                if orig_segments[oi][cur_pos[oi]] != s:
+                    continue  # a later segment: kept as tokens until its turn
+                if not st.done:
+                    if len(st.tokens) - st.vocoded >= stream_chunk:
+                        plan_vocode(s, final=False)
+                    continue
+                # the current segment ended: finish it, then every later
+                # segment of the request that other slots already finished
+                plan_vocode(s, final=True)
+                cur_pos[oi] += 1
+                while cur_pos[oi] < len(orig_segments[oi]):
+                    nxt = orig_segments[oi][cur_pos[oi]]
+                    if not seg[nxt].done:
+                        break
+                    plan_vocode(nxt, final=True)
+                    cur_pos[oi] += 1
+            if not plan:
+                continue
+            t0 = time.perf_counter()
+            results = {}
+            eligible = [e for e in plan
+                        if e["upto"] > 0 and seg[e["s"]].batch_eligible(self, speed)]
+            with torch.no_grad():
+                if batcher is not None and len(eligible) >= 2:
+                    specs = [(sovits, np.asarray(seg[e["s"]].tokens[:e["upto"]], np.int64),
+                              np.asarray(seg[e["s"]].phones2, np.int64), seg[e["s"]].ge,
+                              noise_scale, seg[e["s"]]._y_overlap, seg[e["s"]]._vsi, overlap_len)
+                             for e in eligible]
+                    results = {e["s"]: r for e, r in zip(eligible, batcher.decode_many(specs))}
+                done_plan = []
+                for e in plan:
+                    audio, subs = seg[e["s"]].step(
+                        self, sovits, e["final"], req_state[e["oi"]], noise_scale=noise_scale,
+                        speed=speed, overlap_len=overlap_len, cut_mute=cut_mute,
+                        cut_mute_scale_map=cut_mute_scale_map, upto=e["upto"],
+                        vocode_result=results.get(e["s"]))
+                    done_plan.append((e, audio, subs))
+            self.last_timings["sovits_s"] += time.perf_counter() - t0
+            self.last_timings.update(self._graph_counts(graphs))
+            last_final = {e["oi"]: e["s"] for e in plan if e["final"]}
+            for e, audio, subs in done_plan:
+                s, oi = e["s"], e["oi"]
+                if e["final"]:
+                    req_done = cur_pos[oi] == len(orig_segments[oi]) and last_final[oi] == s
+                    yield oi, clip(oi, audio, subs), req_done
+                elif audio.size or subs:
+                    # subtitles go out even when the head trim ate the chunk's
+                    # audio: step() has moved the segment's subtitle cursor
+                    yield oi, clip(oi, audio, subs), False
+
+    def stream_shared(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
+                      return_subtitles: bool = False, is_cut_text: bool = True,
+                      cut_minlen: int = 10, cut_mute: float = 0.4,
+                      cut_mute_scale_map: dict = DEFAULT_MUTE_SCALE, stream_chunk: int = 25,
+                      overlap_len: int = 5, top_k: int = 15, top_p: float = 1.0,
+                      temperature: float = 1.0, repetition_penalty: float = 1.35,
+                      noise_scale: float = 0.5, speed: float = 1.0, gpt_model=None,
+                      sovits_model=None, debug: bool = True,
+                      cancel_event: Optional[threading.Event] = None, admitted: bool = False):
+        """Streaming synthesis through the shared wave (JAX ``stream_shared``):
+        unlike ``infer_stream``, callers on any number of threads, arriving at
+        any time, decode together in one batched wave (``runtime/wave.py``:
+        K2 for a wave of 2..8 slots, K1 for one), each with its own SoVITS,
+        SOLA and subtitle state; chunks that come due together are vocoded as
+        one batched call (``VocoderBatcher``).  A generator of ``AudioClip``.
+
+        Sampling has batched-mode semantics (no repetition penalty over
+        generated tokens, no initial suppression window), so the tokens are
+        ``infer_batched_stream``'s, not ``infer_stream``'s.  The stream holds
+        one of the scheduler's client slots for its whole life (raising
+        ``WaveOverloadedError`` at ``wave_max_clients``); ``admitted=True``
+        means the caller holds it already (``admit_shared_client``).
+        ``cancel_event`` detaches the request mid-stream."""
+        if self._contains_chinese(text):
+            self._ensure_bert_loaded()
+        if not self._check_pause(text):
+            text += "."
+        if not is_cut_text:
+            cut_minlen = 10000
+        cut_mute = cut_mute / speed
+        gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
+        with self._prep_lock:
+            sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
+            gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
+                                                     prompt_audio_text)
+        sched = self._get_wave_scheduler(gpt_model)
+        if not admitted:
+            sched.acquire_client()
+        try:
+            batcher = self._get_vocoder_batcher() if speed == 1 else None
+            t_start = time.perf_counter()
+            first_yield = True
+            req_state = {"last_end_s": 0.0, "cur_text_l": 0}
+            audio_len_s = 0.0
+            text_cuts = cut_text(text, cut_minlen)
+            for i, text_cut in enumerate(text_cuts):
+                if debug:
+                    logger.info("Shared-stream segment %d/%d: %r", i + 1, len(text_cuts),
+                                text_cut)
+                with self._prep_lock, self.sovits_graphs.gate.shared():
+                    phones2, word2ph, bert2, norm_text = get_phones_and_bert(text_cut,
+                                                                             self.tts_config)
+                bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
+                                       np.asarray(bert2, np.float32)], axis=0)
+                handle = sched.attach(
+                    np.asarray(cache["phones1"] + phones2, np.int64),
+                    np.asarray(cache["prompt"], np.int64).reshape(-1), bert, top_k=top_k,
+                    top_p=top_p, temperature=temperature,
+                    repetition_penalty=repetition_penalty)
+                seg = _SegStream(phones2, ge, text_cut, word2ph=word2ph, norm_text=norm_text,
+                                 want_subtitles=return_subtitles)
+                try:
+                    for toks, done in handle:
+                        if cancel_event is not None and cancel_event.is_set():
+                            handle.cancel()
+                            return
+                        seg.tokens.extend(int(t) for t in toks)
+                        if not done and len(seg.tokens) - seg.vocoded < stream_chunk:
+                            continue
+                        with torch.no_grad():
+                            audio, subs = seg.step(
+                                self, sovits, done, req_state, noise_scale=noise_scale,
+                                speed=speed, overlap_len=overlap_len, cut_mute=cut_mute,
+                                cut_mute_scale_map=cut_mute_scale_map, batcher=batcher)
+                        if audio.size or subs or done:
+                            audio_len_s += len(audio) / self.samplerate
+                            if first_yield:
+                                self.timings.record("ttfa_s", time.perf_counter() - t_start)
+                                first_yield = False
+                            yield AudioClip(audio, self.samplerate, audio_len_s, subs, text)
+                finally:
+                    if not handle.done:
+                        handle.cancel()
+            if debug:
+                logger.info("Shared-stream inference complete. Generated %.2fs of audio.",
+                            audio_len_s)
+        finally:
+            if not admitted:
+                sched.release_client()
+
+    @_on_card
     def infer_vc(self, spk_audio_path, prompt_audio_path, prompt_audio_text,
                  noise_scale: float = 0.5, speed: float = 1.0, sovits_model=None) -> AudioClip:
         """Zero-shot voice conversion (reference ``TTS.py:870-964``): the
@@ -946,6 +1346,7 @@ class TTS:
         return AudioClip(audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, subtitles, prompt_audio_text)
 
+    @_on_card
     def verify_speaker(self, speaker1_audio, speaker2_audio) -> Optional[float]:
         """Cosine similarity of two clips' ERes2NetV2 embeddings (reference
         ``TTS.py:1205-1247``), the clips read at the first loaded SoVITS
@@ -997,20 +1398,50 @@ class TTS:
         """``infer_stream``'s chunks as an async generator.  A worker's error
         is raised to the consumer; a consumer that stops early sets the
         cancel event, and the worker stops at its next chunk."""
+        async for chunk in self._relay(self.infer_stream, args, kwargs, executor,
+                                       threading.Event(), lock=self._infer_lock):
+            yield chunk
+
+    async def stream_shared_async(self, *args, executor: Optional[ThreadPoolExecutor] = None,
+                                  **kwargs):
+        """``stream_shared``'s chunks as an async generator.  It takes no
+        ``_infer_lock``: concurrent callers sharing the wave is the point.  A
+        consumer that stops early sets ``cancel_event``, which detaches its
+        request from the wave."""
+        cancel_event = kwargs.setdefault("cancel_event", threading.Event())
+        async for chunk in self._relay(self.stream_shared, args, kwargs, executor,
+                                       cancel_event, lock=None):
+            yield chunk
+
+    async def infer_batched_stream_async(self, *args,
+                                         executor: Optional[ThreadPoolExecutor] = None,
+                                         **kwargs):
+        """``infer_batched_stream``'s ``(request_idx, AudioClip, done)`` events
+        as an async generator, under ``_infer_lock`` in an executor thread; a
+        worker's error is raised to the consumer."""
+        async for event in self._relay(self.infer_batched_stream, args, kwargs, executor,
+                                       threading.Event(), lock=self._infer_lock):
+            yield event
+
+    async def _relay(self, gen_fn, args, kwargs, executor, cancel_event, lock):
+        """Run the generator ``gen_fn(*args, **kwargs)`` in an executor thread
+        (under ``lock`` unless it is None) and hand its items to the event
+        loop through a queue; errors travel through the queue too.  The
+        worker stops at its next item once ``cancel_event`` is set, which the
+        consumer's exit does."""
         loop = asyncio.get_running_loop()
         queue: asyncio.Queue = asyncio.Queue()
-        cancel_event = threading.Event()
 
         def run():
             # errors travel through the queue: the executor's future is dropped
             try:
-                with self._infer_lock:
-                    gen = self.infer_stream(*args, **kwargs)
+                with lock if lock is not None else contextlib.nullcontext():
+                    gen = gen_fn(*args, **kwargs)
                     try:
-                        for chunk in gen:
+                        for item in gen:
                             if cancel_event.is_set():  # the consumer went away
                                 break
-                            loop.call_soon_threadsafe(queue.put_nowait, chunk)
+                            loop.call_soon_threadsafe(queue.put_nowait, item)
                     finally:
                         gen.close()
             except BaseException as exc:  # noqa: BLE001 — raised to the consumer
@@ -1021,16 +1452,95 @@ class TTS:
         loop.run_in_executor(executor, run)
         try:
             while True:
-                chunk = await queue.get()
-                if chunk is None:
+                item = await queue.get()
+                if item is None:
                     break
-                if isinstance(chunk, BaseException):
-                    raise chunk
-                yield chunk
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
         finally:
             cancel_event.set()
 
     # -- internals -------------------------------------------------------
+
+    def _next_generator(self) -> torch.Generator:
+        """A generator of its own for one call (the JAX facade's ``_next_rng``
+        split), seeded by a draw from ``generator``."""
+        gen = torch.Generator(device=self.device)
+        with self._rng_lock:
+            gen.manual_seed(int(torch.randint(0, 2 ** 62, (), generator=self.generator,
+                                              device=self.device)))
+        return gen
+
+    def _get_wave_scheduler(self, gpt_model):
+        """The shared-wave scheduler of a loaded GPT model, made on first use
+        (``wave_max_batch``, ``wave_max_clients``; its Gumbel draws seeded from
+        ``generator``; its pumps inside the facade's ``DeviceGate``)."""
+        from .runtime.wave import WaveScheduler
+
+        with self._sched_lock:
+            sched = self._wave_schedulers.get(gpt_model)
+            if sched is None:
+                with self._rng_lock:
+                    seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator,
+                                             device=self.device))
+                sched = WaveScheduler(self.gpt_models[gpt_model].engine,
+                                      max_batch=self.wave_max_batch, seed=seed,
+                                      max_clients=self.wave_max_clients,
+                                      gate=self.sovits_graphs.gate)
+                self._wave_schedulers[gpt_model] = sched
+            return sched
+
+    def _get_vocoder_batcher(self):
+        """The cross-stream vocoder batcher (``runtime/vocoder_batch.py``),
+        made on first use; None with ``vocoder_batch=False`` (each shared
+        stream then vocodes alone)."""
+        if not self.vocoder_batch:
+            return None
+        from .runtime.vocoder_batch import VocoderBatcher
+
+        with self._sched_lock:
+            if self._vocoder_batcher is None:
+                self._vocoder_batcher = VocoderBatcher(self, max_batch=self.wave_max_batch)
+            return self._vocoder_batcher
+
+    def shared_stream_overloaded(self, gpt_model=None) -> bool:
+        """Advisory: True when a new ``stream_shared`` client would be refused
+        (``wave_max_clients`` reached on the model's scheduler);
+        :meth:`admit_shared_client` is the authoritative check."""
+        if self.wave_max_clients is None:
+            return False
+        gpt_model, _ = self._default_models(gpt_model, None)
+        if gpt_model not in self.gpt_models:
+            return False  # not loaded: no clients on it
+        return self._get_wave_scheduler(gpt_model).overloaded
+
+    def admit_shared_client(self, gpt_model=None):
+        """Claim a shared-stream client slot before the stream starts (so a
+        server can answer 503 before its response begins).  Raises
+        ``WaveOverloadedError`` at the cap; returns the release callable the
+        caller must call when the stream ends (and passes ``admitted=True`` to
+        :meth:`stream_shared`), or None when the model is not loaded."""
+        gpt_model, _ = self._default_models(gpt_model, None)
+        if gpt_model not in self.gpt_models:
+            return None
+        sched = self._get_wave_scheduler(gpt_model)
+        sched.acquire_client()
+        return sched.release_client
+
+    def wave_stats(self) -> Dict:
+        """The shared-wave scheduler's state per GPT model (``WaveScheduler.
+        stats``: waves, clients, and the port's step and time totals)."""
+        with self._sched_lock:
+            return {str(k): s.stats for k, s in self._wave_schedulers.items()}
+
+    def vocoder_batch_stats(self) -> Dict:
+        """The vocoder batcher's counters (empty until a shared stream or a
+        batched stream made it)."""
+        with self._sched_lock:
+            if self._vocoder_batcher is None:
+                return {}
+            return dict(self._vocoder_batcher.stats)
 
     def _default_models(self, gpt_model, sovits_model):
         if gpt_model is None:
@@ -1040,6 +1550,7 @@ class TTS:
                             else self.default_sovits_path)
         return gpt_model, sovits_model
 
+    @_on_card
     def _prepare_sovits_resources(self, sovits_model, spk_audio_path):
         """The loaded SoVITS model and the speaker conditioning ``ge`` for
         ``spk_audio_path`` — a path, or a ``{path: weight}`` dict blending
@@ -1059,6 +1570,7 @@ class TTS:
             ge = part if ge is None else ge + part
         return self.sovits_models[sovits_model], ge
 
+    @_on_card
     def _prepare_gpt_resources(self, gpt_model, prompt_audio_path, prompt_audio_text):
         """The loaded t2s model and the prompt cache entry (semantic prompt,
         phones and BERT features of its text) for ``prompt_audio_path``."""
@@ -1081,8 +1593,10 @@ class TTS:
     def _noise(self, shape, noise_scale) -> torch.Tensor:
         """SoVITS's latent noise, drawn from the facade's generator (outside
         any graph capture: a graph's input, never part of it)."""
-        noise = torch.randn(shape, generator=self.generator, device=self.device,
-                            dtype=torch.float32) * noise_scale
+        with self._rng_lock:
+            noise = torch.randn(shape, generator=self.generator, device=self.device,
+                                dtype=torch.float32)
+        noise = noise * noise_scale
         return noise.to(self.tts_config.dtype)
 
     def _padded(self, codes: np.ndarray, text: np.ndarray):
@@ -1101,6 +1615,7 @@ class TTS:
 
         return dev(codes_pad), dev(np.int64(n)), dev(text_pad), dev(np.int64(N))
 
+    @_on_card
     def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5, speed=1.0,
                        slice_indices=None, use_buckets=True):
         """Full decode (``SynthesizerTrn.decode`` with the bucketed flow and
@@ -1144,6 +1659,7 @@ class TTS:
         audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, use_buckets)
         return audio, attn[0].float().cpu().numpy()
 
+    @_on_card
     def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, speed,
                               y_overlap, valid_start_idx: int, overlap_len: int):
         """One streaming chunk: the latent of the cumulative ``codes``
@@ -1203,6 +1719,7 @@ class TTS:
             target = _round_up(int(target * 1.5) + 1, 64)
         return target
 
+    @_on_card
     def _flow_dec_bucketed(self, sovits: Sovits, z_p, y_mask, ge, use_buckets: bool,
                            t_true: Optional[int] = None) -> np.ndarray:
         """flow⁻¹ + HiFi-GAN with ``z_p`` and its mask padded with zeros (or

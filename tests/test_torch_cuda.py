@@ -1418,3 +1418,181 @@ def test_xla_engine_on_the_card_launches_no_kernel(cuda_device):
     assert len(pred) == 3 and all(len(p) > 0 for p in pred)
     assert eng.last_stats["generic_steps"] == eng.last_stats["decode_steps"] > 0
     assert [getattr(fn, attr) for fn, attr in wrappers] == before
+
+
+def _card_facade(dev):
+    """A float32 facade on the card around the small SoVITS (no checkpoint):
+    what ``VocoderBatcher`` and the solo chunk path read of it."""
+    import types
+
+    from gsv_tts_tpu_torch import TTS
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    tts = TTS(device=str(dev), dtype="float32", seed=0)
+    cfg, p = _small_sovits(dev)
+    return tts, types.SimpleNamespace(cfg=cfg, params=p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [2, 4])
+def test_decode_many_on_cuda_matches_solo_chunks(cuda_device, n_rows):
+    """``VocoderBatcher.decode_many`` at B=2 and B=4 (one CUDA graph of the
+    batched chunk) against each row's solo chunk (the B=1 graph), float32:
+    audio, attention and the carried overlap, which stays on the card."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import VocoderBatcher
+
+    tts, sov = _card_facade(cuda_device)
+    rng = np.random.RandomState(3)
+    ge = torch.randn((1, sov.cfg.gin_channels, 1), generator=torch.Generator().manual_seed(1))
+    ge = (ge * 0.5).to(cuda_device)
+    codes = rng.randint(0, 1024, 41)
+    text = rng.randint(1, 700, 13)
+    with torch.no_grad():
+        _, _, carry = tts._sovits_decode_stream(sov, codes[None, None, :20], text[None], ge,
+                                                noise_scale=0.0, speed=1.0, y_overlap=None,
+                                                valid_start_idx=0, overlap_len=5)
+        rows = [(codes[:20], text, 0, None), (codes, text, 35, carry),
+                (codes[:9], text[:7], 0, None), (codes[:33], text[:11], 0, None)][:n_rows]
+        solo = [tts._sovits_decode_stream(sov, c[None, None, :], t[None], ge, noise_scale=0.0,
+                                          speed=1.0, y_overlap=yo, valid_start_idx=v,
+                                          overlap_len=5) for c, t, v, yo in rows]
+        b = VocoderBatcher(tts, max_batch=4)
+        try:
+            got = b.decode_many([(sov, c, t, ge, 0.0, yo, v, 5) for c, t, v, yo in rows])
+        finally:
+            b.close()
+    assert b.stats["max_group"] == n_rows
+    assert any(k[0] == "chunk" and k[2] == n_rows for k in tts.sovits_graphs.graphs)
+    for i, (g, s) in enumerate(zip(got, solo)):
+        assert g[2].is_cuda and g[2].shape == (1, sov.cfg.hidden_channels, 5)
+        np.testing.assert_allclose(g[0], s[0], rtol=1e-4, atol=1e-4, err_msg=f"row {i} audio")
+        np.testing.assert_allclose(g[1], s[1], rtol=1e-4, atol=1e-5, err_msg=f"row {i} attn")
+        torch.testing.assert_close(g[2], s[2], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sovits_graphs_from_four_threads_equal_serial_calls(cuda_device):
+    """Four threads replaying (and the first capturing) the graphs of one
+    model's pool at once give what the same calls give one after another."""
+    import functools
+    import threading
+
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import stream_batch_fused
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p = _small_sovits(cuda_device)
+    fns = {b: functools.partial(stream_batch_fused, p, cfg, overlap_len=5, bucket=b)
+           for b in (50, 55)}
+    cases = [(b, _chunk_inputs(cfg, cuda_device, 20 + i % 8, 13, 0 if i % 2 else 16,
+                               i % 2 == 0, seed=i)) for i, b in enumerate((50, 55) * 8)]
+    graphs = SovitsGraphs()
+    with torch.no_grad():
+        serial = [graphs.run(p, ("chunk", b), fns[b], *ins) for b, ins in cases]
+    concurrent = [None] * len(cases)
+    errors = []
+
+    def worker(k):
+        try:
+            with torch.no_grad():
+                for i in range(k, len(cases), 4):
+                    b, ins = cases[i]
+                    concurrent[i] = graphs.run(p, ("chunk", b), fns[b], *ins)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(exc)
+
+    graphs.evict(p)  # the threads capture afresh, beside each other's replays
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120.0)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert graphs.captures == 4
+    for i, (a, b) in enumerate(zip(concurrent, serial)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), i
+
+
+@pytest.mark.cuda
+def test_capture_beside_a_thread_launching_k2(cuda_device):
+    """One thread decodes a 4-slot wave (K2, each chunk in the gate's shared
+    section, as the wave scheduler does) while another captures SoVITS
+    graphs: the captures succeed, their replays equal eager runs, and the
+    wave's tokens and caches equal the same chunks run alone."""
+    import contextlib
+    import functools
+    import threading
+    import time
+
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.ops import fused_step
+    from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
+    from gsv_tts_tpu_torch.runtime import t2s_session as ts
+    from gsv_tts_tpu_torch.runtime.vocoder_batch import stream_batch_fused
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, n_chunks = 4, 512, 40
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    params = t2s.init_params(cfg, torch.Generator().manual_seed(1), dtype=torch.bfloat16,
+                             device=cuda_device)
+    eng = ts.T2SEngine(params, cfg, gpt_cache=[(B, S)], dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randint(1, 700, (B, 32), generator=gen, device=cuda_device)
+    y = torch.randint(0, 1024, (B, 32), generator=gen, device=cuda_device)
+    bert = torch.zeros((B, 32, cfg.bert_dim), device=cuda_device)
+    sa = ts.SampleArgs(use_prev=False)
+    k, v = eng._alloc_cache(B, S)
+    lens = (torch.full((B,), 20, device=cuda_device), torch.full((B,), 10, device=cuda_device))
+    state0, _ = ts.prefill_batch(eng.params, cfg, x, y, bert, *lens, k, v,
+                                 gumbel_noise((B, 1025), gen, cuda_device), sa, False,
+                                 torch.bfloat16)
+    noise = [gumbel_noise((5, B, 1025), gen, cuda_device) for _ in range(n_chunks)]
+
+    def clone(st):
+        return ts.DecodeState(*[getattr(st, f).clone() for f in (
+            "k_cache", "v_cache", "kv_len", "x_len", "tok_buf", "buf_len", "last_tok",
+            "step_idx")])
+
+    def decode(st, gate=None):
+        toks = []
+        for g in noise:
+            with gate.shared() if gate is not None else contextlib.nullcontext():
+                st, t = ts.decode_chunk(eng.params, cfg, st, 5, sa, g, 0, torch.bfloat16)
+                toks.append(t.cpu())
+                eng._check_kernels()
+        return st, torch.cat(toks, dim=1)
+
+    with torch.no_grad():
+        ref_state, ref_toks = decode(clone(state0))
+        graphs = SovitsGraphs()
+        scfg, sp = _small_sovits(cuda_device)
+        out = {}
+        launches = fused_step.fused_decode_step_sample_batched.launches
+
+        def wave():
+            with torch.no_grad():
+                out["wave"] = decode(clone(state0), graphs.gate)
+
+        th = threading.Thread(target=wave)
+        th.start()
+        time.sleep(0.01)
+        captured = []
+        for i, b in enumerate((50, 55, 60, 64)):
+            fn = functools.partial(stream_batch_fused, sp, scfg, overlap_len=5, bucket=b)
+            ins = _chunk_inputs(scfg, cuda_device, 20, 13, 0, False, seed=i)
+            got = graphs.run(sp, ("chunk", b), fn, *ins)
+            captured.append((got, fn(*ins)))
+        th.join(timeout=120.0)
+        assert not th.is_alive()
+    assert graphs.captures == 4
+    assert fused_step.fused_decode_step_sample_batched.launches - launches == 5 * n_chunks
+    for got, want in captured:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    state, toks = out["wave"]
+    assert torch.equal(toks, ref_toks)
+    assert torch.equal(state.k_cache, ref_state.k_cache)

@@ -432,14 +432,17 @@ def test_infer_stream_debug_logs(assets, tts, caplog):
 def test_init_language_module(assets, tts, monkeypatch, caplog):
     from gsv_tts_tpu_torch.config import global_config
 
+    from gsv_tts_tpu_torch.frontend.g2p.japanese import JapaneseG2P
+
     monkeypatch.setattr(global_config, "english_g2p", None)
     monkeypatch.setattr(global_config, "chinese_g2p", None)
+    monkeypatch.setattr(global_config, "japanese_g2p", None)
     with caplog.at_level(logging.INFO, logger="gsv_tts_tpu_torch.tts"):
-        tts.init_language_module("en", "zh", "xx")
+        tts.init_language_module("en", "zh", "xx", "ja")
     assert global_config.english_g2p._auto_models_dir == str(tts.models_dir)
     assert global_config.chinese_g2p._auto_models_dir == str(tts.models_dir)
-    assert "Loaded language module: en" in caplog.text
-    assert "Loaded language module: zh" in caplog.text
+    assert isinstance(global_config.japanese_g2p, JapaneseG2P)
+    assert global_config.japanese_g2p._auto_models_dir == str(tts.models_dir)
+    for lang in ("en", "zh", "ja"):
+        assert f"Loaded language module: {lang}" in caplog.text
     assert 'Language "xx" not found.' in caplog.text
-    with pytest.raises(NotImplementedError, match="Queue 1: ja"):
-        tts.init_language_module("ja")

@@ -42,7 +42,8 @@ def test_frontend_modules_load_under_the_port_package():
     jax_dir = os.path.join(os.path.dirname(os.path.dirname(port_dir)), "gsv_tts_tpu", "frontend")
     assert list(frontend.__path__) == [port_dir]
     for name in ("lang_segment", "pause", "text_processor", "g2p.english", "g2p.en_norm",
-                 "g2p.en_oov", "g2p.en_pos", "g2p.chinese", "g2p.zh_norm", "g2p.tone_sandhi"):
+                 "g2p.en_oov", "g2p.en_pos", "g2p.chinese", "g2p.zh_norm", "g2p.tone_sandhi",
+                 "g2p.japanese"):
         mod = importlib.import_module("gsv_tts_tpu_torch.frontend." + name)
         rel = name.replace(".", os.sep) + ".py"
         assert os.path.abspath(mod.__file__) == os.path.join(port_dir, rel)
@@ -69,19 +70,31 @@ def test_port_symbols_equal_jax_symbols():
 
 
 @pytest.mark.parametrize("text,error,item", [
-    # Chinese is ported: without a pinyin backend (no pypinyin, no lexicon)
-    # its G2P raises its own error naming the lexicon, as the JAX package's does
+    # without a pinyin backend (no pypinyin, no lexicon) the Chinese G2P raises
+    # its own error naming the lexicon, as the JAX package's does
     pytest.param("你好，世界。", KeyError, "provide a lexicon", id="你好，世界。-zh BERT"),
-    pytest.param("こんにちは。", NotImplementedError, "ja", id="こんにちは。-ja")])
+    # without pyopenjtalk the Japanese G2P reads kana (JAX's phones) and raises
+    # JAX's error on kanji
+    pytest.param("こんにちは。", RuntimeError, "requires pyopenjtalk", id="こんにちは。-ja")])
 def test_chinese_and_japanese_raise_with_the_roadmap_item(text, error, item, monkeypatch):
     import sys
 
+    from gsv_tts_tpu.config import global_config as jax_global
+    from gsv_tts_tpu.frontend.text_processor import get_phones_and_bert as jax_fe
     from gsv_tts_tpu_torch.config import Config, global_config
     from gsv_tts_tpu_torch.frontend.text_processor import get_phones_and_bert
 
     monkeypatch.setitem(sys.modules, "pypinyin", None)
-    monkeypatch.setattr(global_config, "chinese_g2p", None)
-    monkeypatch.setattr(global_config, "models_dir", None)
-    monkeypatch.setattr(global_config, "_g2p_auto", {})
+    monkeypatch.setitem(sys.modules, "pyopenjtalk", None)
+    for cfg in (global_config, jax_global):
+        monkeypatch.setattr(cfg, "chinese_g2p", None)
+        monkeypatch.setattr(cfg, "japanese_g2p", None)
+        monkeypatch.setattr(cfg, "models_dir", None)
+        monkeypatch.setattr(cfg, "_g2p_auto", {})
+    if error is RuntimeError:
+        pp, pw, _, pn = get_phones_and_bert(text, Config(device="cpu"))
+        jp, jw, _, jn = jax_fe(text, types.SimpleNamespace(models_dir=None, cnroberta=None))
+        assert pp and (pp, pw, pn) == (jp, jw, jn)
+        text = "今日は" + text  # kanji
     with pytest.raises(error, match=item):
         get_phones_and_bert(text, Config(device="cpu"))

@@ -101,11 +101,15 @@ def test_sovits_stage_fed_jax_tokens_matches_jax(assets, both):
     np.testing.assert_allclose(pattn, jattn, rtol=2e-4, atol=2e-5)
 
 
-def test_infer_rejects_what_is_not_ported(assets, both):
+def test_infer_rejects_what_is_not_ported(assets, both, monkeypatch):
+    """Japanese is ported as JAX has it without ``pyopenjtalk``: kana
+    synthesize, kanji raise JAX's ``RuntimeError``."""
     _, ptts, *_ = both
-    # Chinese is ported; Japanese is what is left (ROADMAP Queue 1)
-    with pytest.raises(NotImplementedError, match="Queue 1: ja"):
-        ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, "こんにちは。")
+    monkeypatch.setitem(sys.modules, "pyopenjtalk", None)
+    clip = ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, "こんにちは。", top_k=1)
+    assert clip.audio_data.size > 6400 and np.all(np.isfinite(clip.audio_data))
+    with pytest.raises(RuntimeError, match="requires pyopenjtalk"):
+        ptts.infer(assets["spk"], assets["prompt"], PROMPT_TEXT, "今日は。")
 
 
 def test_port_runs_without_jax(assets):

@@ -131,12 +131,16 @@ def test_infer_batched_sovits_stage_fed_jax_tokens_matches_jax(both, monkeypatch
             np.testing.assert_allclose(pc.audio_data, jc.audio_data, rtol=RTOL, atol=ATOL)
 
 
-def test_infer_batched_rejects_what_is_not_ported(assets, both):
+def test_infer_batched_rejects_what_is_not_ported(assets, both, monkeypatch):
+    """Japanese is ported as JAX has it without ``pyopenjtalk``: a kana text
+    joins the batch, kanji raise JAX's ``RuntimeError``."""
     _, ptts, *_ = both
-    args = (assets["spk"], assets["prompt"], PROMPT_TEXT, TEXTS)
-    # Chinese is ported; Japanese is what is left (ROADMAP Queue 1)
-    with pytest.raises(NotImplementedError, match="Queue 1: ja"):
-        ptts.infer_batched(*args[:3], TEXTS + ["こんにちは。"])
+    monkeypatch.setitem(sys.modules, "pyopenjtalk", None)
+    args = (assets["spk"], assets["prompt"], PROMPT_TEXT)
+    clips = ptts.infer_batched(*args, TEXTS[:1] + ["こんにちは。"], top_k=1)
+    assert len(clips) == 2 and all(c.audio_data.size > 0 for c in clips)
+    with pytest.raises(RuntimeError, match="requires pyopenjtalk"):
+        ptts.infer_batched(*args, TEXTS + ["今日は。"])
 
 
 def test_copied_package_runs_alone_without_jax(assets, tmp_path):

@@ -230,8 +230,7 @@ def test_default_infer_batched_subtitles_match_jax(assets, default_pair):
 
 def test_warmup_runs_one_default_infer(assets):
     """``warmup()`` synthesises once from synthetic sine references on the
-    default SoVITS path; the shared-wave stream it would also warm is not
-    ported."""
+    default SoVITS path; ``stream=True`` also runs one ``stream_shared``."""
     from gsv_tts_tpu_torch import TTS
 
     ptts = TTS(gpt_cache=[(1, 128)], models_dir=str(assets["root"]), device="cpu", seed=0)
@@ -240,5 +239,6 @@ def test_warmup_runs_one_default_infer(assets):
     stats = ptts.warmup(text="a warm up.")
     assert stats["total_s"] >= stats["infer_s"] > 0
     assert ptts.last_timings["tokens"] > 0 and ptts.last_timings["sovits_s"] > 0
-    with pytest.raises(NotImplementedError, match="stream_shared"):
-        ptts.warmup(stream=True)
+    stats = ptts.warmup(text="a warm up.", stream=True)
+    assert stats["total_s"] >= stats["infer_s"] + stats["stream_s"] > stats["stream_s"] > 0
+    assert ptts.wave_stats()[str(assets["gpt"])]["totals"]["tokens"] > 0

@@ -182,11 +182,16 @@ def test_infer_stream_under_flash_matches_default(assets, engines):
     np.testing.assert_allclose(b[0], a[0], rtol=RTOL, atol=ATOL)
 
 
-def test_infer_stream_rejects_what_is_not_ported(assets, engines):
+def test_infer_stream_rejects_what_is_not_ported(assets, engines, monkeypatch):
+    """Japanese is ported as JAX has it without ``pyopenjtalk``: kana stream,
+    kanji raise JAX's ``RuntimeError``."""
     _, ptts = engines
-    # Chinese is ported; Japanese is what is left (ROADMAP Queue 1)
-    with pytest.raises(NotImplementedError, match="Queue 1: ja"):
-        next(ptts.infer_stream(assets["spk"], assets["prompt"], PROMPT_TEXT, "こんにちは。"))
+    monkeypatch.setitem(sys.modules, "pyopenjtalk", None)
+    chunks = list(ptts.infer_stream(assets["spk"], assets["prompt"], PROMPT_TEXT,
+                                    "こんにちは、せかい。", top_k=1, stream_chunk=10))
+    assert chunks and sum(c.audio_data.size for c in chunks) > 0
+    with pytest.raises(RuntimeError, match="requires pyopenjtalk"):
+        next(ptts.infer_stream(assets["spk"], assets["prompt"], PROMPT_TEXT, "今日は。"))
 
 
 def test_infer_stream_leaves_grad_mode_alone(assets, engines):
