@@ -163,11 +163,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ms a K2 step against ``infer_batched``'s; a lone ``stream_shared`` against
    ``infer_batched_stream`` of its text (both K1); Japanese kana through ``infer`` and
    ``stream_shared``; ``warmup(stream=True)``, ``stream_shared_async`` and
-   ``infer_batched_stream_async``.  K1's and K2's launches equal the steps of each drive.
+   ``infer_batched_stream_async``.  K1's and K2's launches equal the steps of each drive;
+12. training, on the phase-4 t2s and the phase-7 v2ProPlus checkpoints: 8 clips of 4-10 s
+   with English sentences of 8-20 words from SEED, featurized through the port's ``TTS``
+   (``train_data.featurize``: frontend, HuBERT, RVQ codes; ``featurize_sovits``: STFT,
+   HuBERT, each clip's ERes2NetV2 embedding), ms a clip; bf16 against float32 loss and
+   gradients at step 0 (``TRAIN_LOSS_REL_TOL``, ``TRAIN_GRAD_COS_MIN``); ``finetune_t2s``
+   (bf16, batch 8, 30 steps, warmup 5, a checkpoint at 15) straight and resumed from step
+   15, every step's loss finite and a fixed batch's loss lower after than before; the export
+   loaded by ``TTS.load_gpt_model`` and decoded through K1 (launches equal to the decode
+   steps); ``finetune_sovits`` on v2ProPlus (batch 4, ``segment_frames`` from the hparams,
+   10 GAN steps) straight and resumed at step 5, every loss finite, the frozen RVQ leaves
+   bit for bit, the export loaded and decoded with the fine-tuned t2s through K1; ms a t2s
+   step and a GAN step (D + G), trained audio tokens/s, peak memory of each run, the warm
+   RTF; straight against resumed on the card (leaves apart, largest difference), the
+   operations PyTorch flags as nondeterministic in one step of each, and for SoVITS one
+   step twice from one state (cuDNN's default and deterministic algorithms) and the mel
+   loss's gradient twice.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record, phase 10's and 11's readings (``zh readings: {...}``,
-``shared readings: {...}``) and the card.  Nothing here imports JAX.
+kernels' JSON record, phase 10's, 11's and 12's readings (``zh readings: {...}``,
+``shared readings: {...}``, ``train readings: {...}``) and the card.  Nothing here
+imports JAX.
 """
 from __future__ import annotations
 
@@ -1543,7 +1560,8 @@ V2_HPS = {"data": {"sampling_rate": 32000, "filter_length": 2048, "hop_length": 
                     "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
                     "upsample_rates": [10, 8, 2, 2, 2], "upsample_initial_channel": 512,
                     "upsample_kernel_sizes": [16, 16, 8, 2, 2], "gin_channels": 512,
-                    "semantic_frame_rate": "25hz", "version": "v2"}}
+                    "semantic_frame_rate": "25hz", "version": "v2"},
+          "train": {"segment_size": 20480}}
 
 
 def write_checkpoints(root: Path):
@@ -3239,10 +3257,386 @@ def shared_phase(models_dir, gpt, sov, spk, prompt, dev, card):
     return total, {"voc": voc, "clients": clients}
 
 
+# -- phase 12: single-card fine-tuning ----------------------------------------------------------
+
+TRAIN_WORDS = ("the a small green house stood near river where children played every summer "
+               "morning while old friends talked about music books travel weather gardens "
+               "city lights quiet roads and bright stars over distant hills before evening "
+               "came slowly across open fields").split()
+TRAIN_CLIPS = 8
+T2S_STEPS, T2S_BATCH, T2S_LR, T2S_WARMUP = 30, 8, 1e-3, 5
+SOV_STEPS, SOV_BATCH = 10, 4
+# bf16 against float32 at step 0, the same params (bf16 values): the loss within 2 % and
+# every trained leaf's gradient at a cosine of at least 0.99 with float32's (24 post-norm
+# layers round each activation to bf16, 2^-9 relative)
+TRAIN_LOSS_REL_TOL = 2e-2
+TRAIN_GRAD_COS_MIN = 0.99
+
+
+def write_train_clips(root: Path, n: int = TRAIN_CLIPS):
+    """``n`` clips of 4-10 s (harmonics on a gliding pitch, a syllable-rate envelope and
+    noise) with English sentences of 8-20 words, all from SEED, and their ``.list``
+    manifest; returns the manifest's path."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch.utils.audio_io import save_wav
+
+    rng = np.random.RandomState(SEED + 12)
+    lines = []
+    for i in range(n):
+        secs = rng.uniform(4.0, 10.0)
+        t = np.arange(int(32000 * secs)) / 32000
+        f0 = rng.uniform(110, 260) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.2, 0.6) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / 32000
+        wav = sum(np.sin(k * phase) / k for k in range(1, 6))
+        wav *= 0.15 * (1 + np.sin(2 * np.pi * rng.uniform(3, 5) * t))
+        save_wav(root / f"train{i}.wav", (wav + 0.01 * rng.randn(len(t))).astype(np.float32),
+                 32000)
+        words = rng.choice(TRAIN_WORDS, size=int(rng.randint(8, 21)))
+        lines.append(f"train{i}.wav|spk|en|{' '.join(words).capitalize()}.")
+    (root / "train.list").write_text("\n".join(lines) + "\n")
+    return root / "train.list"
+
+
+def f32_t2s(params):
+    """t2s params with every model tensor in float32 (the bf16 values, widened)."""
+    from gsv_tts_tpu_torch.parallel.train import T2S_TOP
+
+    out = {k: params[k].float() for k in T2S_TOP}
+    out["layers"] = [{k: v.float() for k, v in lp.items()} for lp in params["layers"]]
+    out["pe"] = params["pe"]
+    return out
+
+
+def nondeterministic_ops(fn) -> list:
+    """The operations ``fn`` runs that PyTorch flags as nondeterministic on this card
+    (``use_deterministic_algorithms(True, warn_only=True)``: one warning each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split(" does not have")[0].split(". ")[0][:120]
+                   for w in caught if "determinis" in str(w.message).lower()})
+
+
+def leaves_apart(a: dict, b: dict):
+    """(leaves that differ, the largest absolute difference) of two named tensor dicts."""
+    import torch
+
+    diff = [float((a[k].detach().float() - b[k].detach().float()).abs().max()) for k in a
+            if not torch.equal(a[k].detach(), b[k].detach())]
+    return len(diff), max(diff, default=0.0)
+
+
+def loss_logger(*names: str):
+    """A ``log_fn`` for the loops with ``log_every=1`` that keeps each step's value of each
+    name the log line carries (``loss``; ``g``, ``d``)."""
+    import re
+
+    values = {name: [] for name in names}
+
+    def log(line: str):
+        for name in names:
+            m = re.search(rf"(?:^|\s){name} (\S+)", line)
+            if m:
+                values[name].append(float(m.group(1)))
+
+    return log, values
+
+
+def cuda_steps_ms(step, n: int) -> float:
+    """ms a call of ``step()`` over ``n`` calls after one warm call (host clock, synchronised)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0) / n
+
+
+def train_phase(models_dir, gpt, v2pro, spk, prompt, dev, card):
+    """Single-card fine-tuning (phase 12) at full width: featurize 8 synthesized clips
+    through the port's ``TTS`` (frontend, HuBERT, RVQ codes, each clip's ERes2NetV2
+    embedding), ``finetune_t2s`` (bf16, batch 8, 30 steps, a checkpoint at 15) straight and
+    resumed from the midpoint, the loss finite at every step and a fixed batch's loss lower
+    after than before, bf16 against float32 loss and gradients at step 0, the export loaded
+    by ``TTS.load_gpt_model`` and decoded through K1 (launches equal to the decode steps);
+    ``finetune_sovits`` on v2ProPlus (batch 4, ``segment_frames`` from the hparams, 10 GAN
+    steps) straight and resumed once, the frozen RVQ leaves bit for bit, the export loaded
+    and decoded.  Straight against resumed: bit for bit or the leaves apart, the ops PyTorch
+    flags as nondeterministic, and for SoVITS one step twice from one state with cuDNN's
+    default and deterministic algorithms and the mel loss's gradient twice.  Returns the
+    launch counts and the readings."""
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS, train_data
+    from gsv_tts_tpu_torch.models import sovits_train as svt
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+    from gsv_tts_tpu_torch.train_loop import (_step_generator, finetune_sovits, finetune_t2s,
+                                              sovits_batches)
+    from gsv_tts_tpu_torch.utils.audio_io import load_audio
+
+    total = {name: 0 for name in launch_counts()}
+    root = Path(models_dir)
+    t0 = time.perf_counter()
+    items = train_data.read_manifest(write_train_clips(root))
+    tts = TTS(gpt_cache=[(1, 512), (1, 1024)], models_dir=models_dir, device=dev, seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(v2pro))
+    g = tts.gpt_models[str(gpt)]
+    s = tts.sovits_models[str(v2pro)]
+    audio_s = sum(load_audio(w)[0].shape[-1] / 32000 for w, _, _ in items)
+    tts._get_cnhubert()  # loaded before the timing, as a served facade has them
+    tts._get_sv_model()
+    print(f"train phase: {len(items)} clips ({audio_s:.1f} s) written, models loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 1. featurize on the card
+    t0 = time.perf_counter()
+    samples = train_data.featurize(tts, items)
+    t1 = time.perf_counter()
+    sov_samples = train_data.featurize_sovits(tts, items)
+    t2 = time.perf_counter()
+    if not all(len(y) > 50 and len(x) > 8 for x, y, _ in samples):
+        fail(f"train phase: featurize gave {[(len(x), len(y)) for x, y, _ in samples]}")
+    if not all(len(x) == 5 and x[4].shape == (20480,) and np.isfinite(x[4]).all()
+               and np.isfinite(x[0]).all() and x[0].shape[-1] == x[1].shape[-1]
+               for x in sov_samples):
+        fail("train phase: featurize_sovits samples malformed or not finite")
+    feat = {"t2s_ms_a_clip": 1000 * (t1 - t0) / len(items),
+            "sovits_ms_a_clip": 1000 * (t2 - t1) / len(items)}
+    print(f"train phase: featurize {feat['t2s_ms_a_clip']:.1f} ms a clip (frontend, HuBERT, "
+          f"RVQ), featurize_sovits {feat['sovits_ms_a_clip']:.1f} ms a clip (STFT, HuBERT, "
+          f"ERes2NetV2); {card}", flush=True)
+
+    # 2-3. t2s: bf16 against float32 at step 0, then straight and resumed runs
+    cfg = g.cfg
+    dt = tts.tts_config.dtype  # bf16 on the card
+    batch = next(train_data.batches(cfg, samples, T2S_BATCH, seed=None, device=dev))
+    args = (batch["x_ids"], batch["y_ids"], batch["bert"], batch["x_lens"], batch["y_lens"])
+    p16 = ptrain.t2s_train_params(g.params)
+    p32 = ptrain.t2s_train_params(f32_t2s(g.params))
+    l16 = ptrain.t2s_loss(p16, cfg, *args, dt)
+    l32 = ptrain.t2s_loss(p32, cfg, *args, torch.float32)
+    g16 = torch.autograd.grad(l16, list(ptrain.t2s_leaves(p16).values()))
+    g32 = torch.autograd.grad(l32, list(ptrain.t2s_leaves(p32).values()))
+    # a leaf whose gradient is zero in both (bert_proj_w: English text has no BERT
+    # features) has no direction to compare
+    cos = {name: float(torch.nn.functional.cosine_similarity(a.float().flatten(), b.flatten(),
+                                                            dim=0))
+           for name, a, b in zip(ptrain.t2s_leaves(p16), g16, g32)
+           if a.abs().max() > 0 or b.abs().max() > 0}
+    worst = min(cos, key=cos.get)
+    loss_rel = abs(l16.item() - l32.item()) / abs(l32.item())
+    print(f"train phase: step 0 loss bf16 {l16.item():.5f} float32 {l32.item():.5f} (rel "
+          f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL}); gradient cosine min {cos[worst]:.5f} "
+          f"({worst}), median {float(np.median(list(cos.values()))):.5f} over {len(cos)} leaves "
+          f"(min allowed {TRAIN_GRAD_COS_MIN}; {len(g16) - len(cos)} zero in both)", flush=True)
+    if loss_rel > TRAIN_LOSS_REL_TOL or cos[worst] < TRAIN_GRAD_COS_MIN:
+        fail("train phase: bf16 loss or gradients too far from float32 at step 0")
+    del p32, g16, g32, l16, l32
+
+    kw = dict(total_steps=T2S_STEPS, batch_size=T2S_BATCH, init_params=g.params, device=dev,
+              dtype=dt, peak_lr=T2S_LR, warmup_steps=T2S_WARMUP,
+              ckpt_every=T2S_STEPS // 2, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    log, logged = loss_logger("loss")
+    losses = logged["loss"]
+    t0 = time.perf_counter()
+    straight = finetune_t2s(samples, cfg, str(root / "ft_t2s"), log_fn=log, **kw)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    t2s_peak = torch.cuda.max_memory_allocated()
+    if len(losses) != T2S_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"train phase: t2s losses {losses}")
+    quiet = dict(kw, log_fn=lambda *_: None)
+    finetune_t2s(samples, cfg, str(root / "ft_t2s_b"), max_steps_this_run=T2S_STEPS // 2,
+                 export=False, **quiet)
+    resumed = finetune_t2s(samples, cfg, str(root / "ft_t2s_b"), export=False, **quiet)
+    t2s_apart = leaves_apart(ptrain.t2s_leaves(straight), ptrain.t2s_leaves(resumed))
+    with torch.no_grad():
+        before = ptrain.t2s_loss(p16, cfg, *args, dt).item()
+        after = ptrain.t2s_loss(straight, cfg, *args, dt).item()
+    if not after < before:
+        fail(f"train phase: the fixed batch's t2s loss went {before:.4f} -> {after:.4f}")
+    opt, _ = ptrain.make_optimizer(ptrain.t2s_leaves(p16), peak_lr=1e-5, warmup_steps=0,
+                                   decay_steps=100)
+    step = ptrain.make_train_step(cfg, opt, dtype=dt)
+    t2s_ms = cuda_steps_ms(lambda: step(p16, batch), 10)
+    t2s_nondet = nondeterministic_ops(lambda: step(p16, batch))
+    audio_tokens = int(batch["y_lens"].sum())
+    del p16, opt, step
+    t2s = {"steps": T2S_STEPS, "batch": T2S_BATCH, "loss_first": losses[0],
+           "loss_last": losses[-1], "fixed_batch_loss": [before, after],
+           "step0_loss_rel": loss_rel, "step0_grad_cos_min": cos[worst],
+           "ms_a_step": t2s_ms, "audio_tokens_a_step": audio_tokens,
+           "tok_s": audio_tokens / t2s_ms * 1000, "run_s": run_s,
+           "peak_gib": t2s_peak / 2**30, "resident_gib_before": base / 2**30,
+           "resumed_leaves_apart": t2s_apart[0], "resumed_max_abs": t2s_apart[1],
+           "nondeterministic_ops": t2s_nondet}
+    print(f"train phase: t2s {T2S_STEPS} steps at batch {T2S_BATCH} (bf16): loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, fixed batch {before:.4f} -> {after:.4f}; "
+          f"{t2s_ms:.2f} ms a step, {t2s['tok_s']:.0f} trained audio tokens/s "
+          f"({audio_tokens} a step); peak {t2s['peak_gib']:.2f} GiB allocated "
+          f"({t2s['resident_gib_before']:.2f} before); resumed vs straight: {t2s_apart[0]} "
+          f"leaves apart, max {t2s_apart[1]:.3g}; nondeterministic ops {t2s_nondet}; {card}",
+          flush=True)
+
+    # 4. export and serve through K1
+    out = str(root / "ft_t2s")
+    tts.load_gpt_model(out)
+    reset_counts()
+    steps = 0
+    for i in range(2):
+        clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, TEXTS[i], gpt_model=out,
+                         sovits_model=str(v2pro))
+        st = tts.last_timings
+        steps += st["decode_steps"]
+        check_audio(f"train phase: fine-tuned t2s infer {i}", clip.audio_data,
+                    int(0.2 * 32000), st["tokens"] * 1280 + int(0.2 * 32000))
+    counts = read_counts()
+    expect_counts(f"train phase: the fine-tuned t2s's infer ({steps} decode steps)", counts,
+                  k1=steps)
+    for name, n in counts.items():
+        total[name] += n
+
+    # 5. SoVITS on v2ProPlus
+    hop = int(s.hps.data.hop_length)
+    if hop != s.cfg.samples_per_frame:
+        fail(f"train phase: hop {hop} is not the vocoder's {s.cfg.samples_per_frame} samples a "
+             f"frame")
+    seg = int(s.hps.train.segment_size) // hop
+    skw = dict(total_steps=SOV_STEPS, batch_size=SOV_BATCH, init_params=s.params, device=dev,
+               ckpt_every=SOV_STEPS // 2, log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log, logged = loss_logger("g", "d")
+    g_losses, d_losses = logged["g"], logged["d"]
+    t0 = time.perf_counter()
+    sov_straight = finetune_sovits(sov_samples, s.cfg, s.hps, str(root / "ft_sov"), log_fn=log,
+                                   **skw)
+    torch.cuda.synchronize()
+    sov_run_s = time.perf_counter() - t0
+    sov_peak = torch.cuda.max_memory_allocated()
+    if len(g_losses) != SOV_STEPS or len(d_losses) != SOV_STEPS \
+            or not np.all(np.isfinite(g_losses + d_losses)):
+        fail(f"train phase: SoVITS losses g {g_losses} d {d_losses}")
+    squiet = dict(skw, log_fn=lambda *_: None)
+    finetune_sovits(sov_samples, s.cfg, s.hps, str(root / "ft_sov_b"),
+                    max_steps_this_run=SOV_STEPS // 2, export=False, **squiet)
+    sov_resumed = finetune_sovits(sov_samples, s.cfg, s.hps, str(root / "ft_sov_b"),
+                                  export=False, **squiet)
+    sov_apart = leaves_apart(sov_straight, sov_resumed)
+    for k, v in s.params.items():
+        if k.startswith(svt.FROZEN_PREFIXES) and not torch.equal(sov_straight[k], v.float()):
+            fail(f"train phase: frozen SoVITS leaf {k} moved")
+    # a GAN step alone (D + G): its time, the ops PyTorch flags, and which ops make two
+    # steps from one state differ (with cuDNN's default algorithms and its deterministic
+    # ones; the mel loss's gradient alone)
+    sbatch = next(sovits_batches(s.cfg, sov_samples, SOV_BATCH, hop, seed=None, device=dev))
+    draws = svt.sovits_draws(s.cfg, sbatch, _step_generator(0, 0, dev))
+
+    def gan_setup():
+        gp = {k: v.detach().float().clone() for k, v in sov_straight.items()}
+        dp = svt.init_discriminator_params(torch.Generator().manual_seed(1), device=dev)
+        g_opt = ptrain.Optimizer({k: v.requires_grad_(True) for k, v in gp.items()
+                                  if not k.startswith(svt.FROZEN_PREFIXES)}, lambda _: 1e-6)
+        d_opt = ptrain.Optimizer({k: v.requires_grad_(True) for k, v in dp.items()},
+                                 lambda _: 1e-6)
+        gan = svt.make_sovits_train_step(
+            s.cfg, g_opt, d_opt, n_fft=int(s.hps.data.filter_length), hop_length=hop,
+            win_length=int(s.hps.data.win_length), sr=int(s.hps.data.sampling_rate),
+            segment_frames=seg)
+        return gp, dp, lambda: gan(gp, dp, sbatch, *draws)
+
+    gp, dp, gan = gan_setup()
+    sov_ms = cuda_steps_ms(gan, 3)
+    sov_nondet = nondeterministic_ops(gan)
+
+    def steps_apart():
+        after = []
+        for _ in range(2):
+            gp, dp, gan = gan_setup()
+            gan()
+            after.append({**gp, **{"D." + k: v for k, v in dp.items()}})
+        return leaves_apart(*after)
+
+    def mel_grads_apart():
+        y_hat = (0.1 * torch.randn((SOV_BATCH, seg * hop), device=dev,
+                                   generator=_step_generator(0, 1, dev))).requires_grad_(True)
+        grads = [torch.autograd.grad(svt.mel_spectrogram(
+            y_hat, n_fft=int(s.hps.data.filter_length), hop_length=hop,
+            win_length=int(s.hps.data.win_length), sr=int(s.hps.data.sampling_rate)).mean(),
+            y_hat)[0] for _ in range(2)]
+        return leaves_apart({"y_hat": grads[0]}, {"y_hat": grads[1]})
+
+    repeat = {"step": steps_apart()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        repeat["step_cudnn_deterministic"] = steps_apart()
+        repeat["mel_grad_cudnn_deterministic"] = mel_grads_apart()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del gp, dp, gan
+    sov = {"steps": SOV_STEPS, "batch": SOV_BATCH, "segment_frames": seg,
+           "g_first": g_losses[0], "g_last": g_losses[-1], "d_first": d_losses[0],
+           "d_last": d_losses[-1], "ms_a_step": sov_ms, "run_s": sov_run_s,
+           "peak_gib": sov_peak / 2**30, "resumed_leaves_apart": sov_apart[0],
+           "resumed_max_abs": sov_apart[1], "repeated_apart": repeat,
+           "nondeterministic_ops": sov_nondet}
+    print(f"train phase: SoVITS v2ProPlus {SOV_STEPS} GAN steps at batch {SOV_BATCH}, "
+          f"{seg} frames a slice (float32): g {g_losses[0]:.3f} -> {g_losses[-1]:.3f}, "
+          f"d {d_losses[0]:.3f} -> {d_losses[-1]:.3f}; {sov_ms:.1f} ms a step (D + G); peak "
+          f"{sov['peak_gib']:.2f} GiB allocated; resumed vs straight: {sov_apart[0]} leaves "
+          f"apart, max {sov_apart[1]:.3g}; one step twice from one state, (leaves apart, max): "
+          f"{repeat}; frozen leaves bit for bit; ops PyTorch flags as nondeterministic "
+          f"{sov_nondet}; {card}", flush=True)
+
+    # the exported SoVITS, with the fine-tuned t2s, through K1
+    sov_out = str(root / "ft_sov")
+    tts.load_sovits_model(sov_out)
+    reset_counts()
+    steps, rtf = 0, 0.0
+    for i in range(3):  # one text: the first call captures the new model's SoVITS graphs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, TEXTS[2], gpt_model=out,
+                         sovits_model=sov_out)
+        torch.cuda.synchronize()
+        rtf = (time.perf_counter() - t0) / clip.audio_len_s  # the last: warm
+        st = tts.last_timings
+        steps += st["decode_steps"]
+        check_audio(f"train phase: fine-tuned models' infer {i}", clip.audio_data,
+                    int(0.2 * 32000), st["tokens"] * 1280 + int(0.2 * 32000))
+    counts = read_counts()
+    expect_counts(f"train phase: the fine-tuned models' infer ({steps} decode steps)", counts,
+                  k1=steps)
+    for name, n in counts.items():
+        total[name] += n
+    print(f"train phase: the fine-tuned t2s and SoVITS served, warm RTF {rtf:.4f}; {card}",
+          flush=True)
+    del tts, straight, resumed, sov_straight, sov_resumed
+    torch.cuda.empty_cache()
+    return total, {"featurize": feat, "t2s": t2s, "sovits": sov, "rtf": rtf, "card": card}
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
-    K5 loop, ``infer_stream`` and phases 6-11; returns the launches summed over the drives
-    (counts are zeroed before each drive and read after it) and phases 10's and 11's
+    K5 loop, ``infer_stream`` and phases 6-12; returns the launches summed over the drives
+    (counts are zeroed before each drive and read after it) and phases 10's, 11's and 12's
     readings."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
@@ -3300,7 +3694,9 @@ def main_path_phase(dev, card):
         add(counts)
         counts, shared = shared_phase(tmp, gpt, sov, spk, prompt, dev, card)
         add(counts)
-    return total, zh, shared
+        counts, train = train_phase(tmp, gpt, Path(tmp) / "s2v2ProPlus", spk, prompt, dev, card)
+        add(counts)
+    return total, zh, shared, train
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -3718,9 +4114,10 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches, zh, shared = main_path_phase(dev, card)
+    launches, zh, shared, train = main_path_phase(dev, card)
     print("zh readings: " + json.dumps(zh), flush=True)
     print("shared readings: " + json.dumps(shared), flush=True)
+    print("train readings: " + json.dumps(train), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

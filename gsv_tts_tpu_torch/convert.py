@@ -34,7 +34,9 @@ _T2S_TOP = (  # (jax name, state-dict name, transpose)
 
 def t2s_from_jax(params: Dict[str, Any], cfg: T2SConfig, dtype=torch.float32,
                  device="cpu") -> Dict[str, Any]:
-    """Stacked JAX t2s pytree (numpy leaves) → per-layer port params."""
+    """Stacked JAX t2s pytree (numpy leaves) → per-layer port params.  A
+    gradient pytree of the same structure converts the same way (``pe`` is
+    rebuilt from the sine table, never read)."""
     sd = {}
     for ours, theirs, transpose in _T2S_TOP:
         a = np.asarray(params[ours], np.float32)
@@ -57,7 +59,8 @@ def _flat(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def sovits_from_jax(params: Dict[str, Any], dtype=torch.float32,
                     device="cpu") -> Dict[str, torch.Tensor]:
-    """Flat JAX SoVITS params (numpy) → port params (same keys)."""
+    """Flat JAX SoVITS params (numpy) → port params (same keys); also the
+    fresh ``enc_q.*`` and discriminator dicts of JAX's ``sovits_train``."""
     return sovits_model.params_from_torch_state_dict(_flat(params), dtype=dtype, device=device)
 
 

@@ -287,10 +287,13 @@ def generator(p, cfg: SovitsConfig, x, g=None):
     return torch.tanh(x)
 
 
-def mel_style_encoder(p, cfg: SovitsConfig, x):
-    """x [B, 704, T] → style vector [B, gin, 1] (``modules.py:367-444``),
-    every frame valid (exact shape)."""
+def mel_style_encoder(p, cfg: SovitsConfig, x, mask=None):
+    """x [B, 704, T] → style vector [B, gin, 1] (``modules.py:367-444``).
+    ``mask`` [B, 1, T] (1 valid, 0 padding) keeps a padded training batch's
+    frames out of the attention and the temporal mean, which then runs in
+    float32 as JAX's does; without it every frame is valid (exact shape)."""
     pfx = "ref_enc."
+    key_mask = None if mask is None else mask[:, 0, :] == 0  # True = padding
     x = x.transpose(1, 2)
     x = mish(linear(x, p[pfx + "spectral.0.fc.weight"], p[pfx + "spectral.0.fc.bias"]))
     x = mish(linear(x, p[pfx + "spectral.3.fc.weight"], p[pfx + "spectral.3.fc.bias"]))
@@ -302,6 +305,8 @@ def mel_style_encoder(p, cfg: SovitsConfig, x):
                    padding=(cfg.ref_enc_kernel - 1) // 2)
         x = x + h[:, :c] * torch.sigmoid(h[:, c:])
     x = x.transpose(1, 2)
+    if key_mask is not None:
+        x = x.masked_fill(key_mask[:, :, None], 0.0)
     b, t, _ = x.shape
     nh = cfg.ref_enc_heads
     dk = c // nh
@@ -312,11 +317,17 @@ def mel_style_encoder(p, cfg: SovitsConfig, x):
 
     q, k, v = heads("w_qs"), heads("w_ks"), heads("w_vs")
     scores = torch.matmul(q.float(), k.float().transpose(2, 3)) / math.sqrt(c)
+    if key_mask is not None:
+        scores = scores.masked_fill(key_mask[None, :, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.matmul(probs, v).permute(1, 2, 0, 3).reshape(b, t, nh * dk)
     out = linear(out, p[pfx + "slf_attn.fc.weight"], p[pfx + "slf_attn.fc.bias"])
     x = linear(out + x, p[pfx + "fc.fc.weight"], p[pfx + "fc.fc.bias"])
-    return x.mean(1)[:, :, None]
+    if key_mask is None:
+        return x.mean(1)[:, :, None]
+    lens = (~key_mask).sum(1)[:, None, None]
+    w = (x.masked_fill(key_mask[:, :, None], 0.0).float() / lens).sum(1)
+    return w.to(x.dtype)[:, :, None]
 
 
 # ---------------------------------------------------------------------------
@@ -391,15 +402,21 @@ def project_latent(p, cfg: SovitsConfig, y_latent, y_mask):
     return stats[:, :cfg.inter_channels], stats[:, cfg.inter_channels:]
 
 
-def get_ge(p, cfg: SovitsConfig, refer, sv_emb=None):
+def get_ge(p, cfg: SovitsConfig, refer, sv_emb=None, refer_mask=None):
     """Speaker conditioning [B, gin, 1] from the linear spectrogram
-    (``models.py:371-378``).  v2Pro / v2ProPlus with ``sv_emb`` [B, 20480]
-    (``models/sv.py``'s float32 embedding): ``prelu(ge + sv_emb·W + b)``.
+    (``models.py:371-378``); ``refer_mask`` [B, 1, T] marks a padded
+    training batch's valid frames (:func:`mel_style_encoder`).  v2Pro /
+    v2ProPlus with ``sv_emb`` [B, 20480] (``models/sv.py``'s float32
+    embedding): ``prelu(ge + sv_emb·W + b)``.
     JAX computes that in the embedding's float32 and returns float32 (its
     ``linear`` casts the weight to the input's dtype), which would carry
     float32 into a bf16 flow and HiFi-GAN; the port computes it in float32
-    and returns ``ge`` in the style encoder's dtype, the model's."""
-    ge = mel_style_encoder(p, cfg, refer[:, :cfg.ref_enc_in])
+    and returns ``ge`` in the style encoder's dtype, the model's (the same
+    values when the model is float32, as in training)."""
+    refer = refer[:, :cfg.ref_enc_in]
+    if refer_mask is not None:
+        refer = refer * refer_mask
+    ge = mel_style_encoder(p, cfg, refer, refer_mask)
     if cfg.is_v2pro and sv_emb is not None:
         sv = linear(sv_emb.float(), p["sv_emb.weight"], p["sv_emb.bias"])
         ge = prelu(ge.float() + sv[:, :, None], p["prelu.weight"]).to(ge.dtype)

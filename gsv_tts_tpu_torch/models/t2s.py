@@ -341,10 +341,12 @@ def embed_prompt_batch(params, cfg: T2SConfig, x_ids, y_ids, bert, x_lens, y_len
     Ly = y_ids.shape[1]
     T = Lx + Ly
     dev = x_ids.device
-    x = params["text_emb"][x_ids].to(dtype)
+    # F.embedding rather than indexing: its backward sums repeated ids (the padding's)
+    # in a fixed order, where indexing's accumulates with atomics (training, bit-exact resume)
+    x = F.embedding(x_ids.long(), params["text_emb"]).to(dtype)
     x = x + F.linear(bert.to(dtype), params["bert_proj_w"], params["bert_proj_b"])
     x = x + (params["text_pos_alpha"] * params["pe"][:Lx]).to(dtype)
-    y = params["audio_emb"][y_ids].to(dtype)
+    y = F.embedding(y_ids.long(), params["audio_emb"]).to(dtype)
     y = y + (params["audio_pos_alpha"] * params["pe"][:Ly]).to(dtype)
 
     xy_lens = x_lens + y_lens

@@ -1,11 +1,13 @@
-"""Linear spectrogram and polyphase resampling (counterpart of
-``gsv_tts_tpu/ops/stft.py``): torchaudio ``Spectrogram(center=True,
-pad_mode='reflect', power=1)`` semantics and torchaudio-compatible
-windowed-sinc ``Resample`` (host numpy)."""
+"""Linear spectrogram, mel filterbank and polyphase resampling (counterpart
+of ``gsv_tts_tpu/ops/stft.py``): torchaudio ``Spectrogram(center=True,
+pad_mode='reflect', power=1)`` semantics, the slaney mel filterbank of the
+SoVITS mel loss, and torchaudio-compatible windowed-sinc ``Resample`` (host
+numpy)."""
 from __future__ import annotations
 
 import math
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
@@ -13,13 +15,48 @@ import torch
 
 def spectrogram(audio: torch.Tensor, n_fft: int, hop_length: int,
                 win_length: int) -> torch.Tensor:
-    """Magnitude STFT.  audio [B, T] → [B, n_fft//2+1, frames], float32."""
+    """Magnitude STFT.  audio [B, T] → [B, n_fft//2+1, frames], float32.
+    Differentiable: the gradient of ``abs`` is zero at a zero bin, as JAX's
+    ``jnp.abs`` of a complex zero gives it."""
     window = torch.hann_window(win_length, periodic=True, dtype=torch.float32,
                                device=audio.device)
     spec = torch.stft(audio.float(), n_fft, hop_length=hop_length,
                       win_length=win_length, window=window, center=True,
                       pad_mode="reflect", return_complex=True)
     return spec.abs()
+
+
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
+                   fmax: Optional[float] = None) -> np.ndarray:
+    """Slaney-style mel filterbank (librosa default, area-normalized),
+    [n_mels, n_fft//2+1] float32."""
+    fmax = fmax or sr / 2
+
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        mel = f / (200.0 / 3)
+        log_region = f >= 1000.0
+        return np.where(log_region,
+                        15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / (np.log(6.4) / 27.0),
+                        mel)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, np.float64)
+        f = m * (200.0 / 3)
+        log_region = m >= 15.0
+        return np.where(log_region, 1000.0 * np.exp((np.log(6.4) / 27.0) * (m - 15.0)), f)
+
+    mels = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
+    freqs = mel_to_hz(mels)
+    fft_freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
+    fb = np.zeros((n_mels, n_fft // 2 + 1))
+    for i in range(n_mels):
+        lo, cen, hi = freqs[i], freqs[i + 1], freqs[i + 2]
+        up = (fft_freqs - lo) / max(cen - lo, 1e-10)
+        down = (hi - fft_freqs) / max(hi - cen, 1e-10)
+        fb[i] = np.maximum(0, np.minimum(up, down))
+        fb[i] *= 2.0 / (hi - lo)  # slaney area normalization
+    return fb.astype(np.float32)
 
 
 @lru_cache(maxsize=32)

@@ -1596,3 +1596,163 @@ def test_capture_beside_a_thread_launching_k2(cuda_device):
     state, toks = out["wave"]
     assert torch.equal(toks, ref_toks)
     assert torch.equal(state.k_cache, ref_state.k_cache)
+
+
+# -- training (single card) ----------------------------------------------------------------
+
+def _full_float32(monkeypatch):
+    """Pin float32 products and convolutions to float32 (no TF32), as ``Config()`` does."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def _tiny_t2s_batch(device):
+    import numpy as np
+
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+
+    cfg = t2s.T2SConfig(hidden_dim=128, embedding_dim=128, num_heads=4, num_layers=2)
+    rng = np.random.RandomState(0)
+    samples = [(rng.randint(1, 700, int(rng.randint(20, 60))).astype(np.int32),
+                rng.randint(0, 1024, int(rng.randint(40, 120))).astype(np.int32), None)
+               for _ in range(4)]
+    return cfg, samples, ptrain.pad_batch(cfg, samples, device=device)
+
+
+def _tiny_sovits(device):
+    """A tiny v2 SoVITS with its fresh posterior encoder, the discriminators, a
+    two-row batch and one step's draws, made on the CPU and put on ``device``."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch.models import sovits, sovits_train as svt
+
+    cfg = sovits.SovitsConfig(spec_channels=129, inter_channels=64, hidden_channels=64,
+                              filter_channels=96, n_layers=2, resblock_kernel_sizes=(3,),
+                              resblock_dilation_sizes=((1, 3, 5),), upsample_rates=(2, 2),
+                              upsample_initial_channel=32, upsample_kernel_sizes=(4, 4),
+                              ref_enc_in=96, flow_n_layers=2)
+    gen = torch.Generator().manual_seed(0)
+    g = sovits.init_params(cfg, gen)
+    g.update(svt.init_enc_q_params(cfg, gen))
+    d = svt.init_discriminator_params(gen)
+    rng = np.random.RandomState(1)
+    samples = [(rng.randn(768, T).astype(np.float32) * 0.1,
+                np.abs(rng.randn(129, T)).astype(np.float32),
+                (rng.randn(T * 4) * 0.1).astype(np.float32),
+                rng.randint(1, 100, size=(9,)).astype(np.int32)) for T in (32, 22)]
+    batch = svt.pad_sovits_batch(cfg, samples, 4)
+    noise, u = svt.sovits_draws(cfg, batch, torch.Generator().manual_seed(2))
+    put = lambda t: {k: v.to(device) for k, v in t.items()}  # noqa: E731
+    return cfg, put(g), put(d), put(batch), noise.to(device), u.to(device)
+
+
+@pytest.mark.cuda
+def test_t2s_train_step_on_the_card_follows_the_cpu(cuda_device, monkeypatch):
+    """One float32 t2s train step on the card and on the CPU from the same
+    params and batch: the loss and every gradient agree to float32
+    reduction order (rtol 1e-4 of each leaf's largest entry); the params
+    after the update within 2·lr (Adam's first step moves each element by
+    ±lr·g/(|g| + eps), whose sign is rounding noise where g is ~0)."""
+    from gsv_tts_tpu_torch.models import t2s
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+
+    _full_float32(monkeypatch)
+    lr = 1e-3
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cfg, _, batch = _tiny_t2s_batch(dev)
+        p = ptrain.t2s_train_params(t2s.init_params(cfg, torch.Generator().manual_seed(3),
+                                                    device=dev))
+        leaves = ptrain.t2s_leaves(p)
+        loss = ptrain.t2s_loss(p, cfg, batch["x_ids"], batch["y_ids"], batch["bert"],
+                               batch["x_lens"], batch["y_lens"], torch.float32)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        opt, _ = ptrain.make_optimizer(leaves, peak_lr=lr, warmup_steps=0, decay_steps=10)
+        step_loss = ptrain.make_train_step(cfg, opt, dtype=torch.float32)(p, batch)
+        out[str(dev)] = (loss.item(), step_loss.item(), [g.cpu() for g in grads],
+                         {k: v.detach().cpu() for k, v in leaves.items()})
+    (l0, s0, g0, p0), (l1, s1, g1, p1) = out["cpu"], out[str(cuda_device)]
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(s1 - s0) <= 1e-4 * abs(s0)
+    for name, a, b in zip(p0, g0, g1):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4 * float(a.abs().max()),
+                                   msg=name)
+    for name in p0:
+        torch.testing.assert_close(p1[name], p0[name], rtol=0, atol=2 * lr, msg=name)
+
+
+@pytest.mark.cuda
+def test_sovits_gan_step_on_the_card_follows_the_cpu(cuda_device, monkeypatch):
+    """One float32 GAN step (D, then G) on the card and on the CPU from the
+    same params, batch and draws: every loss within 1e-3 relative (the
+    spectrogram, convolutions and their gradients in another order), every
+    G and D param within 2·lr of the CPU's (Adam's first step, as above),
+    the frozen RVQ leaves bit for bit."""
+    from gsv_tts_tpu_torch.models import sovits_train as svt
+    from gsv_tts_tpu_torch.parallel.train import Optimizer
+
+    _full_float32(monkeypatch)
+    lr = 2e-4
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cfg, g, d, batch, noise, u = _tiny_sovits(dev)
+        frozen = {k: v.clone() for k, v in g.items() if k.startswith(svt.FROZEN_PREFIXES)}
+        g_opt = Optimizer({k: v.requires_grad_(True) for k, v in g.items() if k not in frozen},
+                          lambda _: lr)
+        d_opt = Optimizer({k: v.requires_grad_(True) for k, v in d.items()}, lambda _: lr)
+        step = svt.make_sovits_train_step(cfg, g_opt, d_opt, n_fft=16, hop_length=4,
+                                          win_length=16, sr=16000, segment_frames=16, n_mels=8)
+        metrics = step(g, d, batch, noise, u)
+        for k, v in frozen.items():
+            assert torch.equal(g[k], v), k
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().cpu() for k, v in {**g, **d}.items()})
+    (m0, p0), (m1, p1) = out["cpu"], out[str(cuda_device)]
+    for k in m0:
+        assert abs(m1[k] - m0[k]) <= 1e-3 * abs(m0[k]) + 1e-6, (k, m0[k], m1[k])
+    for k in p0:
+        torch.testing.assert_close(p1[k], p0[k], rtol=0, atol=2 * lr, msg=k)
+
+
+@pytest.mark.cuda
+def test_finetune_resumed_on_the_card_equals_straight(cuda_device, tmp_path, monkeypatch):
+    """``finetune_t2s`` (bf16) on the card, interrupted and resumed: every
+    param equal to the straight run's.  ``finetune_sovits`` (float32): a GAN
+    step does not repeat itself bit for bit on the card (cuDNN's default
+    convolution algorithms, the STFT's backward in the mel loss and
+    ``reflection_pad1d``'s backward sum in no fixed order), so the resumed
+    run is held to the card's own spread: no further from the straight run
+    (L2 over every param) than 4x a second straight run is."""
+    from gsv_tts_tpu_torch.hparams import HParams
+    from gsv_tts_tpu_torch.parallel.train import t2s_leaves
+    from gsv_tts_tpu_torch.train_loop import finetune_sovits, finetune_t2s
+
+    _full_float32(monkeypatch)
+    cfg, samples, _ = _tiny_t2s_batch("cpu")
+    kw = dict(total_steps=4, batch_size=2, device=cuda_device, dtype=torch.bfloat16,
+              peak_lr=1e-3, warmup_steps=1, export=False, log_fn=lambda *_: None)
+    a = finetune_t2s(samples, cfg, str(tmp_path / "a"), **kw)
+    finetune_t2s(samples, cfg, str(tmp_path / "b"), max_steps_this_run=1, **kw)
+    b = finetune_t2s(samples, cfg, str(tmp_path / "b"), **kw)
+    for (name, x), y in zip(t2s_leaves(a).items(), t2s_leaves(b).values()):
+        assert torch.equal(x, y), name
+
+    scfg, g, _, batch, _, _ = _tiny_sovits("cpu")
+    samples = [(batch["ssl"][i, :, :n].numpy(), batch["spec"][i, :, :n].numpy(),
+                batch["wav"][i, :n * 4].numpy(), batch["text"][i].numpy())
+               for i, n in enumerate(batch["spec_lens"].tolist())] * 2
+    hps = HParams({"data": {"hop_length": 4, "filter_length": 16, "win_length": 16,
+                            "sampling_rate": 16000}, "train": {"segment_size": 64}})
+    assert scfg.samples_per_frame == 4
+    skw = dict(total_steps=3, batch_size=2, init_params=g, device=cuda_device, export=False,
+               log_fn=lambda *_: None)
+    a = finetune_sovits(samples, scfg, hps, str(tmp_path / "sa"), **skw)
+    a2 = finetune_sovits(samples, scfg, hps, str(tmp_path / "sa2"), **skw)
+    finetune_sovits(samples, scfg, hps, str(tmp_path / "sb"), max_steps_this_run=1, **skw)
+    b = finetune_sovits(samples, scfg, hps, str(tmp_path / "sb"), **skw)
+    assert set(a) == set(b) == set(a2)
+
+    def dist(x, y):
+        return float(torch.sqrt(sum(((x[k] - y[k]).detach().double() ** 2).sum() for k in x)))
+
+    assert dist(b, a) <= 4 * dist(a2, a) + 1e-6, (dist(b, a), dist(a2, a))

@@ -1,7 +1,7 @@
 """The port stays free of JAX: every module of ``gsv_tts_tpu_torch`` imports
-in a fresh interpreter whose import system refuses ``jax``, ``jaxlib``, the
-JAX package ``gsv_tts_tpu`` and the repository's ``tools/`` (the TPU
-probes), as the machine with the card has none of them."""
+in a fresh interpreter whose import system refuses ``jax``, ``jaxlib``,
+``optax``, the JAX package ``gsv_tts_tpu`` and the repository's ``tools/``
+(the TPU probes), as the machine with the card has none of them."""
 import subprocess
 import sys
 from pathlib import Path
@@ -12,7 +12,7 @@ ROOT = Path(__file__).resolve().parents[1]
 GUARD = r'''
 import importlib, importlib.abc, pkgutil, sys
 
-REFUSED = ("jax", "jaxlib", "gsv_tts_tpu", "tools")
+REFUSED = ("jax", "jaxlib", "optax", "gsv_tts_tpu", "tools")
 
 
 class Refuse(importlib.abc.MetaPathFinder):
