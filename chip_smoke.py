@@ -181,10 +181,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    step twice from one state (cuDNN's default and deterministic algorithms) and the mel
    loss's gradient twice.
 
+13. serving, on the phase-4 checkpoints and ``[(1,512),(2,512),(4,512)]`` after
+   ``TTS.warmup()``: ``serving.server.TTSServer``'s route methods in one asyncio loop, without
+   aiohttp (the card's host has none; the aiohttp adapter is held to JAX's app on the CPU).
+   Twice: api_v2 ``/tts`` wav at ``top_k=1, noise_scale=0`` (the bytes of a direct
+   ``TTS.infer`` with the same arguments), api_v2 ``streaming_mode=1`` (a wav header chunk,
+   then ``infer_stream``'s chunks as raw frames), ``/tts/stream`` not shared (audio events
+   and one done; ``"speed": 0`` one error event), shared (3 concurrent clients on a K2 wave;
+   at a cap of 1 a second client's 503 + ``Retry-After: 1`` before any byte, a later client
+   streaming) — the second round capturing no graph and building no library
+   (``backend_compiles``).  Between the rounds: ``batch_window_ms`` coalescing 4 api_v2
+   requests into one ``infer_batched`` (K2) and a lone one into ``infer``, OpenAI ``speech``
+   as wav and SSE and an unknown voice's 400, the WebUI's ``synth`` through
+   ``fx.enhance_audio``, ``health`` (the card's name, ``warmed``, wave and vocoder stats) and
+   ``metrics``; after them ``set_gpt_weights`` reloading the checkpoint and one request.
+   The server's overhead (api_v2 against the direct ``infer``), SSE time to first audio
+   against ``infer_stream``'s ``ttfa_s``, the coalesced call's wall time and the phase's
+   seconds are printed.  Every launch count equals the decode steps its drive took.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record, phase 10's, 11's and 12's readings (``zh readings: {...}``,
-``shared readings: {...}``, ``train readings: {...}``) and the card.  Nothing here
-imports JAX.
+kernels' JSON record, phase 10's to 13's readings (``zh readings: {...}``,
+``shared readings: {...}``, ``train readings: {...}``, ``serving readings: {...}``) and
+the card.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -3633,10 +3651,353 @@ def train_phase(models_dir, gpt, v2pro, spk, prompt, dev, card):
     return total, {"featurize": feat, "t2s": t2s, "sovits": sov, "rtf": rtf, "card": card}
 
 
+# -- phase 13: the serving layer ---------------------------------------------------------------
+
+SERVE_TEXT = TEXTS[0]
+SERVE_VOCODER_WINDOW_S = 0.03
+# api_v2's sampling keys at greedy (tokens equal on every run) with api_v2's other defaults
+SERVE_GREEDY = dict(top_k=1, top_p=1.0, temperature=1.0, repetition_penalty=1.35,
+                    noise_scale=0.0, speed=1.0)
+
+
+def sse_names(body: bytes) -> list:
+    """The event names (or, without one, the ``type`` of the data) of an SSE body, in order."""
+    out = []
+    for block in body.split(b"\n\n"):
+        if not block.strip():
+            continue
+        first = block.split(b"\n", 1)[0].decode()
+        out.append(first[7:] if first.startswith("event: ")
+                   else json.loads(first[6:])["type"])
+    return out
+
+
+async def streamed(reply) -> list:
+    """The chunks of a route's streamed reply, read to its end."""
+    from gsv_tts_tpu_torch.serving.server import Stream
+
+    if reply.status != 200 or not isinstance(reply.body, Stream):
+        fail(f"serving phase: a stream answered {reply.status} {reply.body[:200]!r}")
+    return [c async for c in reply.body]
+
+
+def wav_of(what, body: bytes):
+    import io
+    import wave
+
+    import numpy as np
+
+    if body[:4] != b"RIFF":
+        fail(f"serving phase: {what}: the body does not open with RIFF: {body[:16]!r}")
+    with wave.open(io.BytesIO(body)) as w:
+        audio = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.float32) / 32767
+    check_audio(f"serving phase: {what}", audio, int(0.2 * 32000), 1024 * 1280)
+    return audio
+
+
+async def serving_round(server, tts, gpt, spk, prompt, n: int) -> dict:
+    """Items 1-4 of phase 13 once: api_v2 wav against a direct ``infer``, api_v2 streamed
+    against ``infer_stream``, ``/tts/stream`` not shared (and its error event), shared (3
+    concurrent clients; then the admission cap at 1).  Counts are zeroed just before each
+    drive and read just after it."""
+    import asyncio
+
+    import torch
+
+    from gsv_tts_tpu_torch.serving.server import Stream, pack_raw, pack_wav, wave_header_chunk
+
+    what = f"serving round {n}"
+    total = {name: 0 for name in launch_counts()}
+
+    def counted(label, **want):
+        counts = read_counts()
+        expect_counts(f"{what}: {label}", counts, **want)
+        for name, c in counts.items():
+            total[name] += c
+
+    q = {"text": SERVE_TEXT, "ref_audio_path": str(prompt), "prompt_text": PROMPT_TEXT,
+         "media_type": "wav", "top_k": "1", "noise_scale": "0"}
+    # 1. api_v2 wav: the samples of a direct infer with the same arguments
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reply = await server.tts_v2(dict(q))
+    api_ms = 1000 * (time.perf_counter() - t0)
+    steps = tts.last_timings["decode_steps"]
+    counted(f"api_v2 /tts wav ({steps} decode steps)", k1=steps)
+    if reply.status != 200 or reply.headers["Content-Type"] != "audio/wav":
+        fail(f"{what}: api_v2 answered {reply.status} {reply.headers}")
+    wav_of(f"{what}: api_v2 wav", reply.body)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = tts.infer(str(prompt), str(prompt), PROMPT_TEXT, SERVE_TEXT, **SERVE_GREEDY)
+    infer_ms = 1000 * (time.perf_counter() - t0)
+    want = pack_wav(direct.audio_data, direct.samplerate)
+    if reply.body != want:
+        fail(f"{what}: api_v2's wav ({len(reply.body)} bytes) is not the direct infer's "
+             f"({len(want)} bytes)")
+    # 2. api_v2 streaming_mode=1: a wav header chunk, then raw frames of infer_stream's chunks
+    reset_counts()
+    chunks = await streamed(await server.tts_v2({**q, "streaming_mode": "1"}))
+    steps = tts.last_timings["decode_steps"]
+    counted(f"api_v2 /tts streaming_mode=1 ({steps} decode steps)", k1=steps)
+    clips = list(tts.infer_stream(str(prompt), str(prompt), PROMPT_TEXT, SERVE_TEXT,
+                                  is_cut_text=True, cut_minlen=50, cut_mute=0.3,
+                                  stream_mode="token", stream_chunk=25, overlap_len=5,
+                                  boost_first_chunk=True, debug=False, **SERVE_GREEDY))
+    if chunks[0] != wave_header_chunk(sample_rate=32000) or len(chunks) != len(clips) + 1 \
+            or b"".join(chunks[1:]) != b"".join(pack_raw(c.audio_data) for c in clips):
+        fail(f"{what}: api_v2 streamed {len(chunks)} chunks, not a header and "
+             f"infer_stream's {len(clips)} chunks")
+    # 3. /tts/stream, not shared: audio x N, one done; "speed": 0 is one error event
+    body = {"text": SERVE_TEXT, "speaker_audio": str(spk), "prompt_audio": str(prompt),
+            "prompt_text": PROMPT_TEXT, "top_k": 1, "noise_scale": 0}
+    reset_counts()
+    names = sse_names(b"".join(await streamed(await server.tts_stream(dict(body)))))
+    st = dict(tts.last_timings)
+    counted(f"/tts/stream ({st['decode_steps']} decode steps)", k1=st["decode_steps"])
+    if len(names) < 3 or names != ["audio"] * (len(names) - 1) + ["done"]:
+        fail(f"{what}: /tts/stream events {names}")
+    sse_ttfa = server.timings.summary()["ttfa_s"]["last"]
+    reset_counts()
+    errs = sse_names(b"".join(await streamed(await server.tts_stream({**body, "speed": 0}))))
+    counted("/tts/stream with speed 0 (no decode)")
+    if errs != ["error"]:
+        fail(f"{what}: /tts/stream with speed 0 gave {errs}, not one error event")
+    # 4. shared: three concurrent clients on the wave (K2), then the admission cap at 1
+    shared = {**body, "shared": True}
+
+    async def client():
+        return sse_names(b"".join(await streamed(await server.tts_stream(dict(shared)))))
+
+    reset_counts()
+    before = wave_totals(tts, gpt)
+    outs = await asyncio.wait_for(asyncio.gather(client(), client(), client()),
+                                  CLIENT_DEADLINE_S)
+    d = wave_delta(wave_totals(tts, gpt), before)
+    counted(f"3 shared clients ({d['decode_steps']} wave steps)", k1=d["k1_steps"],
+            k2=d["k2_steps"])
+    if d["k2_steps"] == 0 or any(o[-1] != "done" or "error" in o or len(o) < 3 for o in outs):
+        fail(f"{what}: 3 shared clients: wave {d}, events {outs}")
+    sched = tts._get_wave_scheduler(str(gpt))
+    tts.wave_max_clients = sched.max_clients = 1
+    try:
+        reset_counts()
+        before = wave_totals(tts, gpt)
+        holder = await server.tts_stream(dict(shared))
+        it = holder.body.__aiter__()
+        first = await it.__anext__()
+        refused = await server.tts_stream(dict(shared))
+        rest = [first] + [c async for c in it]
+        after = await server.tts_stream(dict(shared))
+        late = sse_names(b"".join(await streamed(after)))
+        d = wave_delta(wave_totals(tts, gpt), before)
+        counted(f"the cap at 1: a holder and a later client ({d['decode_steps']} wave steps)",
+                k1=d["k1_steps"], k2=d["k2_steps"])
+    finally:
+        tts.wave_max_clients = sched.max_clients = None
+    if refused.status != 503 or refused.headers.get("Retry-After") != "1" \
+            or isinstance(refused.body, Stream) or b"capacity" not in refused.body:
+        fail(f"{what}: a second shared client at the cap got {refused.status} "
+             f"{refused.headers} {refused.body!r:.200}")
+    if sse_names(b"".join(rest))[-1] != "done" or late[-1] != "done" or sched.stats["clients"]:
+        fail(f"{what}: the holder or the later client did not stream to done "
+             f"({sse_names(b''.join(rest))}, {late}; clients {sched.stats['clients']})")
+    print(f"{what}: api_v2 wav {api_ms:.1f} ms (direct infer {infer_ms:.1f} ms, the same "
+          f"bytes), streamed api_v2 = infer_stream's {len(clips)} chunks; /tts/stream "
+          f"{len(names) - 1} audio events + done, time to first audio {1000 * sse_ttfa:.1f} ms "
+          f"(infer_stream's ttfa_s {1000 * st['ttfa_s']:.1f} ms); speed 0: one error event; 3 "
+          f"shared clients done; at the cap of 1 a second client got 503 + Retry-After 1 "
+          f"before any byte, a later one streamed", flush=True)
+    return total, {"api_v2_ms": api_ms, "infer_ms": infer_ms, "overhead_ms": api_ms - infer_ms,
+                   "sse_ttfa_ms": 1000 * sse_ttfa, "stream_ttfa_ms": 1000 * st["ttfa_s"]}
+
+
+def serving_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """The serving layer (phase 13): ``TTSServer``'s route methods driven in one asyncio loop
+    on the card, without aiohttp (the card's host has none): items 1-4 twice
+    (``serving_round``; the second round captures no graph and builds no library), the
+    micro-batcher coalescing 4 api_v2 requests into one ``infer_batched`` (K2) and a lone one
+    into ``infer``, OpenAI ``speech`` as wav and SSE and its error envelope, the WebUI's
+    ``synth`` through ``fx.enhance_audio``, ``health`` and ``metrics``, and
+    ``set_gpt_weights`` reloading the checkpoint with a request after.  Returns the launches
+    summed and the phase's readings."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.serving.openai_compat import _OpenAISpeech
+    from gsv_tts_tpu_torch.serving.server import TTSServer, compile_count
+    from gsv_tts_tpu_torch.serving.webui import WebUI
+    from gsv_tts_tpu_torch.utils.audio_io import load_audio
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    tts = TTS(gpt_cache=[(1, 512), (2, 512), (4, 512)], models_dir=models_dir, device=dev,
+              seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(sov))
+    # which chunks the vocoder batcher groups depends on when the clients' threads hand them
+    # in: with its 4 ms window, a second round of the same 3 shared clients met 7 group shapes
+    # the first had not (each a CUDA graph of its own).  A window wider than the clients'
+    # skew groups the chunks that come due together every time, so that a graph captured in
+    # the second round would be a shape leaking, not a regrouping
+    tts._get_vocoder_batcher().window_s = SERVE_VOCODER_WINDOW_S
+    reset_counts()
+    tts.warmup()  # as ``--warmup`` does before the server listens
+    add(read_counts())
+    server = TTSServer(tts)
+
+    async def drive():
+        readings = {}
+        counts, readings["round1"] = await serving_round(server, tts, gpt, spk, prompt, 1)
+        add(counts)
+        # 5. the micro-batcher: 4 concurrent api_v2 requests, one infer_batched (K2)
+        bserver = TTSServer(tts, batch_window_ms=50.0, batch_max=4)
+        q = {"ref_audio_path": str(prompt), "prompt_text": PROMPT_TEXT, "media_type": "wav",
+             "top_k": "1", "noise_scale": "0"}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replies = await asyncio.gather(*(bserver.tts_v2({**q, "text": t}) for t in TEXTS[:4]))
+        batch_ms = 1000 * (time.perf_counter() - t0)
+        st = dict(tts.last_timings)
+        counts = read_counts()
+        expect_counts(f"serving phase: 4 coalesced api_v2 requests ({st['k2_steps']} K2 steps, "
+                      f"{st['k1_steps']} K1)", counts, k1=st["k1_steps"], k2=st["k2_steps"])
+        add(counts)
+        stats = dict(bserver.batcher.stats)
+        if stats["calls"] != 1 or stats["requests"] != 4 or st["k2_steps"] == 0:
+            fail(f"serving phase: the batcher made {stats}, K2 steps {st['k2_steps']}")
+        for i, r in enumerate(replies):
+            wav_of(f"coalesced request {i}", r.body)
+        reset_counts()
+        lone = await bserver.tts_v2({**q, "text": SERVE_TEXT})
+        steps = tts.last_timings["decode_steps"]
+        counts = read_counts()
+        expect_counts(f"serving phase: a lone request through the batcher ({steps} steps)",
+                      counts, k1=steps)
+        add(counts)
+        wav_of("the lone batcher request", lone.body)
+        if bserver.batcher.stats["calls"] != 2:
+            fail(f"serving phase: the lone request made {bserver.batcher.stats}")
+        await bserver.batcher.close()
+        print(f"serving phase: 4 api_v2 requests coalesced into one infer_batched in "
+              f"{batch_ms:.1f} ms ({st['k2_steps']} K2 steps, {st['k1_steps']} K1, batcher "
+              f"{stats}); a lone one took infer ({steps} K1 steps); {card}", flush=True)
+        readings["batch_ms"] = batch_ms
+        # 6. OpenAI speech: wav, SSE, an unknown voice
+        oai = _OpenAISpeech(server, {"alloy": {"speaker_audio": str(spk),
+                                               "prompt_audio": str(prompt),
+                                               "prompt_text": PROMPT_TEXT}})
+        speech = {"input": SERVE_TEXT, "voice": "alloy", "top_k": 1, "noise_scale": 0}
+        reset_counts()
+        r = await oai.speech(dict(speech))
+        steps = tts.last_timings["decode_steps"]
+        wav_of("OpenAI speech wav", r.body)
+        r = await oai.speech({**speech, "stream_format": "sse"})
+        types = sse_names(b"".join(await streamed(r)))
+        steps += tts.last_timings["decode_steps"]
+        counts = read_counts()
+        expect_counts(f"serving phase: OpenAI speech wav and SSE ({steps} steps)", counts,
+                      k1=steps)
+        add(counts)
+        if len(types) < 2 or types != ["speech.audio.delta"] * (len(types) - 1) + \
+                ["speech.audio.done"]:
+            fail(f"serving phase: OpenAI SSE events {types}")
+        r = await oai.speech({"input": "x", "voice": "nope"})
+        err = json.loads(r.body)["error"]
+        if r.status != 400 or err["type"] != "invalid_request_error" or err["param"] != "voice":
+            fail(f"serving phase: an unknown voice got {r.status} {err}")
+        # 7. the WebUI's synth through the enhance chain
+        ui = WebUI(tts, Path(models_dir) / "webui")
+        ui_steps = []
+        infer = tts.infer
+
+        def counted_infer(*a, **kw):
+            clip = infer(*a, **kw)
+            ui_steps.append(tts.last_timings["decode_steps"])
+            return clip
+
+        tts.infer = counted_infer
+        reset_counts()
+        try:
+            r = await ui.synth({"text": f"{SERVE_TEXT} <break:0.3/> {TEXTS[1]}",
+                                "speaker_audio": str(spk), "prompt_audio": str(prompt),
+                                "prompt_text": PROMPT_TEXT, "top_k": 1, "noise_scale": 0,
+                                "enhance": True})
+        finally:
+            del tts.infer
+        counts = read_counts()
+        expect_counts(f"serving phase: WebUI synth ({sum(ui_steps)} steps)", counts,
+                      k1=sum(ui_steps))
+        add(counts)
+        d = json.loads(r.body)
+        audio, sr = load_audio(str(ui.audio_dir / d["audio_url"].rsplit("/", 1)[1]))
+        if len(ui_steps) != 2 or sr != 32000 or audio.size < 0.3 * 32000 \
+                or not np.all(np.isfinite(audio)):
+            fail(f"serving phase: WebUI synth {d}, {len(ui_steps)} infer calls")
+        print(f"serving phase: OpenAI speech wav and {len(types) - 1} SSE deltas + done, an "
+              f"unknown voice 400 {err['type']}; WebUI synth of 2 segments and a break through "
+              f"enhance_audio: {d['duration']} s, RTF {d['rtf']}", flush=True)
+        # 8. health and metrics; then a second round of items 1-4 captures nothing new
+        h = json.loads((await server.health()).body)
+        name = torch.cuda.get_device_name(0)
+        if name not in h["device"] or not h["warmed"] or "waves" not in h \
+                or "vocoder_batcher" not in h or h["live_arrays"] <= 0:
+            fail(f"serving phase: /health {dict((k, h[k]) for k in h if k != 'timings')}")
+        m = (await server.metrics()).body.decode()
+        if not all(s in m for s in ("gsv_up 1", "gsv_backend_compiles ", "gsv_live_arrays ",
+                                    "gsv_wave_clients{", "gsv_ttfa_s_p50 ")):
+            fail(f"serving phase: /metrics {m[:400]}")
+        graphs0, compiles0 = set(tts.sovits_graphs.graphs), compile_count(tts)
+        counts, readings["round2"] = await serving_round(server, tts, gpt, spk, prompt, 2)
+        add(counts)
+        h2 = json.loads((await server.health()).body)
+        if compile_count(tts) != compiles0:
+            fail(f"serving phase: the second round compiled {compile_count(tts) - compiles0} "
+                 f"more (graphs {sorted(set(tts.sovits_graphs.graphs) - graphs0)})")
+        readings["health"] = {k: h2[k] for k in ("device", "warmed", "backend_compiles",
+                                                 "live_arrays", "inflight")}
+        # 9. set_gpt_weights reloading the checkpoint, then one request
+        r = await server.set_gpt_weights({"weights_path": str(gpt)})
+        if r.status != 200 or json.loads(r.body) != {"message": "success"}:
+            fail(f"serving phase: set_gpt_weights answered {r.status} {r.body!r}")
+        reset_counts()
+        r = await server.tts_v2({**q, "text": SERVE_TEXT})
+        steps = tts.last_timings["decode_steps"]
+        counts = read_counts()
+        expect_counts(f"serving phase: a request after set_gpt_weights ({steps} steps)",
+                      counts, k1=steps)
+        add(counts)
+        wav_of("the request after set_gpt_weights", r.body)
+        return readings
+
+    readings = asyncio.run(drive())
+    readings["phase_s"] = time.perf_counter() - t_phase
+    readings["card"] = card
+    print(f"serving phase: /health {readings['health']}; the second round added no "
+          f"backend compile; done in {readings['phase_s']:.1f} s; {card}", flush=True)
+    for sched in list(tts._wave_schedulers.values()):
+        sched.close()
+    if tts._vocoder_batcher is not None:
+        tts._vocoder_batcher.close()
+    del tts, server
+    torch.cuda.empty_cache()
+    return total, readings
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
-    K5 loop, ``infer_stream`` and phases 6-12; returns the launches summed over the drives
-    (counts are zeroed before each drive and read after it) and phases 10's, 11's and 12's
+    K5 loop, ``infer_stream`` and phases 6-13; returns the launches summed over the drives
+    (counts are zeroed before each drive and read after it) and phases 10's to 13's
     readings."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
@@ -3696,7 +4057,9 @@ def main_path_phase(dev, card):
         add(counts)
         counts, train = train_phase(tmp, gpt, Path(tmp) / "s2v2ProPlus", spk, prompt, dev, card)
         add(counts)
-    return total, zh, shared, train
+        counts, serving = serving_phase(tmp, gpt, sov, spk, prompt, dev, card)
+        add(counts)
+    return total, zh, shared, train, serving
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -4114,10 +4477,11 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches, zh, shared, train = main_path_phase(dev, card)
+    launches, zh, shared, train, serving = main_path_phase(dev, card)
     print("zh readings: " + json.dumps(zh), flush=True)
     print("shared readings: " + json.dumps(shared), flush=True)
     print("train readings: " + json.dumps(train), flush=True)
+    print("serving readings: " + json.dumps(serving), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

@@ -501,18 +501,33 @@ class TTS:
         #: graphs captured / replayed by the call, ``sovits_capture_s`` the
         #: part of ``sovits_s`` its captures took)
         self.last_timings: Dict[str, float] = {}
+        #: set by :meth:`warmup` (a server's ``/health`` reports it)
+        self._warmed = False
         logger.info("Device: %s, dtype: %s", self.device, self.tts_config.dtype)
 
     # -- model registry --------------------------------------------------
 
     def load_gpt_model(self, *model_paths):
+        """Load each model; a model loaded again under its path closes the
+        shared-wave scheduler of its old weights (its open streams fail, as
+        an unload fails them), so later streams decode with the new ones."""
         for path in model_paths or (self.default_gpt_path,):
-            self.gpt_models[path] = get_gpt_weights(path, self.tts_config)
+            model = get_gpt_weights(path, self.tts_config)
+            with self._sched_lock:
+                sched = self._wave_schedulers.pop(path, None)
+            if sched is not None:
+                sched.close()
+            self.gpt_models[path] = model
             logger.info("Loaded GPT model: %s", path)
 
     def load_sovits_model(self, *model_paths):
+        """Load each model; a model loaded again under its path drops the CUDA
+        graphs of its old parameters (they hold those weights)."""
         for path in model_paths or (self.default_sovits_path,):
+            old = self.sovits_models.get(path)
             self.sovits_models[path] = get_sovits_weights(path, self.tts_config)
+            if old is not None:
+                self.sovits_graphs.evict(old.params)
             logger.info("Loaded SoVITS model: %s", path)
 
     def unload_gpt_model(self, *model_paths):
@@ -786,6 +801,7 @@ class TTS:
                     raise RuntimeError("warmup stream produced no audio")
                 stats["stream_s"] = time.perf_counter() - t1
         stats["total_s"] = time.perf_counter() - t0
+        self._warmed = True
         logger.info("warmup done: %s", stats)
         return stats
 
