@@ -199,10 +199,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against ``infer_stream``'s ``ttfa_s``, the coalesced call's wall time and the phase's
    seconds are printed.  Every launch count equals the decode steps its drive took.
 
+14. multi-device, on the phase-4 checkpoints in bf16, in a world of one rank over NCCL on
+   this card (``parallel/mesh.py:make_mesh()``: dp=1, tp=1; a one-rank group runs no
+   collective): ``T2SEngine(...).shard(mesh)``'s ``generate`` and ``generate_batched`` of 6
+   texts equal to the unsharded ``"xla"`` engine's bit for bit with no kernel launched, ms a
+   step of each in turns, and µs a call of the NCCL collectives a split would run;
+   ``DataParallelEngine(mesh=)`` ``generate_batched`` of 6 on ``[(1,512),(4,512)]`` equal to
+   the plain engine's, greedy and sampled, K1 / K2 launches equal to its steps; one dp×tp
+   ``make_train_step`` step and one ``seq_mesh`` step bit for bit the single-card step (loss
+   and gradients), GPipe at pp=1 with 2 and 4 microbatches within ``TRAIN_LOSS_REL_TOL`` /
+   ``TRAIN_GRAD_COS_MIN``, on 8 synthesized samples, with ms a step in turns;
+   ``finetune_t2s(mesh=)`` 4 steps straight and resumed at 2 (bit for bit) and
+   ``finetune_sovits(mesh=)`` 2 GAN steps, every loss finite.  With two cards a world of 2
+   (``parallel/launch.py``) runs the engines and the steps at tp=2, dp=2 and pp=2 against
+   each rank's single-card results; with one it says so.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record, phase 10's to 13's readings (``zh readings: {...}``,
-``shared readings: {...}``, ``train readings: {...}``, ``serving readings: {...}``) and
-the card.  Nothing here imports JAX.
+kernels' JSON record, phase 10's to 14's readings (``zh readings: {...}``,
+``shared readings: {...}``, ``train readings: {...}``, ``serving readings: {...}``,
+``multi readings: {...}``) and the card.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -3994,10 +4009,426 @@ def serving_phase(models_dir, gpt, sov, spk, prompt, dev, card):
     return total, readings
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: multi-device (torch.distributed), a world of one rank on this card
+# ---------------------------------------------------------------------------
+
+MULTI_CACHE = [(1, 512), (4, 512)]
+SHARD_CACHE = [(1, 384), (4, 384)]  # the sharded / "xla" drives: ~200 host-bound steps a run
+MULTI_BATCH, MULTI_FT_STEPS, MULTI_SOV_STEPS = 8, 4, 2
+
+
+def multi_samples(cfg, n: int = MULTI_BATCH):
+    """``n`` synthesized t2s samples from SEED: 30-80 phonemes with BERT features and
+    120-300 semantic tokens each."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 14)
+    out = []
+    for _ in range(n):
+        lx, ly = int(rng.randint(30, 81)), int(rng.randint(120, 301))
+        out.append((rng.randint(1, cfg.phoneme_vocab_size, lx).astype(np.int32),
+                    rng.randint(0, cfg.vocab_size - 1, ly).astype(np.int32),
+                    (rng.randn(lx, cfg.bert_dim) * 0.1).astype(np.float32)))
+    return out
+
+
+def multi_sovits_samples(cfg, hop: int, n: int = 4):
+    """``n`` synthesized SoVITS samples (HuBERT features, spectrogram, waveform, phones) of
+    100-200 frames from SEED."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 15)
+    out = []
+    for _ in range(n):
+        T = int(rng.randint(100, 201))
+        out.append((rng.randn(768, T).astype(np.float32) * 0.1,
+                    np.abs(rng.randn(cfg.spec_channels, T)).astype(np.float32),
+                    (rng.randn(T * hop) * 0.1).astype(np.float32),
+                    rng.randint(1, 300, size=(int(rng.randint(20, 60)),)).astype(np.int32)))
+    return out
+
+
+class GradRecorder:
+    """A ``GradSync`` stand-in that keeps the gradients the optimizer was given, after the
+    sync's sums over the ranks (float32 copies by leaf name): the sharded steps are held to
+    the single-card step's gradient (a bf16 update of bf16 params rounds small changes away)."""
+
+    def __init__(self, sync):
+        self.sync, self.grads = sync, None
+
+    def reduce(self, names, grads):
+        grads = list(grads) if self.sync is None else self.sync.reduce(names, grads)
+        self.grads = {n: g.detach().float() for n, g in zip(names, grads)}
+        return grads
+
+    def leaf_norms(self, names, norms):
+        return list(norms) if self.sync is None else self.sync.leaf_norms(names, norms)
+
+
+def train_variant(kind, cfg, params, batch, dt, mesh, n_micro=2):
+    """One AdamW step of ``kind`` from ``params`` on ``mesh``'s ranks: "single" (no
+    collective), "tp" (``make_train_step(mesh=)``), "seq" (``seq_mesh=``) or "pp"
+    (``make_pp_train_step``, ``mesh`` a ``("dp","pp")`` mesh).  Returns (the loss, {this
+    rank's leaf: its gradient, summed over the ranks}, a call of the step again)."""
+    from gsv_tts_tpu_torch.parallel import mesh as pmesh
+    from gsv_tts_tpu_torch.parallel import pipeline as ppl
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+
+    whole = ptrain.t2s_train_params(params)
+    kw, p, sync = {}, whole, None
+    if kind == "tp":
+        p = ptrain.t2s_train_params(pmesh.shard_t2s_params(whole, mesh))
+        p["tp"] = pmesh.axis(mesh, "tp")[0]
+        sync, kw = ptrain.t2s_grad_sync(list(ptrain.t2s_leaves(p)), mesh=mesh), {"mesh": mesh}
+    elif kind == "seq":
+        sync = ptrain.t2s_grad_sync(list(ptrain.t2s_leaves(p)), mesh=mesh, seq=True)
+        kw = {"seq_mesh": mesh}
+    elif kind == "pp":
+        p = ppl.shard_pp_params(whole, cfg, mesh)
+        sync = ptrain.t2s_grad_sync(list(ptrain.t2s_leaves(p)), pp_mesh=mesh)
+    recorder = GradRecorder(sync)
+    opt, _ = ptrain.make_optimizer(ptrain.t2s_leaves(p), peak_lr=1e-5, warmup_steps=0,
+                                   decay_steps=100, sync=recorder)
+    fn = ppl.make_pp_train_step(cfg, opt, mesh, n_micro, dt) if kind == "pp" \
+        else ptrain.make_train_step(cfg, opt, dt, **kw)
+    rows = pmesh.batch_sharding(mesh)
+    local = {k: rows(v) for k, v in batch.items()}
+    loss = float(fn(p, local))
+    return loss, recorder.grads, (lambda: fn(p, local))
+
+
+def grads_agree(what, got, want, loss, want_loss, exact):
+    """Fail unless a sharded step's loss and gradients are the single-card step's: bit for
+    bit (``exact``), or the loss within ``TRAIN_LOSS_REL_TOL`` and every leaf's gradient at a
+    cosine of at least ``TRAIN_GRAD_COS_MIN`` (leaves zero in both skipped).  Returns (the
+    loss's relative difference, the smallest cosine)."""
+    import torch
+
+    rel = abs(loss - want_loss) / abs(want_loss)
+    cos = [float(torch.nn.functional.cosine_similarity(got[k].flatten(), want[k].flatten(),
+                                                       dim=0))
+           for k in want if got[k].abs().max() > 0 or want[k].abs().max() > 0]
+    worst = min(cos)
+    if exact:
+        apart = [k for k in want if not torch.equal(got[k], want[k])]
+        if loss != want_loss or apart:
+            fail(f"multi phase: {what} is not the single-card step bit for bit (loss {loss} vs "
+                 f"{want_loss}; {len(apart)} gradients apart, e.g. {apart[:3]})")
+    elif rel > TRAIN_LOSS_REL_TOL or worst < TRAIN_GRAD_COS_MIN:
+        fail(f"multi phase: {what}: loss rel {rel:.2e} (tol {TRAIN_LOSS_REL_TOL}), gradient "
+             f"cosine min {worst:.5f} (min {TRAIN_GRAD_COS_MIN})")
+    return rel, worst
+
+
+def collective_us(dev, calls: int = 200) -> dict:
+    """µs a call of the collectives a tp=2 step or a dp engine's chunk would run, here on a
+    one-rank NCCL group (host clock over ``calls`` calls, then a synchronise): an all-reduce
+    of one decode row [1, 512] bf16 and of a train step's [8, 512, 512] bf16, an all-gather of
+    a chunk's tokens [4, 5] int32."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for name, t, op in (("all_reduce_row", torch.ones(1, 512, dtype=torch.bfloat16, device=dev),
+                         lambda t: dist.all_reduce(t)),
+                        ("all_reduce_train", torch.ones(8, 512, 512, dtype=torch.bfloat16,
+                                                        device=dev), lambda t: dist.all_reduce(t)),
+                        ("all_gather_tokens", torch.ones(4, 5, dtype=torch.int32, device=dev),
+                         lambda t: dist.all_gather([torch.empty_like(t)], t))):
+        op(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            op(t)
+        torch.cuda.synchronize()
+        out[name] = 1e6 * (time.perf_counter() - t0) / calls
+    return out
+
+
+def engine_tokens(engine, xs, ys, berts, dev, **kw):
+    """``generate_batched`` of the prompts from a generator seeded SEED: {request: tokens}."""
+    import torch
+
+    with torch.no_grad():
+        pred, idx = engine.generate_batched(
+            xs, ys, berts, generator=torch.Generator(device=dev).manual_seed(SEED), **kw)
+    return {int(i): p.tolist() for p, i in zip(pred, idx)}
+
+
+def multi_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """Phase 14 (multi-device) in a world of one rank over NCCL on this card: the sharded
+    ``"xla"`` engine against the unsharded one (tokens bit for bit, no kernel launch, ms a
+    step), ``DataParallelEngine`` against the plain engine (greedy and sampled tokens, K1 / K2
+    launches equal to its steps), the dp×tp, ``seq_mesh`` and GPipe (pp=1, 2 and 4
+    microbatches) train steps against the single-card step on 8 synthesized samples,
+    ``finetune_t2s(mesh=)`` straight and resumed, ``finetune_sovits(mesh=)``; with two cards,
+    a world of 2 (:func:`two_card_phase`).  Returns the launch counts and the readings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.parallel import mesh as pmesh
+    from gsv_tts_tpu_torch.parallel import pipeline as ppl
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+    from gsv_tts_tpu_torch.parallel.shard import DataParallelEngine
+    from gsv_tts_tpu_torch.runtime.t2s_session import T2SEngine
+    from gsv_tts_tpu_torch.train_loop import finetune_sovits, finetune_t2s
+
+    total = {name: 0 for name in launch_counts()}
+
+    def add(counts):
+        for name, n in counts.items():
+            total[name] += n
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    mesh = pmesh.make_mesh()
+    x = torch.ones(1, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shape = (pmesh.axis(mesh, "dp")[1], pmesh.axis(mesh, "tp")[1])
+    if shape != (1, 1) or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"multi phase: make_mesh() gave dp, tp {shape} over {dist.get_backend()} in a "
+             f"world of {dist.get_world_size()}")
+    print(f"multi phase: make_mesh() -> dp=1, tp=1 over NCCL on {dev} in {init_s:.2f} s "
+          f"(process group, mesh, first all-reduce)", flush=True)
+
+    tts = TTS(gpt_cache=MULTI_CACHE, models_dir=models_dir, device=dev, seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(sov))
+    g = tts.gpt_models[str(gpt)]
+    cfg, dt = g.cfg, g.engine.dtype
+    xs, ys, berts = tts._prepare_batched_inputs(str(spk), str(prompt), PROMPT_TEXT, TEXTS[:6],
+                                                False, 10, 20, None, None)[8:11]
+
+    # 1. T2SEngine.shard: the "xla" engine's tokens, no kernel, ms a step in turns
+    t0 = time.perf_counter()
+    xla = T2SEngine(g.params, cfg, SHARD_CACHE, dtype=dt, attn_impl="xla")
+    sharded = T2SEngine(g.params, cfg, SHARD_CACHE, dtype=dt).shard(mesh)
+    if sharded.attn_impl != "xla" or "k1_table" in sharded.params:
+        fail("multi phase: the sharded engine kept a kernel path")
+    per_step = {"xla": [], "sharded": []}
+    for name, eng in (("xla", xla), ("sharded", sharded), ("sharded", sharded), ("xla", xla)):
+        reset_counts()
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            one = eng.generate(xs[0], ys[0], berts[0], top_k=1,
+                               generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        st = eng.last_stats
+        per_step[name].append((one.ravel().tolist(), 1000 * st["decode_s"] / st["decode_steps"],
+                               st["decode_steps"]))
+        if name == "sharded":
+            expect_counts("multi phase: the sharded engine's generate", read_counts())
+    if len({str(t) for t, _, _ in per_step["xla"] + per_step["sharded"]}) != 1:
+        fail("multi phase: the sharded engine's generate differs from the xla engine's")
+    reset_counts()
+    want = engine_tokens(xla, xs, ys, berts, dev, top_k=1)
+    reset_counts()
+    got = engine_tokens(sharded, xs, ys, berts, dev, top_k=1)
+    expect_counts("multi phase: the sharded engine's generate_batched of 6", read_counts())
+    if got != want:
+        fail("multi phase: the sharded engine's generate_batched differs from the xla engine's")
+    # in turns: xla, sharded, sharded, xla
+    xla_ms = [ms for _, ms, _ in per_step["xla"]]
+    shard_ms = [ms for _, ms, _ in per_step["sharded"]]
+    coll = collective_us(dev)
+    section_s = {"shard": time.perf_counter() - t0}
+    print(f"multi phase: T2SEngine.shard: generate {per_step['xla'][0][2]} steps and "
+          f"generate_batched of 6 ({sum(map(len, got.values()))} tokens) equal the xla engine's "
+          f"bit for bit, no kernel launched; ms a step (B=1, in turns) xla {xla_ms}, sharded "
+          f"{shard_ms} (a one-rank group runs no collective); one NCCL call at world 1, "
+          f"µs: {coll}; {card}", flush=True)
+
+    # 2. DataParallelEngine: the plain engine's tokens, greedy and sampled; K1 / K2 = its steps
+    t0 = time.perf_counter()
+    plain = T2SEngine(g.params, cfg, MULTI_CACHE, dtype=dt)
+    dpe = DataParallelEngine(g.params, cfg, MULTI_CACHE, dtype=dt, mesh=mesh)
+    dp_read = {}
+    for label, kw in (("greedy", {"top_k": 1}), ("sampled", {})):
+        want = engine_tokens(plain, xs, ys, berts, dev, **kw)
+        reset_counts()
+        torch.cuda.synchronize()
+        got = engine_tokens(dpe, xs, ys, berts, dev, **kw)
+        torch.cuda.synchronize()
+        st = dpe.last_stats
+        counts = read_counts()
+        expect_counts(f"multi phase: DataParallelEngine generate_batched of 6 ({label})", counts,
+                      k1=st["k1_steps"], k2=st["k2_steps"])
+        add(counts)
+        if got != want:
+            fail(f"multi phase: DataParallelEngine ({label}) differs from the plain engine")
+        if st["k2_steps"] == 0:
+            fail(f"multi phase: DataParallelEngine ({label}) took no K2 step")
+        dp_read[label] = {"k1_steps": st["k1_steps"], "k2_steps": st["k2_steps"],
+                          "ms_a_step": 1000 * st["decode_s"] / st["decode_steps"]}
+    print(f"multi phase: DataParallelEngine(mesh=) generate_batched of 6 on {MULTI_CACHE}: "
+          f"greedy and sampled tokens equal the plain engine's; {dp_read}", flush=True)
+    del xla, sharded, plain, dpe
+    section_s["dp_engine"] = time.perf_counter() - t0
+
+    # 3. the train steps against the single-card step: loss and gradients; ms a step in
+    # turns, the single step first and last
+    t0 = time.perf_counter()
+    samples = multi_samples(cfg)
+    batch = ptrain.pad_batch(cfg, samples, device=dev)
+    want_loss, want, again = train_variant("single", cfg, g.params, batch, dt, mesh)
+    train_read = {"single_loss": want_loss, "single_ms_a_step": cuda_steps_ms(again, 3)}
+    pp_mesh = ppl.make_mesh_dp_pp()
+    for kind, n_micro, exact in (("tp", 2, True), ("seq", 2, True), ("pp", 2, False),
+                                 ("pp", 4, False)):
+        loss, grads, again = train_variant(kind, cfg, g.params, batch, dt,
+                                           pp_mesh if kind == "pp" else mesh, n_micro)
+        label = f"pp n_micro={n_micro}" if kind == "pp" else kind
+        rel, worst = grads_agree(f"the {label} step", grads, want, loss, want_loss, exact)
+        train_read[label] = {"loss_rel": rel, "grad_cos_min": worst,
+                             "ms_a_step": cuda_steps_ms(again, 3)}
+        del grads, again
+    _, _, again = train_variant("single", cfg, g.params, batch, dt, mesh)
+    train_read["single_ms_a_step_last"] = cuda_steps_ms(again, 3)
+    del want, again
+    section_s["train_steps"] = time.perf_counter() - t0
+    print(f"multi phase: train steps on a batch of {MULTI_BATCH} (bf16) against the "
+          f"single-card step: {train_read}", flush=True)
+
+    # 4. the loops over the mesh: t2s straight and resumed, SoVITS
+    t_loops = time.perf_counter()
+    root = Path(models_dir)
+    kw = dict(total_steps=MULTI_FT_STEPS, batch_size=4, init_params=g.params, device=dev,
+              dtype=dt, peak_lr=T2S_LR, warmup_steps=1, ckpt_every=100, log_every=1,
+              mesh=mesh, export=False)
+    log, logged = loss_logger("loss")
+    t0 = time.perf_counter()
+    straight = finetune_t2s(samples, cfg, str(root / "mesh_t2s_a"), log_fn=log, **kw)
+    ft_s = time.perf_counter() - t0
+    quiet = dict(kw, log_fn=lambda *_: None)
+    finetune_t2s(samples, cfg, str(root / "mesh_t2s_b"), max_steps_this_run=2, **quiet)
+    resumed = finetune_t2s(samples, cfg, str(root / "mesh_t2s_b"), **quiet)
+    apart = leaves_apart(ptrain.t2s_leaves(straight), ptrain.t2s_leaves(resumed))
+    if apart[0] or len(logged["loss"]) != MULTI_FT_STEPS or \
+            not np.all(np.isfinite(logged["loss"])):
+        fail(f"multi phase: finetune_t2s(mesh=) losses {logged['loss']}, straight against "
+             f"resumed at 2: {apart[0]} leaves apart (largest {apart[1]})")
+    s = tts.sovits_models[str(sov)]
+    hop = int(s.hps.data.hop_length)
+    slog, slogged = loss_logger("g", "d")
+    t0 = time.perf_counter()
+    finetune_sovits(multi_sovits_samples(s.cfg, hop), s.cfg, s.hps, str(root / "mesh_sovits"),
+                    total_steps=MULTI_SOV_STEPS, batch_size=2, init_params=s.params,
+                    device=dev, mesh=mesh, ckpt_every=100, log_every=1, export=False,
+                    log_fn=slog)
+    sov_s = time.perf_counter() - t0
+    if len(slogged["g"]) != MULTI_SOV_STEPS or \
+            not np.all(np.isfinite(slogged["g"] + slogged["d"])):
+        fail(f"multi phase: finetune_sovits(mesh=) losses {slogged}")
+    section_s["loops"] = time.perf_counter() - t_loops
+    loops = {"t2s_losses": logged["loss"], "t2s_s": ft_s, "resumed_equal": True,
+             "sovits_g": slogged["g"], "sovits_d": slogged["d"], "sovits_s": sov_s}
+    print(f"multi phase: finetune_t2s(mesh=) {MULTI_FT_STEPS} steps (batch 4) straight and "
+          f"resumed at 2 bit for bit, finetune_sovits(mesh=) {MULTI_SOV_STEPS} GAN steps "
+          f"(batch 2): {loops}", flush=True)
+    del tts, g, straight, resumed
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 5. two cards: a world of 2
+    two = two_card_phase(str(gpt), xs, ys, berts)
+    readings = {"nccl_init_s": init_s, "xla_ms_a_step": xla_ms, "sharded_ms_a_step": shard_ms,
+                "collective_us_world1": coll,
+                "dp_engine": dp_read, "train": train_read, "loops": loops, "two_cards": two,
+                "section_s": section_s, "phase_s": time.perf_counter() - t_phase}
+    return total, readings
+
+
+def two_card_phase(gpt_dir, xs, ys, berts):
+    """With at least two cards: a world of 2 over NCCL (``parallel/launch.py``, each rank
+    refusing ``jax``) runs the sharded engine at tp=2, ``DataParallelEngine`` at dp=2 and the
+    train steps at dp=2, tp=2 and pp=2 against each rank's own single-card results
+    (:func:`two_card_rank`).  With one card, says so (not a failure)."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        print(f"multi phase: the world-of-2 runs (tp=2, dp=2, pp=2) need two cards; this "
+              f"machine has {torch.cuda.device_count()}", flush=True)
+        return "needs two cards"
+    from gsv_tts_tpu_torch.parallel.launch import spawn
+
+    out = spawn(two_card_rank, 2, gpt_dir, "cuda", xs, ys, berts, timeout=600)
+    for rank, res in enumerate(out):
+        for what, ok in res["checks"].items():
+            if not ok:
+                fail(f"multi phase, world of 2, rank {rank}: {what}")
+    print(f"multi phase: world of 2 over NCCL: {out[0]['readings']}", flush=True)
+    return out[0]["readings"]
+
+
+def two_card_rank(gpt_dir, device_type, xs, ys, berts):
+    """One rank of :func:`two_card_phase` (also runs on the CPU over gloo with
+    ``device_type="cpu"``): each rank computes the single-card results itself, then the
+    sharded ones, and returns which agree and their readings."""
+    import torch
+
+    from gsv_tts_tpu_torch.config import Config
+    from gsv_tts_tpu_torch.loader import get_gpt_weights
+    from gsv_tts_tpu_torch.parallel import mesh as pmesh
+    from gsv_tts_tpu_torch.parallel import pipeline as ppl
+    from gsv_tts_tpu_torch.parallel import train as ptrain
+    from gsv_tts_tpu_torch.parallel.shard import DataParallelEngine
+    from gsv_tts_tpu_torch.runtime.t2s_session import T2SEngine
+
+    pmesh.init_world(device_type)
+    dev = torch.device(device_type, torch.cuda.current_device()) if device_type == "cuda" \
+        else torch.device("cpu")
+    g = get_gpt_weights(gpt_dir, Config(device=dev, gpt_cache=MULTI_CACHE))
+    cfg, dt = g.cfg, g.engine.dtype
+    checks, readings = {}, {}
+    xla = engine_tokens(T2SEngine(g.params, cfg, MULTI_CACHE, dtype=dt, attn_impl="xla"),
+                        xs, ys, berts, dev, top_k=1)
+    plain = engine_tokens(T2SEngine(g.params, cfg, MULTI_CACHE, dtype=dt), xs, ys, berts, dev,
+                          top_k=1)
+    tp2 = pmesh.make_mesh(dp=1, tp=2, device=device_type)
+    got = engine_tokens(T2SEngine(g.params, cfg, MULTI_CACHE, dtype=dt).shard(tp2), xs, ys,
+                        berts, dev, top_k=1)
+    same = sum(a[:40] == b[:40] for a, b in zip(sorted(got.items()), sorted(xla.items())))
+    checks["tp=2 engine: the first 40 tokens of at least 5 of 6 requests as the xla engine's "
+           "(bf16 partial sums)"] = same >= 5
+    readings["tp2_requests_equal_first_40"] = same
+    dp2 = pmesh.make_mesh(dp=2, tp=1, device=device_type)
+    got = engine_tokens(DataParallelEngine(g.params, cfg, MULTI_CACHE, dtype=dt, mesh=dp2), xs,
+                        ys, berts, dev, top_k=1)
+    same = sum(a[:40] == b[:40] for a, b in zip(sorted(got.items()), sorted(plain.items())))
+    checks["dp=2 engine: the first 40 tokens of at least 5 of 6 requests as the plain "
+           "engine's"] = same >= 5
+    readings["dp2_requests_equal_first_40"] = same
+    batch = ptrain.pad_batch(cfg, multi_samples(cfg), device=dev)
+    want_loss, want, _ = train_variant("single", cfg, g.params, batch, dt, None)
+    for label, kind, mesh in (("dp=2", "tp", dp2), ("tp=2", "tp", tp2), ("seq tp=2", "seq", tp2),
+                              ("pp=2", "pp", ppl.make_mesh_dp_pp(dp=1, pp=2,
+                                                                 device=device_type))):
+        loss, grads, _ = train_variant(kind, cfg, g.params, batch, dt, mesh)
+        if kind == "tp":
+            grads = ptrain.t2s_leaves(pmesh.gather_t2s_params(ptrain.t2s_tree(grads), mesh))
+        elif kind == "pp":
+            nested = ptrain.t2s_tree(grads)
+            grads = ptrain.t2s_leaves({**nested, "layers": ppl.gather_pp_layers(
+                nested["layers"], mesh)})
+        rel = abs(loss - want_loss) / abs(want_loss)
+        cos = min(float(torch.nn.functional.cosine_similarity(grads[k].flatten(),
+                                                               want[k].flatten(), dim=0))
+                  for k in want if grads[k].abs().max() > 0 or want[k].abs().max() > 0)
+        checks[f"{label} step: loss within {TRAIN_LOSS_REL_TOL} and gradient cosine at least "
+               f"{TRAIN_GRAD_COS_MIN}"] = rel <= TRAIN_LOSS_REL_TOL and cos >= TRAIN_GRAD_COS_MIN
+        readings[label] = {"loss_rel": rel, "grad_cos_min": cos}
+    return {"checks": checks, "readings": readings}
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
-    K5 loop, ``infer_stream`` and phases 6-13; returns the launches summed over the drives
-    (counts are zeroed before each drive and read after it) and phases 10's to 13's
+    K5 loop, ``infer_stream`` and phases 6-14; returns the launches summed over the drives
+    (counts are zeroed before each drive and read after it) and phases 10's to 14's
     readings."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
@@ -4059,7 +4490,9 @@ def main_path_phase(dev, card):
         add(counts)
         counts, serving = serving_phase(tmp, gpt, sov, spk, prompt, dev, card)
         add(counts)
-    return total, zh, shared, train, serving
+        counts, multi = multi_phase(tmp, gpt, sov, spk, prompt, dev, card)
+        add(counts)
+    return total, zh, shared, train, serving, multi
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -4477,11 +4910,12 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches, zh, shared, train, serving = main_path_phase(dev, card)
+    launches, zh, shared, train, serving, multi = main_path_phase(dev, card)
     print("zh readings: " + json.dumps(zh), flush=True)
     print("shared readings: " + json.dumps(shared), flush=True)
     print("train readings: " + json.dumps(train), flush=True)
     print("serving readings: " + json.dumps(serving), flush=True)
+    print("multi readings: " + json.dumps(multi), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

@@ -206,14 +206,16 @@ def get_gpt_weights(gpt_path, tts_config: Config) -> Gpt:
     return Gpt(engine, params, cfg, config)
 
 
-def save_trained_gpt(params, cfg: T2SConfig, output_dir):
+def save_trained_gpt(params, cfg: T2SConfig, output_dir, config: Optional[dict] = None):
     """Write t2s params as a safetensors directory :func:`get_gpt_weights`
-    (and the JAX package's loader) can read."""
+    (and the JAX package's loader) can read; ``config`` is written as its
+    ``config.json`` (default: ``cfg``'s)."""
     os.makedirs(output_dir, exist_ok=True)
     save_file(t2s_model.params_to_torch_state_dict(params, cfg),
               os.path.join(output_dir, "model.safetensors"))
     with open(os.path.join(output_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_checkpoint_config(), f, indent=4, ensure_ascii=False)
+        json.dump(cfg.to_checkpoint_config() if config is None else config, f, indent=4,
+                  ensure_ascii=False)
 
 
 def save_trained_sovits(params, hps: HParams, output_dir):

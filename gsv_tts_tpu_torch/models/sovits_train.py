@@ -234,13 +234,16 @@ def discriminate(p, y):
 # Losses (upstream ``losses.py`` semantics), float32
 # ---------------------------------------------------------------------------
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask, frames=None):
     """Channel-summed KL averaged over valid frames (``sum(kl·mask) /
-    sum(mask)`` with mask [B, 1, T]), the scale c_kl is calibrated to."""
+    sum(mask)`` with mask [B, 1, T]), the scale c_kl is calibrated to.
+    ``frames``: the denominator in place of ``sum(mask)`` (the whole
+    batch's, when this is one rank's rows)."""
     z_p, logs_q, m_p, logs_p = (t.float() for t in (z_p, logs_q, m_p, logs_p))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.clamp(torch.sum(z_mask), min=1.0)
+    frames = torch.sum(z_mask) if frames is None else frames
+    return torch.sum(kl * z_mask) / torch.clamp(frames, min=1.0)
 
 
 def feature_loss(fmaps_real, fmaps_fake):
@@ -314,14 +317,24 @@ def sovits_draws(cfg: sv.SovitsConfig, batch, generator: torch.Generator):
 def make_sovits_train_step(cfg: sv.SovitsConfig, g_optimizer, d_optimizer, *,
                            n_fft: int, hop_length: int, win_length: int, sr: int,
                            segment_frames: int, n_mels: int = 128,
-                           c_mel: float = 45.0, c_kl: float = 1.0):
+                           c_mel: float = 45.0, c_kl: float = 1.0, dp_group=None):
     """Returns ``step(g_params, d_params, batch, noise, u) → metrics``: the D
     update on the detached ŷ, then the G update (mel + KL + feature matching +
     adversarial) against the updated D — the upstream s2 loop order.  Both
     phases share one generator forward, as JAX's two phases share one noise
     draw.  ``g_optimizer`` holds the generator's trainable leaves (the frozen
     prefixes left out), ``d_optimizer`` the discriminators'; both update the
-    dicts' tensors in place."""
+    dicts' tensors in place.
+
+    ``dp_group``: ``batch``, ``noise`` and ``u`` are this rank's rows of the
+    whole batch (equal rows on every rank), the optimizers sum their
+    gradients over the group (``parallel/train.py:GradSync``), and the
+    losses are the whole batch's: each mean over equal pieces divided by the
+    group's size, the KL over the frames summed over the group.  The metrics
+    are the whole batch's on every rank."""
+    from ..parallel.train import all_sum
+
+    n = 1 if dp_group is None else torch.distributed.get_world_size(dp_group)
 
     def mel(a):
         return mel_spectrogram(a, n_fft=n_fft, hop_length=hop_length, win_length=win_length,
@@ -335,20 +348,22 @@ def make_sovits_train_step(cfg: sv.SovitsConfig, g_optimizer, d_optimizer, *,
 
         real_outs, _ = discriminate(d_params, y[:, None])
         fake_outs, _ = discriminate(d_params, y_hat.detach()[:, None])
-        d_loss = discriminator_loss(real_outs, fake_outs)
+        d_loss = discriminator_loss(real_outs, fake_outs) / n
         d_optimizer.update(d_loss)
 
-        l_mel = torch.mean(torch.abs(mel(y_hat) - mel(y))) * c_mel
+        l_mel = torch.mean(torch.abs(mel(y_hat) - mel(y))) * c_mel / n
+        frames = all_sum(torch.sum(out["y_mask"]), dp_group)
         l_kl = kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
-                       out["y_mask"]) * c_kl
+                       out["y_mask"], frames) * c_kl
         real_outs, real_fmaps = discriminate(d_params, y[:, None])
         fake_outs, fake_fmaps = discriminate(d_params, y_hat[:, None])
-        l_fm = feature_loss(real_fmaps, fake_fmaps)
-        l_adv = generator_adv_loss(fake_outs)
+        l_fm = feature_loss(real_fmaps, fake_fmaps) / n
+        l_adv = generator_adv_loss(fake_outs) / n
         g_loss = l_mel + l_kl + l_fm + l_adv
         g_optimizer.update(g_loss)
-        return {k: v.detach() for k, v in dict(mel=l_mel, kl=l_kl, fm=l_fm, adv=l_adv,
-                                                 g_total=g_loss, d_total=d_loss).items()}
+        return {k: all_sum(v.detach(), dp_group)
+                for k, v in dict(mel=l_mel, kl=l_kl, fm=l_fm, adv=l_adv,
+                                 g_total=g_loss, d_total=d_loss).items()}
 
     return step
 

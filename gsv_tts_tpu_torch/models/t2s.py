@@ -31,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.flash_decode import flash_decode_attention_layered, xla_decode_attention
@@ -38,6 +39,7 @@ from ..ops.flash_prefill import flash_prefill_attention, hybrid_mask
 from ..ops.fused_layer import fused_decode_layer
 from ..ops.fused_step import fused_decode_step
 from ..ops.norms import layer_norm
+from ..parallel.mesh import copy_to_tp, gather_seq, reduce_from_tp
 
 F32 = torch.float32
 
@@ -189,45 +191,75 @@ def init_params(cfg: T2SConfig, generator: torch.Generator, dtype=F32,
 # Core math
 # ---------------------------------------------------------------------------
 
-def _block_prefill(x, lp, attn_mask, num_heads, lens=None, impl="plain"):
+def _col_in(x, tp):
+    """The input of a column-parallel product (qkv, mlp1): its gradient is
+    summed over the tp ranks that each hold some of the columns."""
+    return x if tp is None else copy_to_tp(x, tp)
+
+
+def _row_linear(x, w, b, tp):
+    """A row-parallel product (out, mlp2): each tp rank's partial sum,
+    all-reduced, the bias added once.  A group of one rank is the product
+    without tp."""
+    if tp is None or dist.get_world_size(tp) == 1:
+        return F.linear(x, w, b)
+    return reduce_from_tp(F.linear(x, w), tp) + b
+
+
+def _split_qkv(qkv, Dh):
+    """q, k, v [..., Hl, Dh] of a (possibly tp-local) fused product whose
+    last dim is ``3 * Hl * Dh``."""
+    Hl = qkv.shape[-1] // (3 * Dh)
+    q, k, v = qkv.split(Hl * Dh, dim=-1)
+    shape = qkv.shape[:-1] + (Hl, Dh)
+    return q.reshape(shape), k.reshape(shape), v.reshape(shape)
+
+
+def _block_prefill(x, lp, attn_mask, num_heads, lens=None, impl="plain", tp=None, seq=None):
     """One post-norm block over the whole prompt.  x [B, T, D]; attn_mask
     [B, T, T] bool.  Returns (hidden, k, v) with k/v [B, T, H, Dh].
 
     ``impl="flash"`` takes the hybrid-mask kernel K4
     (``ops/flash_prefill.py``), which derives the same mask from
     ``lens=(x_lens, xy_lens)`` ([B] int32): ``attn_mask`` is ignored there
-    and may be None."""
+    and may be None.
+
+    ``tp`` (a process group): ``lp`` holds this rank's heads
+    (``parallel/mesh.py``), and k/v are its ``H/tp`` heads.  ``seq`` (a
+    process group): ``x`` is this rank's slice of the time axis and
+    ``attn_mask`` its rows; k/v are gathered over the group for the
+    attention (and returned for the local rows)."""
     B, T, D = x.shape
-    H = num_heads
-    Dh = D // H
+    Dh = D // num_heads
     residual = x
-    qkv = F.linear(x, lp["qkv_w"], lp["qkv_b"])
-    q, k, v = qkv.split(D, dim=-1)
-    q = q.reshape(B, T, H, Dh)
-    k = k.reshape(B, T, H, Dh)
-    v = v.reshape(B, T, H, Dh)
+    q, k, v = _split_qkv(F.linear(_col_in(x, tp), lp["qkv_w"], lp["qkv_b"]), Dh)
+    H = q.shape[2]
     if impl == "flash":
         attn = flash_prefill_attention(q, k, v, lens[0], lens[1], num_heads=H)
     else:
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(Dh)
+        kf, vf = (k, v) if seq is None else (gather_seq(k, seq), gather_seq(v, seq))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf.float()) / math.sqrt(Dh)
         scores = scores.masked_fill(~attn_mask[:, None], float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
-    x = residual + F.linear(attn, lp["out_w"], lp["out_b"])
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, vf).reshape(B, T, H * Dh)
+    x = residual + _row_linear(attn, lp["out_w"], lp["out_b"], tp)
     x = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     residual = x
-    h = F.relu(F.linear(x, lp["mlp1_w"], lp["mlp1_b"]))
-    x = residual + F.linear(h, lp["mlp2_w"], lp["mlp2_b"])
+    h = F.relu(F.linear(_col_in(x, tp), lp["mlp1_w"], lp["mlp1_b"]))
+    x = residual + _row_linear(h, lp["mlp2_w"], lp["mlp2_b"], tp)
     x = layer_norm(x, lp["ln2_g"], lp["ln2_b"])
     return x, k, v
 
 
 def transformer_prefill(params, cfg: T2SConfig, xy_pos: torch.Tensor,
-                        attn_mask: Optional[torch.Tensor], lens=None, impl: str = "plain"):
+                        attn_mask: Optional[torch.Tensor], lens=None, impl: str = "plain",
+                        seq=None):
     """All layers over the packed prompt; returns final hidden states and
     stacked K/V ``[L, B, T, H, Dh]``.  ``impl``: ``"plain"`` (masked softmax
     attention in PyTorch, needs ``attn_mask``) or ``"flash"`` (K4, needs
-    ``lens=(x_lens, xy_lens)``)."""
+    ``lens=(x_lens, xy_lens)``).  Params sharded by head carry their tp group
+    under ``"tp"`` (``parallel/mesh.py:shard_t2s_params``); ``seq``: the
+    group ``xy_pos``'s time axis is split over (``_block_prefill``)."""
     if impl not in ("plain", "flash"):
         raise ValueError(f"prefill impl {impl!r}: expected 'plain' or 'flash'")
     if impl == "flash":
@@ -239,39 +271,40 @@ def transformer_prefill(params, cfg: T2SConfig, xy_pos: torch.Tensor,
     x = xy_pos
     ks, vs = [], []
     for lp in params["layers"]:
-        x, k, v = _block_prefill(x, lp, attn_mask, cfg.num_heads, lens, impl)
+        x, k, v = _block_prefill(x, lp, attn_mask, cfg.num_heads, lens, impl,
+                                 params.get("tp"), seq)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
 
 
 def _block_decode(x, lp, layer_idx, k_cache, v_cache, kv_len, bidx, rows, num_heads,
-                  attn_impl="flash"):
+                  attn_impl="flash", tp=None):
     """One token per slot through one block.  x [B, D]; caches
     [L, B, S, H, Dh] are updated IN PLACE at row ``rows[b]`` (= ``kv_len[b]``
     as int64; ``bidx`` = arange(B)) of layer ``layer_idx``.  Each slot
     attends its rows ``s <= kv_len[b]`` through
     ``flash_decode_attention_layered`` (K3b), or under ``"xla"`` through
-    ``xla_decode_attention``."""
+    ``xla_decode_attention``.  ``tp``: as in :func:`_block_prefill` (the
+    caches hold this rank's heads)."""
     B, D = x.shape
-    H = num_heads
-    Dh = D // H
+    Dh = D // num_heads
     residual = x
-    qkv = F.linear(x, lp["qkv_w"], lp["qkv_b"])
-    q, k, v = qkv.split(D, dim=-1)
-    k_cache[layer_idx, bidx, rows] = k.reshape(B, H, Dh).to(k_cache.dtype)
-    v_cache[layer_idx, bidx, rows] = v.reshape(B, H, Dh).to(v_cache.dtype)
+    q, k, v = _split_qkv(F.linear(_col_in(x, tp), lp["qkv_w"], lp["qkv_b"]), Dh)
+    H = q.shape[1]
+    k_cache[layer_idx, bidx, rows] = k.to(k_cache.dtype)
+    v_cache[layer_idx, bidx, rows] = v.to(v_cache.dtype)
     if attn_impl == "xla":
-        attn = xla_decode_attention(q.reshape(B, H, Dh), k_cache[layer_idx], v_cache[layer_idx],
-                                    kv_len).reshape(B, D)
+        attn = xla_decode_attention(q, k_cache[layer_idx], v_cache[layer_idx],
+                                    kv_len).reshape(B, H * Dh)
     else:
-        attn = flash_decode_attention_layered(q.reshape(B, H, Dh).contiguous(), k_cache,
-                                              v_cache, kv_len, layer_idx).reshape(B, D)
-    x = residual + F.linear(attn, lp["out_w"], lp["out_b"])
+        attn = flash_decode_attention_layered(q.contiguous(), k_cache,
+                                              v_cache, kv_len, layer_idx).reshape(B, H * Dh)
+    x = residual + _row_linear(attn, lp["out_w"], lp["out_b"], tp)
     x = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     residual = x
-    h = F.relu(F.linear(x, lp["mlp1_w"], lp["mlp1_b"]))
-    x = residual + F.linear(h, lp["mlp2_w"], lp["mlp2_b"])
+    h = F.relu(F.linear(_col_in(x, tp), lp["mlp1_w"], lp["mlp1_b"]))
+    x = residual + _row_linear(h, lp["mlp2_w"], lp["mlp2_b"], tp)
     return layer_norm(x, lp["ln2_g"], lp["ln2_b"])
 
 
@@ -305,7 +338,7 @@ def transformer_decode_step(params, cfg: T2SConfig, x, k_cache, v_cache, kv_len,
     rows = kv_len.long()
     for i, lp in enumerate(params["layers"]):
         x = _block_decode(x, lp, i, k_cache, v_cache, kv_len, bidx, rows, cfg.num_heads,
-                          "xla" if attn_impl == "xla" else "flash")
+                          "xla" if attn_impl == "xla" else "flash", params.get("tp"))
     return x, k_cache, v_cache
 
 

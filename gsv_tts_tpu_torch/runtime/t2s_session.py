@@ -47,8 +47,17 @@ each decode dispatch one [n_steps, B, V] tensor, the shapes the JAX engine
 draws, in the order it draws them, so parity tests can feed both engines the
 same noise.  The engine draws them from an explicit ``torch.Generator``.
 
-The shared wave scheduler (``runtime/wave.py``) and the vocoder batcher are
-not ported yet (ROADMAP Queue 1).
+Over several ranks (``torch.distributed``, one process each): :meth:`T2SEngine.shard`
+splits the layers by head over the mesh's ``tp`` ranks (the ``"xla"`` path, no
+kernel; logits replicated after the all-reduce, so every tp rank draws the
+same token from the same noise) and a wave's slots over its ``dp`` ranks;
+``parallel/shard.py:DataParallelEngine`` splits the slots alone, each rank's
+wave on its own kernels.  Every rank runs the same host loop: a split wave
+holds ``B/dp`` slots' caches on each rank, each rank draws the whole wave's
+noise and takes its rows, and the per-chunk host reads are all-gathers over
+dp, so every rank makes the same refill, escalation and compaction
+decisions.  A wave of one slot, or of a size that does not divide over dp,
+is replicated.
 """
 from __future__ import annotations
 
@@ -64,6 +73,7 @@ from ..models.t2s import ATTN_IMPLS, T2SConfig
 from ..ops import flash_decode, sampling
 from ..ops.fused_step import (MAX_FUSED_B, QUANT_KEYS, K1Table, fused_decode_step_sample,
                               fused_decode_step_sample_batched, quant_layers)
+from ..parallel import mesh as pmesh
 
 PAD_MULTIPLE = 32
 CHECK_INTERVAL = 5  # decode steps per dispatch: the host checks EOS this often
@@ -129,6 +139,12 @@ class DecodeState:
     buf_len: torch.Tensor  # [B] int32
     last_tok: torch.Tensor  # [B] int32: token fed next step
     step_idx: torch.Tensor  # [B] int32: decode step counter (suppression window)
+
+
+def _fields(state: DecodeState) -> List[torch.Tensor]:
+    """The state's tensors in field order (``dataclasses.astuple`` would
+    deep-copy them)."""
+    return [getattr(state, f.name) for f in dataclasses.fields(state)]
 
 
 def freeze_slot(state: DecodeState, j: int) -> DecodeState:
@@ -474,6 +490,10 @@ class T2SEngine:
         if self.device.type == "cuda" and self.attn_impl != "xla":
             # the kernels' pointer table and workspace, built once ("xla" runs none)
             self.params = dict(self.params, k1_table=K1Table(self.params, self.quant))
+        #: set by :meth:`shard` (or ``DataParallelEngine``): the ranks' mesh, and
+        #: the (group, size, rank) of the dp axis a wave's slots split over
+        self.mesh = None
+        self._dp = (None, 1, 0)
         self.buckets: Dict[int, List[int]] = {}
         for b, s in gpt_cache:
             self.buckets.setdefault(b, [])
@@ -482,7 +502,64 @@ class T2SEngine:
         for b in self.buckets:
             self.buckets[b].sort()
 
+    def shard(self, mesh) -> "T2SEngine":
+        """Inference over the ranks of ``mesh`` (``parallel/mesh.py:make_mesh``;
+        every rank calls this, and then the same generation, with the same
+        arguments): the layers split by head over ``tp``
+        (``shard_t2s_params``), caches ``[L, B/dp, S, H/tp, Dh]``, a wave's
+        slots split over ``dp``.  The engine takes the ``"xla"`` path and
+        drops its kernels' table, as the JAX engine's sharded programs run its
+        XLA attention.  A quantized engine raises ``ValueError``."""
+        if self.quant is not None:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: a quantized engine does not "
+                             "shard (its packed pages have no tp layout)")
+        pmesh.check_tp(self.cfg, mesh)
+        self.mesh = mesh
+        self.params = pmesh.shard_t2s_params(self.params, mesh)
+        self.attn_impl = "xla"
+        self._dp = pmesh.axis(mesh, "dp")
+        return self
+
     # -- helpers -----------------------------------------------------------
+
+    def _rows(self, B: int) -> Tuple[int, int]:
+        """This rank's slots ``[lo, hi)`` of a ``B``-slot wave: ``B/dp`` of
+        them when the wave splits over dp, else all (replicated)."""
+        _, n, r = self._dp
+        if n == 1 or B == 1 or B % n:
+            return 0, B
+        b = B // n
+        return r * b, (r + 1) * b
+
+    def _host(self, t: torch.Tensor, B: int) -> np.ndarray:
+        """A per-slot tensor of a ``B``-slot wave (slots on dim 0) on the
+        host: the whole wave's, gathered over dp when the wave splits."""
+        lo, hi = self._rows(B)
+        if hi - lo == B:
+            return t.cpu().numpy()
+        return pmesh.all_gather_cat(t, self._dp[0]).cpu().numpy()
+
+    def _freeze(self, state: DecodeState, j: int, B: int) -> DecodeState:
+        """:func:`freeze_slot` of wave slot ``j``, on the rank that holds it."""
+        lo, hi = self._rows(B)
+        return freeze_slot(state, j - lo) if lo <= j < hi else state
+
+    def _full_state(self, state: DecodeState, B: int) -> DecodeState:
+        """The whole ``B``-slot wave's state on every rank."""
+        lo, hi = self._rows(B)
+        if hi - lo == B:
+            return state
+        g = self._dp[0]
+        return DecodeState(*(pmesh.all_gather_cat(t, g, 1 if t.dim() == 5 else 0)
+                             for t in _fields(state)))
+
+    def _local_state(self, state: DecodeState, B: int) -> DecodeState:
+        """This rank's slots of a whole ``B``-slot wave's state."""
+        lo, hi = self._rows(B)
+        if hi - lo == B:
+            return state
+        return DecodeState(*((t[:, lo:hi] if t.dim() == 5 else t[lo:hi]).contiguous()
+                             for t in _fields(state)))
 
     def _pick_bucket(self, batch_size: int, prompt_len: int) -> Tuple[int, int]:
         sizes = sorted(self.buckets.keys())
@@ -495,15 +572,21 @@ class T2SEngine:
         return B, S
 
     def _alloc_cache(self, B: int, S: int):
+        """Zeroed K and V caches of this rank's slots of a ``B``-slot wave."""
+        lo, hi = self._rows(B)
+        return self._alloc_rows(hi - lo, S)
+
+    def _alloc_rows(self, b: int, S: int):
         c = self.cfg
-        shape = (c.num_layers, B, S, c.num_heads, c.head_dim)
+        heads = self.params["layers"][0]["qkv_w"].shape[0] // (3 * c.head_dim)  # H/tp
+        shape = (c.num_layers, b, S, heads, c.head_dim)
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 
     def _escalate(self, state: DecodeState, new_S: int) -> DecodeState:
         """Grow the cache to the next length bucket (one pad-copy)."""
         B, S = state.tok_buf.shape
-        k, v = self._alloc_cache(B, new_S)
+        k, v = self._alloc_rows(B, new_S)
         k[:, :, :S] = state.k_cache
         v[:, :, :S] = state.v_cache
         tok_buf = torch.full((B, new_S), self.cfg.vocab_size, dtype=I32, device=self.device)
@@ -574,7 +657,7 @@ class T2SEngine:
         Returns ``(state, n_steps, S_cur)``."""
         B = len(live_mask)
         S_cur = state.k_cache.shape[2]
-        kv = state.kv_len.cpu().numpy()
+        kv = self._host(state.kv_len, B)
         kv_active = max((int(kv[j]) for j in range(B) if live_mask[j]), default=0)
         if kv_active + n_steps >= S_cur:
             bigger = [s for s in self.buckets[B] if s > S_cur]
@@ -586,7 +669,7 @@ class T2SEngine:
         assert kv_active + n_steps <= S_cur, (kv_active, n_steps, S_cur)
         for j in range(B):
             if not live_mask[j] and int(kv[j]) + n_steps >= S_cur:
-                state = freeze_slot(state, j)
+                state = self._freeze(state, j, B)
         return state, n_steps, S_cur
 
     def _ensure_rows(self, state: DecodeState, B: int, need: int) -> Optional[DecodeState]:
@@ -612,17 +695,19 @@ class T2SEngine:
                 and not [s for s in self.buckets[B] if s > S_cur])
 
     def _refill_slots_prefill(self, state: DecodeState, slot_idx: List[int], items,
-                              sa: SampleArgs, generator) -> Tuple[DecodeState, bool]:
+                              sa: SampleArgs, generator,
+                              B: Optional[int] = None) -> Tuple[DecodeState, bool]:
         """Prefill ``items`` (``(x, y, bert)`` tuples) into ``slot_idx``.
         Several requests arriving together pay ONE batched pass
         (``prefill_slots``) when the group-padded ``[Lx|Ly]`` block fits a
         cache bucket at this batch size; otherwise (mismatched x/y splits
         can pad the GROUP past every bucket although each request fits
-        alone) they fall back to one-at-a-time ``prefill_slot`` passes.
+        alone) they fall back to one pass a request.
         Escalates the sequence bucket as needed; raises ``ValueError`` when
-        a single request fits no bucket at this batch size.  Returns
-        ``(state, used_batched_pass)``."""
-        B = state.k_cache.shape[1]
+        a single request fits no bucket at this batch size.  ``B``: the
+        wave's slots (default: the state's).  Returns ``(state,
+        used_batched_pass)``."""
+        B = state.k_cache.shape[1] if B is None else B
         V = self.cfg.vocab_size
         items = [(np.asarray(x, np.int64), np.asarray(y, np.int64),
                   np.asarray(b, np.float32).reshape(len(x), -1)) for x, y, b in items]
@@ -636,9 +721,8 @@ class T2SEngine:
             else:
                 state = new_state
         if group is not None:
-            state, _ = prefill_slots(
-                self.params, self.cfg, state, slot_idx, *self._dev(*group),
-                self._noise(generator, len(items), V), sa, self.dtype, self.attn_impl)
+            state = self._prefill_owned(state, B, slot_idx, group,
+                                        self._noise(generator, len(items), V), sa)
             return state, True
         for j, (x, y, b) in zip(slot_idx, items):
             new_state = self._ensure_rows(state, B, prompt_rows(x, y))
@@ -647,18 +731,34 @@ class T2SEngine:
                                  f"rows; no gpt_cache bucket at B={B} holds it")
             state = new_state
             xp, yp, bp = self._pad_prompt(x, y, b)
-            state, _ = prefill_slot(
-                self.params, self.cfg, state, j, *self._dev(xp[None], yp[None], bp[None]),
-                len(x), len(y), self._noise(generator, 1, V), sa, self.dtype, self.attn_impl)
+            state = self._prefill_owned(
+                state, B, [j], (xp[None], yp[None], bp[None], [len(x)], [len(y)]),
+                self._noise(generator, 1, V), sa)
         return state, False
 
+    def _prefill_owned(self, state: DecodeState, B: int, slots: List[int], group, gumbel,
+                       sa: SampleArgs) -> DecodeState:
+        """``prefill_slots`` of the wave slots ``slots`` that this rank holds
+        (every slot when the wave is not split): ``group`` is ``(xs, ys, bs,
+        x_lens, y_lens)`` with one row per slot, ``gumbel`` [len(slots), V]."""
+        lo, hi = self._rows(B)
+        mine = [n for n, j in enumerate(slots) if lo <= j < hi]
+        if not mine:
+            return state
+        rows = [np.asarray(a)[mine] for a in group]
+        state, _ = prefill_slots(self.params, self.cfg, state, [slots[n] - lo for n in mine],
+                                 *self._dev(*rows), gumbel[mine], sa, self.dtype, self.attn_impl)
+        return state
+
     def _gather_live(self, state: DecodeState, live_idx: List[int],
-                     new_B: int) -> Optional[DecodeState]:
-        """Re-pack the live slots into a ``new_B``-slot state (growth or
-        tail compaction; one on-device gather copy, no re-prefill).  Returns
-        None when no sequence bucket at ``new_B`` holds the longest
-        survivor."""
-        kv = state.kv_len.cpu().numpy()
+                     new_B: int, B: Optional[int] = None) -> Optional[DecodeState]:
+        """Re-pack the live slots of a ``B``-slot wave (default: the state's
+        slots) into a ``new_B``-slot state (growth or tail compaction; one
+        on-device gather copy, no re-prefill; a split wave gathers its
+        slots over dp first).  Returns None when no sequence bucket at
+        ``new_B`` holds the longest survivor."""
+        B = state.kv_len.shape[0] if B is None else B
+        kv = self._host(state.kv_len, B)
         need = int(max((kv[k] for k in live_idx), default=0))
         new_S = next((s for s in self.buckets[new_B] if s > need), None)
         if new_S is None:
@@ -666,7 +766,8 @@ class T2SEngine:
         slot_map = np.full((new_B,), -1, np.int64)
         keep = live_idx[:new_B]
         slot_map[: len(keep)] = keep
-        return _gather_slots(state, slot_map, new_S, self.cfg.vocab_size)
+        new = _gather_slots(self._full_state(state, B), slot_map, new_S, self.cfg.vocab_size)
+        return self._local_state(new, new_B)
 
     # -- single-utterance generation (``t2s_model.py:385-464``) ------------
 
@@ -692,7 +793,10 @@ class T2SEngine:
     def _generator(self, generator):
         if generator is None:
             generator = torch.Generator(device=self.device)
-            generator.seed()
+            if self.mesh is None:
+                generator.seed()
+            else:  # the ranks draw the same noise
+                generator.manual_seed(pmesh.broadcast_seed(self.device))
         return generator
 
     def _generate_stream(self, x_ids, y_ids, bert, top_k, top_p, temperature,
@@ -833,9 +937,11 @@ class T2SEngine:
         prompt_max = int((x_lens + y_lens).max())
         _, S = self._pick_bucket(B, max(prompt_max + 1, xs.shape[1] + ys.shape[1]))
         k_cache, v_cache = self._alloc_cache(B, S)
+        lo, hi = self._rows(B)
         state, _ = prefill_batch(
-            self.params, cfg, *self._dev(xs, ys, bs, x_lens, y_lens), k_cache, v_cache,
-            self._noise(generator, B, V), sa, False, self.dtype, self.attn_impl)
+            self.params, cfg, *self._dev(*(a[lo:hi] for a in (xs, ys, bs, x_lens, y_lens))),
+            k_cache, v_cache, self._noise(generator, B, V)[lo:hi], sa, False, self.dtype,
+            self.attn_impl)
         del k_cache, v_cache
 
         slot_orig = list(wave) + [-1] * (B - len(wave))
@@ -862,15 +968,16 @@ class T2SEngine:
             first_chunk = False
             state, n_steps, S_cur = self._prepare_chunk(
                 state, [not ig for ig in ignore], n_steps)
+            lo, hi = self._rows(B)
             state, toks = decode_chunk(self.params, cfg, state, n_steps, sa,
-                                       self._noise(generator, n_steps, B, V), 0, self.dtype,
-                                       self.attn_impl)
-            toks = toks.cpu().numpy()  # [B, n_steps]
-            kv = state.kv_len.cpu().numpy()
+                                       self._noise(generator, n_steps, B, V)[:, lo:hi], 0,
+                                       self.dtype, self.attn_impl)
+            toks = self._host(toks, B)  # [B, n_steps]
+            kv = self._host(state.kv_len, B)
             self._check_kernels()
             stats["decode_steps"] += n_steps
             stats["slot_steps"] += n_steps * B
-            stats[step_path(self.attn_impl, B) + "_steps"] += n_steps
+            stats[step_path(self.attn_impl, hi - lo) + "_steps"] += n_steps
             stats["decode_s"] = time.perf_counter() - t_decode
             self.last_stats = stats
             for j in range(B):
@@ -890,8 +997,8 @@ class T2SEngine:
                 if not self._retire_after_chunk(int(toks[j][-1]), int(kv[j]), B, S_cur):
                     continue
                 if buf is None:
-                    buf = state.tok_buf.cpu().numpy()
-                    x_len_host = state.x_len.cpu().numpy()
+                    buf = self._host(state.tok_buf, B)
+                    x_len_host = self._host(state.x_len, B)
                 # harvest (``t2s_model.py:674-679``): the reference window
                 # ``pre_tokens[i, kv-steps+1 : kv]`` excludes both the first
                 # post-prefill sample AND the last written sample, then trims
@@ -908,7 +1015,7 @@ class T2SEngine:
                 else:
                     ignore[j] = True
                     # freeze the slot: reset kv_len so it stops growing
-                    state = freeze_slot(state, j)
+                    state = self._freeze(state, j, B)
 
             # refill every slot that finished this chunk in ONE pass (the
             # harvests above read the pre-refill state; a refill only
@@ -917,7 +1024,7 @@ class T2SEngine:
                 state, _ = self._refill_slots_prefill(
                     state, [j for j, _ in refill_jobs],
                     [(x_list[i], y_list[i], bert_list[i]) for _, i in refill_jobs], sa,
-                    generator)
+                    generator, B)
                 for j, i in refill_jobs:
                     slot_orig[j] = i
                     slot_start[j] = len(x_list[i]) + len(y_list[i])
@@ -936,7 +1043,7 @@ class T2SEngine:
                 if live_idx and len(live_idx) <= B // 2:
                     smaller = next((b for b in sorted(self.buckets.keys())
                                     if b >= len(live_idx) and b < B), None)
-                    new_state = self._gather_live(state, live_idx, smaller) \
+                    new_state = self._gather_live(state, live_idx, smaller, B) \
                         if smaller is not None else None
                     if new_state is not None:
                         state = new_state

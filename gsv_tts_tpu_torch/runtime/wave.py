@@ -160,6 +160,11 @@ class WaveScheduler:
 
     def __init__(self, engine: T2SEngine, max_batch: int = 4, seed: int = 0,
                  max_clients: Optional[int] = None, gate=None):
+        if engine.mesh is not None:
+            # clients arrive on each rank's threads at their own times: the ranks'
+            # host loops would part, and their collectives wait on each other
+            raise ValueError("the shared wave runs one card's engine; a sharded engine "
+                             "(T2SEngine.shard, DataParallelEngine) cannot drive it")
         self.engine = engine
         self.max_batch = min(max_batch, sorted(engine.buckets)[-1])
         self.max_clients = max_clients

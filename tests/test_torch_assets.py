@@ -44,6 +44,29 @@ def real_text_modules():
         sys.modules.update(hidden)
 
 
+@contextlib.contextmanager
+def torch_threads(n):
+    """Within the block, torch's CPU ops on ``n`` threads.  The loops' many
+    small convolutions (the full-width discriminators) and the facade's
+    small decode-step ops ran ~30x slower when each of six test workers spun
+    8 threads on one 8-core host."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """For a whole test module that imports it (its module-scoped fixtures
+    included): torch's CPU ops on one thread (:func:`torch_threads`), the
+    count restored at teardown."""
+    with torch_threads(1):
+        yield
+
+
 @pytest.fixture(scope="module", autouse=True)
 def text_modules_as_installed():
     """For a whole test module (its module-scoped fixtures included): the

@@ -18,17 +18,10 @@ from test_torch_assets import jax_t2s
 from test_torch_engine_batched import requests
 from test_torch_fused_step import SMALL, _jax_noise_chain
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 PREFIX = 30
 PAIRS = [("fused_step", "xla"), ("flash", "flash_interpret"), ("fused", "fused_interpret")]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

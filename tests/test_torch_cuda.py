@@ -1756,3 +1756,47 @@ def test_finetune_resumed_on_the_card_equals_straight(cuda_device, tmp_path, mon
         return float(torch.sqrt(sum(((x[k] - y[k]).detach().double() ** 2).sum() for k in x)))
 
     assert dist(b, a) <= 4 * dist(a2, a) + 1e-6, (dist(b, a), dist(a2, a))
+
+
+@pytest.fixture(scope="module")
+def card_world():
+    """One world of one rank over NCCL on the card (``parallel/launch.py``;
+    the rank's code is ``torch_parallel_workers.card_world``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (NCCL; run on the GPU)")
+    import torch_parallel_workers as workers
+    from gsv_tts_tpu_torch.parallel.launch import spawn
+
+    return spawn(workers.card_world, 1, timeout=900)[0]
+
+
+@pytest.mark.cuda
+def test_world_of_one_engines_on_the_card(card_world):
+    """``make_mesh()`` over NCCL at world 1 (dp=1, tp=1): ``T2SEngine.shard``
+    gives the unsharded ``"xla"`` engine's tokens (``generate`` and
+    ``generate_batched``) and launches no kernel; ``DataParallelEngine`` gives
+    the plain engine's tokens with K1 and K2 launches equal to its steps."""
+    assert card_world["sharded"] == card_world["xla"]
+    assert card_world["sharded_launches"] == (0, 0)
+    assert card_world["dp"] == card_world["plain"][0]
+    k1, k2, k1_steps, k2_steps = card_world["dp_launches"]
+    assert (k1, k2) == (k1_steps, k2_steps) and k2 > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tp", "seq", "pp"])
+def test_world_of_one_train_steps_on_the_card(card_world, kind):
+    """At world 1 the dp×tp step and the ``seq_mesh`` step are the
+    single-card step bit for bit (the same products, one-rank collectives);
+    GPipe at pp=1 with 2 microbatches sums the loss by microbatch: within
+    rtol 1e-5, the params within 2·lr (Adam's first step, as above)."""
+    loss, leaves = card_world["steps"][kind]
+    want_loss, want = card_world["steps"]["single"]
+    if kind == "pp":
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+        for k in want:
+            torch.testing.assert_close(leaves[k], want[k], rtol=0, atol=2e-3, msg=k)
+    else:
+        assert loss == want_loss
+        for k in want:
+            assert torch.equal(leaves[k], want[k]), k

@@ -18,18 +18,9 @@ import jax.numpy as jnp
 from test_torch_assets import jax_t2s
 from test_torch_fused_step import SMALL, _jax_noise_chain
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 GPT_CACHE = [(1, 128), (2, 128), (2, 256), (4, 128), (4, 256)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: one thread per test process, instead of
-    every worker's threads competing for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def requests(cfg, n, seed):

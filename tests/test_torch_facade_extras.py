@@ -22,6 +22,7 @@ from test_torch_assets import text_modules_as_installed  # noqa: F401
 from test_torch_engine_batched import requests
 from test_torch_fused_step import SMALL, _jax_noise_chain
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 PREFIX = 30
 PROMPT_TEXT = "hello there."

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from test_torch_assets import jax_t2s
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -19,18 +19,10 @@ import jax.numpy as jnp
 from test_torch_assets import jax_t2s
 from test_torch_fused_step import SMALL, _jax_noise_chain
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 I32 = torch.int32
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: one thread per test process, instead of
-    every worker's threads competing for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SA_GRID = [dict(top_k=15, top_p=1.0, temperature=1.0, repetition_penalty=1.35, use_prev=True),

@@ -21,19 +21,12 @@ from test_torch_assets import build_assets, jax_t2s, text_modules_as_installed  
 from test_torch_fused_step import SMALL, _jax_noise_chain, caches, tok_history
 from test_torch_fused_step_batched import both_prefill, prompts, wave
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 QUANTS = ("int8", "int4")
 JAX_IMPL = {"int8": "fused_step_q8_interpret", "int4": "fused_step_q4_interpret"}
 PORT_IMPL = {"int8": "fused_step_q8", "int4": "fused_step_q4"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def jax_flags(quant):

@@ -2,6 +2,7 @@
 (tokenizer, float32 and int8 encoders, the facade with and without
 ``featurizer_buckets``) and the bucketed HuBERT, on weights and inputs made
 from seeds with numpy, loaded by both packages from the same directories.
+from test_torch_assets import one_torch_thread  # noqa: F401
 Float32 on the CPU: rtol 2e-4, atol 2e-5 unless stated."""
 import json
 

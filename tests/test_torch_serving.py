@@ -28,7 +28,7 @@ pytest.importorskip("aiohttp")
 from aiohttp.test_utils import TestClient, TestServer
 
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
-from test_torch_tts_batched import one_torch_thread  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 PCM_ATOL = ATOL + 1 / 32767

@@ -18,7 +18,7 @@ pytest.importorskip("aiohttp")
 from aiohttp.test_utils import TestClient, TestServer
 
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
-from test_torch_tts_batched import one_torch_thread  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PROMPT_TEXT = "hello there."

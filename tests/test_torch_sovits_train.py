@@ -23,6 +23,7 @@ from gsv_tts_tpu_torch.models import sovits as psv
 from gsv_tts_tpu_torch.models import sovits_train as psvt
 from gsv_tts_tpu_torch.ops import stft as pstft
 from gsv_tts_tpu_torch.parallel.train import Optimizer
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 HOP, N_FFT, SEG, N_MELS = 4, 16, 16, 8

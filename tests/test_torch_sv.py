@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_assets import write_sv_checkpoint
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 #: a reduced ERes2NetV2 (every kind of block, AFF and shortcut, at a quarter

@@ -9,7 +9,6 @@ both packages' ``TTS`` with equal params.
 Tolerance for the featurized float features: rtol 2e-4, atol 2e-5 of each
 array's largest entry (float32 HuBERT and STFT, summation order only);
 phones, codes, waveforms and batch orders are exact."""
-import contextlib
 import json
 
 import numpy as np
@@ -17,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_assets import build_assets, save_wav_sine, text_modules_as_installed  # noqa: F401
+from test_torch_assets import one_torch_thread, torch_threads  # noqa: F401
 
 from gsv_tts_tpu import train_data as jdata
 from gsv_tts_tpu import train_loop as jloop
@@ -43,20 +43,6 @@ def assets(tmp_path_factory):
     (root / "train.list").write_text("".join(f"{c.split('/')[-1]}|spk|en|{t}\n"
                                              for c, t in zip(a["clips"], TEXTS)))
     return a
-
-
-@contextlib.contextmanager
-def torch_threads(n):
-    """Within the block, torch's CPU ops on ``n`` threads.  The loops' many
-    small convolutions (the full-width discriminators) and the facade's
-    small decode-step ops ran ~30x slower when each of six test workers spun
-    8 threads on one 8-core host."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

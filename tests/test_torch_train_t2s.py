@@ -19,6 +19,7 @@ from gsv_tts_tpu.models import t2s as jt2s
 from gsv_tts_tpu.parallel import train as jtrain
 from gsv_tts_tpu_torch import convert
 from gsv_tts_tpu_torch.parallel import train as ptrain
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 CFG = jt2s.T2SConfig(hidden_dim=64, embedding_dim=64, num_heads=4, num_layers=2,

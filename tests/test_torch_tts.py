@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT_TEXT = "hello there."

@@ -18,22 +18,13 @@ import pytest
 import torch
 
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPT_TEXT = "hello there."
 TEXTS = ["this is a test.", "one more short line here now. then a second clause follows it.", "good day!"]
 GPT_CACHE = [(1, 128), (2, 128)]
 RTOL, ATOL = 2e-4, 2e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are tiny: one thread per test process, instead of
-    every worker's threads competing for the same cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
-from test_torch_tts_batched import one_torch_thread  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 PROMPT_TEXT = "hello there."
 TEXTS = ["this is a test.", "good day!", "one more line.", "and the last."]

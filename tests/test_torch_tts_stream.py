@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from test_torch_assets import build_assets, real_text_modules, text_modules_as_installed  # noqa: F401,E501
 from test_torch_sovits import models  # noqa: F401  (module-scoped fixture)
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 PROMPT_TEXT = "hello there."

@@ -13,6 +13,7 @@ import pytest
 from test_torch_assets import build_assets, text_modules_as_installed  # noqa: F401
 from test_torch_roberta import SMALL_BERT, write_bert_dir
 from test_torch_zh_frontend import ZH_LEXICON
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 PROMPT_TEXT = "hello there."

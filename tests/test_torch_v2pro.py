@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from test_torch_assets import (HPS_V2PRO, build_assets, jax_sovits,  # noqa: F401
                                text_modules_as_installed, write_sv_checkpoint)
 from test_torch_sovits_padded import close, inputs, padded
-from test_torch_tts_batched import one_torch_thread  # noqa: F401
+from test_torch_assets import one_torch_thread  # noqa: F401
 from test_torch_tts_defaults import feed_jax_tokens, same_clip
 
 PROMPT_TEXT = "hello there."

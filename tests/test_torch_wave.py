@@ -26,18 +26,10 @@ import jax
 from test_torch_assets import jax_t2s
 from test_torch_fused_step import SMALL
 from test_torch_t2s import port_t2s
+from test_torch_assets import one_torch_thread  # noqa: F401
 
 GPT_CACHE = [(1, 128), (2, 128), (4, 128)]
 TINY = dict(hidden_dim=64, embedding_dim=64, num_heads=4, num_layers=2, **SMALL)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Tiny tensors: one thread per test process."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
