@@ -127,10 +127,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    [24, 512, 6144] bf16 weight for every variant (the TPU tool's, and
    ``k1ring``: K1's ring of 8 slots of 16 KB), xla and fori in turns;
    launches counted there (a replayed step counts, a captured one does not).
-   Then P1 (both variants, at the probe's shape and
-   the flagship MLP-1's), P2 (four variants) and every P3 kernel variant
-   against their twins, with a call's time in turns with the twin and the
-   device's from CUDA graphs, and each P3 step alone on the device;
+   Then P1 (both variants, at the probe's shape, the flagship MLP-1's and the
+   s1v3 layer stack as one int4 page, D = 12288, N = 6144, where the first
+   design must raise; the first design against the twin at the other two;
+   what ``cuobjdump -sass`` shows of the kernels: HMMA, no I2F, no atomic in
+   ``unpack``), P2 (four variants and their first designs) and every P3
+   kernel variant against their twins, with a call's time in turns with the
+   twin and the device's from CUDA graphs in turns with the first designs'
+   and an empty kernel's (the launch floor), each P3 step alone on the
+   device, and M1: P1's time at the stack beside P3 ``fori``'s rate over the
+   same bytes;
 10. zh: a full-width random CNRoberta from SEED (``BertConfig()``: vocab 21128,
    hidden 1024, 24 layers, 16 heads, FFN 4096; ~325 M parameters, ~650 MB as
    bf16 safetensors) and a synthesized ``vocab.txt`` beside the v2 checkpoints
@@ -4673,6 +4679,9 @@ def profile_layer_stacks(bench: StepBench):
 # (relative to max(1, |twin|), which holds bcastcmp's -5.4e10 to its float32 resolution).
 P1_TOL, P2_TOL, P3_TOL = 1e-5, 1e-5, 1e-4
 P1_FLAGSHIP = (512, 2048)  # the s1v3 t2s MLP-1: D -> N
+# copies of P1's stack page (37.7 MB) its timed calls turn through, so that each finds its bytes
+# cold in the 50 MB L2, as K1-q4's step (78 MB of pages) does
+P1_STACK_COPIES = 4
 
 
 def probes_path(dev, p3_inputs):
@@ -4703,65 +4712,161 @@ def probes_path(dev, p3_inputs):
     return launches, p3
 
 
+def sass_check(path: str) -> dict:
+    """What P1's kernels compiled to: ``cuobjdump -sass`` of the probes' library (where the
+    toolkit has it), per instance of the redesign and of the first design, the count of HMMA
+    (mma.sync products), I2F (an int -> float conversion) and ATOM / RED (atomics).  Fails if an
+    instance of the redesign multiplies without HMMA or converts int to float, or if ``unpack``
+    holds an atomic (``unpack_dma``'s one is the error word's OR on a wait that gave up)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("P1 sass: cuobjdump not available", flush=True)
+        return {}
+    out = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {path}: {out.stderr.strip()[-500:]}")
+    kinds = {"HMMA": ("HMMA",), "I2F": ("I2F", "I2FP"),
+             "atomic": ("ATOM", "ATOMG", "ATOMS", "RED", "REDG")}
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:  # a kernel's SASS begins: name it if it is one of P1's
+            name = next((k for k in ("p1_kernelILb0E", "p1_kernelILb1E", "p1_first_kernelILb0E",
+                                     "p1_first_kernelILb1E") if k in line), None)
+            if name:
+                counts[name] = dict.fromkeys(kinds, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", line)
+        if name and m:
+            op = m.group(1).split(".")[0]
+            for k, ops in kinds.items():
+                counts[name][k] += op in ops
+    print(f"P1 sass: {counts}", flush=True)
+    for key in ("p1_kernelILb0E", "p1_kernelILb1E"):
+        c = counts.get(key)
+        if c is None or c["HMMA"] == 0 or c["I2F"] != 0:
+            fail(f"P1 {key}: {c} -- the products must be HMMA, the unpack free of I2F")
+    if counts["p1_kernelILb0E"]["atomic"]:
+        fail(f"P1 unpack holds an atomic: {counts['p1_kernelILb0E']}")
+    return counts
+
+
 def p1_phase(dev):
-    """P1 at the probe's shape and the flagship MLP-1's, both variants against the twin; a
-    call's time in turns with the twin, the device's from CUDA graphs of 50 launches."""
+    """P1 at the probe's shape, the flagship MLP-1's and the s1v3 layer stack as one page
+    (``int4_probe.STACK``), both variants against the twin, and the first design against it at
+    the two shapes it runs (at the stack it must raise).  A call's time in turns with the twin;
+    the device's from CUDA graphs of 48 launches in turns with the first design's and the empty
+    kernel's (the launch floor).  At the stack the timed calls turn through ``P1_STACK_COPIES``
+    copies of the page, so that every call finds its bytes cold in the 50 MB L2, and a bf16
+    ``torch.matmul`` of the same elements unquantized is read beside them (not the same
+    function)."""
+    import itertools
+
     import torch
 
     from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.tools import int4_probe as p1
 
     errs, res = [], {}
-    for d, n in ((p1.D, p1.N), P1_FLAGSHIP):
+    for d, n in ((p1.D, p1.N), P1_FLAGSHIP, p1.STACK):
+        stack = (d, n) == p1.STACK
         x, _, packed, scale = p1.make_inputs(1, d=d, n=n)
         args = [torch.from_numpy(a).to(dev) for a in (x, packed, scale)]
+        del x, packed, scale
         want = p1.int4_unpack_matmul_plain(*args)
         calls = {v: (lambda v=v: p1.int4_unpack_matmul(*args, variant=v)) for v in p1.VARIANTS}
-        for v, call in calls.items():
+        first = {f"first {v}": (lambda v=v: p1.int4_unpack_matmul_first(*args, variant=v))
+                 for v in p1.VARIANTS}
+        if stack:
+            for name, call in first.items():
+                try:
+                    call()
+                except ValueError as e:
+                    print(f"P1 {name} at D={d}, N={n} raises as it must: {e}", flush=True)
+                else:
+                    fail(f"P1 {name} ran at D={d}, N={n}, which its shared memory cannot hold")
+        err = {}
+        for name, call in {**calls, **({} if stack else first)}.items():
             got = call()
             torch.cuda.synchronize()
             tools.check(dev)
-            err = float((got - want).abs().max())
-            if not err <= P1_TOL * float(want.abs().max()):
-                fail(f"P1 {v} at D={d}, N={n}: max abs error {err:.3e} against the twin")
-            errs.append(err)
+            err[name] = float((got - want).abs().max())
+            if not err[name] <= P1_TOL * float(want.abs().max()):
+                fail(f"P1 {name} at D={d}, N={n}: max abs error {err[name]:.3e} against the "
+                     f"twin (max |twin| {float(want.abs().max()):.3e})")
+        errs += [err[v] for v in p1.VARIANTS]
+        timed = calls
+        if stack:
+            copies = [args[1]] + [args[1].clone() for _ in range(P1_STACK_COPIES - 1)]
+
+            def turning(v):
+                page = itertools.cycle(copies)
+                return lambda: p1.int4_unpack_matmul(args[0], next(page), args[2], variant=v)
+
+            timed = {v: turning(v) for v in p1.VARIANTS}
         plain = lambda: p1.int4_unpack_matmul_plain(*args)  # noqa: E731
-        ms = {v: timed_turns(call, plain, 200, 50) for v, call in calls.items()}
-        dev_ms = graph_turns({v: graph_of(call) for v, call in calls.items()})
+        ms = {v: timed_turns(call, plain, 24 if stack else 200, 4 if stack else 50)
+              for v, call in timed.items()}
+        graphs = {name: graph_of(call, 48) for name, call in {**timed, **first}.items()
+                  if not (stack and name.startswith("first"))}
+        if stack:
+            xb, wb = args[0].to(torch.bfloat16), p1.unpack_int4(args[1])
+            graphs["bf16 matmul"] = graph_of(lambda: torch.matmul(xb, wb), 48)
+        graphs["floor"] = graph_of(lambda: tools.empty_launch(dev), 48)
+        dev_ms = graph_turns(graphs, n=48)
         b_ms, b_by = bound(4 * 8 * d + d * n // 2 + 4 * n + 4 * 8 * n, 2 * 8 * d * n)
-        res[(d, n)] = {"ms": ms, "device_ms": dev_ms, "bound": (b_ms, b_by)}
-        print(f"P1 at D={d}, N={n} (block width {p1.block_cols(d, n // 2)} bytes): "
-              + ", ".join(f"{v} {ms[v][0]:.4f} ms a call, {dev_ms[v]:.4f} on the device"
-                          for v in calls)
-              + f"; the twin {ms['unpack'][1]:.4f}; bound {b_ms:.6f} ({b_by}); "
-              f"host {host_us(calls['unpack']):.1f} us a call", flush=True)
+        plans = {v: p1.plan(d, n // 2, v, tools.sm_count(dev)) for v in p1.VARIANTS}
+        res[(d, n)] = {"ms": ms, "device_ms": dev_ms, "bound": (b_ms, b_by), "err": err}
+        print(f"P1 at D={d}, N={n}: bound {b_ms:.6f} ms ({b_by}); "
+              + "; ".join(f"{v} ({plans[v].blocks} blocks: {plans[v].tiles} tiles of "
+                          f"{plans[v].tile} B x {plans[v].splits} splits, ring "
+                          f"{plans[v].ring}) {ms[v][0]:.4f} ms a call, {dev_ms[v]:.4f} on the "
+                          f"device ({b_ms / dev_ms[v]:.3f} of the bound), err {err[v]:.2e}"
+                          for v in p1.VARIANTS)
+              + "; " + ", ".join(f"{k} {dev_ms[k]:.4f}" for k in graphs if k not in calls)
+              + (" ms on the device (the bf16 matmul: not the same function, "
+                 f"{2 * d * n} bytes of weights)" if stack else " ms on the device")
+              + f"; the twin {ms['unpack'][1]:.4f} ms; host {host_us(calls['unpack']):.1f} us a "
+              f"call", flush=True)
+        del args, want, graphs
+        torch.cuda.empty_cache()
     return max(errs), res
 
 
 def p2_phase(dev):
-    """P2's four variants against the twin; a call's time in turns with the twin, the
-    device's from CUDA graphs of 50 launches."""
+    """P2's four variants and their first designs against the twin; a call's time in turns with
+    the twin; the device's from CUDA graphs of 50 launches in turns with the first design's and
+    the empty kernel's (the launch floor)."""
     import torch
 
+    from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.tools import mosaic_probe as p2
 
     x = torch.from_numpy(p2.make_input(2)).to(dev)
     calls = {v: (lambda v=v: p2.mosaic_reduce(x, v)) for v in p2.VARIANTS}
+    first = {f"first {v}": (lambda v=v: p2.mosaic_reduce_first(x, v)) for v in p2.VARIANTS}
     errs, ms = [], {}
-    for v, call in calls.items():
-        got, want = call(), p2.mosaic_reduce_plain(x, v)
+    for name, call in {**calls, **first}.items():
+        want = p2.mosaic_reduce_plain(x, name.split()[-1])
+        got = call()
         torch.cuda.synchronize()
         err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
         if not err <= P2_TOL:
-            fail(f"P2 {v}: error {err:.3e} against the twin (relative to max(1, |twin|))")
-        errs.append(float((got - want).abs().max()))
-        ms[v] = timed_turns(call, lambda v=v: p2.mosaic_reduce_plain(x, v), 200, 50)
-    dev_ms = graph_turns({v: graph_of(call) for v, call in calls.items()})
+            fail(f"P2 {name}: error {err:.3e} against the twin (relative to max(1, |twin|))")
+        if name in calls:
+            errs.append(float((got - want).abs().max()))
+            ms[name] = timed_turns(call, lambda v=name: p2.mosaic_reduce_plain(x, v), 200, 50)
+    graphs = {name: graph_of(call) for name, call in {**calls, **first}.items()}
+    graphs["floor"] = graph_of(lambda: tools.empty_launch(dev))
+    dev_ms = graph_turns(graphs)
     b_ms, b_by = bound(4 * x.numel() + 4 * p2.H, 0)
-    print("P2: " + ", ".join(f"{v} {ms[v][0]:.4f} ms a call ({dev_ms[v]:.4f} on the device; "
-                             f"twin {ms[v][1]:.4f})" for v in calls)
-          + f"; bound {b_ms:.6f} ({b_by}); host {host_us(calls['combined']):.1f} us a call",
-          flush=True)
+    print("P2: " + ", ".join(f"{v} {ms[v][0]:.4f} ms a call ({dev_ms[v]:.4f} on the device, "
+                             f"{dev_ms[v] / dev_ms['floor']:.2f}x the floor; first design "
+                             f"{dev_ms['first ' + v]:.4f}; twin {ms[v][1]:.4f})" for v in calls)
+          + f"; the floor (an empty kernel) {dev_ms['floor']:.4f} ms on the device; bound "
+          f"{b_ms:.6f} ({b_by}); host {host_us(calls['combined']):.1f} us a call", flush=True)
     return max(errs), ms, dev_ms, (b_ms, b_by)
 
 
@@ -4813,8 +4918,11 @@ def probes_phase(dev):
     its twin and time it; returns (the path's launches, the kernels' JSON records)."""
     import torch
 
+    from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.tools import int4_probe, stream_probe
+    from gsv_tts_tpu_torch.utils import cuda_build
 
+    sass = sass_check(cuda_build.build_info[tools.PROBES_LIBRARY[0]]["path"])
     t0 = time.perf_counter()
     w, x = stream_probe.make_inputs(max(stream_probe.rows_of(v, stream_probe.D)
                                         for v in stream_probe.VARIANTS))
@@ -4827,6 +4935,17 @@ def probes_phase(dev):
     p3_err, chain, alone, p3_plain, p3_bound = p3_phase(dev, p3_inputs, p3)
     del p3_inputs
     torch.cuda.empty_cache()
+    # M1: the stack's bytes at P3 fori's rate of this run (its step alone on the device), beside
+    # P1's device time at the stack: the gap is what the unpack and the products cost
+    stack = p1[int4_probe.STACK]
+    stack_bytes = stack["bound"][0] * HBM_BYTES_PER_S / 1000
+    fori_rate = 2 * stream_probe.L * stream_probe.D * stream_probe.W / (alone["fori"] / 1000)
+    stream_ms = 1000 * stack_bytes / fori_rate
+    print(f"M1: P1 at the stack ({stack_bytes / 1e6:.2f} MB) unpack {stack['device_ms']['unpack']:.4f}"
+          f" / unpack_dma {stack['device_ms']['unpack_dma']:.4f} ms on the device; the same bytes "
+          f"at P3 fori's {fori_rate / 1e12:.2f} TB/s (this run) {stream_ms:.4f} ms; the unpack and "
+          f"the products cost {min(stack['device_ms'][v] for v in int4_probe.VARIANTS) - stream_ms:.4f}"
+          f" ms above the stream", flush=True)
 
     def rec(name, source, replaces, err, ms, plain_ms, b, library_ms, **extra):
         return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
@@ -4836,14 +4955,20 @@ def probes_phase(dev):
 
     small, flag = p1[(int4_probe.D, int4_probe.N)], p1[P1_FLAGSHIP]
     records = [
-        # P1: a call of ``unpack`` at the probe's shape; the other variant, the device's time
-        # and the flagship MLP-1 beside it
+        # P1: a call of ``unpack`` at the probe's shape; the other variant, the device's times
+        # (beside the first design's and the launch floor), the MLP-1 and the stack beside it
         rec("p1_int4_probe", "p1_int4_probe.cu", "tools/int4_probe.py:83", p1_err,
             small["ms"]["unpack"][0], small["ms"]["unpack"][1], small["bound"], None,
             unpack_dma_ms=small["ms"]["unpack_dma"][0], device_ms=small["device_ms"],
             mlp1_ms={v: t[0] for v, t in flag["ms"].items()}, mlp1_device_ms=flag["device_ms"],
-            mlp1_bound_ms=flag["bound"][0]),
-        # P2: a call of ``combined`` (the construct that hung Mosaic); every variant beside it
+            mlp1_bound_ms=flag["bound"][0],
+            stack_ms={v: t[0] for v, t in stack["ms"].items()},
+            stack_device_ms=stack["device_ms"], stack_bound_ms=stack["bound"][0],
+            stack_bound_share={v: stack["bound"][0] / stack["device_ms"][v]
+                               for v in int4_probe.VARIANTS},
+            stack_plain_ms=stack["ms"]["unpack"][1], stack_stream_ms=stream_ms, sass=sass),
+        # P2: a call of ``combined`` (the construct that hung Mosaic); every variant, the first
+        # design's and the launch floor beside it
         rec("p2_mosaic_probe", "p2_mosaic_probe.cu", "tools/mosaic_probe.py:88", p2_err,
             p2_ms["combined"][0], p2_ms["combined"][1], p2_bound, None,
             variant_ms={v: t[0] for v, t in p2_ms.items()}, device_ms=p2_dev),

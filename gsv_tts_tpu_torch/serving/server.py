@@ -793,9 +793,16 @@ def require_aiohttp():
 
 
 async def query_dict(request) -> dict:
-    """The query, a key given more than once as the list of its values."""
+    """The query as JAX's GET handlers read it: the first value of every key
+    (``dict`` of aiohttp's multidict), and ``aux_ref_audio_paths``, which
+    api_v2 lets repeat (a multi-speaker blend), as the list of its values
+    when it is given more than once."""
     q = request.query
-    return {k: (q.getall(k) if len(q.getall(k)) > 1 else q[k]) for k in q.keys()}
+    req = dict(q)
+    aux = q.getall("aux_ref_audio_paths", [])
+    if len(aux) > 1:
+        req["aux_ref_audio_paths"] = list(aux)
+    return req
 
 
 async def json_body(request) -> dict:

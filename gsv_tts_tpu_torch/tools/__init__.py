@@ -9,7 +9,8 @@ one library) with a plain PyTorch twin beside its wrapper, and a command:
     python -m gsv_tts_tpu_torch.tools.stream_probe [variant ...] [--device cpu]
 
 The card is the default and a probe raises without one; ``--device cpu``
-runs the twins.  Nothing here imports JAX or the repository's ``tools/``.
+runs the twins.  ``probe_variants`` times named edits of P1's and P2's
+sources against them (``--check`` applies the edits only).  Nothing here imports JAX or the repository's ``tools/``.
 """
 from __future__ import annotations
 
@@ -37,8 +38,11 @@ _I = ctypes.c_int
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind the three probes' entries."""
     lib = cuda_build.load_library(*PROBES_LIBRARY)
-    for fn, args in ((lib.p1_int4_unpack_matmul, [_P] * 5 + [_I] * 4 + [_P]),
+    for fn, args in ((lib.p1_int4_unpack_matmul, [_P] * 6 + [_I] * 8 + [_P]),
+                     (lib.p1_int4_unpack_matmul_first, [_P] * 5 + [_I] * 4 + [_P]),
                      (lib.p2_mosaic_probe, [_P, _P, _I, _P]),
+                     (lib.p2_mosaic_probe_first, [_P, _P, _I, _P]),
+                     (lib.probe_empty, [_P]),
                      (lib.p3_stream_ring, [_P] * 5 + [_I] * 6 + [_P]),
                      (lib.p3_stream_grid, [_P] * 4 + [_I] * 3 + [_P])):
         fn.argtypes = args
@@ -47,6 +51,20 @@ def load_kernels() -> ctypes.CDLL:
 
 
 _err_words: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """The card's SMs (``cudaDevAttrMultiProcessorCount``, as PyTorch reads it)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def empty_launch(dev: torch.device) -> None:
+    """Launch the empty kernel (``csrc/p2_mosaic_probe.cu:probe_empty``: one
+    block of 128 threads, as P2 launches) on ``dev``'s current stream.  Its
+    device time is the launch floor that P1's small shapes and P2 are read
+    against; nothing but the smoke calls it, and it counts nothing."""
+    launched(load_kernels().probe_empty(cuda_build.stream_handle(dev)), "the empty kernel")
 
 
 def count_launch(wrapper) -> None:

@@ -18,7 +18,10 @@ x [B * BLOCK, H] = [256, 16] float32 -> [1, H]; x is also read as
     python -m gsv_tts_tpu_torch.tools.mosaic_probe --device cpu    # the twins
 
 The TPU tool's ``--interpret`` has no counterpart: ``--device cpu`` runs the
-twins.  The kernel is ``csrc/p2_mosaic_probe.cu``.
+twins.  The kernel is ``csrc/p2_mosaic_probe.cu``: one block of 4 warps, warp
+``b`` on block ``b``, x read once into registers, each block's max and sum a
+shuffle tree in a fixed order, one barrier a pass of ``combined``.  The first
+design stays bound as :func:`mosaic_reduce_first` for the smoke's turns.
 """
 from __future__ import annotations
 
@@ -63,27 +66,50 @@ def mosaic_reduce_plain(x: torch.Tensor, variant: str) -> torch.Tensor:
     return acc
 
 
-def mosaic_reduce(x: torch.Tensor, variant: str) -> torch.Tensor:
-    """P2.  x [256, 16] float32 -> [1, 16] float32.  A CUDA tensor
-    (contiguous, 16-byte aligned) launches the kernel; a CPU tensor runs the
-    twin."""
+def _checked(x: torch.Tensor, variant: str) -> torch.device:
     if variant not in VARIANTS:
         raise ValueError(f"mosaic_reduce: variant {variant!r}, one of {VARIANTS}")
     if tuple(x.shape) != (B * BLOCK, H) or x.dtype != torch.float32:
         raise ValueError(f"mosaic_reduce: x {tuple(x.shape)} {x.dtype}, want "
                          f"[{B * BLOCK}, {H}] float32")
-    dev = x.device
-    if dev.type == "cpu":
-        return mosaic_reduce_plain(x, variant)
-    if dev.type != "cuda":
-        raise ValueError(f"mosaic_reduce: x on {dev}: the kernel runs on CUDA, the twin on CPU")
+    return x.device
+
+
+def _on_card(x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"mosaic_reduce: x on {x.device}: the kernel runs on CUDA, the twin "
+                         f"on CPU")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("mosaic_reduce: x must be contiguous and 16-byte aligned")
+    return x.device
+
+
+def mosaic_reduce(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """P2.  x [256, 16] float32 -> [1, 16] float32.  A CUDA tensor
+    (contiguous, 16-byte aligned) launches the kernel; a CPU tensor runs the
+    twin."""
+    if _checked(x, variant).type == "cpu":
+        return mosaic_reduce_plain(x, variant)
+    dev = _on_card(x)
     out = torch.empty((1, H), dtype=torch.float32, device=dev)
     rc = load_kernels().p2_mosaic_probe(x.data_ptr(), out.data_ptr(), VARIANTS.index(variant),
                                         cuda_build.stream_handle(dev))
     launched(rc, "P2")
     count_launch(mosaic_reduce)
+    return out
+
+
+def mosaic_reduce_first(x: torch.Tensor, variant: str) -> torch.Tensor:
+    """P2's first design, for the smoke's turns only (it counts no launch):
+    a thread per 16 rows of one (block, column), the partials merged in
+    shared memory, four barriers a pass of ``combined``.  CUDA tensors only."""
+    _checked(x, variant)
+    dev = _on_card(x)
+    out = torch.empty((1, H), dtype=torch.float32, device=dev)
+    rc = load_kernels().p2_mosaic_probe_first(x.data_ptr(), out.data_ptr(),
+                                              VARIANTS.index(variant),
+                                              cuda_build.stream_handle(dev))
+    launched(rc, "P2 (first design)")
     return out
 
 

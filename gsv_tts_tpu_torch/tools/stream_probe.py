@@ -36,7 +36,6 @@ over the card's 3.35 TB/s.
 """
 from __future__ import annotations
 
-import functools
 import sys
 import time
 from typing import NamedTuple
@@ -46,7 +45,7 @@ import torch
 
 from ..utils import cuda_build
 from . import (MAX_SMEM, card, check, count_launch, error_word, in_subprocesses, launched,
-               load_kernels, parse_cli)
+               load_kernels, parse_cli, sm_count)
 
 L, D, W = 24, 512, 6144
 REPS = 100  # steps chained in one graph
@@ -115,12 +114,6 @@ def ring_plan(variant: str, rows: int, width: int, blocks: int) -> RingPlan:
         raise ValueError(f"stream_probe: {variant}: {stages} slots of {row_bytes}-byte rows do "
                          f"not fit shared memory")
     return RingPlan(blocks, share, stages, chunk, chunk * row_bytes, -(-share // chunk), smem)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(dev: torch.device) -> int:
-    """The card's SMs (``cudaDevAttrMultiProcessorCount``, as PyTorch reads it)."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _shapes(x, w, variant):

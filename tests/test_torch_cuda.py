@@ -1241,13 +1241,14 @@ def test_unload_sovits_model_evicts_its_graphs_while_another_replays(cuda_device
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 512), (512, 2048)])
+@pytest.mark.parametrize("shape", [(256, 512), (512, 2048), (12288, 6144)])
 @pytest.mark.parametrize("variant", ["unpack", "unpack_dma"])
 def test_p1_probe_kernel_matches_twin(cuda_device, variant, shape):
-    """P1 at the probe's shape (one block, one bulk copy of the 64 KB page)
-    and at the flagship MLP-1 (D=512, N=2048: 8 blocks, a copy of 128 bytes
-    a row): within 1e-5 of max |twin| (float32 sums of exact bf16 products
-    in other orders)."""
+    """P1 at the probe's shape, the flagship MLP-1 (D=512, N=2048) and the
+    s1v3 layer stack as one page (D=12288, N=6144: split over the card, a
+    second pass summing the splits): within 1e-5 of max |twin| (float32 sums
+    of exact bf16 products in other orders), one launch counted a call, and
+    bit for bit its own repeat (the sums meet in a fixed order)."""
     from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.tools import int4_probe
 
@@ -1256,25 +1257,57 @@ def test_p1_probe_kernel_matches_twin(cuda_device, variant, shape):
     args = [torch.from_numpy(a).to(cuda_device) for a in (x, packed, scale)]
     before = int4_probe.int4_unpack_matmul.launches
     got = int4_probe.int4_unpack_matmul(*args, variant=variant)
+    again = int4_probe.int4_unpack_matmul(*args, variant=variant)
     want = int4_probe.int4_unpack_matmul_plain(*args)
     torch.cuda.synchronize()
     tools.check(cuda_device)
-    assert int4_probe.int4_unpack_matmul.launches == before + 1
+    assert int4_probe.int4_unpack_matmul.launches == before + 2
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["unpack", "unpack_dma"])
+def test_p1_first_design_matches_twin_and_refuses_the_stack(cuda_device, variant):
+    """The first design, kept for the smoke's turns: at the MLP-1 within
+    1e-5 of max |twin|, counting no launch; at the stack shape no block
+    width fits shared memory, so it raises before any launch."""
+    from gsv_tts_tpu_torch import tools
+    from gsv_tts_tpu_torch.tools import int4_probe
+
+    x, _, packed, scale = int4_probe.make_inputs(1, d=512, n=2048)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (x, packed, scale)]
+    before = int4_probe.int4_unpack_matmul.launches
+    got = int4_probe.int4_unpack_matmul_first(*args, variant=variant)
+    want = int4_probe.int4_unpack_matmul_plain(*args)
+    torch.cuda.synchronize()
+    tools.check(cuda_device)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    assert int4_probe.int4_unpack_matmul.launches == before
+    d, n = int4_probe.STACK
+    x = torch.zeros((8, d), device=cuda_device)
+    with pytest.raises(ValueError, match="no block width fits"):
+        int4_probe.int4_unpack_matmul_first(
+            x, torch.zeros((d, n // 2), dtype=torch.int8, device=cuda_device),
+            torch.ones((1, n), device=cuda_device), variant=variant)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["baseline", "reduce3d", "bcastcmp", "combined"])
 def test_p2_probe_kernel_matches_twin(cuda_device, variant):
-    """P2 within 1e-5 of max(1, |twin|) (bcastcmp's -5.4e10: within its
-    float32 resolution)."""
+    """P2 and its first design within 1e-5 of max(1, |twin|) (bcastcmp's
+    -5.4e10: within its float32 resolution); the redesign bit for bit its
+    own repeat."""
     from gsv_tts_tpu_torch.tools import mosaic_probe
 
     x = torch.from_numpy(mosaic_probe.make_input(2)).to(cuda_device)
     got = mosaic_probe.mosaic_reduce(x, variant)
+    first = mosaic_probe.mosaic_reduce_first(x, variant)
     want = mosaic_probe.mosaic_reduce_plain(x, variant)
     torch.cuda.synchronize()
-    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-5
+    for out in (got, first):
+        assert ((out - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-5
+    assert torch.equal(got, mosaic_probe.mosaic_reduce(x, variant))
 
 
 @pytest.mark.cuda

@@ -95,6 +95,236 @@ def test_p1_block_width_fits_shared_memory():
         assert 2 * d * cols + 32 * d + int4_probe.PART_BYTES + 16 <= int4_probe.MAX_SMEM
 
 
+P1_SHAPES = {"probe": (int4_probe.D, int4_probe.N), "mlp1": (512, 2048),
+             "stack": int4_probe.STACK}
+
+
+@pytest.mark.parametrize("variant", ["unpack", "unpack_dma"])
+@pytest.mark.parametrize("shape", ["probe", "mlp1", "stack"])
+def test_p1_plan_covers_every_column_and_row_once_and_fits(shape, variant):
+    """The redesign's plan on 132 SMs: the column tiles cover the N/2 byte
+    columns once (so each output column, low and high nibble, once); the
+    splits' row runs partition D in whole stages; a block's shared memory
+    fits (two blocks an SM for ``unpack``) with x's slice at its bank-free
+    stride; the stack shape gets at least 132 blocks, the small shapes one
+    split (one launch)."""
+    d, n = P1_SHAPES[shape]
+    half = n // 2
+    p = int4_probe.plan(d, half, variant)
+    assert p.tiles * p.tile == half and p.tile % 128 == 0
+    assert p.col_warps * p.k_warps == int4_probe.WARPS
+    assert (p.stages - 1) * p.stage_rows < d <= p.stages * p.stage_rows
+    runs = [p.split_rows(s) for s in range(p.splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == d
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert all(lo < hi and lo % p.stage_rows == 0 for lo, hi in runs)
+    if p.splits > 1:
+        assert all(hi - lo >= int4_probe.MIN_STAGES * p.stage_rows for lo, hi in runs[:-1])
+    assert p.xs >= max(hi - lo for lo, hi in runs) and (2 * p.xs) % 128 == 32
+    assert p.smem <= tools.MAX_SMEM
+    if variant == "unpack":
+        assert p.ring == 0 and 2 * (p.smem + 1024) <= 233472  # 228 KB an SM
+    else:
+        assert 1 <= p.ring <= int4_probe.RING
+    if shape == "stack":
+        assert p.blocks >= 132 and p.blocks % 132 == 0
+    else:
+        assert p.splits == 1 or variant == "unpack_dma"
+
+
+def test_p1_nibble_conversion_equals_unpack_int4_for_every_byte():
+    """The kernel's unpack, modelled in numpy: xor 0x88 gives both nibbles
+    as u = v + 8; 0x4300 | u is the bf16 128 + u; minus 136 is v.  For all
+    256 bytes, bit for bit the twin's ``unpack_int4`` (low nibble, then
+    high); and the word-level form (one lop3 of the nibble pair at bits
+    0-3 and 16-19 with 0x000F000F and 0x43084308) gives the same bits."""
+    byte = np.arange(256, dtype=np.uint32)
+    u = byte ^ 0x88
+    lo_bits, hi_bits = 0x4300 | (u & 15), 0x4300 | (u >> 4)
+    as_float = lambda bits: ((bits << 16).astype(np.uint32)).view(np.float32) - 136  # noqa: E731
+    want = int4_probe.unpack_int4(torch.from_numpy(byte.astype(np.uint8).view(np.int8))
+                                  .reshape(256, 1)).float().numpy()
+    np.testing.assert_array_equal(as_float(lo_bits), want[:, 0])
+    np.testing.assert_array_equal(as_float(hi_bits), want[:, 1])
+    word = byte | (np.roll(byte, 7) << 16)  # two bytes a word: bits 0-7 and 16-23
+    for shift, bits in ((0, lo_bits), (4, hi_bits)):
+        pair = _lop3_nibbles(word >> shift)
+        np.testing.assert_array_equal(pair & 0xFFFF, bits)
+        np.testing.assert_array_equal(pair >> 16, np.roll(bits, 7))
+
+
+def _lop3_nibbles(w):
+    """``lop3.b32 r, w, 0x000F000F, 0x43084308, 0x6A``: b ? a ^ c : c."""
+    mask, c = np.uint32(0x000F000F), np.uint32(0x43084308)
+    return ((mask & (w ^ c)) | (~mask & c)).astype(np.uint32)
+
+
+def _byte_perm(a, b, sel):
+    """``__byte_perm(a, b, sel)``: byte i of the result is byte
+    (sel >> 4i) & 7 of the pair (a: bytes 0-3, b: 4-7)."""
+    src = [(a >> (8 * i)) & 0xFF for i in range(4)] + [(b >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(a)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << (8 * i)
+    return out
+
+
+def _bf16_pair(r):
+    """A register of two bf16 (after the fma with 1 and -136) as two floats."""
+    lo = ((r & 0xFFFF) << 16).astype(np.uint32).view(np.float32) - 136
+    hi = ((r >> 16) << 16).astype(np.uint32).view(np.float32) - 136
+    return lo, hi
+
+
+def emulate_p1(x, packed, scale, p):
+    """A numpy model of ``csrc/p1_int4_probe.cu``'s redesign, following its
+    data path: x staged as bf16 with each 16-row run permuted; per warp and
+    step, lane (g, t)'s 16 bytes of rows t + 4i, the byte permutes, shifts
+    and lop3 into the A fragments of mma.sync m16n8k16 (a0: row g, k 2t /
+    2t + 1; a1: row g + 8; a2, a3: k + 8), its B fragment from the staged x,
+    the product, the C fragments into the warps' sums at 8b + g, the
+    epilogue's decode back to columns, the splits' partials summed in split
+    order, then the scale."""
+    d, half = packed.shape
+    n = 2 * half
+    u8 = packed.view(np.uint8)
+    xb = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    parts = np.zeros((p.splits, 8, n))
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    for split in range(p.splits):
+        row0, row1 = p.split_rows(split)
+        k = np.arange(row1 - row0)
+        xs = np.zeros((8, p.xs), np.float32)
+        xs[:, (k & ~15) + 4 * (k & 3) + ((k & 15) >> 2)] = xb[:, row0 + k]
+        n_st = -(-(row1 - row0) // p.stage_rows)
+        for tile in range(p.tiles):
+            c0 = tile * p.tile
+            sums = np.zeros((int4_probe.WARPS, 8, 2 * 128 + 4))
+            for warp in range(int4_probe.WARPS):
+                cw, kw = warp % p.col_warps, warp // p.col_warps
+                acc = np.zeros((16, 32, 4))
+                for s in range(n_st):
+                    r = row0 + s * p.stage_rows + 16 * kw
+                    if r >= row1:
+                        continue
+                    cols = c0 + 128 * cw + 16 * g[:, None] + np.arange(16)     # [lane, 16]
+                    rows = r + t[:, None] + 4 * np.arange(4)                   # [lane, 4]
+                    v = u8[rows[:, :, None], cols[:, None, :]]                 # [lane, 4, 16]
+                    words = np.ascontiguousarray(v).view("<u4").astype(np.uint32)  # [lane, 4, 4]
+                    xp = xs[g[:, None], (r - row0) + 4 * t[:, None] + np.arange(4)]  # [lane, 4]
+                    B = np.zeros((16, 8))
+                    for i, kk in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+                        B[kk, g] = xp[:, i]
+                    A = np.zeros((16, 16, 16))
+                    for w in range(4):
+                        r0, r1, r2, r3 = (words[:, i, w] for i in range(4))
+                        for h in range(2):
+                            sel = 0x7632 if h else 0x5410
+                            p01, p23 = _byte_perm(r0, r1, sel), _byte_perm(r2, r3, sel)
+                            for e in range(2):
+                                b = 4 * w + 2 * h + e
+                                frags = [_bf16_pair(_lop3_nibbles(q >> sh)) for q, sh in
+                                         ((p01, 8 * e), (p01, 8 * e + 4),
+                                          (p23, 8 * e), (p23, 8 * e + 4))]
+                                for (lo, hi), m, k0 in zip(frags, (g, g + 8, g, g + 8),
+                                                           (2 * t, 2 * t, 2 * t + 8, 2 * t + 8)):
+                                    A[b, m, k0], A[b, m, k0 + 1] = lo, hi
+                    C = A @ B                                                  # [b, m, n]
+                    acc[:, :, 0] += C[:, g, 2 * t]
+                    acc[:, :, 1] += C[:, g, 2 * t + 1]
+                    acc[:, :, 2] += C[:, g + 8, 2 * t]
+                    acc[:, :, 3] += C[:, g + 8, 2 * t + 1]
+                for b in range(16):
+                    for e in range(2):
+                        sums[warp, 2 * t + e, 8 * b + g] = acc[b, :, e]
+                        sums[warp, 2 * t + e, 128 + 8 * b + g] = acc[b, :, 2 + e]
+            for i in range(8 * p.col_warps * 256):
+                q, hl, rest = i & 127, (i >> 7) & 1, i >> 8
+                cwi, r = rest % p.col_warps, rest // p.col_warps
+                pos = hl * 128 + 8 * (q & 15) + (q >> 4)
+                val = sum(sums[kk * p.col_warps + cwi, r, pos] for kk in range(p.k_warps))
+                parts[split, r, c0 + 128 * cwi + q + hl * half] = val
+    return parts.sum(axis=0) * scale
+
+
+@pytest.mark.parametrize("d,n,variant,sms", [(80, 256, "unpack", 132),
+                                             (1024, 256, "unpack", 4),
+                                             (528, 512, "unpack_dma", 4),
+                                             (256, 1024, "unpack_dma", 132),
+                                             (256, 2048, "unpack_dma", 132)])
+def test_p1_kernel_model_matches_the_reference(d, n, variant, sms):
+    """The numpy model of the kernel's data path equals the float64
+    reference (exact products; float64 sums): one short stage (D = 80),
+    two splits of one column warp, a dma plan of two column warps whose last
+    stage is short, one of four column warps in two splits, one of eight
+    column warps (a 16-row stage) in four."""
+    x, q, packed, scale = int4_probe.make_inputs(7, d=d, n=n)
+    p = int4_probe.plan(d, n // 2, variant, sms)
+    assert p.splits > 1 or d == 80
+    got = emulate_p1(x, packed, scale, p)
+    np.testing.assert_allclose(got, int4_probe.reference(x, q, scale), rtol=1e-12, atol=1e-12)
+
+
+def test_p1_twin_at_a_stacked_shape_matches_numpy():
+    """Four 64-row layer pages stacked as one int4 page (D = 4 x 64, the
+    stack shape in small): the twin equals the float64 reference, and the
+    sum of the four pages' own products, within 1e-6 of max |ref|."""
+    x, q, packed, scale = int4_probe.make_inputs(11, d=4 * 64, n=256)
+    got = int4_probe.int4_unpack_matmul(torch.from_numpy(x), torch.from_numpy(packed),
+                                        torch.from_numpy(scale)).numpy()
+    want = int4_probe.reference(x, q, scale)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    layers = sum(int4_probe.reference(np.ascontiguousarray(x[:, 64 * i:64 * (i + 1)]),
+                                      q[64 * i:64 * (i + 1)], scale) for i in range(4))
+    assert np.abs(got - layers).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_p1_and_p2_wrappers_refuse_what_the_kernels_do_not_take():
+    """Shapes outside the plan (D not a multiple of 16, N/2 not of 128),
+    other dtypes, and the first designs on CPU tensors raise ValueError on
+    any device; no twin runs in their place."""
+    x, _, packed, scale = (torch.from_numpy(a) for a in int4_probe.make_inputs(0, d=64, n=256))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int4_probe.int4_unpack_matmul(x[:, :56].contiguous(), packed[:56], scale)
+    x2, _, packed2, scale2 = (torch.from_numpy(a)
+                              for a in int4_probe.make_inputs(0, d=64, n=128))
+    for v in int4_probe.VARIANTS:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            int4_probe.int4_unpack_matmul(x2, packed2, scale2, variant=v)
+    with pytest.raises(ValueError, match="dtypes"):
+        int4_probe.int4_unpack_matmul(x.double(), packed, scale)
+    with pytest.raises(ValueError, match="dtypes"):
+        int4_probe.int4_unpack_matmul(x, packed.to(torch.uint8), scale)
+    with pytest.raises(ValueError, match="variant"):
+        int4_probe.plan(64, 128, "unpack4")
+    with pytest.raises(ValueError, match="kernel runs on CUDA"):
+        int4_probe.int4_unpack_matmul_first(x, packed, scale)
+    with pytest.raises(ValueError, match="no block width fits"):
+        int4_probe.block_cols(*int4_probe.STACK[:1], int4_probe.STACK[1] // 2)
+    with pytest.raises(ValueError, match="want"):
+        mosaic_probe.mosaic_reduce(torch.zeros((256, 16), dtype=torch.float64), "combined")
+    with pytest.raises(ValueError, match="kernel runs on CUDA"):
+        mosaic_probe.mosaic_reduce_first(torch.zeros((256, 16)), "combined")
+
+
+def test_probe_variants_edits_apply_to_the_sources(capsys):
+    """The variants tool's named edits of P1's and P2's sources still apply
+    (``--check``: no card, no nvcc), and each but the final one changes its
+    source."""
+    from gsv_tts_tpu_torch.tools import probe_variants as pv
+
+    assert pv.main(["--check"]) == 0
+    n = len(pv.P1_VARIANTS) + len(pv.P2_VARIANTS)
+    assert f"{n} variants apply" in capsys.readouterr().out
+    srcs = pv.sources()
+    final = srcs[("p1", "final")]
+    for (kernel, name), (a, b) in srcs.items():
+        assert (a, b) != final or name == "final", (kernel, name)
+    with pytest.raises(ValueError, match="0 places"):
+        pv.apply("int x;", [("float y;", "")])
+
+
 def test_p1_main_on_cpu_prints_pass(capsys):
     assert int4_probe.main(["unpack_dma", "--device", "cpu"]) == 0
     out = capsys.readouterr().out

@@ -165,6 +165,75 @@ def test_api_v2_wav_raw_get_and_post_match_jax(assets, pair):
     assert pout[0][0][1] == "audio/wav" and pout[1][0][1] == "audio/raw"
 
 
+def test_get_query_with_repeated_keys_matches_jax(assets, pair):
+    """A GET query that repeats a key is read as JAX's handlers read it
+    (``dict`` of the query: the first value).  ``/tts`` with ``text`` and
+    ``media_type`` given twice (the second ``media_type`` one the route
+    refuses) answers as the same query with their first values: the same
+    head in both apps, each app's body byte for byte its own single-valued
+    answer, the samples within the file's tolerance of JAX's; a repeated
+    ``weights_path`` reloads from its first value."""
+    async def drive(client):
+        out = []
+        single = v2_query(assets, media_type="wav")
+        r = await client.get("/tts", params=single)
+        out.append((head(r), await r.read()))
+        q = list(single.items()) + [("text", "something else entirely."),
+                                     ("media_type", "mp9")]
+        r = await client.get("/tts", params=q)
+        out.append((head(r), await r.read()))
+        r = await client.get("/set_gpt_weights", params=[("weights_path", assets["gpt"]),
+                                                         ("weights_path", "/no/such.ckpt")])
+        out.append((head(r), (await r.json())["message"]))
+        return out
+
+    jout, pout = both(pair, drive)
+    for out in (jout, pout):
+        assert out[0][0] == out[1][0] == (200, "audio/wav", None)
+        assert out[1][1] == out[0][1]
+    close(wav_samples(pout[1][1]), wav_samples(jout[1][1]), pcm=True)
+    assert pout[2] == jout[2] and pout[2][0][0] == 200
+
+
+def test_get_query_repeated_aux_refs_reach_both_handlers_as_one_list(assets, pair,
+                                                                     monkeypatch):
+    """``aux_ref_audio_paths`` given twice in a GET query reaches JAX's
+    ``_handle_api_v2`` and the port's ``tts_v2`` as the same list (and the
+    other keys as the same strings); given once, as the same string."""
+    from aiohttp import web
+
+    import gsv_tts_tpu.serving.server as jserver
+    import gsv_tts_tpu_torch.serving.server as pserver
+
+    seen = {"jax": [], "port": []}
+
+    async def jax_seen(self, req):
+        seen["jax"].append(req)
+        raise web.HTTPBadRequest(text="seen")
+
+    async def port_seen(self, req):
+        seen["port"].append(req)
+        raise pserver.HTTPError(400, "seen")
+
+    monkeypatch.setattr(jserver.TTSServer, "_handle_api_v2", jax_seen)
+    monkeypatch.setattr(pserver.TTSServer, "tts_v2", port_seen)
+
+    async def drive(client):
+        base = list(v2_query(assets, media_type="wav").items())
+        statuses = []
+        for aux in ([assets["spk"], assets["prompt"]], [assets["spk"]]):
+            r = await client.get("/tts", params=base + [("aux_ref_audio_paths", p) for p in aux])
+            statuses.append(r.status)
+        return statuses
+
+    jout, pout = both(pair, drive)
+    assert jout == pout == [400, 400]
+    assert seen["port"] == seen["jax"] and len(seen["port"]) == 2
+    assert seen["port"][0]["aux_ref_audio_paths"] == [assets["spk"], assets["prompt"]]
+    assert seen["port"][1]["aux_ref_audio_paths"] == assets["spk"]
+    assert seen["port"][0]["text"] == TEXT
+
+
 def test_api_v2_streaming_mode_and_batch_infer_match_jax(assets, pair):
     """``streaming_mode=1``: a wav header chunk, then raw frames (the whole
     body parses as one wav); ``batch_infer``: the batched call's clips
