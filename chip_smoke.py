@@ -11,7 +11,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card: ``nvidia-smi`` name and power limit;
 2. build: one ``nvcc`` per library, all started together, from
-   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3, K4, K5, K6, and the probes P1-P3);
+   ``gsv_tts_tpu_torch/csrc`` (K1, K2, K3, K4, K5, K6, and the probes P1-P3), and
+   beside them the host DSP library (``csrc/host/gsv_native.cpp``) with the host C++
+   compiler;
 3. kernels, each against its plain PyTorch twin at the flagship t2s widths
    (L=24, D=512, H=16, M=2048, V=1025) in bf16:
    * K1 (whole B=1 decode step) and K2 (whole step for a wave of B slots,
@@ -220,15 +222,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``parallel/launch.py``) runs the engines and the steps at tp=2, dp=2 and pp=2 against
    each rank's single-card results; with one it says so.
 
+15. host library and public surface, on the phase-4 checkpoints: the host DSP library's
+   path and build seconds; ``fx.enhance_audio`` on 10 s of seeded 32 kHz audio and on an
+   ``infer`` clip through the library against its numpy path (``GSV_DISABLE_NATIVE``),
+   within ``ENHANCE_TOL``, both times printed with the card, the envelope follower and
+   Freeverb called on the native run and never on the numpy one;
+   ``infer(return_subtitles=True)`` and ``infer_stream`` at ``top_k=1, noise_scale=0``
+   through the library and through numpy: the same tokens, subtitles, SOLA offsets and
+   audio, the library's Viterbi and SOLA called on the native run and never on the numpy
+   one, K1 launches equal to the decode steps; ``dsp.sola_align`` at the stream's chunk
+   shapes with a known shift of 137 samples, found by both paths; ``ops/stft.mel_spectrogram`` of the clip on the card against ``device="cpu"``
+   (``MEL_CARD_TOL``), ``mel_distance`` of the clip with itself 0 and of the stream's audio
+   with the clip's; the package's four exports; ``clip.play(0.5)`` and
+   ``tts.audio_queue.wait()`` within 2 s (whether an output stream opened); a ``.flac``
+   ``save`` (through ``soundfile``, or its ``ImportError``); ``check_pretrained_models`` on
+   an empty directory: ``False`` with no socket connect.  ``GSV_OFFLINE`` is set to 1 at the
+   start unless the caller set it, so no phase's facade opens a connection.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-kernels' JSON record, phase 10's to 14's readings (``zh readings: {...}``,
+kernels' JSON record, phase 10's to 15's readings (``zh readings: {...}``,
 ``shared readings: {...}``, ``train readings: {...}``, ``serving readings: {...}``,
-``multi readings: {...}``) and the card.  Nothing here imports JAX.
+``multi readings: {...}``, ``host readings: {...}``) and the card.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -4431,10 +4451,258 @@ def two_card_rank(gpt_dir, device_type, xs, ys, berts):
     return {"checks": checks, "readings": readings}
 
 
+# ---------------------------------------------------------------------------
+# 15: the host C++ DSP library and the public surface
+# ---------------------------------------------------------------------------
+
+ENHANCE_TOL = 1e-5  # the enhance chain through the library against its numpy path
+MEL_CARD_TOL = 1e-3  # mean |log-mel| difference, the card's FFT against the CPU's
+
+
+def host_phase(models_dir, gpt, sov, spk, prompt, dev, card):
+    """The host DSP library and the public surface (phase 15): the library's build (in phase
+    2), ``enhance_audio`` through it against its numpy path on 10 s of seeded audio and on an
+    ``infer`` clip, the envelope follower and Freeverb called on the native run only;
+    ``infer(return_subtitles=True)`` and ``infer_stream`` at ``top_k=1, noise_scale=0`` once
+    through the library and once through numpy (``GSV_DISABLE_NATIVE``): the same tokens,
+    subtitles, SOLA offsets and audio, the library's Viterbi and SOLA called on the native run,
+    K1 launches equal to the decode steps; ``sola_align`` at the stream's shapes finding a
+    known shift through both paths; the log-mel metric on the card
+    against the CPU; the package's exports; ``play`` / ``audio_queue.wait``; a non-WAV
+    ``save``; ``check_pretrained_models`` on an empty directory offline, with every socket
+    connect refused.  Returns the launches summed and the phase's readings."""
+    import os
+    import socket
+    import threading
+
+    import numpy as np
+
+    import gsv_tts_tpu_torch
+    from gsv_tts_tpu_torch import dsp, fx
+    from gsv_tts_tpu_torch.download import check_pretrained_models
+    from gsv_tts_tpu_torch.ops import stft
+    from gsv_tts_tpu_torch.utils import cuda_build, native
+
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in launch_counts()}
+    lib = native.native_lib()
+    if lib is None:
+        fail("host phase: native_lib() is None: the host library was not built")
+    info = cuda_build.build_info["gsv_native"]
+    print(f"host phase: host library {info['path']} ({info['seconds']:.2f} s to build in phase "
+          f"2)", flush=True)
+
+    def fx_calls():
+        return {k: lib.calls[k] for k in ("envelope_follow", "freeverb")}
+
+    def enhance_both(audio):
+        """(native ms, numpy ms, largest difference) of ``enhance_audio`` on ``audio``; the
+        native run must call the envelope follower and Freeverb, the numpy run neither."""
+        c0 = fx_calls()
+        t0 = time.perf_counter()
+        a = fx.enhance_audio(audio, 32000)
+        t1 = time.perf_counter()
+        c1 = fx_calls()
+        os.environ["GSV_DISABLE_NATIVE"] = "1"
+        try:
+            b = fx.enhance_audio(audio, 32000)
+        finally:
+            del os.environ["GSV_DISABLE_NATIVE"]
+        t2 = time.perf_counter()
+        c2 = fx_calls()
+        if not all(c1[k] > c0[k] and c2[k] == c1[k] for k in c0):
+            fail(f"host phase: enhance_audio library calls before / after native / after numpy "
+                 f"{c0} / {c1} / {c2}")
+        if not (np.all(np.isfinite(a)) and np.abs(a).max() > 0):
+            fail("host phase: enhance_audio through the library is not finite, or silent")
+        return 1000 * (t1 - t0), 1000 * (t2 - t1), float(np.abs(a - b).max())
+
+    rng = np.random.RandomState(SEED)
+    t = np.arange(10 * 32000) / 32000
+    seeded = (0.4 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+              + 0.05 * rng.randn(t.size)).astype(np.float32)
+    enhance = {"seeded_10s": enhance_both(seeded)}
+
+    tts = gsv_tts_tpu_torch.TTS(gpt_cache=[(1, 512)], models_dir=models_dir, device=dev,
+                                seed=SEED)
+    tts.load_gpt_model(str(gpt))
+    tts.load_sovits_model(str(sov))
+    engine = tts.gpt_models[str(gpt)].engine
+    text = TEXTS[1]
+    runs, sola_shapes = {}, []
+    for label in ("native", "numpy"):
+        tokens, offsets = [], []
+        real_stream, real_sola = engine._generate_stream, dsp.sola_align
+
+        def recording_stream(*a, **kw):
+            last = None
+            for item in real_stream(*a, **kw):
+                last = item
+                yield item
+            tokens.append(np.asarray(last[0]).reshape(-1).copy())
+
+        def recording_sola(*a, **kw):
+            out = real_sola(*a, **kw)
+            offsets.append(out[1])
+            sola_shapes.append((np.asarray(a[0]).size, np.asarray(a[1]).size, a[2]))
+            return out
+
+        engine._generate_stream, dsp.sola_align = recording_stream, recording_sola
+        if label == "numpy":
+            os.environ["GSV_DISABLE_NATIVE"] = "1"
+        calls = dict(lib.calls)
+        reset_counts()
+        try:
+            clip = tts.infer(str(spk), str(prompt), PROMPT_TEXT, text, return_subtitles=True,
+                             top_k=1, noise_scale=0.0)
+            steps = tts.last_timings["decode_steps"]
+            t0 = time.perf_counter()
+            chunks = list(tts.infer_stream(str(spk), str(prompt), PROMPT_TEXT, text,
+                                           is_cut_text=False, top_k=1, noise_scale=0.0))
+            stream_s = time.perf_counter() - t0
+            steps += tts.last_timings["decode_steps"]
+        finally:
+            del engine._generate_stream
+            dsp.sola_align = real_sola
+            os.environ.pop("GSV_DISABLE_NATIVE", None)
+        counts = read_counts()
+        expect_counts(f"host phase: infer + infer_stream through {label} ({steps} steps)",
+                      counts, k1=steps)
+        for name, n in counts.items():
+            total[name] += n
+        calls = {k: lib.calls[k] - calls[k] for k in calls}
+        check_audio(f"host phase: infer ({label})", clip.audio_data, int(0.2 * 32000),
+                    len(tokens[0]) * 1280 + int(0.2 * 32000))
+        stream_audio = np.concatenate([c.audio_data for c in chunks])
+        if len(chunks) < 2 or not np.all(np.isfinite(stream_audio)) or not clip.subtitles:
+            fail(f"host phase: {label}: {len(chunks)} chunks, subtitles {clip.subtitles}")
+        runs[label] = {"tokens": tokens, "offsets": offsets, "audio": clip.audio_data,
+                       "subtitles": clip.subtitles, "stream": stream_audio, "calls": calls,
+                       "chunks": len(chunks), "clip": clip, "stream_s": stream_s}
+        print(f"host phase: infer(return_subtitles=True) and infer_stream through {label}: "
+              f"{len(tokens[0])} + {len(tokens[1])} tokens, {len(clip.subtitles)} subtitles, "
+              f"{len(chunks)} chunks, SOLA offsets {offsets}; library calls {calls}",
+              flush=True)
+    nat, num = runs["native"], runs["numpy"]
+    if nat["calls"]["viterbi_monotonic"] == 0 or nat["calls"]["sola_offset"] == 0:
+        fail(f"host phase: the native run called the library {nat['calls']}")
+    if any(num["calls"].values()):
+        fail(f"host phase: the numpy run called the library {num['calls']}")
+    same = (len(nat["tokens"]) == len(num["tokens"]) == 2
+            and all(np.array_equal(a, b) for a, b in zip(nat["tokens"], num["tokens"]))
+            and nat["offsets"] == num["offsets"] and nat["subtitles"] == num["subtitles"]
+            and np.array_equal(nat["audio"], num["audio"])
+            and np.array_equal(nat["stream"], num["stream"]))
+    if not same:
+        fail("host phase: the native and numpy runs differ: tokens "
+             f"{[len(a) for a in nat['tokens']]} / {[len(a) for a in num['tokens']]}, SOLA "
+             f"offsets {nat['offsets']} / {num['offsets']}, subtitles equal "
+             f"{nat['subtitles'] == num['subtitles']}")
+    # the stream's offsets are all 0 on random weights: a known shift at its chunk's shapes
+    if not sola_shapes:
+        fail("host phase: the stream made no SOLA call")
+    n_tail, n_chunk, overlap = sola_shapes[0]
+    shift = 137
+    chunk = (0.3 * np.random.RandomState(SEED + 1).randn(n_chunk)).astype(np.float32)
+    tail = chunk[shift:shift + n_tail].copy()
+    c0 = lib.calls["sola_offset"]
+    sola_nat = dsp.sola_align(tail, chunk, overlap)
+    c1 = lib.calls["sola_offset"]
+    os.environ["GSV_DISABLE_NATIVE"] = "1"
+    try:
+        sola_num = dsp.sola_align(tail, chunk, overlap)
+    finally:
+        del os.environ["GSV_DISABLE_NATIVE"]
+    if not (c1 == c0 + 1 and lib.calls["sola_offset"] == c1 and sola_nat[1] == sola_num[1] == shift
+            and np.array_equal(sola_nat[0], sola_num[0])):
+        fail(f"host phase: sola_align with a shift of {shift} at the stream's shapes "
+             f"{sola_shapes[0]}: native {sola_nat[1]}, numpy {sola_num[1]}, library calls "
+             f"{c1 - c0} / {lib.calls['sola_offset'] - c1}")
+    print(f"host phase: sola_align at the stream's shapes (tail {n_tail}, chunk {n_chunk}, "
+          f"overlap {overlap}) finds the shift of {shift} through the library and numpy alike",
+          flush=True)
+    infer_audio = nat["audio"]
+    enhance["infer_clip"] = enhance_both(infer_audio)
+    for what, (n_ms, p_ms, err) in enhance.items():
+        if not err <= ENHANCE_TOL:
+            fail(f"host phase: enhance_audio on {what}: native and numpy differ by {err:.3e}")
+    print("host phase: enhance_audio, native against numpy: " + "; ".join(
+        f"{what} ({len(seeded) if what == 'seeded_10s' else len(infer_audio)} samples) "
+        f"{n_ms:.1f} ms against {p_ms:.1f} ms, largest difference {err:.3e}"
+        for what, (n_ms, p_ms, err) in enhance.items()) + f" [{card}]", flush=True)
+
+    # the log-mel metric: the spectrogram on the card against the CPU's
+    t0 = time.perf_counter()
+    mel_card = stft.mel_spectrogram(infer_audio)
+    mel_card_ms = 1000 * (time.perf_counter() - t0)
+    mel_cpu = stft.mel_spectrogram(infer_audio, device="cpu")
+    mel_diff = float(np.mean(np.abs(mel_card - mel_cpu)))
+    self_dist = stft.mel_distance(infer_audio, infer_audio)
+    stream_dist = stft.mel_distance(nat["stream"], infer_audio)
+    if not (mel_card.shape == mel_cpu.shape and mel_diff <= MEL_CARD_TOL and self_dist == 0.0):
+        fail(f"host phase: mel_spectrogram on the card against the CPU: mean difference "
+             f"{mel_diff}, shapes {mel_card.shape} / {mel_cpu.shape}, self distance {self_dist}")
+    print(f"host phase: mel_spectrogram of the infer clip {mel_card.shape} on the card in "
+          f"{mel_card_ms:.1f} ms, mean |difference| from the CPU's {mel_diff:.3e}; mel_distance "
+          f"(clip, clip) {self_dist}, (stream, infer) {stream_dist:.4f}", flush=True)
+
+    # the public surface
+    from gsv_tts_tpu_torch import AudioClip, TTS, WaveOverloadedError, cut_text
+
+    if not (isinstance(nat["clip"], AudioClip) and TTS is type(tts) and cut_text(text)
+            and issubclass(WaveOverloadedError, RuntimeError)):
+        fail("host phase: the package's exports")
+    clip = nat["clip"]
+    t0 = time.perf_counter()
+    clip.play(0.5)
+    done = threading.Event()
+    waiter = threading.Thread(target=lambda: (tts.audio_queue.wait(), done.set()), daemon=True)
+    waiter.start()
+    if not done.wait(2.0):
+        fail("host phase: audio_queue.wait() did not return within 2 s")
+    play_s = time.perf_counter() - t0
+    opened = tts.audio_queue.stream is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            clip.save(str(Path(tmp) / "clip.flac"))
+            saved = f"written through soundfile ({(Path(tmp) / 'clip.flac').stat().st_size} B)"
+        except ImportError as e:
+            saved = f"ImportError ({e})"
+        connects = []
+        real_connect = socket.socket.connect
+
+        def refuse(sock, addr):
+            connects.append(addr)
+            raise OSError("the smoke opens no connection")
+
+        socket.socket.connect = refuse
+        try:
+            present = check_pretrained_models(Path(tmp) / "empty")
+        finally:
+            socket.socket.connect = real_connect
+    if present is not False or connects:
+        fail(f"host phase: check_pretrained_models on an empty directory gave {present}, "
+             f"connects {connects}")
+    print(f"host phase: exports TTS, AudioClip, cut_text, WaveOverloadedError; play(0.5) and "
+          f"audio_queue.wait() in {play_s:.3f} s (an output stream opened: {opened}); a .flac "
+          f"save: {saved}; check_pretrained_models(empty dir) with GSV_OFFLINE="
+          f"{os.environ.get('GSV_OFFLINE')!r}: {present}, no connection; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    readings = {"build_s": info["seconds"], "library": info["path"],
+                "enhance_ms": {k: {"native": v[0], "numpy": v[1], "max_abs_diff": v[2]}
+                               for k, v in enhance.items()},
+                "native_calls": nat["calls"], "tokens": [len(a) for a in nat["tokens"]],
+                "sola_offsets": nat["offsets"], "subtitles": len(nat["subtitles"]),
+                "mel_card_vs_cpu": mel_diff, "mel_stream_vs_infer": stream_dist,
+                "stream_opened": opened, "flac_save": saved.split(" (")[0],
+                "phase_s": time.perf_counter() - t_phase}
+    return total, readings
+
+
 def main_path_phase(dev, card):
     """Drives ``infer``, ``infer_batched``, the engine under ``"flash"`` and ``"fused"``, the
-    K5 loop, ``infer_stream`` and phases 6-14; returns the launches summed over the drives
-    (counts are zeroed before each drive and read after it) and phases 10's to 14's
+    K5 loop, ``infer_stream`` and phases 6-15; returns the launches summed over the drives
+    (counts are zeroed before each drive and read after it) and phases 10's to 15's
     readings."""
     from gsv_tts_tpu_torch import TTS
     from gsv_tts_tpu_torch.ops.fused_step import MAX_FUSED_B
@@ -4498,7 +4766,9 @@ def main_path_phase(dev, card):
         add(counts)
         counts, multi = multi_phase(tmp, gpt, sov, spk, prompt, dev, card)
         add(counts)
-    return total, zh, shared, train, serving, multi
+        counts, host = host_phase(tmp, gpt, sov, spk, prompt, dev, card)
+        add(counts)
+    return total, zh, shared, train, serving, multi, host
 
 
 # what lies between a persistent kernel's clock marks, layer by layer: K1 hands over through
@@ -4993,10 +5263,13 @@ def main():
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the facade fetches missing pretrained assets unless this is set: the smoke opens no
+    # connection
+    os.environ.setdefault("GSV_OFFLINE", "1")
 
     from gsv_tts_tpu_torch import tools
     from gsv_tts_tpu_torch.ops import flash_decode, flash_prefill, fused_layer, fused_step
-    from gsv_tts_tpu_torch.utils import cuda_build
+    from gsv_tts_tpu_torch.utils import cuda_build, native
 
     profiling = "--profile" in sys.argv[1:]
     if profiling:  # the persistent kernels leave their clock marks (phase_trace reads them)
@@ -5006,14 +5279,19 @@ def main():
                  flash_prefill.LIBRARY, fused_step.K5_LIBRARY, fused_layer.LIBRARY,
                  tools.PROBES_LIBRARY]
     cuda_build.load_libraries(libraries)
+    # the host DSP library (phase 15) with the host compiler
+    if native.native_lib() is None:
+        fail("the host library was not built: no C++ compiler ($CXX, c++ or g++)")
     for bind in (fused_step.load_kernels, fused_step.load_batched_kernels,
                  flash_decode.load_kernels, flash_prefill.load_kernels,
                  fused_step.load_layers_kernels, fused_layer.load_kernels, tools.load_kernels):
         bind()
-    print(f"build: {len(libraries)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name, _ in libraries:
+    print(f"build: {len(libraries)} libraries and the host library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, _ in libraries + [native.LIBRARY]:
         info = cuda_build.build_info[name]
-        print(f"  {info['path']} (nvcc {info['seconds']:.1f} s)", flush=True)
+        tool = "host compiler" if name == native.LIBRARY[0] else "nvcc"
+        print(f"  {info['path']} ({tool} {info['seconds']:.1f} s)", flush=True)
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"    ptxas: {line.strip()}", flush=True)
@@ -5035,12 +5313,13 @@ def main():
     quant = quant_kernel_phase(bench)
     del bench
     torch.cuda.empty_cache()
-    launches, zh, shared, train, serving, multi = main_path_phase(dev, card)
+    launches, zh, shared, train, serving, multi, host = main_path_phase(dev, card)
     print("zh readings: " + json.dumps(zh), flush=True)
     print("shared readings: " + json.dumps(shared), flush=True)
     print("train readings: " + json.dumps(train), flush=True)
     print("serving readings: " + json.dumps(serving), flush=True)
     print("multi readings: " + json.dumps(multi), flush=True)
+    print("host readings: " + json.dumps(host), flush=True)
     torch.cuda.empty_cache()
     probe_launches, probe_records = probes_phase(dev)
     launches.update(probe_launches)

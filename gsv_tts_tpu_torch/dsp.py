@@ -1,12 +1,15 @@
 """Host-side DSP of the facade (counterpart of ``gsv_tts_tpu/dsp.py``): SOLA
 chunk stitching for the streaming mode, the RMS-threshold silence trims and
-the subtitles' monotonic Viterbi alignment, in numpy (the JAX package's
-optional native Viterbi, ``utils/native.py``, is not ported)."""
+the subtitles' monotonic Viterbi alignment.  The SOLA offset search and the
+Viterbi run in the host C++ library (``utils/native.py``, built at first
+use) where JAX's do, and in numpy when it is off or cannot be built."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+from .utils.native import native_lib
 
 
 def sola_align(f1_overlap: np.ndarray, f2: np.ndarray, overlap_len: int,
@@ -21,7 +24,10 @@ def sola_align(f1_overlap: np.ndarray, f2: np.ndarray, overlap_len: int,
     f1 = np.asarray(f1_overlap, np.float32).reshape(-1)
     f2 = np.asarray(f2, np.float32).reshape(-1)
     key = f2[: overlap_len + search_len]
-    if len(key) < overlap_len:
+    lib = native_lib()
+    if lib is not None:
+        offset = lib.sola_offset(f1, key, overlap_len)
+    elif len(key) < overlap_len:
         offset = 0
     else:
         windows = np.lib.stride_tricks.sliding_window_view(key, overlap_len)
@@ -87,20 +93,24 @@ def viterbi_monotonic(attn: np.ndarray) -> np.ndarray:
     zeros = np.nonzero(normal.argmax(axis=-1) == 0)[0]
     first_zero = int(zeros[0]) if zeros.size else 0
 
-    dp = np.zeros((T, N), np.float32)
-    ptr = np.zeros((T, N), np.int64)
-    dp[0] = normal[0]
-    rng = np.arange(N)
-    for t in range(1, T):
-        prev = dp[t - 1]
-        shifted = np.concatenate([[-np.inf], prev[:-1]])
-        take_shift = shifted > prev
-        dp[t] = normal[t] + np.where(take_shift, shifted, prev)
-        ptr[t] = rng - take_shift.astype(np.int64)
-    path = np.zeros(T, np.int64)
-    path[-1] = int(dp[-1].argmax())
-    for t in range(T - 2, -1, -1):
-        path[t] = ptr[t + 1, path[t + 1]]
+    lib = native_lib()
+    if lib is not None:
+        path = lib.viterbi_monotonic(normal)
+    else:
+        dp = np.zeros((T, N), np.float32)
+        ptr = np.zeros((T, N), np.int64)
+        dp[0] = normal[0]
+        rng = np.arange(N)
+        for t in range(1, T):
+            prev = dp[t - 1]
+            shifted = np.concatenate([[-np.inf], prev[:-1]])
+            take_shift = shifted > prev
+            dp[t] = normal[t] + np.where(take_shift, shifted, prev)
+            ptr[t] = rng - take_shift.astype(np.int64)
+        path = np.zeros(T, np.int64)
+        path[-1] = int(dp[-1].argmax())
+        for t in range(T - 2, -1, -1):
+            path[t] = ptr[t + 1, path[t + 1]]
     path[:first_zero] = -1
     return path
 

@@ -13,7 +13,13 @@ SYMBOLS_JSON = os.path.join(
 with open(SYMBOLS_JSON, encoding="utf-8") as _f:
     _data = json.load(_f)
 
-symbols: List[str] = list(_data["symbols"])
+
+
+def get_symbols() -> List[str]:
+    return list(_data["symbols"])
+
+
+symbols: List[str] = get_symbols()
 punctuation: List[str] = list(_data["punctuation"])
 symbol_to_id: Dict[str, int] = {s: i for i, s in enumerate(symbols)}
 symbol_set = frozenset(symbols)

@@ -1,6 +1,7 @@
 """Host-side audio post-FX ("enhance") chain (counterpart of
-``gsv_tts_tpu/fx.py``, its numpy path: the optional native DSP library is not
-ported, so the envelope follower and the reverb always run in numpy).
+``gsv_tts_tpu/fx.py``).  The compressor's envelope follower and the reverb's
+Freeverb wet path run in the host C++ library (``utils/native.py``, built at
+first use) where JAX's do, and in numpy when it is off or cannot be built.
 
 Native re-implementation of the reference WebUI's pedalboard/pyloudnorm
 enhancement (``WebUI/web.py:40-74``): 80 Hz high-pass, +2.5 dB presence peak
@@ -10,8 +11,8 @@ to -18 LUFS.
 
 Implemented with RBJ-cookbook biquads, exact Freeverb-style comb/allpass
 sections expressed as rational transfer functions for ``scipy.signal.lfilter``
-(no per-sample Python loops), an attack/release envelope follower, and
-ITU-R BS.1770-4 gated loudness measurement (the pyloudnorm algorithm).
+(no per-sample Python loops) for the numpy path, an attack/release envelope
+follower, and ITU-R BS.1770-4 gated loudness measurement (the pyloudnorm algorithm).
 
 Everything here is float32-in/float32-out mono at an arbitrary sample rate.
 """
@@ -85,7 +86,14 @@ def compressor(x: np.ndarray, sr: float, threshold_db: float = -18.0,
     x = np.asarray(x, np.float32)
     att = math.exp(-1.0 / (sr * attack_ms / 1000.0))
     rel = math.exp(-1.0 / (sr * release_ms / 1000.0))
-    env = _envelope_numpy(np.abs(x), att, rel)
+    level = np.abs(x)
+    from .utils.native import native_lib
+
+    lib = native_lib()
+    if lib is not None:
+        env = lib.envelope_follow(level, att, rel)
+    else:
+        env = _envelope_numpy(level, att, rel)
     level_db = 20.0 * np.log10(np.maximum(env, 1e-9))
     over = np.maximum(level_db - threshold_db, 0.0)
     gain_db = -over * (1.0 - 1.0 / ratio)
@@ -143,12 +151,18 @@ def reverb(x: np.ndarray, sr: float, room_size: float = 0.1,
     ap_delays = [max(1, int(round(d * scale))) for d in _ALLPASS_TUNINGS]
     wet_gain = 0.5 * (wet * 3.0) * (1.0 + width)
     dry_gain = dry * 2.0
-    wet_sig = np.zeros(len(x), np.float64)
-    for d in comb_delays:
-        wet_sig += _comb_damped(x, d, feedback, damp)
-    wet_sig *= 0.015  # freeverb fixed input gain
-    for d in ap_delays:
-        wet_sig = _allpass(wet_sig, d)
+    from .utils.native import native_lib
+
+    lib = native_lib()
+    if lib is not None:
+        wet_sig = lib.freeverb(x, comb_delays, ap_delays, feedback, damp)
+    else:
+        wet_sig = np.zeros(len(x), np.float64)
+        for d in comb_delays:
+            wet_sig += _comb_damped(x, d, feedback, damp)
+        wet_sig *= 0.015  # freeverb fixed input gain
+        for d in ap_delays:
+            wet_sig = _allpass(wet_sig, d)
     return (dry_gain * x + wet_gain * wet_sig).astype(np.float32)
 
 

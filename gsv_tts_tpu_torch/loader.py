@@ -65,6 +65,11 @@ class Gpt:
         self.cfg = cfg
         self.config = config
 
+    # the JAX package's alias: reference code calls gpt.t2s_model.infer(...)
+    @property
+    def t2s_model(self) -> T2SEngine:
+        return self.engine
+
 
 class Sovits:
     """Loaded stage-2 model."""

@@ -266,13 +266,17 @@ def resblock1(p, pfx, x, kernel_size: int, dilations: Tuple[int, ...]):
     return x
 
 
-def generator(p, cfg: SovitsConfig, x, g=None):
-    """HiFi-GAN vocoder (``models.py:68-128``): [B, inter, T] → [B, 1, T·Π(u)]."""
+def generator(p, cfg: SovitsConfig, x, g=None, n_stages: Optional[int] = None):
+    """HiFi-GAN vocoder (``models.py:68-128``): [B, inter, T] → [B, 1, T·Π(u)].
+    ``n_stages`` stops after that many upsampling stages and returns the
+    intermediate (for attributing time; it is not audio)."""
     x = conv1d(x, p["dec.conv_pre.weight"], p["dec.conv_pre.bias"], padding=3)
     if g is not None:
         x = x + conv1d(g, p["dec.cond.weight"], p["dec.cond.bias"])
     nk = len(cfg.resblock_kernel_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        if n_stages is not None and i >= n_stages:
+            return x
         x = leaky_relu(x, LRELU_SLOPE)
         x = conv_transpose1d(x, p[f"dec.ups.{i}.weight"], p[f"dec.ups.{i}.bias"],
                              stride=u, padding=(k - u) // 2)
@@ -576,15 +580,15 @@ def params_from_torch_state_dict(state_dict: Dict[str, Any], dtype=F32,
 
 
 def init_params(cfg: SovitsConfig, generator: torch.Generator, dtype=F32,
-                device="cpu") -> Dict[str, torch.Tensor]:
+                device="cpu", scale: float = 0.05) -> Dict[str, torch.Tensor]:
     """Random inference parameters with the reference keys and shapes (the
-    JAX ``init_params`` layout, N(0, 0.05) weights; v2Pro / v2ProPlus add
+    JAX ``init_params`` layout, N(0, ``scale``) weights; v2Pro / v2ProPlus add
     ``sv_emb``, ``ge_to512`` and ``prelu``), drawn on the CPU from
     ``generator``."""
     p: Dict[str, torch.Tensor] = {}
 
     def nrm(*shape):
-        return torch.randn(shape, generator=generator) * 0.05
+        return torch.randn(shape, generator=generator) * scale
 
     def conv(name, out_c, in_c, k, bias=True):
         p[name + ".weight"] = nrm(out_c, in_c, k)

@@ -1,8 +1,10 @@
-"""Linear spectrogram, mel filterbank and polyphase resampling (counterpart
-of ``gsv_tts_tpu/ops/stft.py``): torchaudio ``Spectrogram(center=True,
-pad_mode='reflect', power=1)`` semantics, the slaney mel filterbank of the
-SoVITS mel loss, and torchaudio-compatible windowed-sinc ``Resample`` (host
-numpy)."""
+"""Linear spectrogram, mel filterbank, the log-mel parity metric and
+polyphase resampling (counterpart of ``gsv_tts_tpu/ops/stft.py``):
+torchaudio ``Spectrogram(center=True, pad_mode='reflect', power=1)``
+semantics, the slaney mel filterbank of the SoVITS mel loss,
+``mel_spectrogram`` / ``mel_distance`` (numpy in and out, the spectrogram on
+the card unless ``device="cpu"``), and torchaudio-compatible windowed-sinc
+``Resample`` (host numpy)."""
 from __future__ import annotations
 
 import math
@@ -14,16 +16,19 @@ import torch
 
 
 def spectrogram(audio: torch.Tensor, n_fft: int, hop_length: int,
-                win_length: int) -> torch.Tensor:
-    """Magnitude STFT.  audio [B, T] → [B, n_fft//2+1, frames], float32.
-    Differentiable: the gradient of ``abs`` is zero at a zero bin, as JAX's
-    ``jnp.abs`` of a complex zero gives it."""
+                win_length: int, power: float = 1.0) -> torch.Tensor:
+    """Magnitude STFT raised to ``power``.  audio [B, T] → [B, n_fft//2+1,
+    frames], float32.  Differentiable: the gradient of ``abs`` is zero at a
+    zero bin, as JAX's ``jnp.abs`` of a complex zero gives it."""
     window = torch.hann_window(win_length, periodic=True, dtype=torch.float32,
                                device=audio.device)
     spec = torch.stft(audio.float(), n_fft, hop_length=hop_length,
                       win_length=win_length, window=window, center=True,
                       pad_mode="reflect", return_complex=True)
-    return spec.abs()
+    mag = spec.abs()
+    if power != 1.0:
+        mag = mag ** power
+    return mag
 
 
 def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
@@ -57,6 +62,28 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         fb[i] = np.maximum(0, np.minimum(up, down))
         fb[i] *= 2.0 / (hi - lo)  # slaney area normalization
     return fb.astype(np.float32)
+
+
+def mel_spectrogram(audio: np.ndarray, sr: int = 32000, n_fft: int = 2048,
+                    hop_length: int = 640, win_length: int = 2048, n_mels: int = 128,
+                    fmin: float = 0.0, fmax: Optional[float] = None,
+                    device=None) -> np.ndarray:
+    """Log-mel of the mel-parity metric: audio [T] numpy → [n_mels, frames]
+    numpy.  The spectrogram runs on ``device`` (the card unless ``"cpu"``),
+    the filterbank product on the host."""
+    x = torch.as_tensor(np.asarray(audio, np.float32)[None], device=device or "cuda")
+    spec = spectrogram(x, n_fft, hop_length, win_length)[0].cpu().numpy()
+    mel = mel_filterbank(sr, n_fft, n_mels, fmin, fmax) @ spec
+    return np.log(np.clip(mel, 1e-5, None))
+
+
+def mel_distance(a: np.ndarray, b: np.ndarray, sr: int = 32000, device=None) -> float:
+    """Mean absolute log-mel distance between two waveforms, truncated to the
+    shorter one (the JAX package's audio-parity metric)."""
+    n = min(len(a), len(b))
+    ma = mel_spectrogram(np.asarray(a[:n], np.float32), sr, device=device)
+    mb = mel_spectrogram(np.asarray(b[:n], np.float32), sr, device=device)
+    return float(np.mean(np.abs(ma - mb)))
 
 
 @lru_cache(maxsize=32)

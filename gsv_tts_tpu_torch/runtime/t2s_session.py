@@ -32,7 +32,7 @@ twins on the CPU), as in the JAX engine:
 The per-slot counters (``kv_len``, ``x_len``, ``buf_len``, ``last_tok``,
 ``step_idx``) are ``[B]`` int32 tensors on the device; the kernels read
 their own slot's entries and nothing is read back per step.  The host reads
-tokens and ``kv_len`` once per chunk of ``CHECK_INTERVAL`` steps, mirroring
+tokens and ``kv_len`` once per chunk of ``check_interval`` steps, mirroring
 the reference's 5-step EOS readback; K1, whose scalars are host ints, takes
 them from one readback at the start of its chunk.
 
@@ -76,8 +76,8 @@ from ..ops.fused_step import (MAX_FUSED_B, QUANT_KEYS, K1Table, fused_decode_ste
 from ..parallel import mesh as pmesh
 
 PAD_MULTIPLE = 32
-CHECK_INTERVAL = 5  # decode steps per dispatch: the host checks EOS this often
-INITIAL_SUPPRESSION_STEPS = 10  # steps during which 280, 486 and EOS are barred
+CHECK_INTERVAL = 5  # default decode steps per dispatch: the host checks EOS this often
+INITIAL_SUPPRESSION_STEPS = 10  # default steps during which 280, 486 and EOS are barred
 I32 = torch.int32
 #: the engine's quantized whole-step names and the weight stream each takes
 QUANT_IMPLS = {"fused_step_q8": "int8", "fused_step_q4": "int4"}
@@ -471,12 +471,17 @@ class T2SEngine:
     ``infer_stream`` / ``infer_batched``, ``t2s_model.py:385-734``)."""
 
     def __init__(self, params, cfg: T2SConfig, gpt_cache: Sequence[Tuple[int, int]],
-                 dtype=torch.float32, attn_impl: str = "fused_step"):
+                 dtype=torch.float32, check_interval: int = CHECK_INTERVAL,
+                 initial_suppression_steps: int = INITIAL_SUPPRESSION_STEPS,
+                 attn_impl: str = "fused_step"):
         self.params = params
         self.cfg = cfg
         self.attn_impl = resolve_attn_impl(attn_impl)
         self.dtype = dtype
-        self.check_interval = CHECK_INTERVAL
+        #: decode steps a dispatch (the host checks EOS this often) and the B=1
+        #: steps during which 280, 486 and EOS are barred
+        self.check_interval = check_interval
+        self.initial_suppression_steps = initial_suppression_steps
         self.device = params["predict_w"].device
         #: host wall times of the last generation (each ends in a readback)
         self.last_stats: Dict[str, float] = {}
@@ -843,7 +848,8 @@ class T2SEngine:
             n = min(self.check_interval, cur_S - kv)
             state, toks = decode_chunk(self.params, cfg, state, n, sa,
                                        self._noise(generator, n, 1, V),
-                                       INITIAL_SUPPRESSION_STEPS, self.dtype, self.attn_impl)
+                                       self.initial_suppression_steps, self.dtype,
+                                       self.attn_impl)
             toks = toks.cpu().numpy()[0]
             steps += n
             kv += n

@@ -995,6 +995,9 @@ def main(argv=None):
         tts.load_gpt_model(args.gpt)
     if args.sovits:
         tts.load_sovits_model(args.sovits)
+    from ..utils.native import native_lib
+
+    native_lib()  # the host DSP library builds now, not on the first stream or subtitle request
     from .asr import make_asr_fn
 
     voices = None

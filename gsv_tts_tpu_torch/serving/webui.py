@@ -362,6 +362,9 @@ def main(argv=None):
         tts.load_gpt_model(args.gpt)
     if args.sovits:
         tts.load_sovits_model(args.sovits)
+    from ..utils.native import native_lib
+
+    native_lib()  # the host DSP library builds now, not on the first enhance or stream request
     app = create_webui_app(tts)
     # mount the REST API under the same server
     app.add_subapp("/api/", create_app(tts))

@@ -59,7 +59,7 @@ from .loader import (Gpt, Sovits, get_gpt_weights, get_sovits_weights, gpt_to_sa
                      resolve_t2s_attn_impl, sovits_to_safetensors)
 from .models import sovits as sovits_model
 from .ops import stft
-from .player import AudioClip
+from .player import AudioClip, AudioQueue
 from .runtime.t2s_session import _round_up
 from .runtime.vocoder_batch import stream_batch_fused
 from .utils.audio_io import load_audio, save_wav
@@ -410,8 +410,12 @@ class TTS:
 
     Chinese text takes BERT features from ``models_dir/
     chinese-roberta-wwm-ext-large`` (``use_bert``: loaded now; else, with
-    ``auto_bert``, on the first text with Han characters; without the
-    directory, zero features and a warning: nothing is downloaded);
+    ``auto_bert``, on the first text with Han characters; a missing
+    directory is downloaded unless ``GSV_OFFLINE`` is set, else zero
+    features and a warning); a ``models_dir`` without the HuBERT, G2P and
+    speaker-verification bundle is filled the same way
+    (``download.check_pretrained_models``).  Every returned clip carries
+    ``audio_queue``, the facade's playback queue (``AudioClip.play``);
     ``quant_bert`` runs its linear layers in int8, ``featurizer_buckets``
     pads the BERT and HuBERT inputs to a ladder of shapes, and
     ``use_jieba_fast`` has the Chinese G2P segment with ``jieba_fast`` when
@@ -451,6 +455,15 @@ class TTS:
             global_config.models_dir = self.models_dir
         if global_config.use_jieba_fast is None:
             global_config.use_jieba_fast = use_jieba_fast
+        from .download import check_pretrained_models
+
+        try:
+            check_pretrained_models(self.models_dir)
+        except (ImportError, OSError) as exc:
+            # the mirror probe runs outside the download manager's own guard: a host
+            # without ``requests`` (or without a route out) keeps the local assets
+            logger.warning("Missing pretrained assets in %s cannot be fetched (%s); features "
+                           "depending on them will be gated.", self.models_dir, exc)
         self.device = self.tts_config.device
         self.generator = torch.Generator(device=self.device)
         if seed is None:
@@ -495,6 +508,8 @@ class TTS:
         self.punctuation = tuple(pause_map.keys())
         self.samplerate = 32000
         self.sovits_hz = 50
+        #: the playback queue every returned clip carries (``AudioClip.play``)
+        self.audio_queue = AudioQueue(self.samplerate)
         #: stage wall times (s) and decode counts of the last ``infer``,
         #: ``infer_batched`` or ``infer_stream`` (``ttfa_s``: time to the
         #: first audio chunk; ``sovits_graphs`` / ``sovits_replays``: CUDA
@@ -736,7 +751,7 @@ class TTS:
         if max_audio > 1:
             audio = audio / max_audio
         audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
-        return AudioClip(audio.astype(np.float32), self.samplerate,
+        return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, subtitles, text)
 
     def get_timings(self) -> Dict[str, Dict[str, float]]:
@@ -757,7 +772,12 @@ class TTS:
         zh G2P only drops the prefix).  A longer first request still captures
         its own buckets.  ``stream=True`` also runs one ``stream_shared`` of
         the text (its scheduler, chunk graphs and vocoder batcher).  Returns
-        wall seconds by phase (``infer_s``, ``stream_s``, ``total_s``)."""
+        wall seconds by phase (``infer_s``, ``stream_s``, ``total_s``).  The
+        host DSP library (``utils/native.py``) is built here too, so the first
+        stream or subtitle request does not compile it."""
+        from .utils.native import native_lib
+
+        native_lib()
         if text is None:
             text = "warm up, testing one two three."
             if self.cnroberta_path.exists():
@@ -887,7 +907,7 @@ class TTS:
                     self.last_timings["ttfa_s"] = time.perf_counter() - t_start
                     self.timings.record("ttfa_s", self.last_timings["ttfa_s"])
                 self.last_timings.update(gpt.engine.last_stats, **self._graph_counts(graphs))
-                yield AudioClip(audio, self.samplerate, audio_len_s, new_subtitles, text)
+                yield AudioClip(self.audio_queue, audio, self.samplerate, audio_len_s, new_subtitles, text)
         if debug:
             logger.info("Stream inference complete. Generated %.2fs of audio.", audio_len_s)
 
@@ -1099,7 +1119,7 @@ class TTS:
         for audio_list, subs_list, orig_text in zip(final_audios, final_subs, orig_texts):
             audio = np.concatenate(audio_list)
             subs = self._cat_subtitles(*subs_list) if (return_subtitles and subs_list) else []
-            result.append(AudioClip(audio.astype(np.float32), self.samplerate,
+            result.append(AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
                                     len(audio) / self.samplerate, subs, orig_text))
         return tuple(result)
 
@@ -1146,7 +1166,7 @@ class TTS:
 
         def clip(oi: int, audio: np.ndarray, subtitles) -> AudioClip:
             audio_len_s[oi] += len(audio) / self.samplerate
-            return AudioClip(audio, self.samplerate, audio_len_s[oi], subtitles, orig_texts[oi])
+            return AudioClip(self.audio_queue, audio, self.samplerate, audio_len_s[oi], subtitles, orig_texts[oi])
 
         # the requests gain tokens in step, so their chunks come due on the same
         # decode chunk: take the engine's events a chunk at a time, plan every
@@ -1319,7 +1339,7 @@ class TTS:
                             if first_yield:
                                 self.timings.record("ttfa_s", time.perf_counter() - t_start)
                                 first_yield = False
-                            yield AudioClip(audio, self.samplerate, audio_len_s, subs, text)
+                            yield AudioClip(self.audio_queue, audio, self.samplerate, audio_len_s, subs, text)
                 finally:
                     if not handle.done:
                         handle.cancel()
@@ -1359,7 +1379,7 @@ class TTS:
         if max_audio > 1:
             audio = audio / max_audio
         audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
-        return AudioClip(audio.astype(np.float32), self.samplerate,
+        return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, subtitles, prompt_audio_text)
 
     @_on_card
@@ -1806,15 +1826,25 @@ class TTS:
 
     def _load_bert(self):
         """Load the BERT featurizer from ``cnroberta_path`` into the config
-        the frontend reads.  A missing file gives zero BERT features and a
-        warning, once: the JAX package tries a download first, this package
-        never downloads."""
+        the frontend reads.  A missing directory is fetched first
+        (``download.download_bert``, unless ``GSV_OFFLINE`` is set); if it is
+        still missing, zero BERT features and a warning, once."""
         from .models.roberta import CNRoberta
 
         try:
             self.tts_config.cnroberta = CNRoberta(self.cnroberta_path, self.tts_config)
             logger.info("BERT model loaded for Chinese text")
         except FileNotFoundError:
+            from .download import download_bert
+
+            if download_bert(self.models_dir):
+                try:
+                    self.tts_config.cnroberta = CNRoberta(self.cnroberta_path, self.tts_config)
+                    self._bert_loaded = True
+                    logger.info("BERT model downloaded and loaded")
+                    return
+                except FileNotFoundError:
+                    pass
             logger.warning("BERT model files not found; Chinese synthesis will use zero BERT "
                            "features")
         self._bert_loaded = True  # not retried on every call

@@ -44,16 +44,19 @@ def test_every_port_module_imports_without_jax_or_the_tpu_package():
 
 
 
-# the card's host has no aiohttp, aiortc, av or soundfile either: every module of the port
-# but the router (pure HTTP, a verbatim copy of JAX's) imports without them, so the smoke
-# can drive the serving layer's route methods there
+# the card's host has no aiohttp, aiortc, av, soundfile, sounddevice, requests or tqdm
+# either: every module of the port but the router (pure HTTP, a verbatim copy of JAX's)
+# imports without them, so the smoke can drive the serving layer's route methods, playback
+# and the download manager's offline path there
 GUARD_SERVING = GUARD.replace(
-    '"gsv_tts_tpu", "tools")', '"gsv_tts_tpu", "tools", "aiohttp", "aiortc", "av", "soundfile")'
+    '"gsv_tts_tpu", "tools")', '"gsv_tts_tpu", "tools", "aiohttp", "aiortc", "av", "soundfile", '
+    '"sounddevice", "requests", "tqdm")'
 ).replace("for name in names:", "for name in set(names) - {'gsv_tts_tpu_torch.serving.router'}:")
 
 
 def test_every_port_module_but_the_router_imports_without_aiohttp():
-    assert '"aiohttp", "aiortc", "av", "soundfile")' in GUARD_SERVING
+    assert '"aiohttp", "aiortc", "av", "soundfile", "sounddevice", "requests", "tqdm")' in \
+        GUARD_SERVING
     assert "- {'gsv_tts_tpu_torch.serving.router'}" in GUARD_SERVING
     r = subprocess.run([sys.executable, "-c", GUARD_SERVING], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -64,6 +67,7 @@ def test_every_port_module_but_the_router_imports_without_aiohttp():
     assert serving == {"__init__", "asr", "batcher", "fleet", "openai_compat", "realtime",
                        "router", "server", "webui"}
     assert int(count) >= 50 and (ROOT / "gsv_tts_tpu_torch" / "fx.py").is_file()
+    assert {"player", "download"} <= {p.stem for p in (ROOT / "gsv_tts_tpu_torch").glob("*.py")}
 
 
 # the multi-device modules run, not only import, with JAX refused: a world of one rank

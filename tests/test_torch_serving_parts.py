@@ -52,15 +52,10 @@ def v2_query(assets, **kw):
 
 # -- fx ------------------------------------------------------------------------------
 
-def test_fx_matches_jax_numpy_path(monkeypatch):
-    """Each stage of the enhance chain and the whole chain equal JAX's numpy
-    path (its optional native library patched out) sample for sample, on
-    seeded speech-like audio at 32 kHz and on a short clip at 16 kHz."""
-    import gsv_tts_tpu.utils.native as jnative
-    from gsv_tts_tpu import fx as jfx
-    from gsv_tts_tpu_torch import fx
-
-    monkeypatch.setattr(jnative, "native_lib", lambda: None)
+def fx_stages(fx, jfx):
+    """Every stage of both enhance chains and both whole chains on seeded
+    speech-like audio at 32 kHz and on a short clip at 16 kHz, sample for
+    sample."""
     rng = np.random.RandomState(7)
     for sr, seconds in ((32000, 1.5), (16000, 0.3)):
         t = np.arange(int(sr * seconds)) / sr
@@ -74,6 +69,38 @@ def test_fx_matches_jax_numpy_path(monkeypatch):
             np.testing.assert_array_equal(got, want, err_msg=name)
         assert fx.integrated_loudness(x, sr) == jfx.integrated_loudness(x, sr)
     assert np.abs(fx.enhance_audio(x, 16000)).max() > 0
+
+
+def test_fx_matches_jax_numpy_path(monkeypatch):
+    """Each stage of the enhance chain and the whole chain equal JAX's numpy
+    path sample for sample: both packages' native libraries patched out."""
+    import gsv_tts_tpu.utils.native as jnative
+    from gsv_tts_tpu import fx as jfx
+    from gsv_tts_tpu_torch import fx
+    from gsv_tts_tpu_torch.utils import native as pnative
+
+    monkeypatch.setattr(jnative, "native_lib", lambda: None)
+    monkeypatch.setattr(pnative, "native_lib", lambda: None)
+    fx_stages(fx, jfx)
+
+
+def test_fx_matches_jax_native_path(monkeypatch):
+    """The same stages through both packages' native libraries (the
+    envelope follower and the Freeverb wet path in C++) equal each other
+    sample for sample, and the port's library ran."""
+    import gsv_tts_tpu.utils.native as jnative
+    from gsv_tts_tpu import fx as jfx
+    from gsv_tts_tpu_torch import fx
+    from gsv_tts_tpu_torch.utils import native as pnative
+
+    monkeypatch.delenv("GSV_DISABLE_NATIVE", raising=False)
+    if jnative.native_lib() is None or pnative.native_lib() is None:
+        pytest.skip("no C++ compiler: neither native library is built")
+    before = dict(pnative.native_lib().calls)
+    fx_stages(fx, jfx)
+    after = pnative.native_lib().calls
+    assert after["envelope_follow"] > before["envelope_follow"]
+    assert after["freeverb"] > before["freeverb"]
 
 
 # -- the verbatim copies ---------------------------------------------------------------

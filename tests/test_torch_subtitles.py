@@ -1,6 +1,6 @@
 """The port's subtitle pipeline against the JAX package's: the monotonic
-Viterbi over the MRTE attention and its quality gate (the JAX numpy path,
-its native library switched off), the word timings of ``_get_subtitles``,
+Viterbi over the MRTE attention and its quality gate (both numpy paths,
+the native libraries switched off, and both C++ paths), the word timings of ``_get_subtitles``,
 and the batched mode's ``_find_subtitles`` / ``_cat_subtitles``, on the same
 inputs.  Host numpy on both sides: results equal exactly, times to float
 rounding."""
@@ -29,9 +29,25 @@ def attention(seed, heads=4, frames=60, phones=12, lead=0, flat=False):
 
 @pytest.fixture
 def jdsp(monkeypatch):
+    """JAX's dsp on its numpy path, and the port's on its own: both
+    packages' native libraries patched out."""
     from gsv_tts_tpu import dsp
+    from gsv_tts_tpu_torch import dsp as pdsp
 
     monkeypatch.setattr(dsp, "native_lib", lambda: None)
+    monkeypatch.setattr(pdsp, "native_lib", lambda: None)
+    return dsp
+
+
+@pytest.fixture
+def jdsp_native(monkeypatch):
+    """JAX's dsp through its native library; the port's takes its own."""
+    from gsv_tts_tpu import dsp
+    from gsv_tts_tpu_torch.utils import native as pnative
+
+    monkeypatch.delenv("GSV_DISABLE_NATIVE", raising=False)
+    if dsp.native_lib() is None or pnative.native_lib() is None:
+        pytest.skip("no C++ compiler: neither native library is built")
     return dsp
 
 
@@ -47,6 +63,21 @@ def test_viterbi_monotonic_and_gate_match_jax(jdsp, seed, lead, flat):
     valid = got[got >= 0]
     assert np.all(np.isin(np.diff(valid), (0, 1)))  # monotonic, one phone at a time
     assert pdsp.is_normal_assign(got) == jdsp.is_normal_assign(want)
+
+
+@pytest.mark.parametrize("seed,lead,flat", [(0, 0, False), (1, 7, False), (2, 0, True),
+                                            (3, 3, True), (4, 60, False)])
+def test_viterbi_monotonic_native_matches_jax(jdsp_native, seed, lead, flat):
+    """The same alignments through both packages' C++ Viterbi."""
+    from gsv_tts_tpu_torch import dsp as pdsp
+    from gsv_tts_tpu_torch.utils import native as pnative
+
+    attn = attention(seed, lead=lead, flat=flat)
+    n = pnative.native_lib().calls["viterbi_monotonic"]
+    got, want = pdsp.viterbi_monotonic(attn), jdsp_native.viterbi_monotonic(attn)
+    assert pnative.native_lib().calls["viterbi_monotonic"] == n + 1
+    np.testing.assert_array_equal(got, want)
+    assert pdsp.is_normal_assign(got) == jdsp_native.is_normal_assign(want)
 
 
 @pytest.mark.parametrize("assign", [[-1, -1, -1], [0, 1, 2, 3, 4, 5], [0, 0, 1, 1, 2, 2, 3],

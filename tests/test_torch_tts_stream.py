@@ -58,21 +58,48 @@ def test_decode_core_stream_overlap_matches_jax(models, blend):  # noqa: F811
     np.testing.assert_allclose(pattn.numpy(), np.asarray(jattn), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("seed,overlap,n2", [(0, 1600, 9000), (1, 640, 700), (2, 1600, 1700)])
-def test_sola_align_matches_jax(monkeypatch, seed, overlap, n2):
-    """Random chunks sharing a shifted tail: the same offset and samples as
-    the JAX package's numpy path (a chunk shorter than overlap + search too)."""
-    from gsv_tts_tpu import dsp as jdsp
-    from gsv_tts_tpu_torch import dsp as pdsp
-
-    monkeypatch.setenv("GSV_DISABLE_NATIVE", "1")
+def sola_chunks(seed, overlap, n2):
     rng = np.random.RandomState(seed)
     base = rng.randn(overlap + 400).astype(np.float32)
     shift = 37 + 50 * seed
     f1 = base[shift: shift + overlap] + 0.01 * rng.randn(overlap).astype(np.float32)
     f2 = np.concatenate([base, rng.randn(max(n2 - len(base), 0)).astype(np.float32)])[:n2]
+    return f1, f2, shift
+
+
+@pytest.mark.parametrize("seed,overlap,n2", [(0, 1600, 9000), (1, 640, 700), (2, 1600, 1700)])
+def test_sola_align_matches_jax(monkeypatch, seed, overlap, n2):
+    """Random chunks sharing a shifted tail: the same offset and samples as
+    the JAX package's numpy path (a chunk shorter than overlap + search too);
+    both packages' native libraries patched out."""
+    from gsv_tts_tpu import dsp as jdsp
+    from gsv_tts_tpu_torch import dsp as pdsp
+
+    monkeypatch.setenv("GSV_DISABLE_NATIVE", "1")
+    monkeypatch.setattr(jdsp, "native_lib", lambda: None)
+    monkeypatch.setattr(pdsp, "native_lib", lambda: None)
+    f1, f2, shift = sola_chunks(seed, overlap, n2)
     ja, joff = jdsp.sola_align(f1, f2, overlap)
     pa, poff = pdsp.sola_align(f1, f2, overlap)
+    assert poff == joff and (n2 < overlap + 320 or poff == shift)
+    np.testing.assert_array_equal(pa, ja)
+
+
+@pytest.mark.parametrize("seed,overlap,n2", [(0, 1600, 9000), (1, 640, 700), (2, 1600, 1700)])
+def test_sola_align_native_matches_jax(monkeypatch, seed, overlap, n2):
+    """The same chunks through both packages' C++ offset search."""
+    from gsv_tts_tpu import dsp as jdsp
+    from gsv_tts_tpu_torch import dsp as pdsp
+    from gsv_tts_tpu_torch.utils import native as pnative
+
+    monkeypatch.delenv("GSV_DISABLE_NATIVE", raising=False)
+    if jdsp.native_lib() is None or pnative.native_lib() is None:
+        pytest.skip("no C++ compiler: neither native library is built")
+    f1, f2, shift = sola_chunks(seed, overlap, n2)
+    n = pnative.native_lib().calls["sola_offset"]
+    ja, joff = jdsp.sola_align(f1, f2, overlap)
+    pa, poff = pdsp.sola_align(f1, f2, overlap)
+    assert pnative.native_lib().calls["sola_offset"] == n + 1
     assert poff == joff and (n2 < overlap + 320 or poff == shift)
     np.testing.assert_array_equal(pa, ja)
 
