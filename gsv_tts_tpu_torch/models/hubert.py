@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..ops.convs import conv1d, linear
 from ..ops.norms import layer_norm
 from ..utils.safetensors import load_file
+from ..utils.timing import span
 
 F32 = torch.float32
 
@@ -155,7 +156,8 @@ def hubert_forward(p, cfg: HubertConfig, wav, n_frames=None, valid_l0=None):
     ``valid_l0`` layer-0 frames, the projected features past ``n_frames`` are
     zeroed and masked as attention keys, so rows below ``n_frames`` match
     the exact-shape run; the caller trims the rest."""
-    h = feature_extractor(p, cfg, wav, valid_l0=valid_l0).transpose(1, 2)
+    with span("gsv.voice.hubert.features"):
+        h = feature_extractor(p, cfg, wav, valid_l0=valid_l0).transpose(1, 2)
     if cfg.feat_proj_layer_norm:
         h = layer_norm(h, p["feature_projection.layer_norm.weight"],
                        p["feature_projection.layer_norm.bias"], cfg.layer_norm_eps)
@@ -176,8 +178,9 @@ def hubert_forward(p, cfg: HubertConfig, wav, n_frames=None, valid_l0=None):
     h = layer_norm(h, p["encoder.layer_norm.weight"], p["encoder.layer_norm.bias"],
                    cfg.layer_norm_eps)
     for i in range(cfg.num_hidden_layers):
-        h = encoder_layer(p, f"encoder.layers.{i}.", h, cfg.num_attention_heads,
-                          cfg.layer_norm_eps, mask_bias)
+        with span("gsv.voice.hubert.layer"):
+            h = encoder_layer(p, f"encoder.layers.{i}.", h, cfg.num_attention_heads,
+                              cfg.layer_norm_eps, mask_bias)
     return h
 
 

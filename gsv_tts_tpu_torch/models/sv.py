@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.convs import batch_norm, conv2d
+from ..utils.timing import span
 
 F32 = torch.float32
 #: the embedding's width at the published config: 2048 channels × 10 mel rows
@@ -186,11 +187,13 @@ def eres2netv2_features(p: Dict[str, torch.Tensor], feat: torch.Tensor,
     out = torch.relu(_bn(p, "bn1.", conv2d(x, p["conv1.weight"], padding=1)))
     out3 = None
     for pfx, _, _, width, stride, use_aff, has_shortcut, ends_layer3 in _layers(cfg):
-        out = _basic_block(p, pfx, out, width, cfg.scale, stride, use_aff, has_shortcut)
+        with span("gsv.voice.sv_emb.block", device=True):
+            out = _basic_block(p, pfx, out, width, cfg.scale, stride, use_aff, has_shortcut)
         if ends_layer3:
             out3 = out
-    out3_ds = conv2d(out3, p["layer3_ds.weight"], stride=2, padding=1)
-    return _aff(p, "fuse34.", out, out3_ds)
+    with span("gsv.voice.sv_emb.fuse", device=True):
+        out3_ds = conv2d(out3, p["layer3_ds.weight"], stride=2, padding=1)
+        return _aff(p, "fuse34.", out, out3_ds)
 
 
 def eres2netv2_forward3(p: Dict[str, torch.Tensor], feat: torch.Tensor,
@@ -304,7 +307,8 @@ class ERes2Net:
         wav = np.asarray(wav, np.float32)
         if wav.ndim == 1:
             wav = wav[None]
-        feats = np.stack([kaldi_fbank(w) for w in wav])
-        feat = torch.as_tensor(feats, device=self.device).to(self.dtype)
+        with span("gsv.voice.sv_emb.fbank"):
+            feats = np.stack([kaldi_fbank(w) for w in wav])
+            feat = torch.as_tensor(feats, device=self.device).to(self.dtype)
         with torch.no_grad():
             return eres2netv2_forward3(self.params, feat, self.cfg)

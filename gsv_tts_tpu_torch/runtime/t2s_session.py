@@ -62,7 +62,6 @@ is replicated.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,6 +73,7 @@ from ..ops import flash_decode, sampling
 from ..ops.fused_step import (MAX_FUSED_B, QUANT_KEYS, K1Table, fused_decode_step_sample,
                               fused_decode_step_sample_batched, quant_layers)
 from ..parallel import mesh as pmesh
+from ..utils.timing import span
 
 PAD_MULTIPLE = 32
 CHECK_INTERVAL = 5  # default decode steps per dispatch: the host checks EOS this often
@@ -431,38 +431,44 @@ def decode_chunk(params, cfg: T2SConfig, state: DecodeState, n_steps: int,
     path = step_path(attn_impl, B)
     quant = QUANT_IMPLS.get(attn_impl) if path in ("k1q", "k2q") else None
     if path in ("k1", "k1q"):
-        kv_len, x_len, buf_len, step_idx = torch.stack(
-            [state.kv_len, state.x_len, state.buf_len, state.step_idx]).flatten().tolist()
+        with span("gsv.t2s.readback"):
+            kv_len, x_len, buf_len, step_idx = torch.stack(
+                [state.kv_len, state.x_len, state.buf_len, state.step_idx]).flatten().tolist()
         if kv_len + n_steps > S:
             raise ValueError(f"{n_steps} steps from kv_len {kv_len} overrun the {S}-row cache")
         row = torch.empty((1, V), dtype=torch.float32, device=dev)
-        for i in range(n_steps):
-            fused_decode_step_sample(
-                params, state.k_cache, state.v_cache, state.tok_buf, kv_len + i, x_len,
-                state.last_tok, buf_len + i, step_idx + i, gumbel[i], sa=sa,
-                suppress_until=suppress_until, suppressed=suppressed, tok_out=toks[i],
-                row_out=row, quant=quant)
-            state.last_tok = toks[i]
-        for t in (state.kv_len, state.buf_len, state.step_idx):
-            t += n_steps
+        with span("gsv.t2s.chunk", device=True) as chunk:
+            chunk.set(steps=n_steps)
+            for i in range(n_steps):
+                fused_decode_step_sample(
+                    params, state.k_cache, state.v_cache, state.tok_buf, kv_len + i, x_len,
+                    state.last_tok, buf_len + i, step_idx + i, gumbel[i], sa=sa,
+                    suppress_until=suppress_until, suppressed=suppressed, tok_out=toks[i],
+                    row_out=row, quant=quant)
+                state.last_tok = toks[i]
+            chunk.device_end()
+            for t in (state.kv_len, state.buf_len, state.step_idx):
+                t += n_steps
         return state, toks.T
     fused = path in ("k2", "k2q")
     if fused:
         row = torch.empty((B, V), dtype=torch.float32, device=dev)
-    for i in range(n_steps):
-        if fused:
-            fused_decode_step_sample_batched(
-                params, state.k_cache, state.v_cache, state.tok_buf, state.kv_len,
-                state.x_len, state.last_tok, state.buf_len, state.step_idx, gumbel[i],
-                sa=sa, suppress_until=suppress_until, suppressed=suppressed,
-                tok_out=toks[i], row_out=row, quant=quant)
-        else:
-            # (a wave above K2's limit: "fused_step" degrades to "flash" at B > 1)
-            _generic_step(params, cfg, state, gumbel[i], sa, suppress_until, dtype, toks[i],
-                          "fused_step" if attn_impl in QUANT_IMPLS else attn_impl)
-        state.last_tok = toks[i]
-        for t in (state.kv_len, state.buf_len, state.step_idx):
-            t += 1
+    with span("gsv.t2s.chunk", device=True) as chunk:
+        chunk.set(steps=n_steps)
+        for i in range(n_steps):
+            if fused:
+                fused_decode_step_sample_batched(
+                    params, state.k_cache, state.v_cache, state.tok_buf, state.kv_len,
+                    state.x_len, state.last_tok, state.buf_len, state.step_idx, gumbel[i],
+                    sa=sa, suppress_until=suppress_until, suppressed=suppressed,
+                    tok_out=toks[i], row_out=row, quant=quant)
+            else:
+                # (a wave above K2's limit: "fused_step" degrades to "flash" at B > 1)
+                _generic_step(params, cfg, state, gumbel[i], sa, suppress_until, dtype, toks[i],
+                              "fused_step" if attn_impl in QUANT_IMPLS else attn_impl)
+            state.last_tok = toks[i]
+            for t in (state.kv_len, state.buf_len, state.step_idx):
+                t += 1
     return state, toks.T
 
 
@@ -816,20 +822,21 @@ class T2SEngine:
         bert = np.asarray(bert, np.float32).reshape(len(x_ids), -1)
         sa = SampleArgs(top_k=top_k, top_p=top_p, temperature=temperature,
                         repetition_penalty=repetition_penalty, use_prev=True)
-        t_start = time.perf_counter()
-        xp, yp, bp = self._pad_prompt(x_ids, y_ids, bert)
-        prompt_len = len(x_ids) + len(y_ids)
-        pick_B, S = self._pick_bucket(1, max(prompt_len + 1, len(xp) + len(yp)))
-        s_ladder = self.buckets[pick_B]
-        k_cache, v_cache = self._alloc_cache(1, S)
-        state, tok0 = prefill_batch(
-            self.params, cfg, *self._dev(xp[None], yp[None], bp[None]),
-            len(x_ids), len(y_ids), k_cache, v_cache, self._noise(generator, 1, V), sa, True,
-            self.dtype, self.attn_impl)
-        del k_cache, v_cache
-
-        generated: List[int] = [int(tok0[0])]
-        t_prefill = time.perf_counter()
+        # every stretch of the loop sits in a span: the prefill, the host's
+        # bookkeeping and noise, the readbacks, the kernels' check, the chunk
+        with span("gsv.t2s.prefill", device=True) as pre:
+            xp, yp, bp = self._pad_prompt(x_ids, y_ids, bert)
+            prompt_len = len(x_ids) + len(y_ids)
+            pick_B, S = self._pick_bucket(1, max(prompt_len + 1, len(xp) + len(yp)))
+            s_ladder = self.buckets[pick_B]
+            k_cache, v_cache = self._alloc_cache(1, S)
+            state, tok0 = prefill_batch(
+                self.params, cfg, *self._dev(xp[None], yp[None], bp[None]),
+                len(x_ids), len(y_ids), k_cache, v_cache, self._noise(generator, 1, V), sa,
+                True, self.dtype, self.attn_impl)
+            pre.device_end()
+            del k_cache, v_cache
+            generated: List[int] = [int(tok0[0])]
         steps = 0
         kv = prompt_len  # every step advances the one slot by one row
         eos_at = None
@@ -837,36 +844,43 @@ class T2SEngine:
         first_chunk = True
         pre_chunk = None
         while True:
-            cur_S = state.k_cache.shape[2]
-            if kv >= cur_S:
-                # escalate, or stop when the largest bucket is full
-                bigger = [s for s in s_ladder if s > cur_S]
-                if not bigger:
-                    break
-                state = self._escalate(state, bigger[0])
-                cur_S = bigger[0]
-            n = min(self.check_interval, cur_S - kv)
-            state, toks = decode_chunk(self.params, cfg, state, n, sa,
-                                       self._noise(generator, n, 1, V),
+            out = None
+            with span("gsv.t2s.host"):
+                cur_S = state.k_cache.shape[2]
+                if kv >= cur_S:
+                    # escalate, or stop when the largest bucket is full
+                    bigger = [s for s in s_ladder if s > cur_S]
+                    if not bigger:
+                        break
+                    with span("gsv.t2s.escalate"):
+                        state = self._escalate(state, bigger[0])
+                    cur_S = bigger[0]
+                n = min(self.check_interval, cur_S - kv)
+                noise = self._noise(generator, n, 1, V)
+            state, toks = decode_chunk(self.params, cfg, state, n, sa, noise,
                                        self.initial_suppression_steps, self.dtype,
                                        self.attn_impl)
-            toks = toks.cpu().numpy()[0]
+            with span("gsv.t2s.readback") as rb:
+                toks = toks.cpu().numpy()[0]
             steps += n
             kv += n
-            self.last_stats = {"prefill_s": t_prefill - t_start, "decode_steps": steps,
-                               "decode_s": time.perf_counter() - t_prefill}
-            self._check_kernels()
-            for t in toks:
-                generated.append(int(t))
-                if int(t) == cfg.eos:
-                    eos_at = len(generated) - 1
+            self.last_stats = {"prefill_s": pre.seconds, "decode_steps": steps,
+                               "decode_s": rb.t1 - pre.t1}
+            with span("gsv.t2s.check"):
+                self._check_kernels()
+            with span("gsv.t2s.host"):
+                for t in toks:
+                    generated.append(int(t))
+                    if int(t) == cfg.eos:
+                        eos_at = len(generated) - 1
+                        break
+                if eos_at is not None:
                     break
-            if eos_at is not None:
-                break
-            chunk_accum += n
-            if chunk_accum >= stream_chunk:
-                chunk_accum = 0
-                out = np.asarray(generated[1:], np.int64)[None, None, :]
+                chunk_accum += n
+                if chunk_accum >= stream_chunk:
+                    chunk_accum = 0
+                    out = np.asarray(generated[1:], np.int64)[None, None, :]
+            if out is not None:
                 if first_chunk and boost_first_chunk:
                     first_chunk = False
                     yield out, False
@@ -929,26 +943,25 @@ class T2SEngine:
         N = len(x_list)
         sa = SampleArgs(top_k=top_k, top_p=top_p, temperature=temperature,
                         repetition_penalty=repetition_penalty, use_prev=False)
-        t_start = time.perf_counter()
+        with span("gsv.t2s.prefill", device=True) as pre:
+            sizes = sorted(self.buckets.keys())
+            B = next((b for b in sizes if b >= N), sizes[-1])
+            wave = list(range(min(N, B)))
 
-        sizes = sorted(self.buckets.keys())
-        B = next((b for b in sizes if b >= N), sizes[-1])
-        wave = list(range(min(N, B)))
-
-        # pad the first wave to common (Lx, Ly) shapes; dead slots get a
-        # 1-phoneme dummy prompt
-        xs, ys, bs, x_lens, y_lens = self._pad_prompts(
-            [(np.asarray(x_list[i], np.int64), np.asarray(y_list[i], np.int64),
-              np.asarray(bert_list[i], np.float32)) for i in wave], B)
-        prompt_max = int((x_lens + y_lens).max())
-        _, S = self._pick_bucket(B, max(prompt_max + 1, xs.shape[1] + ys.shape[1]))
-        k_cache, v_cache = self._alloc_cache(B, S)
-        lo, hi = self._rows(B)
-        state, _ = prefill_batch(
-            self.params, cfg, *self._dev(*(a[lo:hi] for a in (xs, ys, bs, x_lens, y_lens))),
-            k_cache, v_cache, self._noise(generator, B, V)[lo:hi], sa, False, self.dtype,
-            self.attn_impl)
-        del k_cache, v_cache
+            # pad the first wave to common (Lx, Ly) shapes; dead slots get a
+            # 1-phoneme dummy prompt
+            xs, ys, bs, x_lens, y_lens = self._pad_prompts(
+                [(np.asarray(x_list[i], np.int64), np.asarray(y_list[i], np.int64),
+                  np.asarray(bert_list[i], np.float32)) for i in wave], B)
+            prompt_max = int((x_lens + y_lens).max())
+            _, S = self._pick_bucket(B, max(prompt_max + 1, xs.shape[1] + ys.shape[1]))
+            k_cache, v_cache = self._alloc_cache(B, S)
+            lo, hi = self._rows(B)
+            state, _ = prefill_batch(
+                self.params, cfg, *self._dev(*(a[lo:hi] for a in (xs, ys, bs, x_lens, y_lens))),
+                k_cache, v_cache, self._noise(generator, B, V)[lo:hi], sa, False, self.dtype,
+                self.attn_impl)
+            del k_cache, v_cache
 
         slot_orig = list(wave) + [-1] * (B - len(wave))
         slot_start = [int(x_lens[j] + y_lens[j]) for j in range(B)]  # kv where generation began
@@ -958,10 +971,9 @@ class T2SEngine:
         next_req = len(wave)
         # decode steps in all and by the path that took them (the wave's size
         # changes with compaction), and steps x slots
-        stats = {"prefill_s": time.perf_counter() - t_start, "decode_steps": 0,
+        stats = {"prefill_s": pre.seconds, "decode_steps": 0,
                  "slot_steps": 0, "k1_steps": 0, "k2_steps": 0, "k1q_steps": 0,
                  "k2q_steps": 0, "generic_steps": 0}
-        t_decode = time.perf_counter()
 
         # the reference's decode loop checks at GLOBAL steps 1, 6, 11, ...
         # (t2s_model.py:634-655), so the first chunk is 1 step and the rest
@@ -978,13 +990,15 @@ class T2SEngine:
             state, toks = decode_chunk(self.params, cfg, state, n_steps, sa,
                                        self._noise(generator, n_steps, B, V)[:, lo:hi], 0,
                                        self.dtype, self.attn_impl)
-            toks = self._host(toks, B)  # [B, n_steps]
-            kv = self._host(state.kv_len, B)
-            self._check_kernels()
+            with span("gsv.t2s.readback"):
+                toks = self._host(toks, B)  # [B, n_steps]
+                kv = self._host(state.kv_len, B)
+            with span("gsv.t2s.check") as chk:
+                self._check_kernels()
             stats["decode_steps"] += n_steps
             stats["slot_steps"] += n_steps * B
             stats[step_path(self.attn_impl, hi - lo) + "_steps"] += n_steps
-            stats["decode_s"] = time.perf_counter() - t_decode
+            stats["decode_s"] = chk.t1 - pre.t1
             self.last_stats = stats
             for j in range(B):
                 slot_steps[j] += n_steps

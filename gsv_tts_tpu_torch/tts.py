@@ -63,7 +63,7 @@ from .player import AudioClip, AudioQueue
 from .runtime.t2s_session import _round_up
 from .runtime.vocoder_batch import stream_batch_fused
 from .utils.audio_io import load_audio, save_wav
-from .utils.timing import Timings
+from .utils.timing import REQUEST, Timings, request_id, span
 
 logger = logging.getLogger(__name__)
 
@@ -300,19 +300,18 @@ class SovitsGraphs:
             raise ValueError(f"the SoVITS program {key} takes inputs on one device, not on "
                              f"{sorted({str(x.device) for x in inputs})}")
         if not inputs[0].is_cuda:
-            return _as_tuple(fn(*inputs))
+            return _eager(fn, *inputs)
         key = (key[0], id(params)) + tuple(key[1:])
         with self.gate.suspended():
             self._lock.acquire()
         try:
             entry = self.graphs.get(key)
             if entry is None:
-                t0 = time.perf_counter()
-                with self.gate.exclusive():
+                with span("gsv.sovits.capture") as cap, self.gate.exclusive():
                     entry = self.graphs[key] = self._capture(params, key, fn, inputs)
-                self.capture_s += time.perf_counter() - t0
+                self.capture_s += cap.seconds
             graph, static_in, static_out, _ = entry
-            with self.gate.shared():
+            with span("gsv.sovits.replay"), self.gate.shared():
                 for buf, x in zip(static_in, inputs):
                     buf.copy_(x)
                 graph.replay()
@@ -368,6 +367,47 @@ class SovitsGraphs:
 
 def _as_tuple(out) -> tuple:
     return out if isinstance(out, tuple) else (out,)
+
+
+def _eager(fn, *args) -> tuple:
+    """A SoVITS program run eagerly, outside any CUDA graph."""
+    with span("gsv.sovits.eager"):
+        return _as_tuple(fn(*args))
+
+
+def _request(method):
+    """Time a public facade call as one request (``gsv.request.<name>``,
+    the root of its spans)."""
+    name = REQUEST + method.__name__
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        with span(name):
+            return method(self, *args, **kwargs)
+
+    return wrapped
+
+
+def _request_stream(method):
+    """Time a public streaming call as one request: a span is never held
+    across a yield (the consumer's code, on any thread, runs there), so each
+    resumption of the stream is a ``gsv.request.<name>`` span of one id."""
+    name = REQUEST + method.__name__
+
+    @functools.wraps(method)
+    def wrapped(self, *args, **kwargs):
+        rid, gen = request_id(), method(self, *args, **kwargs)
+        try:
+            while True:
+                with span(name, request=rid):
+                    item = next(gen, None)  # a stream yields no None
+                if item is None:
+                    return
+                yield item
+        finally:
+            gen.close()
+
+    return wrapped
 
 
 def _on_card(method):
@@ -630,6 +670,7 @@ class TTS:
 
     # -- caches ----------------------------------------------------------
 
+    @_request
     @_on_card
     def cache_spk_audio(self, *spk_audio_paths, sovits_model: Optional[str] = None):
         """Speaker conditioning of each clip under a loaded SoVITS model (the
@@ -654,11 +695,13 @@ class TTS:
                 if entry is None:
                     entry = self.spk_audio_cache[path] = {"ge": {}, "sv_emb": None}
                 if model.cfg.is_v2pro and entry["sv_emb"] is None:
-                    entry["sv_emb"] = self._get_sv_model().compute_embedding3(audio16k)
-                with torch.no_grad():
+                    with span("gsv.voice.sv_emb", device=True):
+                        entry["sv_emb"] = self._get_sv_model().compute_embedding3(audio16k)
+                with torch.no_grad(), span("gsv.voice.ge"):
                     entry["ge"][sovits_model] = sovits_model_ge(model, refers, entry["sv_emb"])
             logger.info("Cached speaker audio: %s", path)
 
+    @_request
     @_on_card
     def cache_prompt_audio(self, prompt_audio_paths, prompt_audio_texts):
         if not self.sovits_models:
@@ -675,7 +718,8 @@ class TTS:
                 raise ValueError("Prompt audio text is empty. Please provide the text "
                                  "transcription for the reference audio.")
             prompt = self._get_prompt(hub, model, path)
-            phones1, _, bert1, _ = get_phones_and_bert(text, self.tts_config)
+            with span("gsv.voice.prompt_text"):
+                phones1, _, bert1, _ = get_phones_and_bert(text, self.tts_config)
             self.prompt_audio_cache[path] = {"prompt": prompt, "phones1": phones1,
                                              "bert1": bert1}
             logger.info("Cached prompt audio: %s", path)
@@ -698,6 +742,7 @@ class TTS:
 
     # -- inference -------------------------------------------------------
 
+    @_request
     @_on_card
     def infer(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
               return_subtitles: bool = False, top_k: int = 15, top_p: float = 1.0,
@@ -714,45 +759,45 @@ class TTS:
         gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
                                                  prompt_audio_text)
 
-        t0 = time.perf_counter()
-        phones2, word2ph, bert2, norm_text = get_phones_and_bert(text, self.tts_config)
-        all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
-        bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
-                               np.asarray(bert2, np.float32)], axis=0)
-        t1 = time.perf_counter()
+        with span("gsv.frontend") as fe:
+            phones2, word2ph, bert2, norm_text = get_phones_and_bert(text, self.tts_config)
+            all_phones = np.asarray(cache["phones1"] + phones2, np.int64)
+            bert = np.concatenate([np.asarray(cache["bert1"], np.float32),
+                                   np.asarray(bert2, np.float32)], axis=0)
         graphs = self._graph_counts()
         with torch.no_grad():
-            semantic = gpt.engine.generate(
-                all_phones, cache["prompt"], bert, top_k=top_k, top_p=top_p,
-                temperature=temperature, repetition_penalty=repetition_penalty,
-                generator=self.generator).reshape(-1)
-            t2 = time.perf_counter()
-            audio, attn = self._sovits_decode(sovits, semantic[None, None, :],
-                                              np.asarray(phones2, np.int64)[None], ge,
-                                              noise_scale=noise_scale, speed=speed)
-            audio = audio.reshape(-1)
-        t3 = time.perf_counter()
+            with span("gsv.t2s.generate") as t2s:
+                semantic = gpt.engine.generate(
+                    all_phones, cache["prompt"], bert, top_k=top_k, top_p=top_p,
+                    temperature=temperature, repetition_penalty=repetition_penalty,
+                    generator=self.generator).reshape(-1)
+            with span("gsv.sovits.decode") as sov:
+                audio, attn = self._sovits_decode(sovits, semantic[None, None, :],
+                                                  np.asarray(phones2, np.int64)[None], ge,
+                                                  noise_scale=noise_scale, speed=speed)
+                audio = audio.reshape(-1)
         # each stage ends in a copy to the host, so its wall time holds its device work
-        for name, seconds in (("frontend", t1 - t0), ("t2s", t2 - t1), ("sovits", t3 - t2)):
-            self.timings.record(name, seconds)
-        self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
-                             "tokens": int(semantic.size), **self._graph_counts(graphs),
-                             **gpt.engine.last_stats}
+        for name, sp in (("frontend", fe), ("t2s", t2s), ("sovits", sov)):
+            self.timings.record(name, sp.seconds)
+        self.last_timings = {"frontend_s": fe.seconds, "t2s_s": t2s.seconds,
+                             "sovits_s": sov.seconds, "tokens": int(semantic.size),
+                             **self._graph_counts(graphs), **gpt.engine.last_stats}
 
-        subtitles = []
-        if return_subtitles:
-            subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, text)
-        head_offset = dsp.find_head_threshold_offset(audio)
-        audio = audio[head_offset:]
-        if subtitles:
-            self._increment_subtitle_times(subtitles, -head_offset / self.samplerate)
-            subtitles[0]["start_s"] = max(0, subtitles[0]["start_s"])
-        max_audio = np.abs(audio).max() if audio.size else 0.0
-        if max_audio > 1:
-            audio = audio / max_audio
-        audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
-        return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
-                         len(audio) / self.samplerate, subtitles, text)
+        with span("gsv.tts.finish"):
+            subtitles = []
+            if return_subtitles:
+                subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, text)
+            head_offset = dsp.find_head_threshold_offset(audio)
+            audio = audio[head_offset:]
+            if subtitles:
+                self._increment_subtitle_times(subtitles, -head_offset / self.samplerate)
+                subtitles[0]["start_s"] = max(0, subtitles[0]["start_s"])
+            max_audio = np.abs(audio).max() if audio.size else 0.0
+            if max_audio > 1:
+                audio = audio / max_audio
+            audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
+            return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
+                             len(audio) / self.samplerate, subtitles, text)
 
     def get_timings(self) -> Dict[str, Dict[str, float]]:
         """Latency percentiles by stage (``frontend``, ``t2s``, ``sovits``,
@@ -825,6 +870,7 @@ class TTS:
         logger.info("warmup done: %s", stats)
         return stats
 
+    @_request_stream
     def infer_stream(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
                      return_subtitles: bool = False, is_cut_text: bool = True,
                      cut_minlen: int = 10, cut_mute: float = 0.4,
@@ -896,12 +942,12 @@ class TTS:
                     seg.tokens = list(np.asarray(pred_semantic).reshape(-1))
                     if not seg.tokens and not is_final:
                         continue
-                    t0 = time.perf_counter()
-                    audio, new_subtitles = seg.step(
-                        self, sovits, is_final, req_state, noise_scale=noise_scale,
-                        speed=speed, overlap_len=overlap_len, cut_mute=cut_mute,
-                        cut_mute_scale_map=cut_mute_scale_map)
-                    self.last_timings["sovits_s"] += time.perf_counter() - t0
+                    with span("gsv.sovits.decode") as sov:
+                        audio, new_subtitles = seg.step(
+                            self, sovits, is_final, req_state, noise_scale=noise_scale,
+                            speed=speed, overlap_len=overlap_len, cut_mute=cut_mute,
+                            cut_mute_scale_map=cut_mute_scale_map)
+                    self.last_timings["sovits_s"] += sov.seconds
                 audio_len_s += len(audio) / self.samplerate
                 if "ttfa_s" not in self.last_timings:
                     self.last_timings["ttfa_s"] = time.perf_counter() - t_start
@@ -975,6 +1021,7 @@ class TTS:
         return (gpt, sovits, texts, all_segments, segment_to_original, all_phones2,
                 all_word2ph, all_norm_text, xs, ys, berts, all_ge)
 
+    @_request
     @_on_card
     def infer_batched(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts,
                       return_subtitles: bool = False, is_cut_text: bool = True,
@@ -989,106 +1036,106 @@ class TTS:
         cut back into its segments by length or, with ``return_subtitles``,
         by the segments' subtitles.  Returns one ``AudioClip`` per text."""
         cut_mute = cut_mute / speed
-        t0 = time.perf_counter()
-        (gpt, sovits, orig_texts, texts, segment_to_original, all_phones2, all_word2ph,
-         all_norm_text, xs, ys, berts, all_ge) = self._prepare_batched_inputs(
-            spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts, is_cut_text,
-            cut_minlen, bert_batch_size, gpt_model, sovits_model)
-        t1 = time.perf_counter()
+        with span("gsv.frontend") as fe:
+            (gpt, sovits, orig_texts, texts, segment_to_original, all_phones2, all_word2ph,
+             all_norm_text, xs, ys, berts, all_ge) = self._prepare_batched_inputs(
+                spk_audio_paths, prompt_audio_paths, prompt_audio_texts, texts, is_cut_text,
+                cut_minlen, bert_batch_size, gpt_model, sovits_model)
 
-        with torch.no_grad():
+        with torch.no_grad(), span("gsv.t2s.generate") as t2s:
             pred_semantic, semantic_orig_idx = gpt.engine.generate_batched(
                 xs, ys, berts, top_k=top_k, top_p=top_p, temperature=temperature,
                 repetition_penalty=repetition_penalty, generator=self.generator)
-        t2 = time.perf_counter()
-        graphs = self._graph_counts()
+        with span("gsv.sovits.decode") as sov:
+            graphs = self._graph_counts()
 
-        lengths = np.asarray([len(s) for s in pred_semantic])
-        idx_map = np.argsort(lengths, kind="stable")
-        # dual-ended interleave to balance packed-batch lengths (``TTS.py:707-716``)
-        m = len(idx_map)
-        interleave = np.zeros(m, np.int64)
-        interleave[0::2] = np.arange(m)[: (m + 1) // 2]
-        interleave[1::2] = np.arange(m)[(m + 1) // 2:][::-1]
-        idx_map = idx_map[interleave]
-        pred_semantic = [pred_semantic[i] for i in idx_map]
-        semantic_orig_idx = np.asarray(semantic_orig_idx)[idx_map]
-        lengths = lengths[idx_map]
+            lengths = np.asarray([len(s) for s in pred_semantic])
+            idx_map = np.argsort(lengths, kind="stable")
+            # dual-ended interleave to balance packed-batch lengths (``TTS.py:707-716``)
+            m = len(idx_map)
+            interleave = np.zeros(m, np.int64)
+            interleave[0::2] = np.arange(m)[: (m + 1) // 2]
+            interleave[1::2] = np.arange(m)[(m + 1) // 2:][::-1]
+            idx_map = idx_map[interleave]
+            pred_semantic = [pred_semantic[i] for i in idx_map]
+            semantic_orig_idx = np.asarray(semantic_orig_idx)[idx_map]
+            lengths = lengths[idx_map]
 
-        generated_audios: List[np.ndarray] = []
-        generated_subtitles: List[list] = []
-        for i in range(0, len(pred_semantic), sovits_batch_size):
-            sem_list = pred_semantic[i: i + sovits_batch_size]
-            cur_orig = [int(o) for o in semantic_orig_idx[i: i + sovits_batch_size]]
-            cur_lens = lengths[i: i + sovits_batch_size]
-            # one packed decode: codes, phones and per-frame speaker
-            # conditioning concatenated; each frame attends its own request's
-            # text span
-            curr_ge = torch.cat([all_ge[oi].expand(-1, -1, int(n))
-                                 for oi, n in zip(cur_orig, cur_lens)], dim=2)
-            curr_sem = np.concatenate([np.asarray(s) for s in sem_list])[None, None, :]
-            phone_lens = np.asarray([len(all_phones2[oi]) for oi in cur_orig])
-            curr_phones = np.concatenate(
-                [np.asarray(all_phones2[oi], np.int64) for oi in cur_orig])[None]
-            ends = np.cumsum(phone_lens)
-            pairs = np.stack([ends - phone_lens, ends], axis=1)
-            slice_indices = np.repeat(pairs, np.asarray(cur_lens) * 2, axis=0)
+            generated_audios: List[np.ndarray] = []
+            generated_subtitles: List[list] = []
+            for i in range(0, len(pred_semantic), sovits_batch_size):
+                sem_list = pred_semantic[i: i + sovits_batch_size]
+                cur_orig = [int(o) for o in semantic_orig_idx[i: i + sovits_batch_size]]
+                cur_lens = lengths[i: i + sovits_batch_size]
+                # one packed decode: codes, phones and per-frame speaker
+                # conditioning concatenated; each frame attends its own request's
+                # text span
+                curr_ge = torch.cat([all_ge[oi].expand(-1, -1, int(n))
+                                     for oi, n in zip(cur_orig, cur_lens)], dim=2)
+                curr_sem = np.concatenate([np.asarray(s) for s in sem_list])[None, None, :]
+                phone_lens = np.asarray([len(all_phones2[oi]) for oi in cur_orig])
+                curr_phones = np.concatenate(
+                    [np.asarray(all_phones2[oi], np.int64) for oi in cur_orig])[None]
+                ends = np.cumsum(phone_lens)
+                pairs = np.stack([ends - phone_lens, ends], axis=1)
+                slice_indices = np.repeat(pairs, np.asarray(cur_lens) * 2, axis=0)
 
-            with torch.no_grad():
-                audio_batch, attn = self._sovits_decode(
-                    sovits, curr_sem, curr_phones, curr_ge, noise_scale=noise_scale,
-                    speed=speed, slice_indices=slice_indices, use_buckets=False)
-            audio_batch = audio_batch.reshape(-1)
-            if return_subtitles:
-                curr_word2ph = {"word": [w for oi in cur_orig for w in all_word2ph[oi]["word"]],
-                                "ph": [p for oi in cur_orig for p in all_word2ph[oi]["ph"]]}
-                subtitles = self._get_subtitles(curr_word2ph, dsp.viterbi_monotonic(attn),
-                                                speed)
-                if subtitles and not self._check_pause(subtitles[-1]["text"]):
-                    subtitles.append({"text": curr_word2ph["word"][-1],
-                                      "start_s": subtitles[-1]["end_s"],
-                                      "end_s": subtitles[-1]["end_s"]})
-            max_audio = np.abs(audio_batch).max() if audio_batch.size else 0.0
-            if max_audio > 1.0:
-                audio_batch = audio_batch / max_audio
+                with torch.no_grad():
+                    audio_batch, attn = self._sovits_decode(
+                        sovits, curr_sem, curr_phones, curr_ge, noise_scale=noise_scale,
+                        speed=speed, slice_indices=slice_indices, use_buckets=False)
+                audio_batch = audio_batch.reshape(-1)
+                if return_subtitles:
+                    curr_word2ph = {
+                        "word": [w for oi in cur_orig for w in all_word2ph[oi]["word"]],
+                        "ph": [p for oi in cur_orig for p in all_word2ph[oi]["ph"]]}
+                    subtitles = self._get_subtitles(curr_word2ph, dsp.viterbi_monotonic(attn),
+                                                    speed)
+                    if subtitles and not self._check_pause(subtitles[-1]["text"]):
+                        subtitles.append({"text": curr_word2ph["word"][-1],
+                                          "start_s": subtitles[-1]["end_s"],
+                                          "end_s": subtitles[-1]["end_s"]})
+                max_audio = np.abs(audio_batch).max() if audio_batch.size else 0.0
+                if max_audio > 1.0:
+                    audio_batch = audio_batch / max_audio
 
-            if return_subtitles:
-                last_i = 0
-                for oi in cur_orig:
-                    best_i = self._find_subtitles(subtitles, all_word2ph[oi], last_i)
-                    subtitle = subtitles[last_i:best_i]
-                    last_i = best_i
-                    if not subtitle:
-                        # misaligned attention left this segment unmatched:
-                        # an empty segment, not the whole batch down
-                        logger.warning("subtitle alignment failed for a batched segment; "
-                                       "emitting it empty")
-                        generated_audios.append(np.zeros(0, np.float32))
-                        generated_subtitles.append([])
-                        continue
-                    seg_start = int(subtitle[0]["start_s"] * self.samplerate)
-                    seg_end = int(subtitle[-1]["end_s"] * self.samplerate)
-                    audio = audio_batch[seg_start:seg_end]
-                    ho = dsp.find_head_threshold_offset(audio)
-                    to = dsp.find_tail_threshold_offset(audio)
-                    audio = audio[ho: len(audio) - to]
-                    subtitle[0]["start_s"] += ho / self.samplerate
-                    subtitle[-1]["end_s"] -= to / self.samplerate
-                    generated_audios.append(audio)
-                    generated_subtitles.append(
-                        sub2text_index(subtitle, all_norm_text[oi], texts[oi]))
-            else:
-                last_len = 0.0
-                for n in cur_lens:
-                    cur_len = last_len + int(n) * 2 * sovits.cfg.samples_per_frame / speed
-                    audio = audio_batch[int(last_len): int(cur_len)]
-                    last_len = cur_len
-                    ho = dsp.find_head_threshold_offset(audio)
-                    to = dsp.find_tail_threshold_offset(audio)
-                    generated_audios.append(audio[ho: len(audio) - to])
-        t3 = time.perf_counter()
-        self.last_timings = {"frontend_s": t1 - t0, "t2s_s": t2 - t1, "sovits_s": t3 - t2,
-                             "tokens": int(lengths.sum()), "requests": len(texts),
+                if return_subtitles:
+                    last_i = 0
+                    for oi in cur_orig:
+                        best_i = self._find_subtitles(subtitles, all_word2ph[oi], last_i)
+                        subtitle = subtitles[last_i:best_i]
+                        last_i = best_i
+                        if not subtitle:
+                            # misaligned attention left this segment unmatched:
+                            # an empty segment, not the whole batch down
+                            logger.warning("subtitle alignment failed for a batched segment; "
+                                           "emitting it empty")
+                            generated_audios.append(np.zeros(0, np.float32))
+                            generated_subtitles.append([])
+                            continue
+                        seg_start = int(subtitle[0]["start_s"] * self.samplerate)
+                        seg_end = int(subtitle[-1]["end_s"] * self.samplerate)
+                        audio = audio_batch[seg_start:seg_end]
+                        ho = dsp.find_head_threshold_offset(audio)
+                        to = dsp.find_tail_threshold_offset(audio)
+                        audio = audio[ho: len(audio) - to]
+                        subtitle[0]["start_s"] += ho / self.samplerate
+                        subtitle[-1]["end_s"] -= to / self.samplerate
+                        generated_audios.append(audio)
+                        generated_subtitles.append(
+                            sub2text_index(subtitle, all_norm_text[oi], texts[oi]))
+                else:
+                    last_len = 0.0
+                    for n in cur_lens:
+                        cur_len = last_len + int(n) * 2 * sovits.cfg.samples_per_frame / speed
+                        audio = audio_batch[int(last_len): int(cur_len)]
+                        last_len = cur_len
+                        ho = dsp.find_head_threshold_offset(audio)
+                        to = dsp.find_tail_threshold_offset(audio)
+                        generated_audios.append(audio[ho: len(audio) - to])
+        self.last_timings = {"frontend_s": fe.seconds, "t2s_s": t2s.seconds,
+                             "sovits_s": sov.seconds, "tokens": int(lengths.sum()),
+                             "requests": len(texts),
                              **self._graph_counts(graphs), **gpt.engine.last_stats}
 
         ordered_audios = [None] * len(generated_audios)
@@ -1123,6 +1170,7 @@ class TTS:
                                     len(audio) / self.samplerate, subs, orig_text))
         return tuple(result)
 
+    @_request_stream
     def infer_batched_stream(self, spk_audio_paths, prompt_audio_paths, prompt_audio_texts,
                              texts, return_subtitles: bool = False, is_cut_text: bool = True,
                              cut_minlen: int = 10, cut_mute: float = 0.4,
@@ -1228,11 +1276,10 @@ class TTS:
                     cur_pos[oi] += 1
             if not plan:
                 continue
-            t0 = time.perf_counter()
             results = {}
             eligible = [e for e in plan
                         if e["upto"] > 0 and seg[e["s"]].batch_eligible(self, speed)]
-            with torch.no_grad():
+            with torch.no_grad(), span("gsv.sovits.decode") as sov:
                 if batcher is not None and len(eligible) >= 2:
                     specs = [(sovits, np.asarray(seg[e["s"]].tokens[:e["upto"]], np.int64),
                               np.asarray(seg[e["s"]].phones2, np.int64), seg[e["s"]].ge,
@@ -1247,7 +1294,7 @@ class TTS:
                         cut_mute_scale_map=cut_mute_scale_map, upto=e["upto"],
                         vocode_result=results.get(e["s"]))
                     done_plan.append((e, audio, subs))
-            self.last_timings["sovits_s"] += time.perf_counter() - t0
+            self.last_timings["sovits_s"] += sov.seconds
             self.last_timings.update(self._graph_counts(graphs))
             last_final = {e["oi"]: e["s"] for e in plan if e["final"]}
             for e, audio, subs in done_plan:
@@ -1260,6 +1307,7 @@ class TTS:
                     # audio: step() has moved the segment's subtitle cursor
                     yield oi, clip(oi, audio, subs), False
 
+    @_request_stream
     def stream_shared(self, spk_audio_path, prompt_audio_path, prompt_audio_text, text,
                       return_subtitles: bool = False, is_cut_text: bool = True,
                       cut_minlen: int = 10, cut_mute: float = 0.4,
@@ -1350,6 +1398,7 @@ class TTS:
             if not admitted:
                 sched.release_client()
 
+    @_request
     @_on_card
     def infer_vc(self, spk_audio_path, prompt_audio_path, prompt_audio_text,
                  noise_scale: float = 0.5, speed: float = 1.0, sovits_model=None) -> AudioClip:
@@ -1362,17 +1411,18 @@ class TTS:
             prompt_audio_text += "."
         _, sovits_model = self._default_models(None, sovits_model)
         sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
-        t0 = time.perf_counter()
-        codes = self._get_prompt(self._get_cnhubert(), sovits, prompt_audio_path)
-        phones, word2ph, _, norm_text = get_phones_and_bert(prompt_audio_text, self.tts_config)
-        t1 = time.perf_counter()
+        with span("gsv.voice.prompt") as pr:
+            codes = self._get_prompt(self._get_cnhubert(), sovits, prompt_audio_path)
+            with span("gsv.voice.prompt_text"):
+                phones, word2ph, _, norm_text = get_phones_and_bert(prompt_audio_text,
+                                                                    self.tts_config)
         graphs = self._graph_counts()
-        with torch.no_grad():
+        with torch.no_grad(), span("gsv.sovits.decode") as sov:
             audio, attn = self._sovits_decode(sovits, np.asarray(codes, np.int64).reshape(1, 1, -1),
                                               np.asarray(phones, np.int64)[None], ge,
                                               noise_scale=noise_scale, speed=speed)
-        audio = audio.reshape(-1)
-        self.last_timings = {"prompt_s": t1 - t0, "sovits_s": time.perf_counter() - t1,
+            audio = audio.reshape(-1)
+        self.last_timings = {"prompt_s": pr.seconds, "sovits_s": sov.seconds,
                              "tokens": int(np.asarray(codes).size), **self._graph_counts(graphs)}
         subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, prompt_audio_text)
         max_audio = np.abs(audio).max() if audio.size else 0.0
@@ -1382,6 +1432,7 @@ class TTS:
         return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
                          len(audio) / self.samplerate, subtitles, prompt_audio_text)
 
+    @_request
     @_on_card
     def verify_speaker(self, speaker1_audio, speaker2_audio) -> Optional[float]:
         """Cosine similarity of two clips' ERes2NetV2 embeddings (reference
@@ -1682,18 +1733,20 @@ class TTS:
                 self._noise((1, cfg.inter_channels, 2 * Bc), noise_scale), y_ov,
                 torch.zeros((), dtype=torch.int64, device=self.device))
             audio = self._flow_dec_bucketed(sovits, z_p, mask, ge, use_buckets, t_true=t50)
-            return audio, attn[0, :, :t50, :N].float().cpu().numpy()
+            with span("gsv.sovits.readback"):
+                return audio, attn[0, :, :t50, :N].float().cpu().numpy()
         t_lat = int(t50 / speed) + 1 if speed != 1 else t50
         if slice_indices is not None:
             slice_indices = torch.as_tensor(np.asarray(slice_indices, np.int64),
                                             device=self.device)
-        z_p, y_mask, attn, _, ge_out = sovits_model.decode_core(
-            p, cfg, torch.as_tensor(codes, device=self.device),
-            torch.as_tensor(text, device=self.device), ge,
-            self._noise((1, cfg.inter_channels, t_lat), noise_scale), speed=speed,
-            slice_indices=slice_indices)
+        z_p, y_mask, attn, _, ge_out = _eager(
+            functools.partial(sovits_model.decode_core, p, cfg, speed=speed,
+                              slice_indices=slice_indices),
+            torch.as_tensor(codes, device=self.device), torch.as_tensor(text, device=self.device),
+            ge, self._noise((1, cfg.inter_channels, t_lat), noise_scale))
         audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, use_buckets)
-        return audio, attn[0].float().cpu().numpy()
+        with span("gsv.sovits.readback"):
+            return audio, attn[0].float().cpu().numpy()
 
     @_on_card
     def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, speed,
@@ -1730,11 +1783,12 @@ class TTS:
             audio = audio.float().cpu().numpy()[:, :, : t_valid * cfg.samples_per_frame]
             return audio, attn[0, :, :2 * n, :N].float().cpu().numpy(), new_overlap
         t_lat = int(t_valid / speed) + 1 if speed != 1 else t_valid
-        z_p, y_mask, attn, new_overlap, ge_out = sovits_model.decode_core(
-            p, cfg, torch.as_tensor(codes, device=self.device),
-            torch.as_tensor(text, device=self.device), ge,
-            self._noise((1, cfg.inter_channels, t_lat), noise_scale), speed=speed,
-            y_overlap=y_overlap, valid_start_idx=valid_start_idx, overlap_len=overlap_len)
+        z_p, y_mask, attn, new_overlap, ge_out = _eager(
+            functools.partial(sovits_model.decode_core, p, cfg, speed=speed,
+                              y_overlap=y_overlap, valid_start_idx=valid_start_idx,
+                              overlap_len=overlap_len),
+            torch.as_tensor(codes, device=self.device), torch.as_tensor(text, device=self.device),
+            ge, self._noise((1, cfg.inter_channels, t_lat), noise_scale))
         audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, True)
         return audio, attn[0].float().cpu().numpy(), new_overlap
 
@@ -1769,41 +1823,45 @@ class TTS:
         target = self._flow_bucket(t, use_buckets)
         pad = target - z_p.shape[-1]  # negative: cut
         z_p, y_mask = F.pad(z_p, (0, pad)), F.pad(y_mask, (0, pad))
+        flow = functools.partial(sovits_model.flow_dec, p, cfg)
         if ge.shape[-1] == 1:
-            audio, = self.sovits_graphs.run(p, ("flow", target),
-                                            functools.partial(sovits_model.flow_dec, p, cfg),
-                                            z_p, y_mask, ge)
+            audio, = self.sovits_graphs.run(p, ("flow", target), flow, z_p, y_mask, ge)
         else:
-            audio = sovits_model.flow_dec(p, cfg, z_p, y_mask, F.pad(ge, (0, pad)))
-        return audio.float().cpu().numpy()[:, :, : t * cfg.samples_per_frame]
+            audio, = _eager(flow, z_p, y_mask, F.pad(ge, (0, pad)))
+        with span("gsv.sovits.readback"):
+            return audio.float().cpu().numpy()[:, :, : t * cfg.samples_per_frame]
 
     def _get_spec(self, hps, filename):
         """Linear spectrogram of the speaker audio at the model's rate, on the
         device, and the audio resampled to 16 kHz (numpy [1, T]) for the
         speaker embedder (reference ``TTS.py:1578-1610``)."""
         sr1 = int(hps.data.sampling_rate)
-        audio, sr0 = load_audio(filename)
-        audio = np.asarray(audio, np.float32)
-        if audio.ndim == 2 and audio.shape[0] > 1:
-            audio = audio.mean(axis=0, keepdims=True)
-        elif audio.ndim == 1:
-            audio = audio[None]
-        if sr0 != sr1:
-            audio = stft.resample(audio, sr0, sr1)
-        maxx = np.abs(audio).max()
-        if maxx > 1:
-            audio = audio / min(2.0, maxx)
-        spec = stft.spectrogram(torch.as_tensor(audio, device=self.device),
-                                hps.data.filter_length, hps.data.hop_length,
-                                hps.data.win_length)
-        return spec.to(self.tts_config.dtype), stft.resample(audio, sr1, 16000)
+        with span("gsv.voice.load"):
+            audio, sr0 = load_audio(filename)
+            audio = np.asarray(audio, np.float32)
+            if audio.ndim == 2 and audio.shape[0] > 1:
+                audio = audio.mean(axis=0, keepdims=True)
+            elif audio.ndim == 1:
+                audio = audio[None]
+            if sr0 != sr1:
+                audio = stft.resample(audio, sr0, sr1)
+            maxx = np.abs(audio).max()
+            if maxx > 1:
+                audio = audio / min(2.0, maxx)
+            audio16k = stft.resample(audio, sr1, 16000)
+        with span("gsv.voice.spec"):
+            spec = stft.spectrogram(torch.as_tensor(audio, device=self.device),
+                                    hps.data.filter_length, hps.data.hop_length,
+                                    hps.data.win_length)
+            return spec.to(self.tts_config.dtype), audio16k
 
     def _get_prompt(self, cnhubert_model, sovits: Sovits, audio_path) -> np.ndarray:
         """Prompt semantic tokens: HuBERT features → RVQ codes."""
-        wav, sr = load_audio(audio_path)
-        wav16k = stft.resample(np.asarray(wav, np.float32), sr, 16000).mean(axis=0)
-        wav16k = np.concatenate([wav16k, np.zeros(int(16000 * 0.3), np.float32)])
-        with torch.no_grad():
+        with span("gsv.voice.load"):
+            wav, sr = load_audio(audio_path)
+            wav16k = stft.resample(np.asarray(wav, np.float32), sr, 16000).mean(axis=0)
+            wav16k = np.concatenate([wav16k, np.zeros(int(16000 * 0.3), np.float32)])
+        with torch.no_grad(), span("gsv.voice.hubert"):
             ssl = cnhubert_model(wav16k[None]).transpose(1, 2)
             n_codes = None
             if self.tts_config.featurizer_buckets:
@@ -1813,8 +1871,9 @@ class TTS:
                 k = sovits.params["ssl_proj.weight"].shape[-1]
                 n_codes = (n_frames - k) // 2 + 1
                 ssl = F.pad(ssl, (0, -(-n_frames // 64) * 64 - n_frames))
-            codes = sovits_model.extract_latent(sovits.params, ssl)[..., :n_codes]
-        return codes[0, 0].cpu().numpy()
+            with span("gsv.voice.hubert.codes"):
+                codes = sovits_model.extract_latent(sovits.params, ssl)[..., :n_codes]
+                return codes[0, 0].cpu().numpy()
 
     def _contains_chinese(self, text: str) -> bool:
         return any(seg["lang"] == "zh" for seg in LangSegment.getTexts(text))

@@ -200,20 +200,11 @@ def test_timing_helpers_match_jax():
     from gsv_tts_tpu.utils import timing as jt
     from gsv_tts_tpu_torch.utils import timing as pt
 
-    vals = [0.5, 0.1, 0.3, None, 0.9, 0.2]
-    for q in (0.0, 0.5, 0.95, 1.0):
-        assert pt.percentile(vals, q) == jt.percentile(vals, q)
-    assert pt.percentile([None], 0.5) is None
     a, b = pt.Timings(window=3), jt.Timings(window=3)
     for x in (0.4, 0.1, 0.3, 0.2):
         a.record("s", x)
         b.record("s", x)
     assert a.summary() == b.summary()
-    m = pt.RTFMeter()
-    with m.measure():
-        time.sleep(0.01)
-    m.add_audio(2.0)
-    assert 0 < m.rtf < 1 and pt.RTFMeter().rtf == float("inf")
 
 
 # -- to_safetensors ----------------------------------------------------------------

@@ -201,6 +201,7 @@ STATIC_DTYPE = "a jit static argument: the port takes the torch dtype"
 MEASURE = "a TPU measurement mode (ablate, the t2s_softmax variants, the block size)"
 ROUTE = "the routes are plain methods of a parsed dict under an aiohttp adapter"
 EMBEDDER = "each embedder loads on first use and is kept"
+NO_READER = "no reader in the port; the benchmark has its own"
 NOT_PORTED = {
     ("config.py", "default_platform"): JAX_RUNTIME,
     ("config.py", "default_dtype(platform)"): "the port takes the torch device",
@@ -258,6 +259,12 @@ NOT_PORTED = {
     ("tts.py", "TTS.__init__(t2s_softmax)"): MEASURE,
     ("utils/timing.py", "jax_profile"): JAX_RUNTIME,
     ("utils/timing.py", "enable_compilation_cache"): JAX_RUNTIME,
+    ("utils/timing.py", "RTFMeter"): NO_READER,
+    ("utils/timing.py", "RTFMeter.__init__"): NO_READER,
+    ("utils/timing.py", "RTFMeter.measure"): NO_READER,
+    ("utils/timing.py", "RTFMeter.add_audio"): NO_READER,
+    ("utils/timing.py", "RTFMeter.rtf"): NO_READER,
+    ("utils/timing.py", "percentile"): NO_READER,
     ("utils/torch_pickle.py", "*"): "replaced by torch.load(weights_only=True)",
 }
 
