@@ -2244,9 +2244,10 @@ def v2pro_phase(models_dir, gpt, v2, spk, prompt, dev, card):
     sv_model.kaldi_fbank(wav16k[0])
     fbank_ms = 1000 * (time.perf_counter() - t1)
     print(f"v2ProPlus: ERes2NetV2 embedding of a {wav16k.shape[1] / 16000:.1f} s clip "
-          f"({feat.shape[1]} frames): the facade's first-use load {load_s:.2f} s (once), "
-          f"{clip_ms:.2f} ms a clip by CUDA events around the call "
-          f"(the host's fbank {fbank_ms:.2f} ms of it), the network {dev_ms:.2f} ms on the "
+          f"({feat.shape[1]} frames): the facade's first-use load with its bucket captures "
+          f"{load_s:.2f} s (once), {clip_ms:.2f} ms a clip by CUDA events around the call "
+          f"(its bucket's graph replayed, fbank included; the host numpy fbank "
+          f"{fbank_ms:.2f} ms), the network at the exact length {dev_ms:.2f} ms on the "
           f"device (a CUDA graph of 5 calls, replayed) in {ops} device operations (the nodes "
           f"of a graph captured around one call) [{card}]", flush=True)
     sv_kept = id(sv16)

@@ -2,12 +2,21 @@
 ``gsv_tts_tpu/models/sv.py``; reference ``GPT_SoVITS/SV``: ``sv.py``,
 ``ERes2NetV2.py``, ``fusion.py``).
 
-80-bin Kaldi fbank (povey window, dither 0; host numpy, an own copy of the
-JAX package's, equal to it bit for bit) → ERes2NetV2 (baseWidth 24, scale
-4, expansion 4) → ``forward3``: the fused pre-pooling feature map's mean
-over time, a [B, 20480] float32 embedding.  v2Pro's ``sv_emb`` linear and
-``TTS.verify_speaker`` consume it.  The JAX package computes this in XLA,
-outside any Pallas kernel, so the port is plain PyTorch.
+80-bin Kaldi fbank (povey window, dither 0) → ERes2NetV2 (baseWidth 24,
+scale 4, expansion 4) → ``forward3``: the fused pre-pooling feature map's
+mean over time, a [B, 20480] float32 embedding.  v2Pro's ``sv_emb`` linear
+and ``TTS.verify_speaker`` consume it.  The JAX package computes this in
+XLA, outside any Pallas kernel, so the port is PyTorch.
+
+:func:`kaldi_fbank` is host numpy, an own copy of the JAX package's, equal
+to it bit for bit; :func:`torch_fbank` is its arithmetic in PyTorch, on the
+wav's device, and is what the embedder runs.  On the card a single clip of
+at most 1024 frames (10.24 s) runs as one CUDA graph of its frame-count
+bucket (:data:`SV_BUCKETS`), the wav padded to the bucket and its frame
+count a device tensor that masks the padding out of every 3×3 convolution
+and of the temporal mean; the graphs are captured when the embedder loads.
+Anything else (the CPU, a batch, a longer clip) runs the same functions
+eagerly at the exact length.
 
 Parameters are a flat dict keyed by the reference state-dict names.  The
 JAX package has no ``init_params`` for them; :func:`param_shapes` is the
@@ -17,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +39,10 @@ F32 = torch.float32
 #: the embedding's width at the published config: 2048 channels × 10 mel rows
 #: (layer 4 is 8 × m_channels × expansion wide, the 80 mel rows halved three times)
 EMBED_DIM = 20480
+#: the frame counts of the embedder's CUDA graphs: clips of up to 10.24 s (the
+#: reference project's 3-10 s reference audio) in steps of 128 frames
+SV_BUCKETS = tuple(range(128, 1025, 128))
+_WIN, _SHIFT, _NFFT = 400, 160, 512  # 25 ms, 10 ms and the FFT size at 16 kHz
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +107,57 @@ def kaldi_fbank(wav: np.ndarray, num_mel_bins: int = 80, sr: int = 16000,
     return np.log(np.maximum(mel, np.finfo(np.float32).eps)).astype(np.float32)
 
 
+def n_frames(n_samples: int) -> int:
+    """The fbank's frame count for a clip of ``n_samples`` at 16 kHz."""
+    return 0 if n_samples < _WIN else 1 + (n_samples - _WIN) // _SHIFT
+
+
+def bucket_samples(frames: int) -> int:
+    """The samples of a clip of exactly ``frames`` fbank frames."""
+    return _WIN + _SHIFT * (frames - 1)
+
+
+def sv_bucket(frames: int) -> Optional[int]:
+    """The bucket of :data:`SV_BUCKETS` a clip of ``frames`` frames replays
+    in, or None for a clip that runs eagerly (empty, or over 1024 frames)."""
+    if not 0 < frames <= SV_BUCKETS[-1]:
+        return None
+    step = SV_BUCKETS[0]
+    return -(-frames // step) * step
+
+
+def fbank_constants(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`torch_fbank`'s povey window [400] and 80 mel banks [257, 80]
+    (the Nyquist row zero), float64 on ``device``: built once, at load."""
+    banks = np.pad(_kaldi_mel_banks(80, _NFFT, 16000), [(0, 0), (0, 1)])
+    return (torch.as_tensor(_povey_window(_WIN), dtype=torch.float64, device=device),
+            torch.as_tensor(banks.T, dtype=torch.float64, device=device))
+
+
+def torch_fbank(wav: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                consts: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """wav [B, T] → [B, frames, 80] float32 log-mel on wav's device:
+    :func:`kaldi_fbank`'s arithmetic, float32 through the pre-emphasis and
+    float64 from the window to the log, where numpy promotes it.  Frames at
+    or past ``n_valid`` (valid frames, a device tensor [] or [B]) come out
+    zero.  ``consts``: :func:`fbank_constants` on wav's device."""
+    window, banks = fbank_constants(wav.device) if consts is None else consts
+    if wav.shape[-1] < _WIN:
+        return wav.new_zeros((wav.shape[0], 0, banks.shape[1]), dtype=F32)
+    frames = wav.to(F32).unfold(-1, _WIN, _SHIFT)  # [B, frames, 400], snip edges
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    first = frames[..., :1]
+    frames = torch.cat([first - 0.97 * first, frames[..., 1:] - 0.97 * frames[..., :-1]],
+                       dim=-1)
+    frames = F.pad(frames.double() * window, (0, _NFFT - _WIN))
+    spec = torch.fft.rfft(frames, dim=-1).abs() ** 2  # power
+    out = torch.log(torch.clamp_min(spec @ banks, float(np.finfo(np.float32).eps))).to(F32)
+    if n_valid is not None:
+        out = out * (torch.arange(out.shape[1], device=out.device)
+                     < n_valid.reshape(-1, 1))[..., None]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # ERes2NetV2
 # ---------------------------------------------------------------------------
@@ -135,7 +199,7 @@ def _aff(p, pfx, x, ds_y):
 
 
 def _basic_block(p, pfx, x, width: int, scale: int, stride: int, use_aff: bool,
-                 has_shortcut: bool):
+                 has_shortcut: bool, mask: Optional[torch.Tensor] = None):
     out = conv2d(x, p[pfx + "conv1.weight"], stride=stride)
     out = _relu20(_bn(p, pfx + "bn1.", out))
     spx = torch.split(out, width, dim=1)
@@ -148,7 +212,7 @@ def _basic_block(p, pfx, x, width: int, scale: int, stride: int, use_aff: bool,
             sp = _aff(p, f"{pfx}fuse_models.{i - 1}.", sp, spx[i])
         else:
             sp = sp + spx[i]
-        sp = conv2d(sp, p[f"{pfx}convs.{i}.weight"], padding=1)
+        sp = conv2d(_masked(sp, mask), p[f"{pfx}convs.{i}.weight"], padding=1)
         sp = _relu20(_bn(p, f"{pfx}bns.{i}.", sp))
         pieces.append(sp)
     out = _bn(p, pfx + "bn3.", conv2d(torch.cat(pieces, dim=1), p[pfx + "conv3.weight"]))
@@ -178,30 +242,67 @@ def _layers(cfg: SVConfig):
             in_planes = planes * cfg.expansion
 
 
+def _masked(x, mask):
+    return x if mask is None else x * mask
+
+
+def _valid(length: torch.Tensor, stride: int) -> torch.Tensor:
+    """The valid columns at ``stride``: ceil(length / stride), [B, 1, 1, 1]."""
+    return (length.reshape(-1, 1, 1, 1) + stride - 1) // stride
+
+
+def _time_masks(length: Optional[torch.Tensor], t: int, dtype) -> List[Optional[torch.Tensor]]:
+    """Per stride 1, 2, 4, 8 (the stem and layer 1, layers 2, 3, 4): the
+    [B, 1, 1, ceil(t / stride)] mask of the columns before ceil(length /
+    stride), in ``dtype``; four Nones without a length."""
+    if length is None:
+        return [None] * 4
+    return [(torch.arange(-(-t // s), device=length.device) < _valid(length, s)).to(dtype)
+            for s in (1, 2, 4, 8)]
+
+
 def eres2netv2_features(p: Dict[str, torch.Tensor], feat: torch.Tensor,
-                        cfg: SVConfig = SVConfig()) -> torch.Tensor:
+                        cfg: SVConfig = SVConfig(),
+                        length: Optional[torch.Tensor] = None) -> torch.Tensor:
     """feat [B, T, 80] → fused pre-pooling feature map [B, C, F, T']
-    (``ERes2NetV2.py:230-240`` before the temporal mean)."""
+    (``ERes2NetV2.py:230-240`` before the temporal mean).  With ``length``
+    (valid frames, a device tensor [] or [B]) the input of every 3×3
+    convolution is zeroed from ceil(length / 2^k) on, at its stage's
+    resolution, so the first ceil(length / 8) columns of the map equal the
+    exact-length run's: zero is what that run's convolutions read past its
+    edge, and a strided 1×1 or 3×3 convolution keeps ceil(L / 2) valid
+    outputs of L."""
     x = feat.transpose(1, 2)[:, None]  # [B, 1, F, T]
+    masks = _time_masks(length, x.shape[-1], x.dtype)
     # the stem's ReLU is unbounded; the blocks' is Hardtanh(0, 20)
-    out = torch.relu(_bn(p, "bn1.", conv2d(x, p["conv1.weight"], padding=1)))
-    out3 = None
+    out = torch.relu(_bn(p, "bn1.", conv2d(_masked(x, masks[0]), p["conv1.weight"],
+                                           padding=1)))
+    out3, stage = None, 0
     for pfx, _, _, width, stride, use_aff, has_shortcut, ends_layer3 in _layers(cfg):
+        stage += stride == 2
         with span("gsv.voice.sv_emb.block", device=True):
-            out = _basic_block(p, pfx, out, width, cfg.scale, stride, use_aff, has_shortcut)
+            out = _basic_block(p, pfx, out, width, cfg.scale, stride, use_aff, has_shortcut,
+                               masks[stage])
         if ends_layer3:
             out3 = out
     with span("gsv.voice.sv_emb.fuse", device=True):
-        out3_ds = conv2d(out3, p["layer3_ds.weight"], stride=2, padding=1)
+        out3_ds = conv2d(_masked(out3, masks[2]), p["layer3_ds.weight"], stride=2, padding=1)
         return _aff(p, "fuse34.", out, out3_ds)
 
 
 def eres2netv2_forward3(p: Dict[str, torch.Tensor], feat: torch.Tensor,
-                        cfg: SVConfig = SVConfig()) -> torch.Tensor:
+                        cfg: SVConfig = SVConfig(),
+                        length: Optional[torch.Tensor] = None) -> torch.Tensor:
     """feat [B, T, 80] → the fused feature map's mean over time in float32,
-    flattened channel-major: [B, C·F] (``ERes2NetV2.py:230-241``)."""
-    fused = eres2netv2_features(p, feat, cfg)
-    return fused.float().mean(dim=-1).reshape(fused.shape[0], -1)
+    flattened channel-major: [B, C·F] (``ERes2NetV2.py:230-241``).  With
+    ``length`` (see :func:`eres2netv2_features`) the mean is the masked sum
+    over the valid count ceil(length / 8)."""
+    fused = eres2netv2_features(p, feat, cfg, length).float()
+    if length is None:
+        return fused.mean(dim=-1).reshape(fused.shape[0], -1)
+    n = _valid(length, 8)[..., 0]  # [B, 1, 1]
+    keep = torch.arange(fused.shape[-1], device=fused.device) < n[..., None]
+    return (torch.where(keep, fused, 0.0).sum(dim=-1) / n).reshape(fused.shape[0], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -290,25 +391,57 @@ def params_from_state_dict(sd: Dict[str, torch.Tensor], cfg: SVConfig = SVConfig
 class ERes2Net:
     """Facade mirroring the reference ``ERes2Net`` (``SV/sv.py``): loads a
     checkpoint (a flat state dict, through ``torch.load(weights_only=True)``)
-    in the engine's device and dtype."""
+    in the engine's device and dtype.  Given ``graphs`` (the facade's
+    ``SovitsGraphs``) on the card, it captures one CUDA graph of the whole
+    embedding per bucket of :data:`SV_BUCKETS` here, at load, so that no
+    request pays a capture."""
 
-    def __init__(self, sv_path, tts_config, cfg: SVConfig = SVConfig()):
+    def __init__(self, sv_path, tts_config, cfg: SVConfig = SVConfig(), graphs=None):
         sd = torch.load(str(sv_path), map_location="cpu", weights_only=True)
         self.cfg = cfg
         self.device = torch.device(tts_config.device)
         self.dtype = tts_config.dtype
         self.params = params_from_state_dict(sd, cfg, dtype=self.dtype, device=self.device,
                                              where=str(sv_path))
+        self.fbank_consts = fbank_constants(self.device)
+        self.graphs = graphs if self.device.type == "cuda" else None
+        if self.graphs is not None:
+            with torch.no_grad():
+                for frames in SV_BUCKETS:
+                    self._replay(np.zeros(bucket_samples(frames), np.float32), frames)
+
+    def _embed(self, wav: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+        """One bucket's graph: wav [1, samples] → [1, 20480] float32."""
+        feat = torch_fbank(wav, length, self.fbank_consts).to(self.dtype)
+        return eres2netv2_forward3(self.params, feat, self.cfg, length)
+
+    def _replay(self, wav: np.ndarray, frames: int) -> torch.Tensor:
+        """wav [T] of ``frames`` frames, zero-padded (or cut past its last
+        frame) to its bucket's samples, through the bucket's graph."""
+        bucket = sv_bucket(frames)
+        buf = np.zeros((1, bucket_samples(bucket)), np.float32)
+        n = min(len(wav), buf.shape[1])
+        buf[0, :n] = wav[:n]
+        x = torch.from_numpy(buf).pin_memory().to(self.device, non_blocking=True)
+        length = torch.full((), frames, dtype=torch.int64, device=self.device)
+        return self.graphs.run(self.params, ("sv", bucket), self._embed, x, length)[0]
 
     def compute_embedding3(self, wav) -> torch.Tensor:
         """wav [B, T] (or [T]) 16 kHz → [B, 20480] float32 on the engine's
-        device: the fbank on the host, ERes2NetV2 in the engine's dtype, the
-        temporal mean in float32."""
+        device: the fbank in float32 and float64, ERes2NetV2 in the engine's
+        dtype, the temporal mean in float32.  A single clip of at most 1024
+        frames on the card replays its bucket's graph; anything else runs
+        eagerly at the exact length."""
         wav = np.asarray(wav, np.float32)
         if wav.ndim == 1:
             wav = wav[None]
-        with span("gsv.voice.sv_emb.fbank"):
-            feats = np.stack([kaldi_fbank(w) for w in wav])
-            feat = torch.as_tensor(feats, device=self.device).to(self.dtype)
+        frames = n_frames(wav.shape[1])
         with torch.no_grad():
-            return eres2netv2_forward3(self.params, feat, self.cfg)
+            if self.graphs is not None and wav.shape[0] == 1 and sv_bucket(frames):
+                with span("gsv.voice.sv_emb.replay"):
+                    return self._replay(wav[0], frames)
+            with span("gsv.voice.sv_emb.eager"):
+                with span("gsv.voice.sv_emb.fbank"):
+                    feat = torch_fbank(torch.as_tensor(wav, device=self.device),
+                                       consts=self.fbank_consts).to(self.dtype)
+                return eres2netv2_forward3(self.params, feat, self.cfg)

@@ -262,7 +262,9 @@ class DeviceGate:
 class SovitsGraphs:
     """One CUDA graph per padded SoVITS program (the JAX facade's one compile
     per shape bucket; the reference captured this region too,
-    ``models.py:406-425``).  :meth:`run` captures a program the first time its
+    ``models.py:406-425``), and one per clip-length bucket of the ERes2NetV2
+    speaker embedding (``models/sv.py``, keyed ``("sv", frames)`` under the
+    embedder's parameters).  :meth:`run` captures a program the first time its
     key is seen for a model's parameters — a warm eager run on a side stream,
     then ``torch.cuda.graph`` — and replays it after, the inputs copied into
     the graph's own buffers.  The caller keys a program by every shape it
@@ -658,14 +660,16 @@ class TTS:
 
     def _get_sv_model(self):
         """The ERes2NetV2 embedder (``sv_path``), loaded on first use and kept;
-        a missing or incomplete checkpoint raises."""
+        a missing or incomplete checkpoint raises.  On the card its load
+        captures the embedding's CUDA graphs, one per clip-length bucket, in
+        :attr:`sovits_graphs`."""
         if self.sv_model is None:
             from .models.sv import ERes2Net
 
             if not self.sv_path.exists():
                 raise FileNotFoundError(
                     f"speaker-verification checkpoint not found: {self.sv_path}")
-            self.sv_model = ERes2Net(self.sv_path, self.tts_config)
+            self.sv_model = ERes2Net(self.sv_path, self.tts_config, graphs=self.sovits_graphs)
         return self.sv_model
 
     # -- caches ----------------------------------------------------------
@@ -695,8 +699,9 @@ class TTS:
                 if entry is None:
                     entry = self.spk_audio_cache[path] = {"ge": {}, "sv_emb": None}
                 if model.cfg.is_v2pro and entry["sv_emb"] is None:
+                    sv = self._get_sv_model()
                     with span("gsv.voice.sv_emb", device=True):
-                        entry["sv_emb"] = self._get_sv_model().compute_embedding3(audio16k)
+                        entry["sv_emb"] = sv.compute_embedding3(audio16k)
                 with torch.no_grad(), span("gsv.voice.ge"):
                     entry["ge"][sovits_model] = sovits_model_ge(model, refers, entry["sv_emb"])
             logger.info("Cached speaker audio: %s", path)

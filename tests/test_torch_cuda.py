@@ -1180,6 +1180,96 @@ def test_sv_embedding_in_bf16_holds_to_float32_on_the_card(cuda_device):
         assert float((got - want).norm() / want.norm()) <= SV_TOL_REL
 
 
+def _sv_facade(cuda_device, tmp_path, monkeypatch):
+    """A facade on the card with a full-width random ERes2NetV2 checkpoint
+    where it looks for one, its embedder loaded; offline, so that it fetches
+    none of the assets the directory lacks."""
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.models import sv
+
+    monkeypatch.setenv("GSV_OFFLINE", "1")
+    path = tmp_path / "sv" / "pretrained_eres2netv2w24s4ep4.ckpt"
+    path.parent.mkdir()
+    torch.save(sv.init_params(sv.SVConfig(), torch.Generator().manual_seed(0)), str(path))
+    tts = TTS(models_dir=str(tmp_path), device=cuda_device, seed=0)
+    return tts, tts._get_sv_model()
+
+
+def _sv_clip(seconds, seed=0):
+    import numpy as np
+
+    n = int(16000 * seconds)
+    t = np.arange(n) / 16000
+    rng = np.random.RandomState(seed)
+    return (0.1 * rng.randn(n) + 0.2 * np.sin(2 * np.pi * 180 * t)).astype(np.float32)
+
+
+def _span_names(fn):
+    """``fn()``'s result and the names of the spans it opened, recorded
+    under a CPU-only profiler."""
+    from gsv_tts_tpu_torch.utils import timing
+
+    before = {id(r) for r in timing.span_log()}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = fn()
+    return out, [r.name for r in timing.span_log() if id(r) not in before]
+
+
+@pytest.mark.cuda
+def test_sv_embedder_captures_its_buckets_at_load_and_replays_them(cuda_device, tmp_path,
+                                                                   monkeypatch):
+    """Loading the facade's embedder captures one graph per bucket (8);
+    two clips of one bucket then add two replays and no capture, each
+    through ``gsv.voice.sv_emb.replay`` alone; a replay equals the eager
+    exact-length bf16 run within the bf16 bounds."""
+    from gsv_tts_tpu_torch.models import sv
+
+    tts, emb = _sv_facade(cuda_device, tmp_path, monkeypatch)
+    graphs = tts.sovits_graphs
+    assert graphs.captures == 8 == len(sv.SV_BUCKETS)
+    assert sorted(k[2] for k in graphs.graphs if k[0] == "sv") == list(sv.SV_BUCKETS)
+    replays = graphs.replays
+    clips = [_sv_clip(3.0, 1), _sv_clip(3.5, 2)]  # 298 and 348 frames: both 384
+    for wav in clips:
+        got, names = _span_names(lambda: emb.compute_embedding3(wav))
+        assert "gsv.voice.sv_emb.replay" in names
+        assert not {"gsv.voice.sv_emb.eager", "gsv.voice.sv_emb.fbank",
+                    "gsv.voice.sv_emb.block"} & set(names)
+        emb.graphs = None  # the same embedder, eagerly at the exact length
+        try:
+            want = emb.compute_embedding3(wav)
+        finally:
+            emb.graphs = graphs
+        assert got.dtype == torch.float32 and got.shape == (1, sv.EMBED_DIM)
+        assert float((got - want).abs().max()) <= SV_TOL_ABS
+        assert float((got - want).norm() / want.norm()) <= SV_TOL_REL
+    assert graphs.captures == 8 and graphs.replays == replays + 2
+
+
+@pytest.mark.cuda
+def test_sv_embedder_runs_a_long_clip_and_a_batch_eagerly(cuda_device, tmp_path, monkeypatch):
+    """A 12 s clip (1198 frames, past the largest bucket) and a batch of two
+    clips take ``gsv.voice.sv_emb.eager`` (with its ``.fbank``): no capture,
+    no replay; the batch's rows equal each clip's replay within the bf16
+    bounds."""
+    import numpy as np
+
+    tts, emb = _sv_facade(cuda_device, tmp_path, monkeypatch)
+    graphs = tts.sovits_graphs
+    captures, replays = graphs.captures, graphs.replays
+    batch = np.stack([_sv_clip(4.0, 3), _sv_clip(4.0, 4)])
+    for wav in (_sv_clip(12.0, 5), batch):
+        out, names = _span_names(lambda: emb.compute_embedding3(wav))
+        assert {"gsv.voice.sv_emb.eager", "gsv.voice.sv_emb.fbank"} <= set(names)
+        assert "gsv.voice.sv_emb.replay" not in names
+        assert torch.isfinite(out).all() and len(out) == (1 if wav.ndim == 1 else len(wav))
+    assert (graphs.captures, graphs.replays) == (captures, replays)
+    for row, wav in zip(out, batch):
+        want = emb.compute_embedding3(wav)[0]
+        assert float((row - want).abs().max()) <= SV_TOL_ABS
+        assert float((row - want).norm() / want.norm()) <= SV_TOL_REL
+
+
 @pytest.mark.cuda
 def test_unload_sovits_model_evicts_its_graphs_while_another_replays(cuda_device, tmp_path):
     """Two SoVITS models (v2 and v2ProPlus) on one facade, each with the CUDA

@@ -200,3 +200,94 @@ def test_sv_from_jax_takes_the_jax_facades_params(sv_ckpt):
     for k in ("conv1.weight", "layer4.2.fuse_models.2.local_att.4.running_var",
               "fuse34.local_att.0.bias"):
         assert np.array_equal(got[k].numpy(), np.asarray(jsv.params[k])), k
+
+
+@pytest.mark.parametrize("kind,seconds", [("tone", 0.5), ("noise", 1.013), ("silence", 0.3),
+                                          ("noise", 3.0), ("noise", 6.37)],
+                         ids=["1kHz-tone", "noise", "silence", "3.0s", "6.37s"])
+def test_torch_fbank_follows_the_numpy_fbank(kind, seconds):
+    """``torch_fbank`` on the CPU gives ``kaldi_fbank``'s frame count and its
+    values within 1e-4; the clip padded to its bucket with the valid count
+    as a tensor gives the same frames, then zeros."""
+    from gsv_tts_tpu_torch.models import sv as psv
+
+    wav = clip(kind, seconds)
+    want = psv.kaldi_fbank(wav)
+    got = psv.torch_fbank(torch.tensor(wav[None]))
+    assert got.shape == (1, *want.shape) and got.dtype == torch.float32
+    assert want.shape[0] == psv.n_frames(len(wav))
+    np.testing.assert_allclose(got[0].numpy(), want, rtol=0, atol=1e-4)
+    n = want.shape[0]
+    padded = np.zeros(psv.bucket_samples(psv.sv_bucket(n)), np.float32)
+    padded[:len(wav)] = wav
+    got = psv.torch_fbank(torch.tensor(padded[None]), torch.tensor(n))[0].numpy()
+    assert got.shape == (psv.sv_bucket(n), 80)
+    np.testing.assert_allclose(got[:n], want, rtol=0, atol=1e-4)
+    assert not got[n:].any()
+
+
+def test_sv_bucket_choice():
+    """Frame counts round up to a multiple of 128 up to 1024 (10.24 s); an
+    empty clip and a longer one have no bucket (they run eagerly); a
+    bucket's samples hold exactly its frames."""
+    from gsv_tts_tpu_torch.models import sv as psv
+
+    assert psv.SV_BUCKETS == (128, 256, 384, 512, 640, 768, 896, 1024)
+    assert [psv.sv_bucket(n) for n in (1, 128, 129, 298, 998, 1024)] == \
+        [128, 128, 256, 384, 1024, 1024]
+    assert psv.sv_bucket(1025) is None and psv.sv_bucket(0) is None
+    for frames in psv.SV_BUCKETS:
+        assert psv.n_frames(psv.bucket_samples(frames)) == frames
+        assert psv.n_frames(psv.bucket_samples(frames) - 1) == frames - 1
+    assert psv.n_frames(int(16000 * 10.24)) == 1022
+
+
+@pytest.mark.parametrize("frames", [37, 64, 101, 298])
+def test_masked_forward_on_padding_equals_the_exact_length(frames):
+    """ERes2NetV2 (reduced width, float32) on fbank frames zero-padded to a
+    bucket, told the valid count, gives the exact-length run's embedding:
+    lengths of every parity at strides 2, 4 and 8, alone (a 0-dim length) and
+    beside a full-length clip (a length a row)."""
+    from gsv_tts_tpu_torch.models import sv as psv
+
+    cfg = psv.SVConfig(**SMALL)
+    p = psv.init_params(cfg, torch.Generator().manual_seed(4))
+    feat = torch.tensor(psv.kaldi_fbank(clip("noise", 3.1))[:frames])
+    other = torch.tensor(psv.kaldi_fbank(clip("tone", 4.0)))
+    t = psv.sv_bucket(frames)
+    padded = torch.zeros(2, t, 80)
+    padded[0, :frames] = feat
+    padded[1] = other[:t]
+
+    def rel(got, want):
+        return float((got - want).norm() / want.norm())
+
+    want = psv.eres2netv2_forward3(p, feat[None], cfg)
+    got = psv.eres2netv2_forward3(p, padded[:1], cfg, torch.tensor(frames))
+    assert got.shape == want.shape and rel(got, want) <= 1e-5
+    both = psv.eres2netv2_forward3(p, padded, cfg, torch.tensor([frames, t]))
+    assert rel(both[:1], want) <= 1e-5
+    assert rel(both[1:], psv.eres2netv2_forward3(p, padded[1:], cfg)) <= 1e-5
+
+
+def test_bucket_body_equals_the_eager_embedding_on_the_cpu(tmp_path):
+    """What a bucket's CUDA graph computes (``ERes2Net._embed``: the torch
+    fbank of the padded wav, the masked network, the masked mean), run
+    eagerly on the CPU in float32, equals the facade's exact-length
+    embedding of a 3 s clip; on the CPU the facade keeps no graph store."""
+    from gsv_tts_tpu_torch.config import Config
+    from gsv_tts_tpu_torch.models import sv as psv
+
+    cfg = psv.SVConfig(**SMALL)
+    torch.save(psv.init_params(cfg, torch.Generator().manual_seed(5)), str(tmp_path / "sv.ckpt"))
+    sv = psv.ERes2Net(tmp_path / "sv.ckpt", Config(device="cpu"), cfg, graphs=object())
+    assert sv.graphs is None
+    wav = clip("noise", 3.0)
+    frames = psv.n_frames(len(wav))
+    padded = np.zeros((1, psv.bucket_samples(psv.sv_bucket(frames))), np.float32)
+    padded[0, :len(wav)] = wav
+    with torch.no_grad():
+        got = sv._embed(torch.tensor(padded), torch.tensor(frames))
+    want = sv.compute_embedding3(wav)
+    assert got.shape == want.shape == (1, 16 * 8 * 4 * 10)
+    assert float((got - want).norm() / want.norm()) <= 1e-5
