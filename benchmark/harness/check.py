@@ -11,11 +11,8 @@ Numbers compared (each printed beside its limit):
   ``prompt_code_mismatch`` judges.
 * ``t2s_flip_share``: the share of those positions where the served code is
   not the reference's best.
-* ``sovits_spec``: relative L2 distance of the judged requests' SoVITS audio,
-  as mel magnitudes, from the reference's decode of the same codes and
-  phonemes (with the reference's own speaker conditioning worked out from
-  the clip), pooled over the requests; ``sovits_err``, the waveform's worst
-  relative error, is printed beside it (bf16 moves the waveform's phase).
+* the SoVITS stage's numbers (v2's ``sovits_spec``, ``sovits_err``) come from
+  the configuration's family module, ``families/<sovits_family>.py``.
 * ``prompt_code_gap``: over every judged voice's prompt frames, the widest
   relative excess of the chosen code's squared distance (HuBERT →
   ``ssl_proj`` → the codebook) over the nearest code's, under the
@@ -113,15 +110,14 @@ def rel(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12))
 
 
-def voice_numbers(vref, voices: List[dict], decodes: List[dict], ctl=None) -> Dict[str, float]:
-    """``sovits_spec``, ``sovits_err``, ``prompt_code_gap``,
-    ``prompt_code_mismatch`` and, where the program made one, ``sv_emb_err``,
-    over what is given.  ``voices``: the program's
-    prompt codes (and embedding) per clip; ``decodes``: the program's audio
-    with its codes, phonemes and speaker clip.  With ``ctl`` (a reference in
-    the control's precision) the control's numbers against ``vref``."""
+def voice_numbers(vref, voices: List[dict], ctl=None) -> Dict[str, float]:
+    """``prompt_code_gap``, ``prompt_code_gap_mean``, ``prompt_code_mismatch``
+    and, where the program made one, ``sv_emb_err``, over ``voices``: the
+    program's prompt codes (and embedding) per clip.  ``vref`` is the
+    family's reference, which featurizes the clips.  With ``ctl`` (a
+    reference in the control's precision) the control's numbers against
+    ``vref``."""
     out: Dict[str, float] = {}
-    ge_cache: Dict[str, torch.Tensor] = {}
     frames = differ = 0
     excess_sum = 0.0
     for v in voices:
@@ -148,23 +144,6 @@ def voice_numbers(vref, voices: List[dict], decodes: List[dict], ctl=None) -> Di
             got_e = (ctl.sv_embedding(v["spk_wav"]).reshape(-1).cpu().numpy() if ctl is not None
                      else v["sv_emb"])
             out["sv_emb_err"] = max(out.get("sv_emb_err", 0.0), rel(got_e, want_e))
-    from reference.stft_ref import mel_spectrogram
-
-    s_num = s_den = 0.0
-    for d in decodes:
-        if d["spk_wav"] not in ge_cache:
-            ge_cache[d["spk_wav"]] = vref.ge(d["spk_wav"])
-        want = vref.decode(d["codes"], d["phones"], ge_cache[d["spk_wav"]])
-        got = (ctl.decode(d["codes"], d["phones"], ctl.ge(d["spk_wav"])) if ctl is not None
-               else d["audio"])
-        out["sovits_err"] = max(out.get("sovits_err", 0.0), rel(got, want))
-        n = min(len(got), len(want))
-        ma = np.exp(mel_spectrogram(np.asarray(got[:n], np.float32), device=vref.device))
-        mb = np.exp(mel_spectrogram(np.asarray(want[:n], np.float32), device=vref.device))
-        s_num += float(np.sum((ma.astype(np.float64) - mb) ** 2))
-        s_den += float(np.sum(mb.astype(np.float64) ** 2))
-    if decodes:
-        out["sovits_spec"] = (s_num / max(s_den, 1e-30)) ** 0.5
     return out
 
 

@@ -5,7 +5,9 @@
 The cell names a configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<mix>.json``); metrics are read by ``metrics/<metric>.py`` and
 limits come from ``limits/<cell>.json``, all found by the names in
-``BENCHMARK.json``.  The last line of standard output is the result.
+``BENCHMARK.json``.  The configuration's SoVITS stage is recorded, warmed
+and judged by ``families/<sovits_family>.py`` (``vits`` where it names
+none).  The last line of standard output is the result.
 
 ``--control`` (a calibration run, never the driver's) also reads the
 float8 control and judges it by the same limits; a run in which the
@@ -61,14 +63,27 @@ def load_config(name: str, root: Path = HERE) -> dict:
     return json.loads((root / "configs" / f"{name}.json").read_text())
 
 
-def metric_reader(name: str, root: Path = HERE):
-    """``metrics/<name>.py``'s ``read(ctx)``."""
-    path = root / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}",
-                                                  path)
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: Path = HERE):
+    """``metrics/<name>.py``'s ``read(ctx)``."""
+    return _module(root / "metrics" / f"{name}.py", f"bench_metric_{name}").read
+
+
+def load_family(cfg: dict, root: Path = HERE):
+    """``families/<name>.py`` of the configuration's ``"sovits_family"``
+    (default ``vits``): ``install``, ``warm``, ``reference``, ``numbers``."""
+    name = cfg.get("sovits_family", "vits")
+    path = root / "families" / f"{name}.py"
+    if not path.is_file():
+        raise RunError(f"configuration {cfg.get('name')!r} names the SoVITS family {name!r}, "
+                       f"but {path} does not exist")
+    return _module(path, f"bench_family_{name}")
 
 
 def cell_metrics(bench: dict, cell: str, kind: str) -> List[dict]:
@@ -100,6 +115,7 @@ class Cell:
         from gsv_tts_tpu_torch import TTS
 
         self.mix, self.device = mix, device
+        self.family = load_family(cfg, tables)
         t0 = time.perf_counter()
         self.paths = weights.write_models(cfg, seed, tmp, device,
                                           torch.bfloat16 if device == "cuda" else torch.float32,
@@ -131,8 +147,8 @@ class Cell:
         """The cell's own shapes: every voice's clips through the
         featurizers and one request with each voice (the first voice in
         both sampling kinds), and every SoVITS graph its texts and lengths
-        can reach.  A mix whose requests bring their voices has them
-        deleted again."""
+        can reach (the family's ``warm``).  A mix whose requests bring
+        their voices has them deleted again."""
         tts, mix = self.tts, self.mix
         cached = mix["voices"]["cached"]
         for i, v in enumerate(self.voices):
@@ -145,31 +161,7 @@ class Cell:
                 tts.del_spk_audio(v["spk"])
                 tts.del_prompt_audio(v["prompt"])
         if self.device == "cuda":  # graphs exist on the card only
-            self.warm_sovits_graphs()
-
-    def warm_sovits_graphs(self):
-        """Capture the padded SoVITS core for every (codes, phonemes) bucket
-        the pool's texts and the cache's lengths reach, and the flow graph
-        of every frame bucket."""
-        from gsv_tts_tpu_torch.tts import get_phones_and_bert
-
-        tts = self.tts
-        sovits = tts.sovits_models[self.sovits_key]
-        ge = next(iter(tts.spk_audio_cache.values()))["ge"][self.sovits_key] \
-            if tts.spk_audio_cache else None
-        if ge is None:
-            v = self.voices[0]
-            tts.cache_spk_audio(v["spk"])
-            ge = tts.spk_audio_cache[v["spk"]]["ge"][self.sovits_key]
-            tts.del_spk_audio(v["spk"])
-        mult = 32
-        phone_buckets = sorted({-(-len(get_phones_and_bert(t, tts.tts_config)[0]) // mult) * mult
-                                for t in self.pool})
-        s_max = max(s for b, s in self.gpt_cache if b == 1)  # codes a request can reach
-        for N in phone_buckets:
-            for n in range(mult, s_max + mult, mult):
-                tts._sovits_decode(sovits, np.zeros((1, 1, n), np.int64),
-                                   np.ones((1, N), np.int64), ge, noise_scale=0.0)
+            self.family.warm(self)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +304,7 @@ def run(argv, root: Optional[Path] = None, require_cuda: bool = True, device: st
         if hooks is not None:  # beneath the recorder, as a fault in the program would be
             hooks(c)
         rec = Recorder()
-        rec.install(c.tts, c.engine)
+        rec.install(c.tts, c.engine, c.family)
         slice_ = None
         if args.trace:
             from .trace import Slice
@@ -329,7 +321,7 @@ def run(argv, root: Optional[Path] = None, require_cuda: bool = True, device: st
         rec.finish()
         rec.uninstall()
         summary = slice_.summary() if slice_ is not None else None
-        paths, voices = c.paths, c.voices
+        paths, family = c.paths, c.family
         engine_meta = {"s_max": max(s for b, s in c.gpt_cache if b == 1),
                        "suppress_until": c.engine.initial_suppression_steps,
                        "suppressed": tuple(c.engine.cfg.suppressed_tokens)}
@@ -339,7 +331,7 @@ def run(argv, root: Optional[Path] = None, require_cuda: bool = True, device: st
         if device == "cuda":
             torch.cuda.empty_cache()
         t_check = time.perf_counter()
-        numbers = judge(cfg, mix, paths, rec.items, engine_meta, device, args.seed,
+        numbers = judge(cfg, mix, paths, rec.items, engine_meta, device, args.seed, family,
                         control=args.control)
         check_s = time.perf_counter() - t_check
     reqs = win["requests"]
@@ -411,13 +403,14 @@ def report_distribution(win: dict, ctx: Context):
             f"{int(np.sum(t >= ctx.s_max - 300))} of {ctx.s_max - 300} codes or more")
 
 
-def judge(cfg, mix, paths, items, meta, device, seed, control=False) -> Dict[str, float]:
+def judge(cfg, mix, paths, items, meta, device, seed, family,
+          control=False) -> Dict[str, float]:
     """The check's numbers (and, with ``control``, the control's under
-    ``"_control"``)."""
+    ``"_control"``): the t2s gaps, the voices' prompt codes and embedding
+    under the family's reference, and the family's own numbers."""
     import torch
 
     from reference.t2s import T2SReference
-    from reference.voice import VoiceReference
 
     from .check import fp8_rows, select, t2s_gaps, voice_numbers
 
@@ -441,7 +434,7 @@ def judge(cfg, mix, paths, items, meta, device, seed, control=False) -> Dict[str
         ctl_numbers.update(t2s_gaps(ref, gens, sample, meta["s_max"], ctl_ref=ctl_ref))
         del ctl_ref
     del ref, sd
-    vref = VoiceReference(paths["sovits"], paths["hubert"], paths.get("sv"), device)
+    vref = family.reference(paths, device)
     voices, seen = [], set()  # every voice a judged request brought
     for it in judged:
         if it["prompt_wav"] not in seen:
@@ -450,11 +443,12 @@ def judge(cfg, mix, paths, items, meta, device, seed, control=False) -> Dict[str
                            "codes": np.asarray(it.get("codes", [])),
                            "sv_emb": it.get("sv_emb")})
     decodes = [dict(d, spk_wav=it["spk_wav"]) for it in pick for d in it["sovits"][:1]]
-    numbers.update(voice_numbers(vref, voices, decodes))
+    numbers.update(voice_numbers(vref, voices))
+    numbers.update(family.numbers(vref, judged, decodes))
     if control:
-        ctl = VoiceReference(paths["sovits"], paths["hubert"], paths.get("sv"), device,
-                             weight_fn=fp8_rows)
-        ctl_numbers.update(voice_numbers(vref, voices, decodes, ctl=ctl))
+        ctl = family.reference(paths, device, weight_fn=fp8_rows)
+        ctl_numbers.update(voice_numbers(vref, voices, ctl=ctl))
+        ctl_numbers.update(family.numbers(vref, judged, decodes, ctl=ctl))
         numbers["_control"] = ctl_numbers
     numbers["judged_requests"] = len(judged)
     return numbers

@@ -1,12 +1,13 @@
 """What the benchmark keeps of the requests it will judge.
 
 For a greedy request the recorder wraps, on the loaded models, the t2s
-engine's ``generate`` (its inputs and the served codes), the engine
+engine's ``generate`` (its inputs and the served codes) and the engine
 module's ``prefill_batch`` (the code sampled at the prefill, which
-``infer`` feeds but does not serve) and the facade's
-``_sovits_decode`` (codes, phones and the audio it returned).  Nothing is
-read back from the card while a request runs: tensors are kept and read
-after the window.  Only requests marked with :meth:`want` are recorded.
+``infer`` feeds but does not serve); the configuration's SoVITS family
+(``families/<name>.py``) wraps what it judges of the SoVITS stage and keeps
+it in the item's ``"sovits"`` list.  Nothing is read back from the card
+while a request runs: tensors are kept and read after the window.  Only
+requests marked with :meth:`want` are recorded.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ class Recorder:
         setattr(obj, name, wrapper(orig))
         self._undo.append((obj, name, orig))
 
-    def install(self, tts, engine):
+    def install(self, tts, engine, family):
         from gsv_tts_tpu_torch.runtime import t2s_session
 
         rec = self
@@ -67,20 +68,9 @@ class Recorder:
                 return state, tok
             return prefill_batch
 
-        def sovits_wrap(orig):
-            def _sovits_decode(sovits, codes, text, ge, *a, **kw):
-                audio, attn = orig(sovits, codes, text, ge, *a, **kw)
-                cur = rec._cur
-                if cur is not None and kw.get("slice_indices") is None:
-                    cur["sovits"].append({"codes": np.asarray(codes).reshape(-1).copy(),
-                                          "phones": np.asarray(text).reshape(-1).copy(),
-                                          "audio": np.asarray(audio).reshape(-1).copy()})
-                return audio, attn
-            return _sovits_decode
-
         self._patch(engine, "generate", gen_wrap)
         self._patch(t2s_session, "prefill_batch", prefill_wrap)
-        self._patch(tts, "_sovits_decode", sovits_wrap)
+        family.install(self, tts)
 
     def uninstall(self):
         for obj, name, orig in reversed(self._undo):

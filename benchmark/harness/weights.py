@@ -6,7 +6,8 @@ part come from one ``torch.randn`` and all uniform leaves from one
 ``torch.rand`` of a generator on the card, scaled leaf by leaf there and
 stored in the served dtype.  The configuration's ``assumed`` block scales
 named leaves and sets the EOS length control; the files go under a
-directory the caller owns (the run's ``TMPDIR``).
+directory the caller owns (the run's ``TMPDIR``), where the table's
+``layout`` (or its ``format``'s, in ``FORMATS``) puts them.
 """
 from __future__ import annotations
 
@@ -22,10 +23,60 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 _ST_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16"}
 _ST_DTYPES = {v: k for k, v in _ST_NAMES.items()}
+#: where each named ``format`` of a leaf table is written, as the program's
+#: loaders read a ``models_dir``: a layout's ``dir`` and ``file`` under the
+#: root, the ``container`` (``safetensors`` or ``torch``) and, where the
+#: loader reads one, the ``meta_file`` holding the table's ``meta``
+FORMATS = {
+    "gpt_dir": {"dir": "gpt", "file": "model.safetensors", "container": "safetensors",
+                "meta_file": "config.json"},
+    "sovits_dir": {"dir": "sovits", "file": "model.safetensors", "container": "safetensors",
+                   "meta_file": "hps.json"},
+    "hubert_dir": {"dir": "chinese-hubert-base", "file": "model.safetensors",
+                   "container": "safetensors", "meta_file": "config.json"},
+    "sv_ckpt": {"dir": "sv", "file": "pretrained_eres2netv2w24s4ep4.ckpt",
+                "container": "torch", "meta_file": None},
+}
+CONTAINERS = ("safetensors", "torch")
 
 
 def leaf_table(part: str, root: Path = HERE) -> dict:
     return json.loads((root / "weights" / f"{part}.json").read_text())
+
+
+def layout(table: dict, part: str) -> dict:
+    """The table's own ``layout``, else its ``format``'s.  A table with
+    neither, a container not in ``CONTAINERS``, or a ``dir`` or ``file``
+    that is not a plain relative path raises."""
+    lay = table.get("layout") or FORMATS.get(table.get("format"))
+    if lay is None:
+        raise ValueError(f"leaf table {part!r} has no layout and no known format "
+                         f"({table.get('format')!r}; known: {', '.join(FORMATS)})")
+    names = [lay.get("dir"), lay.get("file")] + ([lay["meta_file"]] if lay.get("meta_file")
+                                                 else [])
+    if lay.get("container") not in CONTAINERS or not all(
+            isinstance(n, str) and n and not Path(n).is_absolute() and ".." not in Path(n).parts
+            for n in names):
+        raise ValueError(f"leaf table {part!r}: a layout needs a relative dir and file and a "
+                         f"container of {CONTAINERS}, not {lay!r}")
+    return lay
+
+
+def write_part(sd: Dict[str, torch.Tensor], table: dict, lay: dict, root: Path) -> Path:
+    """One part's file (and its meta file) under ``root``.  Returns the
+    part's path as the program's loaders take it: the directory of a part
+    with a meta file (a model directory), else the file."""
+    d = root / lay["dir"]
+    d.mkdir(parents=True, exist_ok=True)
+    p = d / lay["file"]
+    if lay["container"] == "torch":
+        torch.save({k: v.cpu() for k, v in sd.items()}, str(p))
+    else:
+        save_safetensors(sd, p)
+    if lay.get("meta_file"):
+        (d / lay["meta_file"]).write_text(json.dumps(table["meta"]))
+        return d
+    return p
 
 
 def draw_part(table: dict, gen: torch.Generator, device, dtype) -> Dict[str, torch.Tensor]:
@@ -166,8 +217,9 @@ def write_models(cfg: dict, seed: int, root: Path, device, dtype=torch.bfloat16,
     assumed = cfg.get("assumed", {})
     scal = assumed.get("scalings", {})
     paths = {}
-    for role, part in cfg["parts"].items():
-        table = leaf_table(part, tables)
+    tabs = {role: leaf_table(part, tables) for role, part in cfg["parts"].items()}
+    lays = {role: layout(tabs[role], cfg["parts"][role]) for role in tabs}
+    for role, table in tabs.items():
         g = gen
         if role in assumed.get("fixed_parts", ("gpt",)):  # the same for every seed
             g = torch.Generator(device=device)
@@ -178,27 +230,7 @@ def write_models(cfg: dict, seed: int, root: Path, device, dtype=torch.bfloat16,
         if role == "gpt":
             t2s_shaping(sd, table["meta"], assumed["t2s_shaping"])
             paths["eos_probe"] = eos_control(sd, table["meta"], assumed["eos_control"], g)
-        fmt = table["format"]
-        if fmt == "gpt_dir":
-            d = root / "gpt"
-            meta_name = "config.json"
-        elif fmt == "sovits_dir":
-            d = root / "sovits"
-            meta_name = "hps.json"
-        elif fmt == "hubert_dir":
-            d = root / "chinese-hubert-base"
-            meta_name = "config.json"
-        else:  # sv_ckpt
-            d = root / "sv"
-            d.mkdir(parents=True, exist_ok=True)
-            p = d / "pretrained_eres2netv2w24s4ep4.ckpt"
-            torch.save({k: v.cpu() for k, v in sd.items()}, str(p))
-            paths[role] = p
-            continue
-        d.mkdir(parents=True, exist_ok=True)
-        save_safetensors(sd, d / "model.safetensors")
-        (d / meta_name).write_text(json.dumps(table["meta"]))
-        paths[role] = d
+        paths[role] = write_part(sd, table, lays[role], root)
         del sd
     for sub in ("g2p", "sv"):  # present, so nothing is fetched
         (root / sub).mkdir(exist_ok=True)
