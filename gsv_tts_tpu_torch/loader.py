@@ -24,7 +24,9 @@ import torch
 
 from .config import Config
 from .hparams import HParams
+from .models import cfm
 from .models import sovits as sovits_model
+from .models import sovits_v4
 from .models import t2s as t2s_model
 from .models.sovits import SovitsConfig
 from .models.t2s import T2SConfig
@@ -72,12 +74,21 @@ class Gpt:
 
 
 class Sovits:
-    """Loaded stage-2 model."""
+    """Loaded stage-2 model; a v4 model also holds its ``V4Config`` and its
+    48 kHz vocoder's parameters."""
 
-    def __init__(self, params, cfg: SovitsConfig, hps: HParams):
+    def __init__(self, params, cfg: SovitsConfig, hps: HParams,
+                 v4: Optional[sovits_v4.V4Config] = None, vocoder=None):
         self.params = params
         self.cfg = cfg
         self.hps = hps
+        self.v4 = v4
+        self.vocoder = vocoder
+
+    @property
+    def samplerate(self) -> int:
+        """The rate of the audio it makes: 48000 for v4, else the ``hps``'."""
+        return self.v4.samplerate if self.v4 is not None else int(self.hps.data.sampling_rate)
 
 
 def _require(path: str) -> str:
@@ -170,7 +181,24 @@ def get_sovits_weights(sovits_path, tts_config: Config) -> Sovits:
     cfg = SovitsConfig.from_hps(model_d, hps.data.filter_length // 2 + 1)
     params = sovits_model.params_from_torch_state_dict(
         weights, dtype=tts_config.dtype, device=tts_config.device)
-    return Sovits(params, cfg, hps)
+    if not cfg.is_v4:
+        return Sovits(params, cfg, hps)
+    if not os.path.isdir(sovits_path):
+        raise ValueError(f"a GPT-SoVITS v4 model loads from a directory holding hps.json, "
+                         f"model.safetensors and its vocoder, not from {sovits_path}")
+    v4 = sovits_v4.V4Config.from_hps(hps.to_dict())
+    vocoder = sovits_v4.vocoder_params(_vocoder_state(sovits_path), tts_config.dtype,
+                                       tts_config.device)
+    return Sovits(cfm.prepare_params(params, v4.dit, v4.steps), cfg, hps, v4=v4, vocoder=vocoder)
+
+
+def _vocoder_state(sovits_dir: str) -> Dict[str, torch.Tensor]:
+    """A v4 directory's vocoder: ``vocoder.safetensors``, else the published
+    ``vocoder.pth`` (tensors only, ``weights_only=True``)."""
+    st = os.path.join(sovits_dir, "vocoder.safetensors")
+    if os.path.exists(st):
+        return load_file(st)
+    return _float_state_dict(_torch_load(_require(os.path.join(sovits_dir, "vocoder.pth"))))
 
 
 def remap_gpt_state_dict(weight: Dict[str, Any], n_layer: int) -> Dict[str, Any]:

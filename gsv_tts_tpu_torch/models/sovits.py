@@ -71,6 +71,12 @@ class SovitsConfig:
         return self.version in V2PRO_SET
 
     @property
+    def is_v4(self) -> bool:
+        """GPT-SoVITS v4: MRTE features → ``bridge`` → ``wns1`` → the
+        flow-matching DiT and a 48 kHz vocoder (``models/sovits_v4.py``)."""
+        return self.version == "v4"
+
+    @property
     def samples_per_frame(self) -> int:
         return int(np.prod(self.upsample_rates))
 
@@ -254,36 +260,59 @@ def flow_reverse(p, cfg: SovitsConfig, x, x_mask, g):
     return x
 
 
-def resblock1(p, pfx, x, kernel_size: int, dilations: Tuple[int, ...]):
+def resblock1(p, pfx, x, kernel_size: int, dilations: Tuple[int, ...], keep=None):
+    """``ResBlock1``; with ``keep`` [L] (1 on the valid samples, 0 after) each
+    conv's output is cut to the valid samples, as :func:`generator` says."""
     for j, d in enumerate(dilations):
         xt = leaky_relu(x, LRELU_SLOPE)
         xt = conv1d(xt, p[f"{pfx}convs1.{j}.weight"], p[f"{pfx}convs1.{j}.bias"],
                     padding=(kernel_size * d - d) // 2, dilation=d)
+        if keep is not None:
+            xt = xt * keep
         xt = leaky_relu(xt, LRELU_SLOPE)
         xt = conv1d(xt, p[f"{pfx}convs2.{j}.weight"], p[f"{pfx}convs2.{j}.bias"],
                     padding=(kernel_size - 1) // 2)
+        if keep is not None:
+            xt = xt * keep
         x = xt + x
     return x
 
 
-def generator(p, cfg: SovitsConfig, x, g=None, n_stages: Optional[int] = None):
+def _keep(x, frames, rate: int):
+    """[L] of x's dtype: 1 on the first ``frames``·rate samples of x [B, C,
+    L], 0 after (``frames`` a tensor, so a CUDA graph serves any length)."""
+    return (torch.arange(x.shape[-1], device=x.device) < frames * rate).to(x.dtype)
+
+
+def generator(p, cfg: SovitsConfig, x, g=None, n_stages: Optional[int] = None, frames=None):
     """HiFi-GAN vocoder (``models.py:68-128``): [B, inter, T] → [B, 1, T·Π(u)].
     ``n_stages`` stops after that many upsampling stages and returns the
-    intermediate (for attributing time; it is not audio)."""
+    intermediate (for attributing time; it is not audio).  ``frames`` (a
+    tensor [1]) cuts the input and every conv's output to the first
+    ``frames`` frames at its rate, so each conv sees zeros after them as at
+    that length: the first frames·Π(u) samples are the vocoder's at
+    ``frames`` frames, whatever pads x after them."""
+    keep = None if frames is None else _keep(x, frames, 1)
+    x = x if keep is None else x * keep
     x = conv1d(x, p["dec.conv_pre.weight"], p["dec.conv_pre.bias"], padding=3)
     if g is not None:
         x = x + conv1d(g, p["dec.cond.weight"], p["dec.cond.bias"])
-    nk = len(cfg.resblock_kernel_sizes)
+    x = x if keep is None else x * keep
+    nk, rate = len(cfg.resblock_kernel_sizes), 1
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
         if n_stages is not None and i >= n_stages:
             return x
         x = leaky_relu(x, LRELU_SLOPE)
         x = conv_transpose1d(x, p[f"dec.ups.{i}.weight"], p[f"dec.ups.{i}.bias"],
                              stride=u, padding=(k - u) // 2)
+        if frames is not None:
+            rate *= u
+            keep = _keep(x, frames, rate)
+            x = x * keep
         xs = None
         for j, (rk, rd) in enumerate(zip(cfg.resblock_kernel_sizes,
                                          cfg.resblock_dilation_sizes)):
-            r = resblock1(p, f"dec.resblocks.{i * nk + j}.", x, rk, rd)
+            r = resblock1(p, f"dec.resblocks.{i * nk + j}.", x, rk, rd, keep)
             xs = r if xs is None else xs + r
         x = xs / nk
     x = leaky_relu(x, 0.01)  # torch's default slope (``models.py:128``)

@@ -3,8 +3,9 @@ polyphase resampling (counterpart of ``gsv_tts_tpu/ops/stft.py``):
 torchaudio ``Spectrogram(center=True, pad_mode='reflect', power=1)``
 semantics, the slaney mel filterbank of the SoVITS mel loss,
 ``mel_spectrogram`` / ``mel_distance`` (numpy in and out, the spectrogram on
-the card unless ``device="cpu"``), and torchaudio-compatible windowed-sinc
-``Resample`` (host numpy)."""
+the card unless ``device="cpu"``), GPT-SoVITS v4's prompt mel
+(``mel_v4``), and torchaudio-compatible windowed-sinc ``Resample`` (host
+numpy)."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def spectrogram(audio: torch.Tensor, n_fft: int, hop_length: int,
@@ -62,6 +64,24 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         fb[i] = np.maximum(0, np.minimum(up, down))
         fb[i] *= 2.0 / (hi - lo)  # slaney area normalization
     return fb.astype(np.float32)
+
+
+def mel_v4(audio: torch.Tensor, sr: int = 32000, n_fft: int = 1280, hop: int = 320,
+           n_mels: int = 100) -> torch.Tensor:
+    """GPT-SoVITS v4's mel of a prompt clip (``mel_spectrogram_torch`` with
+    ``center=False``, as ``TTS.py``'s ``mel_fn_v4`` calls it): the audio
+    reflect-padded by (n_fft − hop) / 2 each side, a Hann STFT, magnitudes
+    sqrt(re² + im² + 1e-6), the slaney filterbank (fmax sr / 2) and the log
+    of the product clamped at 1e-5.  audio [B, T] at ``sr`` → [B, n_mels,
+    T // hop] float32, not yet normalised."""
+    pad = (n_fft - hop) // 2
+    x = F.pad(audio.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    window = torch.hann_window(n_fft, periodic=True, dtype=torch.float32, device=audio.device)
+    spec = torch.stft(x, n_fft, hop_length=hop, win_length=n_fft, window=window,
+                      center=False, return_complex=True)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-6)
+    fb = torch.as_tensor(mel_filterbank(sr, n_fft, n_mels), device=audio.device)
+    return torch.log(torch.clamp(fb @ mag, min=1e-5))
 
 
 def mel_spectrogram(audio: np.ndarray, sr: int = 32000, n_fft: int = 2048,

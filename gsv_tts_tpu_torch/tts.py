@@ -17,6 +17,10 @@ Viterbi.
 v2 / v2Pro / v2ProPlus SoVITS models: a v2Pro model's speaker conditioning
 adds the ERes2NetV2 embedding of the speaker clip (``models/sv.py``, the
 checkpoint at ``models_dir/sv/pretrained_eres2netv2w24s4ep4.ckpt``).
+GPT-SoVITS v4 models (``models/sovits_v4.py``, ``models/cfm.py``) run through
+``infer`` alone: the codes' features, a flow-matching DiT over chunks of up
+to ``T_chunk`` mel frames whose prompt is the previous chunk's end, and a
+48 kHz vocoder; every other entry point refuses them.
 
 SoVITS runs as the JAX facade runs it.  By default (``stream_vocoder=
 "bucketed"``) ``infer`` and each ``infer_stream`` chunk take the
@@ -57,7 +61,9 @@ from .frontend.pause import pause_map
 from .frontend.text_processor import cut_text, get_phones_and_bert, sub2text_index
 from .loader import (Gpt, Sovits, get_gpt_weights, get_sovits_weights, gpt_to_safetensors,
                      resolve_t2s_attn_impl, sovits_to_safetensors)
+from .models import cfm as cfm_model
 from .models import sovits as sovits_model
+from .models import sovits_v4
 from .ops import stft
 from .player import AudioClip, AudioQueue
 from .runtime.t2s_session import _round_up
@@ -266,9 +272,10 @@ class SovitsGraphs:
     speaker embedding (``models/sv.py``, keyed ``("sv", frames)`` under the
     embedder's parameters).  :meth:`run` captures a program the first time its
     key is seen for a model's parameters — a warm eager run on a side stream,
-    then ``torch.cuda.graph`` — and replays it after, the inputs copied into
-    the graph's own buffers.  The caller keys a program by every shape it
-    takes; the graphs are stored under ``(kind, id(params), *shapes)`` (a
+    then the capture on that stream — and replays it after, the inputs copied into
+    the graph's own buffers (v4's CFM: one graph of an Euler step per chunk
+    length, replayed for every step).  The caller keys a program by every
+    shape it takes; the graphs are stored under ``(kind, id(params), *shapes)`` (a
     graph holds the parameters' addresses, and its entry keeps them alive);
     every length inside must be an input tensor, since a Python number would
     be fixed at the capture's value.  A model's graphs share one memory pool
@@ -351,10 +358,16 @@ class SovitsGraphs:
             fn(*static_in)
         caller.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        # capture_begin / capture_end, not ``torch.cuda.graph``: that one also
+        # collects garbage and empties the allocator's cache on entry, which a
+        # capture inside a serving window (a new CFM chunk length) cannot afford
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=side,
-                                  capture_error_mode="thread_local"):
-                out = fn(*static_in)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    out = fn(*static_in)
+                finally:
+                    graph.capture_end()
         except Exception as exc:
             # a failed capture leaves its capture stream current and its pool
             # recording for good ("beginAllocateToPool: already recording"):
@@ -558,6 +571,8 @@ class TTS:
         #: graphs captured / replayed by the call, ``sovits_capture_s`` the
         #: part of ``sovits_s`` its captures took)
         self.last_timings: Dict[str, float] = {}
+        #: what the last v4 decode adds to ``last_timings`` (``_v4_decode``)
+        self._v4_stats: Dict[str, object] = {}
         #: set by :meth:`warmup` (a server's ``/health`` reports it)
         self._warmed = False
         logger.info("Device: %s, dtype: %s", self.device, self.tts_config.dtype)
@@ -585,6 +600,8 @@ class TTS:
             self.sovits_models[path] = get_sovits_weights(path, self.tts_config)
             if old is not None:
                 self.sovits_graphs.evict(old.params)
+                if old.vocoder is not None:
+                    self.sovits_graphs.evict(old.vocoder)
             logger.info("Loaded SoVITS model: %s", path)
 
     def unload_gpt_model(self, *model_paths):
@@ -610,11 +627,15 @@ class TTS:
         returns to the card."""
         for path in model_paths:
             if path in self.sovits_models:
-                params = self.sovits_models.pop(path).params
+                model = self.sovits_models.pop(path)
+                params, vocoder = model.params, model.vocoder
+                del model
                 for audio in self.spk_audio_cache.values():
                     audio["ge"].pop(path, None)
                 self.sovits_graphs.evict(params)
-                del params  # its last reference: the weights go with the graphs
+                if vocoder is not None:
+                    self.sovits_graphs.evict(vocoder)
+                del params, vocoder  # their last references: the weights go with the graphs
                 logger.info("Unloaded SoVITS model: %s", path)
             else:
                 logger.warning("SoVITS model %s not found.", path)
@@ -725,8 +746,11 @@ class TTS:
             prompt = self._get_prompt(hub, model, path)
             with span("gsv.voice.prompt_text"):
                 phones1, _, bert1, _ = get_phones_and_bert(text, self.tts_config)
-            self.prompt_audio_cache[path] = {"prompt": prompt, "phones1": phones1,
-                                             "bert1": bert1}
+            entry = self.prompt_audio_cache[path] = {"prompt": prompt, "phones1": phones1,
+                                                     "bert1": bert1}
+            v4 = next((m.v4 for m in self.sovits_models.values() if m.v4 is not None), None)
+            if v4 is not None:
+                entry["mel_v4"] = self._prompt_mel(path, v4)
             logger.info("Cached prompt audio: %s", path)
 
     def del_spk_audio(self, *spk_audio_list):
@@ -760,9 +784,12 @@ class TTS:
         if not self._check_pause(text):
             text += "."
         gpt_model, sovits_model = self._default_models(gpt_model, sovits_model)
-        sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path)
+        sovits, ge = self._prepare_sovits_resources(sovits_model, spk_audio_path, v4=True)
         gpt, cache = self._prepare_gpt_resources(gpt_model, prompt_audio_path,
                                                  prompt_audio_text)
+        if sovits.v4 is not None and "mel_v4" not in cache:  # cached before a v4 model loaded
+            cache["mel_v4"] = self._prompt_mel(prompt_audio_path, sovits.v4)
+        sr = sovits.samplerate
 
         with span("gsv.frontend") as fe:
             phones2, word2ph, bert2, norm_text = get_phones_and_bert(text, self.tts_config)
@@ -779,30 +806,34 @@ class TTS:
             with span("gsv.sovits.decode") as sov:
                 audio, attn = self._sovits_decode(sovits, semantic[None, None, :],
                                                   np.asarray(phones2, np.int64)[None], ge,
-                                                  noise_scale=noise_scale, speed=speed)
+                                                  noise_scale=noise_scale, speed=speed,
+                                                  prompt=cache)
                 audio = audio.reshape(-1)
         # each stage ends in a copy to the host, so its wall time holds its device work
         for name, sp in (("frontend", fe), ("t2s", t2s), ("sovits", sov)):
             self.timings.record(name, sp.seconds)
         self.last_timings = {"frontend_s": fe.seconds, "t2s_s": t2s.seconds,
                              "sovits_s": sov.seconds, "tokens": int(semantic.size),
-                             **self._graph_counts(graphs), **gpt.engine.last_stats}
+                             **self._graph_counts(graphs), **gpt.engine.last_stats,
+                             **(self._v4_stats if sovits.v4 is not None else {})}
 
         with span("gsv.tts.finish"):
             subtitles = []
             if return_subtitles:
                 subtitles = self._utterance_subtitles(word2ph, attn, speed, norm_text, text)
-            head_offset = dsp.find_head_threshold_offset(audio)
+            # the search and margin are 2 s and 0.1 s at any rate (64000 and 3200 at 32 kHz)
+            head_offset = dsp.find_head_threshold_offset(audio, search_len=2 * sr,
+                                                         margin=sr // 10)
             audio = audio[head_offset:]
             if subtitles:
-                self._increment_subtitle_times(subtitles, -head_offset / self.samplerate)
+                self._increment_subtitle_times(subtitles, -head_offset / sr)
                 subtitles[0]["start_s"] = max(0, subtitles[0]["start_s"])
             max_audio = np.abs(audio).max() if audio.size else 0.0
             if max_audio > 1:
                 audio = audio / max_audio
-            audio = np.concatenate([audio, np.zeros(int(0.2 * self.samplerate), audio.dtype)])
-            return AudioClip(self.audio_queue, audio.astype(np.float32), self.samplerate,
-                             len(audio) / self.samplerate, subtitles, text)
+            audio = np.concatenate([audio, np.zeros(int(0.2 * sr), audio.dtype)])
+            return AudioClip(self.audio_queue, audio.astype(np.float32), sr,
+                             len(audio) / sr, subtitles, text)
 
     def get_timings(self) -> Dict[str, Dict[str, float]]:
         """Latency percentiles by stage (``frontend``, ``t2s``, ``sovits``,
@@ -1643,12 +1674,17 @@ class TTS:
         return gpt_model, sovits_model
 
     @_on_card
-    def _prepare_sovits_resources(self, sovits_model, spk_audio_path):
+    def _prepare_sovits_resources(self, sovits_model, spk_audio_path, v4: bool = False):
         """The loaded SoVITS model and the speaker conditioning ``ge`` for
         ``spk_audio_path`` — a path, or a ``{path: weight}`` dict blending
-        several speakers."""
+        several speakers.  A v4 model raises ``NotImplementedError`` unless
+        the caller runs v4 (``v4=True``: ``infer``)."""
         if sovits_model not in self.sovits_models:
             self.load_sovits_model(sovits_model)
+        if self.sovits_models[sovits_model].v4 is not None and not v4:
+            raise NotImplementedError(
+                f"GPT-SoVITS v4 models ({sovits_model}) run through TTS.infer only; "
+                f"the streams, the batched calls and infer_vc take v2 / v2Pro / v2ProPlus")
         paths = spk_audio_path if isinstance(spk_audio_path, dict) else {spk_audio_path: 1.0}
         weight_sum = sum(paths.values())
         ge = None
@@ -1709,7 +1745,7 @@ class TTS:
 
     @_on_card
     def _sovits_decode(self, sovits: Sovits, codes, text, ge, noise_scale=0.5, speed=1.0,
-                       slice_indices=None, use_buckets=True):
+                       slice_indices=None, use_buckets=True, prompt=None):
         """Full decode (``SynthesizerTrn.decode`` with the bucketed flow and
         vocoder, ``models.py:406-425``).  codes [1, 1, n], text [1, N], ge
         [1, gin, 1 or n], ``slice_indices`` [2n, 2] (packed batches: each
@@ -1717,8 +1753,12 @@ class TTS:
         ``stream_vocoder="bucketed"`` the padded core runs (one CUDA graph per
         (codes, phones) bucket), else the exact core; either way flow⁻¹ +
         HiFi-GAN run at ``_flow_bucket``'s frames (``use_buckets=False``:
-        past the configured buckets, the ladder only).  Returns (audio
-        [1, 1, frames·hop], MRTE attention [4, 2n, N]) in numpy."""
+        past the configured buckets, the ladder only).  A v4 model takes
+        :meth:`_v4_decode` with ``prompt``, the prompt clip's cache entry.
+        Returns (audio [1, 1, frames·hop], MRTE attention [4, 2n, N]) in
+        numpy."""
+        if sovits.v4 is not None:
+            return self._v4_decode(sovits, codes, text, ge, prompt, speed)
         cfg, p = sovits.cfg, sovits.params
         codes = np.asarray(codes, np.int64)
         text = np.asarray(text, np.int64)
@@ -1752,6 +1792,104 @@ class TTS:
         audio = self._flow_dec_bucketed(sovits, z_p, y_mask, ge_out, use_buckets)
         with span("gsv.sovits.readback"):
             return audio, attn[0].float().cpu().numpy()
+
+    @_on_card
+    def _v4_decode(self, sovits: Sovits, codes, text, ge, prompt: dict, speed: float = 1.0):
+        """GPT-SoVITS v4's decode (``using_vocoder_synthesis``, ``TTS.py``):
+        ``decode_encp`` of the prompt's codes and phones (``fea_ref``) and of
+        ``codes`` [1, 1, n] against ``text`` [1, N] (``fea_todo``, 4n frames),
+        both with ``ge``; T_min = min(prompt mel frames, ``fea_ref`` frames,
+        ``T_ref``) of the prompt's last frames; then chunks of T_chunk − T_min
+        new frames, each the CFM (:meth:`_cfm_chunk`) over ``fea_ref`` and the
+        chunk's features with the prompt mel in front, the next chunk's
+        prompt mel and ``fea_ref`` this chunk's last T_min frames; the
+        chunks' mel denormalised and vocoded at 48 kHz (:meth:`_vocode_v4`).
+        ``noise_scale`` has no part (the CFM's temperature is 1); ``speed``
+        must be 1.  Sets ``_v4_stats`` (``cfm_s``, ``vocoder_s``,
+        ``cfm_chunks``: each chunk's frames, prompt frames and steps).
+        Returns (audio [1, 1, 480·4n], MRTE attention [4, 2n, N]) in numpy."""
+        if speed != 1:
+            raise NotImplementedError("GPT-SoVITS v4 runs at speed 1 only")
+        cfg, v4, p = sovits.cfg, sovits.v4, sovits.params
+        dev, dt = self.device, self.tts_config.dtype
+        ge = ge.to(dt)
+
+        def ids(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+        with span("gsv.sovits.encp"):
+            # every copy from the host first: one after a launch waits for it
+            ref_in = ids(prompt["prompt"]).reshape(1, 1, -1), ids(prompt["phones1"]).reshape(1, -1)
+            todo_in = ids(codes).reshape(1, 1, -1), ids(text).reshape(1, -1)
+            fea_ref, _ = sovits_v4.decode_encp(p, cfg, v4, *ref_in, ge)
+            fea_todo, attn = sovits_v4.decode_encp(p, cfg, v4, *todo_in, ge)
+        mel2 = prompt["mel_v4"]
+        t_both = min(mel2.shape[-1], fea_ref.shape[-1])
+        t_min = min(t_both, v4.t_ref)  # of the prompt's first t_both frames, the last t_min
+        mel2, fea_ref = mel2[..., :t_both][..., -t_min:], fea_ref[..., :t_both][..., -t_min:]
+        chunk_len = v4.t_chunk - t_min
+        outs, chunks, cfm_s = [], [], 0.0
+        for idx in range(0, fea_todo.shape[-1], chunk_len):
+            part = fea_todo[..., idx: idx + chunk_len]
+            fea = torch.cat([fea_ref, part], dim=-1)
+            noise = self._cfm_noise((1, v4.dit.mel_dim, fea.shape[-1]))
+            with span("gsv.sovits.cfm", device=True) as sp:
+                new = self._cfm_chunk(sovits, fea, mel2, noise)[..., t_min:]
+                sp.set(frames=fea.shape[-1], prompt=t_min, steps=v4.steps)
+            cfm_s += sp.seconds
+            chunks.append((int(fea.shape[-1]), int(t_min), v4.steps))
+            outs.append(new)
+            mel2, fea_ref = new[..., -t_min:], part[..., -t_min:]
+        with span("gsv.sovits.vocoder", device=True) as voc:
+            audio = self._vocode_v4(sovits, v4.denorm(torch.cat(outs, dim=-1)))
+        self._v4_stats = {"cfm_s": cfm_s, "vocoder_s": voc.seconds, "cfm_chunks": chunks}
+        return audio, attn[0].float().cpu().numpy()
+
+    def _cfm_noise(self, shape) -> torch.Tensor:
+        """A chunk's CFM noise, standard normal float32, from the facade's generator."""
+        with self._rng_lock:
+            return torch.randn(shape, generator=self.generator, device=self.device,
+                               dtype=torch.float32)
+
+    def _cfm_chunk(self, sovits: Sovits, fea, prompt_mel, noise):
+        """One chunk's Euler loop (``models/cfm.py:cfm_chunk``): fea [1, 512,
+        T], prompt_mel [1, 100, P] (normalised), noise [1, 100, T] → the mel
+        [1, 100, T] float32 (zero over the prompt), on the device.  Each step
+        replays the CUDA graph of an Euler step at T frames (``("cfm", T)``,
+        captured the first time T is seen and kept: whole chunks all have
+        ``T_chunk`` frames, a last chunk at most ``T_chunk`` others)."""
+        run = functools.partial(self.sovits_graphs.run, sovits.params, ("cfm", fea.shape[-1]))
+        return cfm_model.cfm_chunk(sovits.params, sovits.v4.dit, fea, prompt_mel, noise, run=run)
+
+    @_on_card
+    def _vocode_v4(self, sovits: Sovits, mel) -> np.ndarray:
+        """The 48 kHz vocoder on mel [1, 100, F] (denormalised), padded with
+        zeros to ``_flow_bucket(F)`` frames (``sovits_cache`` counts 100 Hz
+        mel frames for a v4 model), one CUDA graph per bucket on the card,
+        every layer cut at F frames (``sovits_v4.vocode``), so that the audio,
+        cut to F frames on the host, is the vocoder's at F frames: [1, 1,
+        480·F] numpy."""
+        v4 = sovits.v4
+        t = mel.shape[-1]
+        target = self._flow_bucket(t)
+        mel = F.pad(mel.to(self.tts_config.dtype), (0, target - t))
+        frames = torch.full((1,), t, dtype=torch.int64, device=mel.device)
+        fn = functools.partial(sovits_v4.vocode, sovits.vocoder, v4)
+        audio, = self.sovits_graphs.run(sovits.vocoder, ("vocoder", target), fn, mel, frames)
+        with span("gsv.sovits.readback"):
+            return audio.float().cpu().numpy()[:, :, : t * v4.vocoder.samples_per_frame]
+
+    def _prompt_mel(self, path, v4: sovits_v4.V4Config) -> torch.Tensor:
+        """v4's normalised mel of a prompt clip at 32 kHz (``mel_fn_v4``,
+        ``norm_spec``), [1, 100, frames] float32 on the device."""
+        with span("gsv.voice.mel"):
+            wav, sr = load_audio(path)
+            wav = np.asarray(wav, np.float32)
+            wav = wav.mean(axis=0, keepdims=True) if wav.ndim == 2 else wav[None]
+            wav = stft.resample(wav, sr, v4.mel_rate)
+            mel = stft.mel_v4(torch.as_tensor(wav, device=self.device), v4.mel_rate,
+                              v4.n_fft, v4.hop, v4.dit.mel_dim)
+            return v4.norm(mel)
 
     @_on_card
     def _sovits_decode_stream(self, sovits: Sovits, codes, text, ge, noise_scale, speed,

@@ -1943,3 +1943,67 @@ def test_mel_spectrogram_on_the_card_matches_the_cpu(cuda_device):
     assert card.shape == cpu.shape == (128, audio.size // 640 + 1)
     assert float(np.mean(np.abs(card - cpu))) <= 1e-3
     assert stft.mel_distance(audio, audio) == 0.0
+
+
+@pytest.mark.cuda
+def test_cfm_chunk_graph_matches_eager(cuda_device):
+    """GPT-SoVITS v4's Euler loop with each step a replay of one CUDA graph
+    keyed by the chunk's frames (``SovitsGraphs.run``, as the facade runs
+    it) against the same loop run eagerly, in bf16 at a small width on the
+    card: the first chunk at T captures once and replays every step; a
+    second chunk at T with other inputs and another prompt length replays
+    the same graph and still equals its eager loop."""
+    import functools
+
+    from gsv_tts_tpu_torch.models import cfm
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    cfg = cfm.DiTConfig(dim=256, depth=3, heads=4, dim_head=64, text_dim=64, conv_layers=2,
+                        freq_embed_dim=64)
+    steps = 8
+    p = {k: v.to(cuda_device, torch.bfloat16) for k, v in
+         cfm.prepare_params(cfm.init_params(cfg, torch.Generator().manual_seed(0)), cfg,
+                            steps).items()}
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    graphs = SovitsGraphs()
+    run = functools.partial(graphs.run, p, ("cfm", 300))
+    T = 300
+    for k, P in enumerate((120, 90)):
+        fea = torch.randn((1, 64, T), generator=gen, device=cuda_device).to(torch.bfloat16)
+        prompt = torch.randn((1, 100, P), generator=gen, device=cuda_device)
+        noise = torch.randn((1, 100, T), generator=gen, device=cuda_device)
+        want = cfm.cfm_chunk(p, cfg, fea, prompt, noise)
+        got = cfm.cfm_chunk(p, cfg, fea, prompt, noise, run=run)
+        torch.cuda.synchronize()
+        assert (graphs.captures, graphs.replays) == (1, (k + 1) * steps)
+        assert float(got[..., :P].abs().max()) == 0.0
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_v4_vocoder_graph_at_a_bucket_equals_the_vocoder_at_its_length(cuda_device):
+    """The 48 kHz vocoder as the facade runs it, one CUDA graph per frame
+    bucket with every layer cut at the mel's frames (a tensor input), in
+    float32 on the card, biases drawn non-zero and the bucket padded with
+    fives: two mels of other lengths through one bucket's graph each equal
+    the vocoder run eagerly at their own lengths."""
+    from gsv_tts_tpu_torch.models import sovits_v4
+    from gsv_tts_tpu_torch.tts import SovitsGraphs
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    v4 = sovits_v4.V4Config()
+    g = torch.Generator().manual_seed(0)
+    vp = {k: (v + torch.randn(v.shape, generator=g) * 0.1 if k.endswith("bias") else v)
+          .to(cuda_device) for k, v in sovits_v4.vocoder_params(
+              sovits_v4.init_vocoder(v4, g), torch.float32, "cpu").items()}
+    graphs = SovitsGraphs()
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for t in (61, 40):
+        mel = torch.randn((1, 100, t), generator=gen, device=cuda_device) * 2 - 6
+        want = sovits_v4.vocode(vp, v4, mel)
+        frames = torch.full((1,), t, dtype=torch.int64, device=cuda_device)
+        got, = graphs.run(vp, ("vocoder", 64), lambda m, n: sovits_v4.vocode(vp, v4, m, n),
+                          torch.nn.functional.pad(mel, (0, 64 - t), value=5.0), frames)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[..., : t * 480], want, rtol=0, atol=1e-4)
+    assert (graphs.captures, graphs.replays) == (1, 2)
