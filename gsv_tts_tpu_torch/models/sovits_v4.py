@@ -11,14 +11,17 @@ v2's style vector of the speaker clip's linear spectrogram.  The 48 kHz
 vocoder is v2's HiFi-GAN ``generator`` at its own widths (100 mel channels
 in, ``upsample_rates`` 10·6·2·2·2 = 480 samples a frame, a biased
 ``conv_post``), its parameters kept under ``dec.`` as v2's are.
-``decode_encp`` runs at exact lengths (all masks ones); the facade vocodes at
-a frame bucket with every layer cut at the mel's frames (:func:`vocode`'s
-``frames``), which gives the audio of the mel's own length.
+``decode_encp`` runs at exact lengths (all masks ones); its padded twin
+:func:`decode_encp_padded` runs at a bucket of :func:`encp_buckets` with the
+lengths as device tensors, masked so that its valid frames are the exact
+function's (the facade replays one CUDA graph of it per bucket).  The facade
+vocodes at a frame bucket with every layer cut at the mel's frames
+(:func:`vocode`'s ``frames``), which gives the audio of the mel's own length.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -100,6 +103,66 @@ def decode_encp(p, cfg: SovitsConfig, v4: V4Config, codes, text, ge):
     fea = sovits_model.wn(p, "wns1.enc.", fea, mask, v4.wns1_layers, v4.bridge_channels,
                           v4.wns1_kernel, 1, g=ge)
     return conv1d(fea, p["wns1.proj.weight"], p["wns1.proj.bias"]), attn
+
+
+def _wns1(p, v4: V4Config, fea, mask, ge):
+    """``wns1`` (upstream's ``Encoder``) on the 100 Hz features, ``mask`` [1,
+    1, T] their valid frames: ``pre``, masked before the WN's first kernel-5
+    convolution reads it, the WN, ``proj``."""
+    fea = conv1d(fea, p["wns1.pre.weight"], p["wns1.pre.bias"]) * mask
+    fea = sovits_model.wn(p, "wns1.enc.", fea, mask, v4.wns1_layers, v4.bridge_channels,
+                          v4.wns1_kernel, 1, g=ge)
+    return conv1d(fea, p["wns1.proj.weight"], p["wns1.proj.bias"])
+
+
+def decode_encp_padded(p, cfg: SovitsConfig, v4: V4Config, codes_pad, codes_len, text_pad,
+                       text_len, ge):
+    """:func:`decode_encp` on codes right-padded to ``codes_pad`` [1, 1, Bc]
+    and phones to ``text_pad`` [1, Np], their lengths ``codes_len`` and
+    ``text_len`` 0-dim int64 device tensors, so that one program (one CUDA
+    graph) serves every length of the bucket.  v2's masked text encoder (as
+    :func:`sovits.decode_core_stream_padded_batch` runs it), then the 100 Hz
+    mask on ``bridge``'s output and inside ``wns1`` (:func:`_wns1`): a padded
+    frame is zero wherever the exact computation's convolutions see their
+    zero padding.  Returns (fea [1, bridge, 4·Bc], MRTE attention [1, 4,
+    2·Bc, Np]), equal to the exact function's over the first 4·n frames and
+    the first 2·n rows and N columns."""
+    dev = codes_pad.device
+    quantized = interpolate_nearest_2x(sovits_model.quantizer_decode(p, codes_pad,
+                                                                     cfg.quantizer_n_q))
+    y_mask = (torch.arange(quantized.shape[-1], device=dev) < 2 * codes_len)
+    y_mask = y_mask.to(quantized.dtype)[None, None]
+    text_mask = (torch.arange(text_pad.shape[-1], device=dev) < text_len)
+    text_mask = text_mask.to(quantized.dtype)[None, None]
+    y, _, attn = sovits_model.text_encoder_infer(p, cfg, quantized, text_pad, ge,
+                                                 y_mask=y_mask, text_mask=text_mask)
+    fea = leaky_relu(conv1d(y, p["bridge.0.weight"], p["bridge.0.bias"]), 0.01)
+    mask = interpolate_nearest_2x(y_mask)
+    fea = interpolate_nearest_2x(fea) * mask
+    return _wns1(p, v4, fea, mask, ge), attn
+
+
+def encp_buckets(top: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The (codes, phones) widths :func:`decode_encp_padded` runs at when no
+    t2s sequence passes ``top`` tokens (a request's codes and either clip's
+    phones lie inside one): codes in four equal steps up to ``top``, phones
+    at the first step and at ``top``, each a multiple of 32; none for
+    ``top`` 0."""
+    mult = sovits_model.STREAM_PAD_MULTIPLE
+    top = -(-top // mult) * mult
+    if top <= 0:
+        return (), ()
+    step = -(-top // (4 * mult)) * mult
+    return tuple(range(step, top, step)) + (top,), tuple(sorted({step, top}))
+
+
+def encp_bucket(buckets, n: int, N: int) -> Optional[Tuple[int, int]]:
+    """The smallest (Bc, Np) of :func:`encp_buckets`' ``buckets`` that holds
+    n codes and N phones, None where none does."""
+    codes, phones = buckets
+    Bc = next((b for b in codes if b >= n), None)
+    Np = next((b for b in phones if b >= N), None)
+    return None if Bc is None or Np is None else (Bc, Np)
 
 
 def vocode(vp, v4: V4Config, mel, frames=None):

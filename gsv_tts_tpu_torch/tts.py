@@ -18,7 +18,8 @@ v2 / v2Pro / v2ProPlus SoVITS models: a v2Pro model's speaker conditioning
 adds the ERes2NetV2 embedding of the speaker clip (``models/sv.py``, the
 checkpoint at ``models_dir/sv/pretrained_eres2netv2w24s4ep4.ckpt``).
 GPT-SoVITS v4 models (``models/sovits_v4.py``, ``models/cfm.py``) run through
-``infer`` alone: the codes' features, a flow-matching DiT over chunks of up
+``infer`` alone: the codes' features (on the card one CUDA graph per
+padded bucket, all captured at load), a flow-matching DiT over chunks of up
 to ``T_chunk`` mel frames whose prompt is the previous chunk's end, and a
 48 kHz vocoder; every other entry point refuses them.
 
@@ -594,14 +595,18 @@ class TTS:
 
     def load_sovits_model(self, *model_paths):
         """Load each model; a model loaded again under its path drops the CUDA
-        graphs of its old parameters (they hold those weights)."""
+        graphs of its old parameters (they hold those weights).  On the card
+        a v4 model's ``decode_encp`` graphs are captured here, one per bucket
+        (:meth:`_capture_encp`), so that no request pays a capture."""
         for path in model_paths or (self.default_sovits_path,):
             old = self.sovits_models.get(path)
-            self.sovits_models[path] = get_sovits_weights(path, self.tts_config)
+            model = self.sovits_models[path] = get_sovits_weights(path, self.tts_config)
             if old is not None:
                 self.sovits_graphs.evict(old.params)
                 if old.vocoder is not None:
                     self.sovits_graphs.evict(old.vocoder)
+            if model.v4 is not None:
+                self._capture_encp(model)
             logger.info("Loaded SoVITS model: %s", path)
 
     def unload_gpt_model(self, *model_paths):
@@ -1798,7 +1803,8 @@ class TTS:
         """GPT-SoVITS v4's decode (``using_vocoder_synthesis``, ``TTS.py``):
         ``decode_encp`` of the prompt's codes and phones (``fea_ref``) and of
         ``codes`` [1, 1, n] against ``text`` [1, N] (``fea_todo``, 4n frames),
-        both with ``ge``; T_min = min(prompt mel frames, ``fea_ref`` frames,
+        both with ``ge`` (:meth:`_encp`: a replay of the padded bucket's
+        graph, else eagerly); T_min = min(prompt mel frames, ``fea_ref`` frames,
         ``T_ref``) of the prompt's last frames; then chunks of T_chunk − T_min
         new frames, each the CFM (:meth:`_cfm_chunk`) over ``fea_ref`` and the
         chunk's features with the prompt mel in front, the next chunk's
@@ -1810,19 +1816,14 @@ class TTS:
         Returns (audio [1, 1, 480·4n], MRTE attention [4, 2n, N]) in numpy."""
         if speed != 1:
             raise NotImplementedError("GPT-SoVITS v4 runs at speed 1 only")
-        cfg, v4, p = sovits.cfg, sovits.v4, sovits.params
-        dev, dt = self.device, self.tts_config.dtype
-        ge = ge.to(dt)
-
-        def ids(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
-
+        v4 = sovits.v4
+        ge = ge.to(self.tts_config.dtype)
         with span("gsv.sovits.encp"):
             # every copy from the host first: one after a launch waits for it
-            ref_in = ids(prompt["prompt"]).reshape(1, 1, -1), ids(prompt["phones1"]).reshape(1, -1)
-            todo_in = ids(codes).reshape(1, 1, -1), ids(text).reshape(1, -1)
-            fea_ref, _ = sovits_v4.decode_encp(p, cfg, v4, *ref_in, ge)
-            fea_todo, attn = sovits_v4.decode_encp(p, cfg, v4, *todo_in, ge)
+            ref_in = self._encp_inputs(prompt["prompt"], prompt["phones1"])
+            todo_in = self._encp_inputs(codes, text)
+            fea_ref, _ = self._encp(sovits, ref_in, ge)
+            fea_todo, attn = self._encp(sovits, todo_in, ge)
         mel2 = prompt["mel_v4"]
         t_both = min(mel2.shape[-1], fea_ref.shape[-1])
         t_min = min(t_both, v4.t_ref)  # of the prompt's first t_both frames, the last t_min
@@ -1844,6 +1845,64 @@ class TTS:
             audio = self._vocode_v4(sovits, v4.denorm(torch.cat(outs, dim=-1)))
         self._v4_stats = {"cfm_s": cfm_s, "vocoder_s": voc.seconds, "cfm_chunks": chunks}
         return audio, attn[0].float().cpu().numpy()
+
+    def _encp_buckets(self) -> tuple:
+        """The padded ``decode_encp``'s (codes, phones) widths
+        (``sovits_v4.encp_buckets``) up to the longest t2s sequence of
+        ``gpt_cache``; none on the CPU or without ``gpt_cache``."""
+        lengths = [s for _, s in self.tts_config.gpt_cache or ()]
+        if self.device.type != "cuda" or not lengths:
+            return (), ()
+        return sovits_v4.encp_buckets(max(lengths))
+
+    def _encp_inputs(self, codes, text) -> tuple:
+        """One ``decode_encp`` call's inputs on the device, from one copy:
+        (bucket, n, N, inputs).  In a bucket (``sovits_v4.encp_bucket``) the
+        codes and phones right-padded to it, each followed by its length as a
+        0-dim int64 tensor; else (bucket None) as they are, [1, 1, n] and
+        [1, N]."""
+        codes = np.asarray(codes, np.int64).reshape(-1)
+        text = np.asarray(text, np.int64).reshape(-1)
+        n, N = codes.size, text.size
+        bucket = sovits_v4.encp_bucket(self._encp_buckets(), n, N)
+        if bucket is None:
+            d = torch.as_tensor(np.concatenate([codes, text]), device=self.device)
+            return None, n, N, (d[:n].reshape(1, 1, n), d[n:].reshape(1, N))
+        Bc, Np = bucket
+        buf = np.zeros(Bc + Np + 2, np.int64)
+        buf[:n], buf[Bc:Bc + N], buf[-2:] = codes, text, (n, N)
+        d = torch.as_tensor(buf, device=self.device)
+        return bucket, n, N, (d[:Bc].reshape(1, 1, Bc), d[-2], d[Bc:Bc + Np].reshape(1, Np),
+                              d[-1])
+
+    def _encp(self, sovits: Sovits, encp_in: tuple, ge):
+        """``decode_encp`` of :meth:`_encp_inputs`' call with ``ge``: in a
+        bucket a replay of its CUDA graph (``("encp", Bc, Np)``,
+        ``gsv.sovits.encp.replay``) cut to the exact call's fea [1, bridge,
+        4n] and attention [1, 4, 2n, N]; else the exact function, eagerly
+        (``gsv.sovits.encp.eager``)."""
+        cfg, v4, p = sovits.cfg, sovits.v4, sovits.params
+        bucket, n, N, inputs = encp_in
+        if bucket is None:
+            with span("gsv.sovits.encp.eager"):
+                return sovits_v4.decode_encp(p, cfg, v4, *inputs, ge)
+        key = ("encp",) + bucket
+        with span("gsv.sovits.encp.replay"):
+            fea, attn = self.sovits_graphs.run(
+                p, key, functools.partial(sovits_v4.decode_encp_padded, p, cfg, v4),
+                *inputs, ge)
+        return fea[..., :4 * n], attn[:, :, :2 * n, :N]
+
+    def _capture_encp(self, sovits: Sovits):
+        """Capture the padded ``decode_encp`` of a v4 model at every bucket of
+        :meth:`_encp_buckets` (nothing on the CPU)."""
+        codes_w, phones_w = self._encp_buckets()
+        ge = torch.zeros((1, sovits.cfg.gin_channels, 1), dtype=self.tts_config.dtype,
+                         device=self.device)
+        with torch.no_grad():
+            for Bc in codes_w:
+                for Np in phones_w:
+                    self._encp(sovits, self._encp_inputs(np.zeros(Bc), np.zeros(Np)), ge)
 
     def _cfm_noise(self, shape) -> torch.Tensor:
         """A chunk's CFM noise, standard normal float32, from the facade's generator."""

@@ -2007,3 +2007,100 @@ def test_v4_vocoder_graph_at_a_bucket_equals_the_vocoder_at_its_length(cuda_devi
         torch.cuda.synchronize()
         torch.testing.assert_close(got[..., : t * 480], want, rtol=0, atol=1e-4)
     assert (graphs.captures, graphs.replays) == (1, 2)
+
+
+def _tiny_v4_dir(root):
+    """A v4 SoVITS directory at small widths (v2's text encoder at 64, a DiT
+    of width 128 and text width 64, a two-stage vocoder), every bias drawn
+    non-zero so that a padded frame left unmasked would show."""
+    import json
+
+    from gsv_tts_tpu_torch.models import sovits, sovits_v4
+    from gsv_tts_tpu_torch.utils.safetensors import save_file
+
+    dit = {"dim": 128, "depth": 2, "heads": 4, "dim_head": 32, "ff_mult": 2, "mel_dim": 100,
+           "text_dim": 64, "conv_layers": 2, "conv_mult": 2, "freq_embed_dim": 64,
+           "conv_pos_kernel": 31, "conv_pos_groups": 16}
+    vocoder = {"initial_channel": 100, "resblock_kernel_sizes": [3],
+               "resblock_dilation_sizes": [[1, 3]], "upsample_rates": [10, 48],
+               "upsample_initial_channel": 32, "upsample_kernel_sizes": [20, 96]}
+    hps = {"data": {"filter_length": 1408, "hop_length": 320, "win_length": 1408,
+                    "sampling_rate": 32000},
+           "train": {"segment_size": 1280},
+           "model": {"inter_channels": 64, "hidden_channels": 64, "filter_channels": 96,
+                     "n_heads": 2, "n_layers": 2, "kernel_size": 3, "p_dropout": 0.0,
+                     "resblock_kernel_sizes": [3], "resblock_dilation_sizes": [[1, 3, 5]],
+                     "upsample_rates": [8, 5, 4, 4], "upsample_initial_channel": 32,
+                     "upsample_kernel_sizes": [16, 11, 8, 8], "gin_channels": 512,
+                     "version": "v4", "cfm": dit, "t_ref": 50, "t_chunk": 130,
+                     "cfm_steps": 4},
+           "vocoder": vocoder}
+    cfg = sovits.SovitsConfig.from_hps(hps["model"], 705)
+    v4 = sovits_v4.V4Config.from_hps(hps)
+    g = torch.Generator().manual_seed(0)
+    p = {k: v + torch.randn(v.shape, generator=g) * 0.1 if k.endswith("bias") else v
+         for k, v in sovits_v4.init_params(cfg, v4, g).items()}
+    root.mkdir()
+    save_file(p, root / "model.safetensors")
+    torch.save(sovits_v4.init_vocoder(v4, g), str(root / "vocoder.pth"))
+    (root / "hps.json").write_text(json.dumps(hps))
+    return str(root)
+
+
+@pytest.mark.cuda
+def test_v4_encp_graphs_are_captured_at_load_and_replay_as_the_exact_call(cuda_device, tmp_path,
+                                                                          monkeypatch):
+    """Loading a v4 model captures its padded ``decode_encp`` at every bucket
+    (``gpt_cache`` (1, 128): codes 32, 64, 96, 128 × phones 32, 128 = 8
+    graphs).  A replay cut to the valid frames equals the exact eager call
+    in bf16: both sum the same bf16 products, in orders that cuDNN picks per
+    shape, through 15 convolutions and 12 attention layers, so they agree
+    to within 3 % in relative L2 (features) and 1e-2 absolute (attention
+    probabilities).  A v4 decode within the buckets runs both of its calls
+    (the prompt's and the output's) as replays and captures no ``encp``
+    graph."""
+    import numpy as np
+
+    from gsv_tts_tpu_torch import TTS
+    from gsv_tts_tpu_torch.models import sovits_v4
+
+    monkeypatch.setenv("GSV_OFFLINE", "1")
+    path = _tiny_v4_dir(tmp_path / "v4")
+    tts = TTS(gpt_cache=[(1, 128)], sovits_cache=[], models_dir=str(tmp_path),
+              device=cuda_device, seed=0)
+    tts.load_sovits_model(path)
+    graphs, model = tts.sovits_graphs, tts.sovits_models[path]
+    encp = sorted(k[2:] for k in graphs.graphs if k[0] == "encp")
+    assert encp == [(c, n) for c in (32, 64, 96, 128) for n in (32, 128)]
+    assert graphs.captures == 8
+    rng = np.random.RandomState(1)
+    codes, text = rng.randint(0, 1024, 41), rng.randint(1, 300, 20)
+    ge = (torch.randn((1, 512, 1), generator=torch.Generator().manual_seed(2)) * 0.5).to(
+        cuda_device, torch.bfloat16)
+    with torch.no_grad():
+        (fea, attn), names = _span_names(lambda: tts._encp(model, tts._encp_inputs(codes, text),
+                                                           ge))
+        want_fea, want_attn = sovits_v4.decode_encp(
+            model.params, model.cfg, model.v4, torch.as_tensor(codes, device=cuda_device)[None, None],
+            torch.as_tensor(text, device=cuda_device)[None], ge)
+    torch.cuda.synchronize()
+    assert names.count("gsv.sovits.encp.replay") == 1 and "gsv.sovits.capture" not in names
+    assert fea.shape == want_fea.shape == (1, 64, 4 * 41)
+    assert attn.shape == want_attn.shape == (1, 4, 2 * 41, 20)
+    rel = float((fea.float() - want_fea.float()).norm() / want_fea.float().norm())
+    err = float((attn - want_attn).abs().max())
+    print(f"encp replay against eager (bf16): fea rel L2 {rel:.3g}, attn max abs {err:.3g}")
+    assert rel <= 3e-2 and err <= 1e-2
+
+    prompt = {"prompt": rng.randint(0, 1024, 30), "phones1": rng.randint(1, 300, 12),
+              "mel_v4": torch.randn((1, 100, 100), generator=torch.Generator().manual_seed(3))
+              .to(cuda_device) * 0.5}
+    before, captures = set(graphs.graphs), graphs.captures
+    with torch.no_grad():
+        (audio, got_attn), names = _span_names(
+            lambda: tts._v4_decode(model, codes[None, None], text[None], ge, prompt))
+    new = set(graphs.graphs) - before
+    assert names.count("gsv.sovits.encp.replay") == 2 and "gsv.sovits.encp.eager" not in names
+    assert {k[0] for k in new} <= {"cfm", "vocoder"} and graphs.captures == captures + len(new)
+    assert audio.shape[-1] == 480 * 4 * 41 and np.isfinite(audio).all()
+    np.testing.assert_allclose(got_attn, attn[0].float().cpu().numpy(), atol=1e-2, rtol=0)

@@ -1,7 +1,8 @@
 """GPT-SoVITS v4 in the port (``models/sovits_v4.py``, ``models/cfm.py`` and
 the facade's ``_v4_decode``) against the benchmark's plain float32
 reference (``benchmark/reference/cfm_ref.py``), on seeded random weights at
-tiny widths on the CPU: ``decode_encp``, one DiT forward, the whole chunk
+tiny widths on the CPU: ``decode_encp`` (and its padded twin against it on
+the valid frames, a planted unmasked ``pre`` failing), one DiT forward, the whole chunk
 loop with the same noise, the 48 kHz vocoder; ``TTS.infer`` on a tiny v4
 directory, the entry points that refuse v4, and the spans.  Planted
 departures in the reference (the rotary on every head, one Euler step
@@ -117,6 +118,80 @@ def test_decode_encp_matches_reference(model):
     assert got.shape == (1, TINY_DIT["text_dim"], 4 * len(codes)) == want.shape
     assert attn.shape == (1, 4, 2 * len(codes), len(phones))
     _close(got, want, **FEATURE_TOL)
+
+
+#: t2s sequences of at most 128 tokens: codes padded to 32, 64, 96 or 128,
+#: phones to 32 or 128
+ENCP_TOP = 128
+
+
+def _encp_padded_case(m, n, N, seed=11):
+    """The padded ``decode_encp`` at the bucket of (n, N), the padding filled
+    with other codes and phones, against the exact function; both take every
+    bias drawn non-zero (the initialiser's are zero, and would hide a mask
+    left out).  Returns ((fea, attn) cut to the valid frames, (fea, attn)
+    exact)."""
+    from gsv_tts_tpu_torch.models import sovits_v4
+
+    g = torch.Generator().manual_seed(seed)
+    p = {k: v + torch.randn(v.shape, generator=g) * 0.1 if k.endswith("bias") else v
+         for k, v in m.params.items()}
+    Bc, Np = sovits_v4.encp_bucket(sovits_v4.encp_buckets(ENCP_TOP), n, N)
+    rng = np.random.RandomState(seed)
+    codes, phones = rng.randint(0, 1024, Bc), rng.randint(1, 300, Np)
+    ge = torch.as_tensor(rng.randn(1, 512, 1).astype(np.float32) * 0.5)
+    fea, attn = sovits_v4.decode_encp_padded(
+        p, m.cfg, m.v4, torch.as_tensor(codes)[None, None], torch.tensor(n),
+        torch.as_tensor(phones)[None], torch.tensor(N), ge)
+    assert fea.shape == (1, TINY_DIT["text_dim"], 4 * Bc) and attn.shape == (1, 4, 2 * Bc, Np)
+    want = sovits_v4.decode_encp(p, m.cfg, m.v4, torch.as_tensor(codes[:n])[None, None],
+                                 torch.as_tensor(phones[:N])[None], ge)
+    return (fea[..., :4 * n], attn[:, :, :2 * n, :N]), want
+
+
+def test_encp_buckets_are_few_and_cover_the_cache():
+    """Eight (codes, phones) buckets up to the longest t2s sequence, at most."""
+    from gsv_tts_tpu_torch.models import sovits_v4
+
+    assert sovits_v4.encp_buckets(1024) == ((256, 512, 768, 1024), (256, 1024))
+    assert sovits_v4.encp_buckets(ENCP_TOP) == ((32, 64, 96, 128), (32, 128))
+    assert sovits_v4.encp_buckets(0) == ((), ())
+    buckets = sovits_v4.encp_buckets(1000)
+    assert sovits_v4.encp_bucket(buckets, 1000, 1000) == (1024, 1024)
+    assert sovits_v4.encp_bucket(buckets, 257, 256) == (512, 256)
+    assert sovits_v4.encp_bucket(buckets, 1025, 1) is None
+    assert sovits_v4.encp_bucket(buckets, 1, 1025) is None
+
+
+@pytest.mark.parametrize("n,N", [(32, 7), (33, 7), (1, 7), (9, 1), (9, 128), (128, 33)],
+                         ids=["codes-at-an-edge", "codes-one-past", "one-code", "one-phone",
+                              "phones-at-the-top", "both-wide"])
+def test_padded_decode_encp_equals_exact_on_the_valid_frames(model, n, N):
+    """The padded ``decode_encp`` over its first 4n frames and its first 2n
+    attention rows and N columns is the exact function's at (n, N)."""
+    (fea, attn), (want_fea, want_attn) = _encp_padded_case(model[0], n, N)
+    _close(fea, want_fea, **FEATURE_TOL)
+    _close(attn, want_attn, **FEATURE_TOL)
+
+
+def test_padded_decode_encp_without_the_pre_mask_fails_the_comparison(model, monkeypatch):
+    """Planted: ``wns1``'s ``pre`` output left unmasked (its bias on the
+    padded frames reaches the last valid frames through the first kernel-5
+    convolution): the features move far past the comparison's tolerance."""
+    from gsv_tts_tpu_torch.models import sovits, sovits_v4
+    from gsv_tts_tpu_torch.ops.convs import conv1d
+
+    def unmasked_pre(p, v4, fea, mask, ge):
+        fea = conv1d(fea, p["wns1.pre.weight"], p["wns1.pre.bias"])
+        fea = sovits.wn(p, "wns1.enc.", fea, mask, v4.wns1_layers, v4.bridge_channels,
+                        v4.wns1_kernel, 1, g=ge)
+        return conv1d(fea, p["wns1.proj.weight"], p["wns1.proj.bias"])
+
+    monkeypatch.setattr(sovits_v4, "_wns1", unmasked_pre)
+    (fea, _), (want, _) = _encp_padded_case(model[0], 9, 7)
+    with pytest.raises(AssertionError):
+        _close(fea, want, **FEATURE_TOL)
+    assert float((fea - want).abs().max()) > 100 * FEATURE_TOL["atol"]
 
 
 def _dit_case(m, ref, T=37, seed=3, step=2, steps=4):
@@ -314,9 +389,11 @@ def test_v4_is_refused_outside_infer(tts, assets, call):
 
 
 def test_v4_spans_nest_under_the_decode(tts, assets):
-    """Traced, ``infer`` leaves ``gsv.sovits.encp``, one ``gsv.sovits.cfm`` a
-    chunk (its frames, prompt and steps set) and ``gsv.sovits.vocoder``
-    under ``gsv.sovits.decode``; caching the prompt leaves ``gsv.voice.mel``."""
+    """Traced, ``infer`` leaves ``gsv.sovits.encp`` (with one
+    ``gsv.sovits.encp.*`` child for each of its two calls), one
+    ``gsv.sovits.cfm`` a chunk (its frames, prompt and steps set) and
+    ``gsv.sovits.vocoder`` under ``gsv.sovits.decode``; caching the prompt
+    leaves ``gsv.voice.mel``."""
     from gsv_tts_tpu_torch.utils import timing
 
     timing.SPAN_LOG.clear()
@@ -333,7 +410,10 @@ def test_v4_spans_nest_under_the_decode(tts, assets):
         return [r for r in recs if r.name == name and by_id[r.parent].name == "gsv.sovits.decode"]
 
     cfm_spans = under("gsv.sovits.cfm")
-    assert len(under("gsv.sovits.encp")) == 1 and len(under("gsv.sovits.vocoder")) == 1
+    encp = under("gsv.sovits.encp")
+    assert len(encp) == 1 and len(under("gsv.sovits.vocoder")) == 1
+    # the prompt's call and the output's, each its own child: eager on the CPU
+    assert [r.name for r in recs if r.parent == encp[0].id] == ["gsv.sovits.encp.eager"] * 2
     assert [(r.attrs["frames"], r.attrs["prompt"], r.attrs["steps"]) for r in cfm_spans] == \
         [(int(c["fea"].shape[-1]), 50, 4) for c in chunks]
     mel = [r for r in recs if r.name == "gsv.voice.mel"]
