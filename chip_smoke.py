@@ -26,9 +26,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``row + gumbel`` clears the tolerance, every other cache row untouched;
      the three error bits (a bad ``last_tok``, ``kv_len = S``, a positional
      index past the table) set with NaN where promised and the kernel back
-     within a deadline; the first design of both (a chain of 195 launches)
-     timed in turns with them, the cost of one grid barrier, and the host's
-     time per call;
+     within a deadline; each timed in turns with its twin, the cost of one
+     grid barrier, and the host's time per call;
    * K3a / K3b (decode attention, one layer's cache / a layer of the stacked
      cache; one launch of clusters of ``cluster_plan`` blocks a (slot, head)):
      B = 1, 4 and 12, lengths 0, 63, 64, S-1 and more, every layer index,
@@ -38,8 +37,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      read through libcuda; ``torch.profiler``'s count printed beside
      it), the time a call in turns with
      the twin, the device time from a CUDA graph of 50 launches beside the
-     first design's (a split grid and a merge: two launches), the library
-     call's and, at B=1, the same launch forced to each other cluster size;
+     library call's and, at B=1, the same launch forced to each other cluster
+     size;
      the host's time per call;
    * K4 (prefill attention under the hybrid mask; bf16 on the tensor cores,
      float32 on the CUDA cores): B = 1, 4 and 6, T = 160, 512 and 1024, q/k/v
@@ -47,8 +46,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      rows, pad rows, the 1/1 of a dead slot, a ragged batch, every pair of
      lengths from 15, 16, 17, 63, 64 and 65, head dims 8 and 128; at T=160 and
      512 the time a call in turns with the twin, the device time of the
-     tensor-core body, of the CUDA-core one and of the library call from CUDA
-     graphs of 50 launches in turns, the host's time per call; then the wall
+     tensor-core body and of the library call from CUDA graphs of 50 launches
+     in turns, the host's time per call; then the wall
      time of ``prefill_batch`` with and without it;
    * K5 (all layers, one token, B=1) and K6 (one layer, one token per row),
      each one launch of the persistent kernel as a layer stack (K6 one per
@@ -59,10 +58,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      wave does, every other cache entry bit for bit; hidden rows and appended
      rows within the whole-step tolerances; a ``kv_len`` past the cache sets
      its bit with NaN in that row alone; one device kernel a call (K6: a
-     group), counted as K3b's are; the time a call in turns with the twin and
-     the first design (a chain of 194 / 10 launches; K6's calls walk the
-     layers as the ``"fused"`` path does), the device time of both (CUDA
-     graphs of many calls, replayed in turns), the host's time per call;
+     group), counted as K3b's are; the time a call in turns with the twin
+     (K6's calls walk the layers as the ``"fused"`` path does), the device
+     time from a CUDA graph of many calls, the host's time per call;
      then K1, K6, K5 and K1 interleaved on the engine's one table, each bit
      for bit its lone call;
    * K1 and K2 on the int8 and int4 weight pages (``quant_t2s``; K2 at B = 2,
@@ -75,8 +73,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    CUDA-event times of kernel and twin (and, for K3 and K4, of one
    ``scaled_dot_product_attention`` call as a yardstick), beside the least
    time the card could take for the bytes the call must move; on the device
-   (CUDA graphs, timed in turns) K3b must be faster than its first design at
-   B=12, K4 than the library call at T=512;
+   (CUDA graphs, timed in turns) K4 must be faster than the library call at
+   T=512;
 4. main path: full-width random s1v3 t2s / v2 SoVITS / HuBERT-base
    checkpoints and synthetic wavs made from a seed in a temporary models
    directory, loaded through ``TTS.load_gpt_model`` / ``load_sovits_model``;
@@ -130,13 +128,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``k1ring``: K1's ring of 8 slots of 16 KB), xla and fori in turns;
    launches counted there (a replayed step counts, a captured one does not).
    Then P1 (both variants, at the probe's shape, the flagship MLP-1's and the
-   s1v3 layer stack as one int4 page, D = 12288, N = 6144, where the first
-   design must raise; the first design against the twin at the other two;
-   what ``cuobjdump -sass`` shows of the kernels: HMMA, no I2F, no atomic in
-   ``unpack``), P2 (four variants and their first designs) and every P3
-   kernel variant against their twins, with a call's time in turns with the
-   twin and the device's from CUDA graphs in turns with the first designs'
-   and an empty kernel's (the launch floor), each P3 step alone on the
+   s1v3 layer stack as one int4 page, D = 12288, N = 6144; what ``cuobjdump
+   -sass`` shows of the kernels: HMMA, no I2F, no atomic in ``unpack``), P2
+   (four variants) and every P3 kernel variant against their twins, with a
+   call's time in turns with the twin and the device's from CUDA graphs in
+   turns with an empty kernel's (the launch floor), each P3 step alone on the
    device, and M1: P1's time at the stack beside P3 ``fori``'s rate over the
    same bytes;
 10. zh: a full-width random CNRoberta from SEED (``BertConfig()``: vocab 21128,
@@ -328,14 +324,14 @@ def timed_turns(run_kernel, run_plain, k_iters: int, p_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def chain_turns(run_kernel, run_chain, run_plain, k_iters: int, p_iters: int):
-    """plain, chain, kernel, kernel, chain, plain: as :func:`timed_turns`, with the kernel's
-    first design beside it.  Returns (kernel ms, plain ms, chain ms)."""
+def turns_beside(run_kernel, run_beside, run_plain, k_iters: int, p_iters: int):
+    """plain, beside, kernel, kernel, beside, plain: as :func:`timed_turns`, with a second
+    kernel beside the first.  Returns (kernel ms, plain ms, beside ms)."""
     p1 = cuda_ms(run_plain, p_iters)
-    c1 = cuda_ms(run_chain, k_iters)
+    c1 = cuda_ms(run_beside, k_iters)
     k1 = cuda_ms(run_kernel, k_iters)
     k2 = cuda_ms(run_kernel, k_iters)
-    c2 = cuda_ms(run_chain, k_iters)
+    c2 = cuda_ms(run_beside, k_iters)
     p2 = cuda_ms(run_plain, p_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2, (c1 + c2) / 2
 
@@ -487,25 +483,20 @@ class StepBench:
                     kv_lens=list(kv_lens), x_lens=list(x_lens), buf_lens=buf_lens,
                     steps=list(step_idx))
 
-    def kernel(self, st, kc, vc, tok_buf, g, sa, su, chain=False, quant=None, **out):
+    def kernel(self, st, kc, vc, tok_buf, g, sa, su, quant=None, **out):
         """K1 for one slot (its counters as host ints), K2 for a wave, on the bf16 weights or
-        the ``quant`` pages; with ``chain`` their first design, the chain of 195 launches
-        (timed beside them, nothing else)."""
+        the ``quant`` pages."""
         from gsv_tts_tpu_torch.ops import fused_step
 
-        kw = dict(sa=sa, suppress_until=su, suppressed=self.sup, **out)
-        if not chain:
-            kw["quant"] = quant
+        kw = dict(sa=sa, suppress_until=su, suppressed=self.sup, quant=quant, **out)
         params = self.params_for(quant)[0]
         if len(st["kv_lens"]) == 1:
-            fn = (fused_step.fused_decode_step_sample_chain if chain
-                  else fused_step.fused_decode_step_sample)
-            return fn(params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0],
-                      st["last"], st["buf_lens"][0], st["steps"][0], g, **kw)
-        fn = (fused_step.fused_decode_step_sample_batched_chain if chain
-              else fused_step.fused_decode_step_sample_batched)
-        return fn(params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"],
-                  st["step"], g, **kw)
+            return fused_step.fused_decode_step_sample(
+                params, kc, vc, tok_buf, st["kv_lens"][0], st["x_lens"][0], st["last"],
+                st["buf_lens"][0], st["steps"][0], g, **kw)
+        return fused_step.fused_decode_step_sample_batched(
+            params, kc, vc, tok_buf, st["kv"], st["x"], st["last"], st["buf"], st["step"], g,
+            **kw)
 
     def twin(self, st, kc, vc, tok_buf, g, sa, su, quant=None, **out):
         from gsv_tts_tpu_torch.ops import fused_step
@@ -582,9 +573,9 @@ class StepBench:
         return worst
 
     def times(self, name, st, sa, su, S, k_iters=100, p_iters=10):
-        """Times of one step from ``st``: the twin, the chain, the persistent kernel twice,
-        the chain, the twin, each the mean of its two turns, and the host's time per
-        kernel call.  Returns (kernel ms, twin ms, bound ms, bound by, chain ms)."""
+        """Times of one step from ``st``: the twin, the persistent kernel twice, the twin,
+        each the mean of its two turns, and the host's time per kernel call.  Returns
+        (kernel ms, twin ms, bound ms, bound by)."""
         import torch
 
         from gsv_tts_tpu_torch.ops.sampling import gumbel_noise
@@ -598,15 +589,14 @@ class StepBench:
         def run_kernel():
             self.kernel(st, kk, kv, kt, g, sa, su, **out)
 
-        k_ms, p_ms, c_ms = chain_turns(
-            run_kernel, lambda: self.kernel(st, kk, kv, kt, g, sa, su, chain=True, **out),
-            lambda: self.twin(st, kk, kv, kt, g, sa, su, **out), k_iters, p_iters)
+        k_ms, p_ms = timed_turns(
+            run_kernel, lambda: self.twin(st, kk, kv, kt, g, sa, su, **out), k_iters, p_iters)
         b_ms, b_by = step_bound(self.cfg, S, st["kv_lens"])
         print(f"{name} time B={B} S={S} kv_len={st['kv_lens']}: persistent kernel {k_ms:.4f} "
               f"ms/step ({weight_bytes(self.cfg) / k_ms / 1e6:.0f} GB/s over the weight bytes), "
-              f"chain of 195 launches {c_ms:.4f} ms/step, plain twin {p_ms:.4f} ms/step, bound "
-              f"{b_ms:.4f} ms ({b_by}); host {host_us(run_kernel):.1f} us per call", flush=True)
-        return k_ms, p_ms, b_ms, b_by, c_ms
+              f"plain twin {p_ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by}); host "
+              f"{host_us(run_kernel):.1f} us per call", flush=True)
+        return k_ms, p_ms, b_ms, b_by
 
     def quant_times(self, name, st, sa, su, S, quant, k_iters=100, p_iters=10):
         """Times of one step from ``st`` on the ``quant`` pages, in turns with the bf16 kernel
@@ -627,7 +617,7 @@ class StepBench:
         def run(q):
             return lambda: self.kernel(st, kk, kv, kt, g, sa, su, quant=q, **out)
 
-        k_ms, p_ms, bf_ms = chain_turns(
+        k_ms, p_ms, bf_ms = turns_beside(
             run(quant), run(None), lambda: self.twin(st, kk, kv, kt, g, sa, su, quant=quant, **out),
             k_iters, p_iters)
         dev_ms = graph_turns({"q": graph_of(run(quant), 20), "bf16": graph_of(run(None), 20)}, 20)
@@ -1091,17 +1081,12 @@ def k3_phase(dev, cfg):
         def k3b():
             return fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
 
-        def split():
-            return fd.flash_decode_attention_layered_split(q, kc, vc, kv_len, layer)
-
         held("k3b", k3b(), library()[:, :, 0], "bfloat16", f"the library call at B={B}")
-        held("k3b", split(), k3b(), "bfloat16", f"the first design at B={B}")
         kernels = graph_kernels(k3b, 10)
         if sum(kernels.values()) != 10 or len(kernels) != 1:
             fail(f"K3b at B={B}: 10 calls put the device kernels {kernels} in a captured graph, "
                  f"one each is the design")
         profiled = device_kernels(k3b)
-        first = graph_kernels(split, 10)
         b_ms, b_by = attn_bound(H, Dh, lens, 2)
         twin = lambda: fd.decode_attention_ref(q, k1, v1, kv_len)  # noqa: E731
         if B == 12:  # K3a shares K3b's body: timed where K3b's record is taken
@@ -1110,8 +1095,7 @@ def k3_phase(dev, cfg):
             out["k3a"] = (worst["k3a"], k_ms, p_ms, cuda_ms(library, 200), b_ms, b_by, {})
         k_ms, p_ms = timed_turns(k3b, twin, 200, 50)
         lib_ms = cuda_ms(library, 200)
-        graphs = {"one launch": graph_of(k3b), "first design": graph_of(split),
-                  "library": graph_of(library)}
+        graphs = {"kernel": graph_of(k3b), "library": graph_of(library)}
         if B == 1:  # the same launch with each cluster size the plan did not pick
             for C in (1, 2, 4, fd.MAX_CLUSTER):
                 if C != plans[(B, S)]:
@@ -1120,10 +1104,9 @@ def k3_phase(dev, cfg):
         dev_ms = graph_turns(graphs)
         host = host_us(k3b)
         print(f"k3b time B={B} S={S} kv_len~{lens[0]}: clusters of {plans.get((B, S), 1)}; kernel "
-              f"{k_ms:.4f} ms a call in turns ({dev_ms['one launch']:.4f} ms on the device, from a "
-              f"CUDA graph of 50 launches), first design "
-              f"{dev_ms['first design']:.4f} ms on the device ({sum(first.values()) / 10:.0f} "
-              f"kernels a call), plain twin {p_ms:.4f} ms, scaled_dot_product_attention "
+              f"{k_ms:.4f} ms a call in turns ({dev_ms['kernel']:.4f} ms on the device, from a "
+              f"CUDA graph of 50 launches), plain twin {p_ms:.4f} ms, "
+              f"scaled_dot_product_attention "
               f"{lib_ms:.4f} ms a call ({dev_ms['library']:.4f} on the device), bound "
               f"{b_ms:.5f} ms ({b_by})"
               + "".join(f"; forced {k}: {v:.4f} ms on the device" for k, v in dev_ms.items()
@@ -1132,12 +1115,8 @@ def k3_phase(dev, cfg):
               f"torch.profiler read {profiled}); host {host:.1f} us per call, {host_scale(q)}",
               flush=True)
         if B == 12:
-            if dev_ms["one launch"] >= dev_ms["first design"]:
-                fail(f"K3b at B=12 takes {dev_ms['one launch']:.4f} ms on the device, its first "
-                     f"design {dev_ms['first design']:.4f}")
             out["k3b"] = (worst["k3b"], k_ms, p_ms, lib_ms, b_ms, b_by,
-                          {"device_ms": dev_ms["one launch"],
-                           "first_design_device_ms": dev_ms["first design"],
+                          {"device_ms": dev_ms["kernel"],
                            "library_device_ms": dev_ms["library"], "host_us": host})
     print(f"K3a/K3b match the twin on {calls} calls (B=1, 4, 12; every layer; rows past kv_len "
           f"poisoned; B=1 also in clusters of {fd.MAX_CLUSTER}); max abs err K3a {worst['k3a']:.4g}, K3b {worst['k3b']:.4g}", flush=True)
@@ -1233,15 +1212,9 @@ def k4_phase(dev, cfg):
         def k4():
             return fp.flash_prefill_attention(q, k, v, lx, lxy, num_heads=H)
 
-        def cuda_core():
-            return fp.flash_prefill_attention_cuda_core(q, k, v, lx, lxy, num_heads=H)
-
-        out = k4()
-        for what, other in (("the library call", library().permute(0, 2, 1, 3).reshape(1, T, D)),
-                            ("its CUDA-core body", cuda_core())):
-            err, _ = k4_err(out, other)
-            if err > K4_TOL["bfloat16"]:
-                fail(f"k4 differs from {what} by {err:.4g} at T={T}")
+        err, _ = k4_err(k4(), library().permute(0, 2, 1, 3).reshape(1, T, D))
+        if err > K4_TOL["bfloat16"]:
+            fail(f"k4 differs from the library call by {err:.4g} at T={T}")
         k_ms, p_ms = timed_turns(
             k4, lambda: fp.flash_prefill_attention_ref(q, k, v, lx, lxy, num_heads=H), 200, 50)
         lib_ms = cuda_ms(library, 200)
@@ -1250,20 +1223,18 @@ def k4_phase(dev, cfg):
         pairs = sum(k4_row_limits(T, xl, xyl))
         b_ms, b_by = bound(4 * T * D * 2 + 8, 4 * Dh * H * pairs)
         # the kernels alone, without the wrapper's host cost: 50 launches replayed from a CUDA
-        # graph, the tensor-core body and the CUDA-core one in turns
-        dev_ms = graph_turns({"tensor cores": graph_of(k4), "CUDA cores": graph_of(cuda_core),
-                              "library": graph_of(library)})
+        # graph, the kernel and the library call in turns
+        dev_ms = graph_turns({"tensor cores": graph_of(k4), "library": graph_of(library)})
         host = host_us(k4)
         print(f"k4 time B=1 T={T} x_len={xl} xy_len={xyl}: kernel {k_ms:.4f} ms a call in turns "
               f"({dev_ms['tensor cores']:.4f} ms on the device, from a CUDA graph of 50 launches, "
               f"{100 * b_ms / dev_ms['tensor cores']:.1f} % of the bound; host {host:.1f} us per "
-              f"call), the CUDA-core body {dev_ms['CUDA cores']:.4f} ms on the device, plain twin "
-              f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms a call "
+              f"call), plain twin {p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+              f"a call "
               f"({dev_ms['library']:.4f} on the device), bound {b_ms:.5f} ms ({b_by}); "
               f"{host_scale(q)}", flush=True)
         record = (worst, k_ms, p_ms, lib_ms, b_ms, b_by,
                   {"device_ms": dev_ms["tensor cores"],
-                   "first_design_device_ms": dev_ms["CUDA cores"],
                    "library_device_ms": dev_ms["library"], "host_us": host})
     # like against like: both on the device alone, from the same graph_turns
     if record[6]["device_ms"] >= record[6]["library_device_ms"]:
@@ -1352,8 +1323,8 @@ def poisoned_view(t, pad):
 
 
 def k5_phase(bench: StepBench):
-    """K5 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, chain ms,
-    extras), the times at S=1024, kv_len 777."""
+    """K5 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, extras),
+    the times at S=1024, kv_len 777."""
     import torch
 
     from gsv_tts_tpu_torch.ops import fused_step
@@ -1391,24 +1362,22 @@ def k5_phase(bench: StepBench):
             x = x.to(torch.bfloat16)
             ka, va = st["kc"].clone(), st["vc"].clone()
 
-            def run(fn):
-                return lambda: fn(x, layers, ka, va, st["kv"], table=bench.table)
+            def kernel():
+                fused_step.fused_decode_step(x, layers, ka, va, st["kv"], table=bench.table)
 
-            kernel, chain = run(fused_step.fused_decode_step), run(fused_step.fused_decode_step_chain)
-            k_ms, p_ms, c_ms = chain_turns(
-                kernel, chain, lambda: fused_step.fused_decode_step_ref(x, layers, ka, va, st["kv"]),
+            k_ms, p_ms = timed_turns(
+                kernel, lambda: fused_step.fused_decode_step_ref(x, layers, ka, va, st["kv"]),
                 50, 10)
-            dev_ms = graph_turns({"kernel": graph_of(kernel, 20), "chain": graph_of(chain, 20)}, 20)
+            dev_ms = graph_turns({"kernel": graph_of(kernel, 20)}, 20)
             one_kernel_a_launch("K5", kernel, 10, 1)
             host = host_us(kernel)
-            times = (k_ms, p_ms) + layers_bound(cfg, cfg.num_layers, [kv_len], 2) + (c_ms, dict(
-                device_ms=dev_ms["kernel"], chain_device_ms=dev_ms["chain"], host_us=host))
+            times = (k_ms, p_ms) + layers_bound(cfg, cfg.num_layers, [kv_len], 2) + (dict(
+                device_ms=dev_ms["kernel"], host_us=host),)
             print(f"k5 time S={S} kv_len={kv_len}: persistent kernel {k_ms:.4f} ms a call "
-                  f"({dev_ms['kernel']:.4f} on the device), chain of 194 launches {c_ms:.4f} "
-                  f"({dev_ms['chain']:.4f} on the device), plain twin {p_ms:.4f} ms, bound "
+                  f"({dev_ms['kernel']:.4f} on the device), plain twin {p_ms:.4f} ms, bound "
                   f"{times[2]:.4f} ms ({times[3]}); host {host:.1f} us per call; one device "
                   f"kernel a call (a captured graph's nodes); device times from CUDA graphs "
-                  f"of 20 calls replayed in turns; {host_scale(x)}", flush=True)
+                  f"of 20 calls replayed; {host_scale(x)}", flush=True)
     # a kv_len past the cache: the bit, NaN, no append, and the kernel comes back
     st = bench.state(512, [300], [0], [17], [5])
     ka, va = st["kc"].clone(), st["vc"].clone()
@@ -1432,8 +1401,8 @@ def k5_phase(bench: StepBench):
 
 
 def k6_phase(bench: StepBench):
-    """K6 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, chain ms,
-    extras), the times at B=1, S=1024, kv_len 777."""
+    """K6 vs its twin; returns (max abs err, kernel ms, twin ms, bound ms, bound by, extras),
+    the times at B=1, S=1024, kv_len 777."""
     import torch
 
     from gsv_tts_tpu_torch.ops import fused_layer, fused_step
@@ -1512,23 +1481,20 @@ def k6_phase(bench: StepBench):
                 fn(x, layers[layer], ka, va, st["kv"], layer, **kw)
             return call
 
-        kernel, chain = walk(fused_layer.fused_decode_layer), walk(fused_layer.fused_decode_layer_chain)
-        k_ms, p_ms, c_ms = chain_turns(kernel, chain,
-                                       walk(fused_layer.fused_decode_layer_ref, table=False),
-                                       10 * L, L)
-        dev_ms = graph_turns({"kernel": graph_of(kernel, 2 * L), "chain": graph_of(chain, 2 * L)},
-                             2 * L)
+        kernel = walk(fused_layer.fused_decode_layer)
+        k_ms, p_ms = timed_turns(kernel, walk(fused_layer.fused_decode_layer_ref, table=False),
+                                 10 * L, L)
+        dev_ms = graph_turns({"kernel": graph_of(kernel, 2 * L)}, 2 * L)
         groups = -(-B // fused_step.MAX_FUSED_B)
         one_kernel_a_launch(f"K6 at B={B}", kernel, L, groups)
         host = host_us(kernel, L)
-        times[B] = (k_ms, p_ms) + layers_bound(cfg, 1, kv_lens, 2) + (c_ms, dict(
-            device_ms=dev_ms["kernel"], chain_device_ms=dev_ms["chain"], host_us=host))
+        times[B] = (k_ms, p_ms) + layers_bound(cfg, 1, kv_lens, 2) + (dict(
+            device_ms=dev_ms["kernel"], host_us=host),)
         print(f"k6 time B={B} S=1024 kv_len~777, the {L} layers in turn: persistent kernel "
               f"{k_ms:.4f} ms a call ({dev_ms['kernel']:.4f} on the device, {groups} launch(es) "
-              f"a call), chain {c_ms:.4f} ({dev_ms['chain']:.4f} on the device), plain twin "
-              f"{p_ms:.4f} ms, bound {times[B][2]:.5f} ms ({times[B][3]}); host {host:.1f} us per "
-              f"call; one device kernel a group (a captured graph's nodes); device times from "
-              f"CUDA graphs of {2 * L} calls replayed in turns", flush=True)
+              f"a call), plain twin {p_ms:.4f} ms, bound {times[B][2]:.5f} ms ({times[B][3]}); "
+              f"host {host:.1f} us per call; one device kernel a group (a captured graph's "
+              f"nodes); device times from CUDA graphs of {2 * L} calls replayed", flush=True)
     # a kv_len past the cache in a group of 5: that row's bit and NaN, the rest as before
     st = bench.state(512, [10, 150, 300, 0, 511], [0] * 5, [17] * 5, [5] * 5)
     st["kv"][2] = 512
@@ -4791,7 +4757,7 @@ def phase_trace(bench: StepBench, label: str, phases, L: int, tail: str = None):
     import torch
 
     n = 1 + len(phases) * L + (tail is not None)
-    marks = bench.table.part[:2 * n].view(torch.int64).cpu().tolist()
+    marks = bench.table.trace[:2 * n].view(torch.int64).cpu().tolist()
     d = [marks[i + 1] - marks[i] for i in range(len(marks) - 1)]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60)
@@ -4985,9 +4951,9 @@ def probes_path(dev, p3_inputs):
 
 def sass_check(path: str) -> dict:
     """What P1's kernels compiled to: ``cuobjdump -sass`` of the probes' library (where the
-    toolkit has it), per instance of the redesign and of the first design, the count of HMMA
-    (mma.sync products), I2F (an int -> float conversion) and ATOM / RED (atomics).  Fails if an
-    instance of the redesign multiplies without HMMA or converts int to float, or if ``unpack``
+    toolkit has it), per instance of the kernel, the count of HMMA (mma.sync products), I2F (an
+    int -> float conversion) and ATOM / RED (atomics).  Fails if an instance multiplies without
+    HMMA or converts int to float, or if ``unpack``
     holds an atomic (``unpack_dma``'s one is the error word's OR on a wait that gave up)."""
     import re
     import shutil
@@ -5004,8 +4970,7 @@ def sass_check(path: str) -> dict:
     counts, name = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:  # a kernel's SASS begins: name it if it is one of P1's
-            name = next((k for k in ("p1_kernelILb0E", "p1_kernelILb1E", "p1_first_kernelILb0E",
-                                     "p1_first_kernelILb1E") if k in line), None)
+            name = next((k for k in ("p1_kernelILb0E", "p1_kernelILb1E") if k in line), None)
             if name:
                 counts[name] = dict.fromkeys(kinds, 0)
             continue
@@ -5026,10 +4991,9 @@ def sass_check(path: str) -> dict:
 
 def p1_phase(dev):
     """P1 at the probe's shape, the flagship MLP-1's and the s1v3 layer stack as one page
-    (``int4_probe.STACK``), both variants against the twin, and the first design against it at
-    the two shapes it runs (at the stack it must raise).  A call's time in turns with the twin;
-    the device's from CUDA graphs of 48 launches in turns with the first design's and the empty
-    kernel's (the launch floor).  At the stack the timed calls turn through ``P1_STACK_COPIES``
+    (``int4_probe.STACK``), both variants against the twin.  A call's time in turns with the
+    twin; the device's from CUDA graphs of 48 launches in turns with the empty kernel's (the
+    launch floor).  At the stack the timed calls turn through ``P1_STACK_COPIES``
     copies of the page, so that every call finds its bytes cold in the 50 MB L2, and a bf16
     ``torch.matmul`` of the same elements unquantized is read beside them (not the same
     function)."""
@@ -5048,18 +5012,8 @@ def p1_phase(dev):
         del x, packed, scale
         want = p1.int4_unpack_matmul_plain(*args)
         calls = {v: (lambda v=v: p1.int4_unpack_matmul(*args, variant=v)) for v in p1.VARIANTS}
-        first = {f"first {v}": (lambda v=v: p1.int4_unpack_matmul_first(*args, variant=v))
-                 for v in p1.VARIANTS}
-        if stack:
-            for name, call in first.items():
-                try:
-                    call()
-                except ValueError as e:
-                    print(f"P1 {name} at D={d}, N={n} raises as it must: {e}", flush=True)
-                else:
-                    fail(f"P1 {name} ran at D={d}, N={n}, which its shared memory cannot hold")
         err = {}
-        for name, call in {**calls, **({} if stack else first)}.items():
+        for name, call in calls.items():
             got = call()
             torch.cuda.synchronize()
             tools.check(dev)
@@ -5080,8 +5034,7 @@ def p1_phase(dev):
         plain = lambda: p1.int4_unpack_matmul_plain(*args)  # noqa: E731
         ms = {v: timed_turns(call, plain, 24 if stack else 200, 4 if stack else 50)
               for v, call in timed.items()}
-        graphs = {name: graph_of(call, 48) for name, call in {**timed, **first}.items()
-                  if not (stack and name.startswith("first"))}
+        graphs = {name: graph_of(call, 48) for name, call in timed.items()}
         if stack:
             xb, wb = args[0].to(torch.bfloat16), p1.unpack_int4(args[1])
             graphs["bf16 matmul"] = graph_of(lambda: torch.matmul(xb, wb), 48)
@@ -5107,9 +5060,8 @@ def p1_phase(dev):
 
 
 def p2_phase(dev):
-    """P2's four variants and their first designs against the twin; a call's time in turns with
-    the twin; the device's from CUDA graphs of 50 launches in turns with the first design's and
-    the empty kernel's (the launch floor)."""
+    """P2's four variants against the twin; a call's time in turns with the twin; the device's
+    from CUDA graphs of 50 launches in turns with the empty kernel's (the launch floor)."""
     import torch
 
     from gsv_tts_tpu_torch import tools
@@ -5117,25 +5069,23 @@ def p2_phase(dev):
 
     x = torch.from_numpy(p2.make_input(2)).to(dev)
     calls = {v: (lambda v=v: p2.mosaic_reduce(x, v)) for v in p2.VARIANTS}
-    first = {f"first {v}": (lambda v=v: p2.mosaic_reduce_first(x, v)) for v in p2.VARIANTS}
     errs, ms = [], {}
-    for name, call in {**calls, **first}.items():
-        want = p2.mosaic_reduce_plain(x, name.split()[-1])
+    for name, call in calls.items():
+        want = p2.mosaic_reduce_plain(x, name)
         got = call()
         torch.cuda.synchronize()
         err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
         if not err <= P2_TOL:
             fail(f"P2 {name}: error {err:.3e} against the twin (relative to max(1, |twin|))")
-        if name in calls:
-            errs.append(float((got - want).abs().max()))
-            ms[name] = timed_turns(call, lambda v=name: p2.mosaic_reduce_plain(x, v), 200, 50)
-    graphs = {name: graph_of(call) for name, call in {**calls, **first}.items()}
+        errs.append(float((got - want).abs().max()))
+        ms[name] = timed_turns(call, lambda v=name: p2.mosaic_reduce_plain(x, v), 200, 50)
+    graphs = {name: graph_of(call) for name, call in calls.items()}
     graphs["floor"] = graph_of(lambda: tools.empty_launch(dev))
     dev_ms = graph_turns(graphs)
     b_ms, b_by = bound(4 * x.numel() + 4 * p2.H, 0)
     print("P2: " + ", ".join(f"{v} {ms[v][0]:.4f} ms a call ({dev_ms[v]:.4f} on the device, "
-                             f"{dev_ms[v] / dev_ms['floor']:.2f}x the floor; first design "
-                             f"{dev_ms['first ' + v]:.4f}; twin {ms[v][1]:.4f})" for v in calls)
+                             f"{dev_ms[v] / dev_ms['floor']:.2f}x the floor; twin "
+                             f"{ms[v][1]:.4f})" for v in calls)
           + f"; the floor (an empty kernel) {dev_ms['floor']:.4f} ms on the device; bound "
           f"{b_ms:.6f} ({b_by}); host {host_us(calls['combined']):.1f} us a call", flush=True)
     return max(errs), ms, dev_ms, (b_ms, b_by)
@@ -5227,7 +5177,7 @@ def probes_phase(dev):
     small, flag = p1[(int4_probe.D, int4_probe.N)], p1[P1_FLAGSHIP]
     records = [
         # P1: a call of ``unpack`` at the probe's shape; the other variant, the device's times
-        # (beside the first design's and the launch floor), the MLP-1 and the stack beside it
+        # (beside the launch floor), the MLP-1 and the stack beside it
         rec("p1_int4_probe", "p1_int4_probe.cu", "tools/int4_probe.py:83", p1_err,
             small["ms"]["unpack"][0], small["ms"]["unpack"][1], small["bound"], None,
             unpack_dma_ms=small["ms"]["unpack_dma"][0], device_ms=small["device_ms"],
@@ -5238,8 +5188,8 @@ def probes_phase(dev):
             stack_bound_share={v: stack["bound"][0] / stack["device_ms"][v]
                                for v in int4_probe.VARIANTS},
             stack_plain_ms=stack["ms"]["unpack"][1], stack_stream_ms=stream_ms, sass=sass),
-        # P2: a call of ``combined`` (the construct that hung Mosaic); every variant, the first
-        # design's and the launch floor beside it
+        # P2: a call of ``combined`` (the construct that hung Mosaic); every variant and the
+        # launch floor beside it
         rec("p2_mosaic_probe", "p2_mosaic_probe.cu", "tools/mosaic_probe.py:88", p2_err,
             p2_ms["combined"][0], p2_ms["combined"][1], p2_bound, None,
             variant_ms={v: t[0] for v, t in p2_ms.items()}, device_ms=p2_dev),
@@ -5326,11 +5276,11 @@ def main():
     launches.update(probe_launches)
 
     def step_record(name, source, replaces, count, err, t):
-        # t: (ms, plain ms, bound ms, bound by, the first design's ms[, extras])
+        # t: (ms, plain ms, bound ms, bound by[, extras])
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": count, "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
-                "bound_ms": t[2], "bound_by": t[3], "library_ms": None, "chain_ms": t[4],
-                **(t[5] if len(t) > 5 else {})}
+                "bound_ms": t[2], "bound_by": t[3], "library_ms": None,
+                **(t[4] if len(t) > 4 else {})}
 
     def attn_record(name, source, replaces, count, r):
         return {"name": name, "route": "cuda", "source": f"gsv_tts_tpu_torch/csrc/{source}",
@@ -5340,8 +5290,8 @@ def main():
 
     # times of the whole-step kernels (K1 and K2: the persistent kernel plus
     # the sampling launch) and of K5 and K6 (the persistent kernel alone; K6's
-    # calls walk the layers): S=1024, kv_len ~777 (K2 at B=4, K6 at B=1); each
-    # beside its first design, the chain; of the decode attention kernels: B=12, S=512,
+    # calls walk the layers): S=1024, kv_len ~777 (K2 at B=4, K6 at B=1); of the
+    # decode attention kernels: B=12, S=512,
     # kv_len ~300; of K4: B=1, T=512.  K3a has no caller in the JAX package
     # outside its own module, so there is no path to put it on: it is held in
     # the kernel phase and shares K3b's kernel body

@@ -83,7 +83,7 @@
 //   equal tokens from run to run).
 // * Attention: one block per (slot, head) walks the slot's rows with all its
 //   warps and merges inside the block (ps_attn_phase), so the merge of the
-//   chain's 64-row splits costs no pass through L2 and no phase.
+//   first design's 64-row splits costs no pass through L2 and no phase.
 // * What does not depend on the activations -- biases, LayerNorm scales --
 //   is requested a phase ahead; the block's row ranges and tile shapes are
 //   worked out once (PsPlan), not with integer divisions in every phase; and
@@ -100,7 +100,7 @@
 // L2 (ld.global.cg or a relaxed gpu-scope load), never through the read-only
 // path, and a barrier's arrival follows a __threadfence().
 //
-// Precision as in the chain: bf16 weights and caches, activations rounded to
+// Precision as in the first design: bf16 weights and caches, activations rounded to
 // bf16 only where they enter a product, float32 accumulation, LayerNorm and
 // attention.
 //
@@ -176,7 +176,7 @@ struct StepArgs {
   void* qkv;   // [B, 3D]
   void* attn;  // [B, D]
   void* mlp;   // [B, M]
-  float* trace;    // a traced build's clock marks (the chain's attention partials)
+  float* trace;    // a traced build's clock marks (PS_TRACE_BYTES)
   float* row_out;  // [B, V] logits
   int* err;
   unsigned epoch;           // one row: this launch's number on its workspace, in [1, 2^24)
@@ -793,7 +793,7 @@ static __device__ __forceinline__ int ps_kv(const StepArgs& a, int b) {
 // Measured and lost: cutting a (slot, head) over several blocks (with a
 // count of the parts done behind a fence, or with tagged parts that every
 // block merges while it stages the out-proj's input), and 64-row splits over
-// groups of 128 threads as the chain has them.  The walk is the smaller part
+// groups of 128 threads as the first design had them.  The walk is the smaller part
 // of an item's time -- the wait for q, the two merges and the way out are
 // the same however short the walk -- and the parts' way through L2 adds
 // dependent trips to memory.  Asking for the next layer's rows with
@@ -917,9 +917,9 @@ static __device__ __forceinline__ void ps_attention(const StepArgs& a, float* sc
 
 // Built with -DPS_TRACE, block 0 writes its SM's clock at every mark (1 + 9
 // a layer at one row, 14 for a wave with its barriers, and for a layer stack
-// one more after its rows are stored) into a.trace, as long
-// long (the chain's attention partials live there; the wrapper keeps it at
-// least PS_TRACE_BYTES long): where a step's time goes, phase by phase.
+// one more after its rows are stored) into a.trace, as long long (the
+// wrapper keeps it PS_TRACE_BYTES long): where a step's time goes, phase by
+// phase.
 constexpr int PS_TRACE_BYTES = 4096;
 #ifdef PS_TRACE
 #define PS_MARK()                                                                        \

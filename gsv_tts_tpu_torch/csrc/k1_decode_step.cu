@@ -20,9 +20,7 @@
 // or barriers, LayerNorm folded into the staging of the product that reads
 // it, attention merged inside one block per head, split-K where a block has
 // fewer rows than warps.  What is left of a step is the chain of dependent
-// trips to L2 between its 121 phases, not bytes (PERF.md).  The chain stays
-// below as k1_decode_step_chain, for timing beside the persistent kernel in
-// one process; nothing in the package calls it.
+// trips to L2 between its 121 phases, not bytes (PERF.md).
 //
 // k1_decode_step_quant runs the same step on the int8 or int4 weight
 // stream of the TPU kernel's quant / quant4 modes (decode_step_persistent.cuh
@@ -33,7 +31,6 @@
 // accumulation, float32 LayerNorm, float32 single-query attention with an
 // online softmax (this token's own K/V enter in float32, as in the TPU
 // kernel), filtered row values of -1e30 for removed ids.
-#define DEC_WITH_ROWS
 #include "decode_step_persistent.cuh"
 
 struct K1Args {
@@ -54,16 +51,11 @@ struct K1Args {
   int use_prev;
   float rep_penalty, top_p, inv_temperature;
   int top_k;
-  float* x;     // [D]   float32 workspace
-  float* h;     // [D]
-  float* qkv;   // [3D]
-  float* attn;  // [D]
-  float* mlp;   // [M]
-  float* part;  // [H, ceil(S / 64), Dh + 2] attention partials
+  float* x;        // [D]  the last layer's normalised row
+  float* trace;    // a traced build's clock marks (PS_TRACE_BYTES)
   float* row_out;  // [V]  logits, then the filtered row
   int* tok_out;    // [1]
   int* err;        // [1]  ERR_* bits
-  int* kv_word;    // [1]  receives kv_len for the chain's layer kernels
   // what the persistent kernel reads besides (both whole-step structs carry
   // all of it; K1 hands over through ``tagged``, K2 through ``pre`` and ``bar``)
   const LayerWeights* layers_dev;  // [L] the layer table on the device
@@ -73,31 +65,6 @@ struct K1Args {
   unsigned epoch;                  // StepArgs::epoch
   const PsQuantScales* scales;     // [L] a quantized stream's scales (layers_dev: its pages)
 };
-
-// ---------------------------------------------------------------------------
-// The chain's embedding: x = float(bf16(audio_emb[last_tok]) + bf16(alpha *
-// pe[pe_idx])); *kv_word = kv_len
-// ---------------------------------------------------------------------------
-__global__ void k1_embed(const bf16* __restrict__ emb, const float* __restrict__ pe,
-                         float alpha, const int* __restrict__ last_tok, int V, int D,
-                         int pe_idx, int kv_len, float* __restrict__ x,
-                         int* __restrict__ kv_word, int* __restrict__ err) {
-  const int t = *last_tok;
-  const bool ok = t >= 0 && t < V;  // bounds-checked, never clamped
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    *kv_word = kv_len;
-    if (!ok) atomicOr(err, ERR_LAST_TOK);
-  }
-  for (int d = blockIdx.x * blockDim.x + threadIdx.x; d < D; d += gridDim.x * blockDim.x) {
-    if (!ok) {
-      x[d] = nanf("");
-      continue;
-    }
-    const float e = __bfloat162float(emb[(size_t)t * D + d]);
-    const float p = __bfloat162float(__float2bfloat16(alpha * pe[(size_t)pe_idx * D + d]));
-    x[d] = __bfloat162float(__float2bfloat16(e + p));
-  }
-}
 
 // Sampling of the one row (decode_common.cuh: sample_row).
 __global__ void __launch_bounds__(SAMPLE_THREADS)
@@ -127,7 +94,7 @@ static StepArgs k1_step_args(const K1Args* a) {
   PsTagged* t = a->tagged;  // one row: the values carry their tags
   s.x = a->x;
   s.h = t, s.pre = t + a->D, s.qkv = t + 2 * a->D, s.attn = t + 5 * a->D, s.mlp = t + 6 * a->D;
-  s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
+  s.trace = a->trace, s.row_out = a->row_out, s.err = a->err;
   s.epoch = a->epoch, s.bar = nullptr;
   s.scales = a->scales;
   return s;
@@ -163,30 +130,4 @@ extern "C" int k1_decode_step_quant(const K1Args* a, int wq, void* stream) {
 // ``n`` empty grid barriers on ``bar`` (the cost of one, for chip_smoke.py).
 extern "C" int k1_barrier_loop(void* bar, int n, void* err, void* stream) {
   return launch_barrier_loop((unsigned long long*)bar, n, (int*)err, (cudaStream_t)stream);
-}
-
-// ---------------------------------------------------------------------------
-// The first design, a chain of 195 launches: embedding, L x
-// decode_common.cuh:decode_layer_rows at one row (8 launches a layer), head,
-// sampling.  Its layer kernels read kv_len on the device, so the embedding
-// kernel copies the host's kv_len into a->kv_word first.
-// ---------------------------------------------------------------------------
-extern "C" int k1_decode_step_chain(const K1Args* a, const LayerWeights* layers, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int D = a->D, V = a->V, S = a->S;
-  int rc;
-
-  k1_embed<<<(D + 255) / 256, 256, 0, st>>>(a->audio_emb, a->pe, a->alpha, a->last_tok, V, D,
-                                            a->pe_idx, a->kv_len, a->x, a->kv_word, a->err);
-  DEC_CHECK();
-  const RowsWork ws = {a->x, a->h, a->qkv, a->attn, a->mlp, a->part, a->err};
-  for (int l = 0; l < a->L; ++l) {
-    if ((rc = decode_layer_rows(1, D, a->H, a->M, S, a->attn_scale, layers[l],
-                                a->k_cache + (size_t)l * S * D, a->v_cache + (size_t)l * S * D,
-                                a->kv_word, ws, st)))
-      return rc;
-  }
-  if ((rc = launch_rows_gemv(1, a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0, st)))
-    return rc;
-  return launch_k1_sample(a, st);
 }

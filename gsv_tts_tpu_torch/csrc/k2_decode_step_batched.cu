@@ -27,9 +27,7 @@
 // The first version was a chain of 195 launches a step and ran at the
 // host's launch rate; decode_step_persistent.cuh says what the one-launch
 // design does about that (for a wave: a grid barrier between phases, the
-// weight stream running through all of them).  The chain stays below as
-// k2_decode_step_batched_chain, for timing beside the persistent kernel in
-// one process; nothing in the package calls it.
+// weight stream running through all of them).
 //
 // The per-slot counters stay on the device: the block of a (slot, head) reads
 // its own slot's kv_len, walks no row past it, and appends the slot's K/V row
@@ -49,7 +47,6 @@
 // [0, V), a kv_len outside [0, S) or a positional index outside [0, P) sets
 // a bit in ``err`` (the slot then produces NaN or skips its append), which
 // the host reads where it synchronises anyway.
-#define DEC_WITH_ROWS
 #include "decode_step_persistent.cuh"
 
 struct K2Args {
@@ -79,7 +76,7 @@ struct K2Args {
   float* qkv;   // [B, 3D]
   float* attn;  // [B, D]
   float* mlp;   // [B, M]
-  float* part;  // [B, H, ceil(S / 64), Dh + 2] attention partials
+  float* trace;  // a traced build's clock marks (PS_TRACE_BYTES)
   float* row_out;  // [B, V]  logits, then the filtered rows
   int* tok_out;    // [B]
   int* err;        // [1]  ERR_* bits
@@ -92,32 +89,6 @@ struct K2Args {
   unsigned epoch;                  // StepArgs::epoch
   const PsQuantScales* scales;     // [L] a quantized stream's scales (layers_dev: its pages)
 };
-
-// ---------------------------------------------------------------------------
-// The chain's embedding: x[b] = float(bf16(audio_emb[last_tok[b]]) +
-// bf16(alpha * pe[pe_idx[b]])), pe_idx = max(kv_len - x_len, 0).  One block
-// per slot.
-// ---------------------------------------------------------------------------
-__global__ void k2_embed(const bf16* __restrict__ emb, const float* __restrict__ pe,
-                         float alpha, const int* __restrict__ last_tok,
-                         const int* __restrict__ kv_len, const int* __restrict__ x_len,
-                         int V, int D, int P, float* __restrict__ x, int* __restrict__ err) {
-  const int b = blockIdx.x;
-  const int t = last_tok[b];
-  const int pe_idx = max(kv_len[b] - x_len[b], 0);
-  const bool tok_ok = t >= 0 && t < V, pe_ok = pe_idx < P;
-  if (threadIdx.x == 0 && !(tok_ok && pe_ok))
-    atomicOr(err, (tok_ok ? 0 : ERR_LAST_TOK) | (pe_ok ? 0 : ERR_PE_IDX));
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    if (!(tok_ok && pe_ok)) {
-      x[(size_t)b * D + d] = nanf("");
-      continue;
-    }
-    const float e = __bfloat162float(emb[(size_t)t * D + d]);
-    const float p = __bfloat162float(__float2bfloat16(alpha * pe[(size_t)pe_idx * D + d]));
-    x[(size_t)b * D + d] = __bfloat162float(__float2bfloat16(e + p));
-  }
-}
 
 // Sampling, one block per row (decode_common.cuh: sample_row), with the
 // row's own buf_len, suppression flag and tok_buf row.
@@ -150,7 +121,7 @@ static StepArgs k2_step_args(const K2Args* a) {
   s.kv_i = 0, s.pe_i = 0;
   s.layers = a->layers_dev;
   s.x = a->x, s.h = a->h, s.pre = a->pre, s.qkv = a->qkv, s.attn = a->attn, s.mlp = a->mlp;
-  s.trace = a->part, s.row_out = a->row_out, s.err = a->err;
+  s.trace = a->trace, s.row_out = a->row_out, s.err = a->err;
   s.epoch = 0, s.bar = a->bar;  // a wave: barriers between the phases
   s.scales = a->scales;
   return s;
@@ -189,32 +160,5 @@ extern "C" int k2_decode_step_batched_quant(const K2Args* a, int wq, void* strea
   else
     rc = (int)cudaErrorInvalidValue;
   if (rc) return rc;
-  return launch_k2_sample(a, st);
-}
-
-// ---------------------------------------------------------------------------
-// The first design, a chain of 195 launches: per-slot embedding, L x
-// decode_common.cuh:decode_layer_rows (8 launches a layer), head, sampling.
-// ---------------------------------------------------------------------------
-extern "C" int k2_decode_step_batched_chain(const K2Args* a, const LayerWeights* layers,
-                                            void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int B = a->B, D = a->D, M = a->M, V = a->V, S = a->S;
-  int rc;
-  if (B < 1 || B > ROWS_MAX_B) return (int)cudaErrorInvalidValue;
-
-  k2_embed<<<B, 256, 0, st>>>(a->audio_emb, a->pe, a->alpha, a->last_tok, a->kv_len, a->x_len,
-                              V, D, a->P, a->x, a->err);
-  DEC_CHECK();
-  const RowsWork ws = {a->x, a->h, a->qkv, a->attn, a->mlp, a->part, a->err};
-  for (int l = 0; l < a->L; ++l) {
-    if ((rc = decode_layer_rows(B, D, a->H, M, S, a->attn_scale, layers[l],
-                                a->k_cache + (size_t)l * B * S * D,
-                                a->v_cache + (size_t)l * B * S * D, a->kv_len, ws, st)))
-      return rc;
-  }
-  if ((rc = launch_rows_gemv(B, a->predict_w, nullptr, a->x, nullptr, a->row_out, V, D, 0,
-                             st)))
-    return rc;
   return launch_k2_sample(a, st);
 }

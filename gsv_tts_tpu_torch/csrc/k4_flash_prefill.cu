@@ -68,8 +68,6 @@
 //   * P.V: lane d owns output element d (and d+32, ... for wider heads); one
 //     V read per key feeds the warp's 4 rows, whose probabilities come round
 //     by shuffle, only for keys below the warp's largest n_r.
-// Its bf16 instantiation is bound as k4_flash_prefill_cuda_core, the
-// yardstick the tensor-core body is timed against; no path calls it.
 //
 // q, k and v are read through their strides (they arrive as views of the
 // [B, T, 3D] qkv product), the lengths from the device arrays.  The TPU
@@ -113,13 +111,8 @@ struct K4Args {
 };
 
 // ---------------------------------------------------------------------------
-// The CUDA-core body (float32; bf16 as the yardstick)
+// The CUDA-core body (float32)
 // ---------------------------------------------------------------------------
-static __device__ __forceinline__ float k4_to_float(float v) { return v; }
-static __device__ __forceinline__ float k4_to_float(bf16 v) { return __bfloat162float(v); }
-static __device__ __forceinline__ void k4_store(float* p, float v) { *p = v; }
-static __device__ __forceinline__ void k4_store(bf16* p, float v) { *p = __float2bfloat16(v); }
-
 static __device__ __forceinline__ float k4_warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -132,19 +125,10 @@ static __device__ __forceinline__ float k4_warp_sum(float v) {
   return v;
 }
 
-// four consecutive shared-memory values as float32 (``p`` 4-byte aligned for
-// bf16, as the padded K rows are)
+// four consecutive shared-memory values
 static __device__ __forceinline__ void k4_load4(const float* p, float (&f)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) f[j] = p[j];
-}
-static __device__ __forceinline__ void k4_load4(const bf16* p, float (&f)[4]) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]), b = __bfloat1622float2(p2[1]);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
 }
 
 // columns row r attends: [0, n_r)
@@ -156,10 +140,10 @@ static __device__ __forceinline__ int k4_row_limit(int r, int xl, int xyl) {
 // Rows [c0, c0 + KT) of one (b, h)'s K or V (row stride ``st`` elements) into
 // shared memory with row stride DS, 16 bytes per thread and step; rows at or
 // past ``n`` are zero-filled and never read from device memory.
-template <typename T, int DH, int KT, int DS>
-static __device__ __forceinline__ void k4_stage(const T* __restrict__ src, long long st, int c0,
-                                                int n, T* __restrict__ dst) {
-  constexpr int VN = 16 / sizeof(T);  // elements per 16-byte load
+template <int DH, int KT, int DS>
+static __device__ __forceinline__ void k4_stage(const float* __restrict__ src, long long st, int c0,
+                                                int n, float* __restrict__ dst) {
+  constexpr int VN = 4;               // elements per 16-byte load
   constexpr int VPR = DH / VN;        // loads per row
   for (int i = threadIdx.x; i < KT * VPR; i += blockDim.x) {
     const int j = i / VPR, dv = (i % VPR) * VN;
@@ -174,41 +158,39 @@ static __device__ __forceinline__ void k4_stage(const T* __restrict__ src, long 
   }
 }
 
-template <typename T, int DH, int KT>
+template <int DH, int KT>
 __global__ void __launch_bounds__(K4_WARPS * 32)
-k4_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const int* __restrict__ x_lens, const int* __restrict__ xy_lens, T* __restrict__ out,
+k4_prefill(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const int* __restrict__ x_lens, const int* __restrict__ xy_lens, float* __restrict__ out,
            int* __restrict__ err, int Tn, int H, long long q_sb, long long q_st, long long q_sh,
            long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
            long long v_sh, float scale) {
-  constexpr int KS = DH + (sizeof(T) == 2 ? 2 : 1);  // K row stride: one bank of padding
-  constexpr int EPL = (DH + 31) / 32;                // output elements per lane
-  __shared__ __align__(16) unsigned char s_k_raw[KT * KS * sizeof(T)];
-  __shared__ __align__(16) unsigned char s_v_raw[KT * DH * sizeof(T)];
-  T* s_k = reinterpret_cast<T*>(s_k_raw);
-  T* s_v = reinterpret_cast<T*>(s_v_raw);
+  constexpr int KS = DH + 1;            // K row stride: one bank of padding
+  constexpr int EPL = (DH + 31) / 32;   // output elements per lane
+  __shared__ __align__(16) float s_k[KT * KS];
+  __shared__ __align__(16) float s_v[KT * DH];
   __shared__ __align__(16) float s_q[K4_QT * DH];
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int r0 = blockIdx.y * K4_QT;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int xl = x_lens[b], xyl = xy_lens[b];
-  T* ob = out + ((size_t)b * Tn * H + h) * DH;  // row r at ob + r * H * DH
+  float* ob = out + ((size_t)b * Tn * H + h) * DH;  // row r at ob + r * H * DH
 
   if (xl < 0 || xyl < 1 || xyl > Tn) {  // uniform over the block
     if (threadIdx.x == 0 && blockIdx.y == 0 && h == 0) atomicOr(err, K4_ERR_LENS);
     for (int i = threadIdx.x; i < K4_QT * DH; i += blockDim.x) {
       const int r = r0 + i / DH;
-      if (r < Tn) k4_store(ob + (size_t)r * H * DH + i % DH, nanf(""));
+      if (r < Tn) ob[(size_t)r * H * DH + i % DH] = nanf("");
     }
     return;
   }
 
   // the block's query rows, pre-scaled, as float32
-  const T* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   for (int i = threadIdx.x; i < K4_QT * DH; i += blockDim.x) {
     const int r = r0 + i / DH;
-    s_q[i] = r < Tn ? k4_to_float(qb[(long long)r * q_st + i % DH]) * scale : 0.f;
+    s_q[i] = r < Tn ? qb[(long long)r * q_st + i % DH] * scale : 0.f;
   }
 
   int lim[K4_RPW];
@@ -232,13 +214,13 @@ k4_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
   }
 
-  const T* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const T* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const float* vb = v + (long long)b * v_sb + (long long)h * v_sh;
   const float* qw = s_q + warp * K4_RPW * DH;
   for (int c0 = 0; c0 < n_max; c0 += KT) {
     __syncthreads();  // the previous tile is consumed (first pass: s_q is written)
-    k4_stage<T, DH, KT, KS>(kb, k_st, c0, n_max, s_k);
-    k4_stage<T, DH, KT, DH>(vb, v_st, c0, n_max, s_v);
+    k4_stage<DH, KT, KS>(kb, k_st, c0, n_max, s_k);
+    k4_stage<DH, KT, DH>(vb, v_st, c0, n_max, s_v);
     __syncthreads();
 #pragma unroll
     for (int half = 0; half < KT / 32; ++half) {
@@ -249,7 +231,7 @@ k4_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       float s[K4_RPW];
 #pragma unroll
       for (int i = 0; i < K4_RPW; ++i) s[i] = 0.f;
-      const T* kr = s_k + (half * 32 + lane) * KS;
+      const float* kr = s_k + (half * 32 + lane) * KS;
 #pragma unroll
       for (int d = 0; d < DH; d += 4) {
         float kd[4];
@@ -281,13 +263,13 @@ k4_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
       }
       // P.V: one V read per key and element feeds the warp's rows
       const int nk = min(32, wmax - base);
-      const T* vr = s_v + half * 32 * DH;
+      const float* vr = s_v + half * 32 * DH;
       for (int jj = 0; jj < nk; ++jj) {
         float vd[EPL];
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
           const int d = lane + 32 * e;
-          vd[e] = d < DH ? k4_to_float(vr[jj * DH + d]) : 0.f;
+          vd[e] = d < DH ? vr[jj * DH + d] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < K4_RPW; ++i) {
@@ -307,7 +289,7 @@ k4_prefill(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int d = lane + 32 * e;
-      if (d < DH) k4_store(ob + (size_t)r * H * DH + d, acc[i][e] * inv);
+      if (d < DH) ob[(size_t)r * H * DH + d] = acc[i][e] * inv;
     }
   }
 }
@@ -689,28 +671,24 @@ static int k4_launch_tc(const K4Args* a, cudaStream_t st) {
   }
 }
 
-template <typename T, int DH, int KT>
+template <int DH, int KT>
 static int k4_launch_dh(const K4Args* a, cudaStream_t st) {
   const K4Shape* s = a->s;
   const dim3 grid(s->B * s->H, (s->T + K4_QT - 1) / K4_QT);
-  k4_prefill<T, DH, KT><<<grid, K4_WARPS * 32, 0, st>>>(
-      (const T*)a->q, (const T*)a->k, (const T*)a->v, a->x_lens, a->xy_lens, (T*)a->out, a->err,
-      s->T, s->H, s->q_sb, s->q_st, s->q_sh, s->k_sb, s->k_st, s->k_sh, s->v_sb, s->v_st,
-      s->v_sh, 1.0f / sqrtf((float)DH));
+  k4_prefill<DH, KT><<<grid, K4_WARPS * 32, 0, st>>>(
+      (const float*)a->q, (const float*)a->k, (const float*)a->v, a->x_lens, a->xy_lens,
+      (float*)a->out, a->err, s->T, s->H, s->q_sb, s->q_st, s->q_sh, s->k_sb, s->k_st, s->k_sh,
+      s->v_sb, s->v_st, s->v_sh, 1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 static int k4_launch(const K4Args* a, cudaStream_t st) {
+  // (float32 tiles of 128-wide heads do not fit the static shared memory)
   switch (a->s->Dh) {
-    case 8: return k4_launch_dh<T, 8, 64>(a, st);
-    case 16: return k4_launch_dh<T, 16, 64>(a, st);
-    case 32: return k4_launch_dh<T, 32, 64>(a, st);
-    case 64: return k4_launch_dh<T, 64, 64>(a, st);
-    case 128:
-      // float32 tiles of 128-wide heads do not fit the static shared memory
-      if constexpr (sizeof(T) == 2) return k4_launch_dh<T, 128, 32>(a, st);
-      return (int)cudaErrorInvalidValue;
+    case 8: return k4_launch_dh<8, 64>(a, st);
+    case 16: return k4_launch_dh<16, 64>(a, st);
+    case 32: return k4_launch_dh<32, 64>(a, st);
+    case 64: return k4_launch_dh<64, 64>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -725,16 +703,5 @@ extern "C" int k4_flash_prefill(const void* q, const void* k, const void* v, con
   const K4Args a{q, k, v, x_lens, xy_lens, out, err, shape};
   cudaStream_t st = (cudaStream_t)stream;
   if (!k4_shape_ok(shape)) return (int)cudaErrorInvalidValue;
-  return shape->is_f32 ? k4_launch<float>(&a, st) : k4_launch_tc(&a, st);
-}
-
-// The first design in either dtype (its bf16 instantiation is the yardstick
-// of the tensor-core body; no path calls it).
-extern "C" int k4_flash_prefill_cuda_core(const void* q, const void* k, const void* v,
-                                          const int* x_lens, const int* xy_lens, void* out,
-                                          int* err, const K4Shape* shape, void* stream) {
-  const K4Args a{q, k, v, x_lens, xy_lens, out, err, shape};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!k4_shape_ok(shape)) return (int)cudaErrorInvalidValue;
-  return shape->is_f32 ? k4_launch<float>(&a, st) : k4_launch<bf16>(&a, st);
+  return shape->is_f32 ? k4_launch(&a, st) : k4_launch_tc(&a, st);
 }

@@ -23,13 +23,7 @@
 // kv_len stays on the device: the blocks read its word there, and the caller
 // never reads it back.
 //
-// The first design, a chain of 8 launches a layer (decode_common.cuh:
-// decode_layer_rows) between a row load and a row store, 194 launches a
-// call, stays below as k5_decode_layers_chain, for timing beside the
-// persistent kernel in one process; nothing in the package calls it.
-//
 // A kv_len outside [0, S) sets ERR_KV_LEN and yields NaN; nothing is clamped.
-#define DEC_WITH_ROWS
 #include "decode_step_persistent.cuh"
 
 struct K5Args {
@@ -41,14 +35,8 @@ struct K5Args {
   bf16* k_cache;      // [L, S, D]  (the [L, 1, S, H, Dh] cache)
   bf16* v_cache;
   const int* kv_len;  // [1]
-  float* x;     // [D]   float32 workspace of the chain
-  float* h;     // [D]
-  float* qkv;   // [3D]
-  float* attn;  // [D]
-  float* mlp;   // [M]
-  float* part;  // [H, ceil(S / 64), Dh + 2] the chain's attention partials (a traced
-                // build's clock marks)
-  int* err;     // [1]  ERR_* bits
+  float* trace;       // a traced build's clock marks (PS_TRACE_BYTES)
+  int* err;           // [1]  ERR_* bits
   // what the persistent kernel reads besides
   const LayerWeights* layers_dev;  // [L] the layer table on the device
   PsTagged* tagged;                // [D | D | 3D | D | M]: one row's h, pre, qkv, attn, mlp
@@ -69,28 +57,8 @@ extern "C" int k5_decode_layers(const K5Args* a, void* stream) {
   s.layers = a->layers_dev;
   PsTagged* t = a->tagged;  // one row: the values carry their tags
   s.h = t, s.pre = t + a->D, s.qkv = t + 2 * a->D, s.attn = t + 5 * a->D, s.mlp = t + 6 * a->D;
-  s.trace = a->part, s.err = a->err;
+  s.trace = a->trace, s.err = a->err;
   s.epoch = a->epoch;
   s.x_in = a->x_in, s.x_out = a->x_out, s.x_f32 = a->x_f32;
   return launch_decode_step_persistent<1>(s, (cudaStream_t)stream);
-}
-
-// ---------------------------------------------------------------------------
-// The first design: the L layers as a chain of 194 launches on ``stream``.
-// Returns the first CUDA error raised by a launch (0 when every launch was
-// accepted).
-// ---------------------------------------------------------------------------
-extern "C" int k5_decode_layers_chain(const K5Args* a, const LayerWeights* layers, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int D = a->D, S = a->S;
-  int rc;
-  if ((rc = launch_rows_load(a->x_in, a->x_f32, a->x, D, st))) return rc;
-  const RowsWork ws = {a->x, a->h, a->qkv, a->attn, a->mlp, a->part, a->err};
-  for (int l = 0; l < a->L; ++l) {
-    if ((rc = decode_layer_rows(1, D, a->H, a->M, S, a->attn_scale, layers[l],
-                                a->k_cache + (size_t)l * S * D, a->v_cache + (size_t)l * S * D,
-                                a->kv_len, ws, st)))
-      return rc;
-  }
-  return launch_rows_store(a->x, a->x_out, a->x_f32, D, st);
 }

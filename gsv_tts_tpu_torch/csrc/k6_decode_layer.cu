@@ -14,10 +14,9 @@
 // What bounds it on the card: bytes -- the layer's matrices once whatever B
 // is, 2*(4*D*D + 2*D*M) bytes of bf16 (6.3 MB at D=512, M=2048), plus each
 // row's attended cache rows, 4*kv_len[b]*D bytes: a couple of microseconds.
-// The first design, a row load, the 8 launches of decode_common.cuh:
-// decode_layer_rows and a row store, ran below the floor of its 10 launches
-// and followed the host.  This one is K1's and K2's layer in one launch: one
-// block per SM, the layer's weights (about 48 KB a block on 132 SMs: all of a
+// The first design, a chain of 10 launches (a row load, 8 for the layer, a
+// row store), ran below the floor of its launches and followed the host.
+// This one is K1's and K2's layer in one launch: one block per SM, the layer's weights (about 48 KB a block on 132 SMs: all of a
 // block's tiles fit its ring at once, so every copy is asked for before the
 // first product) streamed by bulk copies, each block's attention merged
 // inside the block, and between phases tagged values at one row or a grid
@@ -27,15 +26,11 @@
 // layer's cache slab at the group's first slot: the slab's rows are
 // [B_group, S, D] inside the whole cache's [L, B, S, D].
 //
-// The first design stays below as k6_decode_layer_chain, for timing beside
-// the persistent kernel in one process; nothing in the package calls it.
-//
 // A kv_len outside [0, S) sets ERR_KV_LEN and yields NaN; nothing is clamped.
-#define DEC_WITH_ROWS
 #include "decode_step_persistent.cuh"
 
 struct K6Args {
-  int B, D, H, M, S;  // B: rows of this launch, 1..ROWS_MAX_B
+  int B, D, H, M, S;  // B: rows of this launch, 1..8
   int x_f32;          // x and out are float32 (else bf16)
   float attn_scale;   // 1 / sqrt(Dh)
   const void* x_in;   // [B, D]
@@ -43,14 +38,12 @@ struct K6Args {
   bf16* k_cache;      // [B, S, D]: the layer's cache rows of these B slots
   bf16* v_cache;
   const int* kv_len;  // [B]
-  float* x;     // [B, D]   float32 workspace
-  float* h;     // [B, D]
-  float* qkv;   // [B, 3D]
-  float* attn;  // [B, D]
-  float* mlp;   // [B, M]
-  float* part;  // [B, H, ceil(S / 64), Dh + 2] the chain's attention partials (a traced
-                // build's clock marks)
-  int* err;     // [1]  ERR_* bits
+  float* h;           // [B, D]  a group's workspace
+  float* qkv;         // [B, 3D]
+  float* attn;        // [B, D]
+  float* mlp;         // [B, M]
+  float* trace;       // a traced build's clock marks (PS_TRACE_BYTES)
+  int* err;           // [1]  ERR_* bits
   // what the persistent kernel reads besides
   const LayerWeights* layers_dev;  // the layer's entry of the table on the device
   PsTagged* tagged;                // one row: [D | D | 3D | D | M] h, pre, qkv, attn, mlp
@@ -70,7 +63,7 @@ extern "C" int k6_decode_layer(const K6Args* a, void* stream) {
   s.k_cache = a->k_cache, s.v_cache = a->v_cache;
   s.kv_len = a->kv_len;
   s.layers = a->layers_dev;
-  s.trace = a->part, s.err = a->err;
+  s.trace = a->trace, s.err = a->err;
   s.epoch = a->epoch, s.bar = a->bar;
   s.x_in = a->x_in, s.x_out = a->x_out, s.x_f32 = a->x_f32;
   if (a->B == 1) {  // one row: the values carry their tags
@@ -81,24 +74,6 @@ extern "C" int k6_decode_layer(const K6Args* a, void* stream) {
   s.h = a->h, s.pre = a->pre, s.qkv = a->qkv, s.attn = a->attn, s.mlp = a->mlp;
   if (a->B == 2) return launch_decode_step_persistent<2>(s, st);
   if (a->B <= 4) return launch_decode_step_persistent<4>(s, st);
-  if (a->B <= ROWS_MAX_B) return launch_decode_step_persistent<8>(s, st);
+  if (a->B <= 8) return launch_decode_step_persistent<8>(s, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// The first design: a row load, the layer as 8 launches, a row store, on
-// ``stream``.  Returns the first CUDA error raised by a launch (0 when every
-// launch was accepted).
-// ---------------------------------------------------------------------------
-extern "C" int k6_decode_layer_chain(const K6Args* a, const LayerWeights* w, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int B = a->B, D = a->D;
-  int rc;
-  if (B < 1 || B > ROWS_MAX_B) return (int)cudaErrorInvalidValue;
-  if ((rc = launch_rows_load(a->x_in, a->x_f32, a->x, B * D, st))) return rc;
-  const RowsWork ws = {a->x, a->h, a->qkv, a->attn, a->mlp, a->part, a->err};
-  if ((rc = decode_layer_rows(B, D, a->H, a->M, a->S, a->attn_scale, *w, a->k_cache, a->v_cache,
-                              a->kv_len, ws, st)))
-    return rc;
-  return launch_rows_store(a->x, a->x_out, a->x_f32, B * D, st);
 }

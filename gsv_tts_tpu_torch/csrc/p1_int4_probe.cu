@@ -25,9 +25,8 @@
 // does 1.2 GFLOP (0.0012 ms of the bf16 tensor cores); at the probe's shape
 // and the MLP-1 a call is the launch and one or two trips to memory.
 //
-// Design (the redesign; the first design, a block per <= 256 byte columns
-// carrying all of D with float32 FMAs on the CUDA cores, stays below as
-// p1_int4_unpack_matmul_first for the smoke's turns):
+// Design (the redesign of a first design that took a block per <= 256 byte
+// columns carrying all of D with float32 FMAs on the CUDA cores):
 //   * the products on the tensor cores: out^T[N, 8] = w^T[N, D] . x^T[D, 8]
 //     as mma.sync m16n8k16 (bf16 in, float32 sums): the 8 rows of x are the
 //     n = 8 side, the weights the 16 x 16 A operand, built in registers.
@@ -59,147 +58,7 @@
 #include "probe_common.cuh"
 
 constexpr int P1_THREADS = 256;
-constexpr int P1_XROWS = 8;                           // rows of x and out
-
-// ---------------------------------------------------------------------------
-// The first design, bound as p1_int4_unpack_matmul_first for the smoke's turns
-// ---------------------------------------------------------------------------
-
-constexpr int P1F_PART_BYTES = 4 * P1_THREADS * 64;    // the slices' sums: 64 floats a thread
-
-// Dynamic shared memory: [slots: 2 * D * cols bytes (unpack_dma only)]
-// [x as bf16-rounded float: 8 * D] [the slices' sums] [the mbarrier].
-static __host__ __device__ inline size_t p1f_smem(int D, int cols, bool dma) {
-  return (dma ? 2 * (size_t)D * cols : 0) + 4 * (size_t)P1_XROWS * D + P1F_PART_BYTES + 16;
-}
-
-// A block takes ``cols`` byte columns (2 * cols output columns) and 256
-// threads; a thread owns 4 adjacent byte columns and a slice of the D rows,
-// keeps 8 rows x 8 columns of float32 sums, and the slices' sums meet in
-// shared memory in slice order.  Per packed byte: a sign extension, a shift,
-// a mask, an xor, a subtract, two int -> bf16 -> float conversions and 16
-// FMAs on the CUDA cores.
-template <bool DMA>
-__global__ void __launch_bounds__(P1_THREADS) p1_first_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ packed,
-    const float* __restrict__ scale, float* __restrict__ out, int* err, int D, int half,
-    int cols) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const size_t slot_bytes = DMA ? (size_t)D * cols : 0;
-  int8_t* slot0 = reinterpret_cast<int8_t*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + 2 * slot_bytes);
-  float* part = xs + P1_XROWS * D;
-  unsigned long long* bar = reinterpret_cast<unsigned long long*>(part + P1F_PART_BYTES / 4);
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * cols;  // the block's first byte column
-
-  if (DMA) {
-    if (tid == 0) mbar_init(bar, 1);
-    __syncthreads();
-    if (tid < 32) {
-      if (tid == 0) mbar_expect(bar, (uint32_t)slot_bytes);
-      if (cols == half) {  // whole rows: the page is one contiguous run
-        if (tid == 0) bulk_copy(slot0, packed, (uint32_t)slot_bytes, bar);
-      } else {
-        for (int k = tid; k < D; k += 32)
-          bulk_copy(slot0 + (size_t)k * cols, packed + (size_t)k * half + c0,
-                          (uint32_t)cols, bar);
-      }
-    }
-  }
-  for (int i = tid; i < P1_XROWS * D; i += P1_THREADS)
-    xs[i] = __bfloat162float(__float2bfloat16_rn(x[i]));
-  __syncthreads();
-
-  const int8_t* src = packed + c0;
-  size_t stride = half;
-  if (DMA) {
-    probe_wait(bar, 0, err);
-    src = slot0;
-    stride = cols;
-  }
-  const int groups = cols / 4, slices = P1_THREADS / groups;
-  const int g = tid % groups, s = tid / groups;
-  float acc_lo[P1_XROWS][4], acc_hi[P1_XROWS][4];
-#pragma unroll
-  for (int r = 0; r < P1_XROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_lo[r][j] = acc_hi[r][j] = 0.f;
-
-  for (int k = s; k < D; k += slices) {
-    const uint32_t word = *reinterpret_cast<const uint32_t*>(src + (size_t)k * stride + 4 * g);
-    float lo[4], hi[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = (int)(int8_t)(word >> (8 * j));  // sign-extended byte
-      hi[j] = __bfloat162float(__int2bfloat16_rn(b >> 4));
-      lo[j] = __bfloat162float(__int2bfloat16_rn(((b & 15) ^ 8) - 8));
-    }
-#pragma unroll
-    for (int r = 0; r < P1_XROWS; ++r) {
-      const float xv = xs[r * D + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc_lo[r][j] = fmaf(xv, lo[j], acc_lo[r][j]);
-        acc_hi[r][j] = fmaf(xv, hi[j], acc_hi[r][j]);
-      }
-    }
-  }
-
-  // part[s][r][c], c over the block's 2 * cols output columns (low nibbles first)
-  const int width = 2 * cols;
-  float* mine = part + (size_t)s * P1_XROWS * width;
-#pragma unroll
-  for (int r = 0; r < P1_XROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      mine[r * width + 4 * g + j] = acc_lo[r][j];
-      mine[r * width + cols + 4 * g + j] = acc_hi[r][j];
-    }
-  __syncthreads();
-  const int N = 2 * half;
-  for (int i = tid; i < P1_XROWS * width; i += P1_THREADS) {
-    float sum = 0.f;
-    for (int t = 0; t < slices; ++t) sum += part[(size_t)t * P1_XROWS * width + i];
-    const int r = i / width, c = i % width;
-    const int col = c < cols ? c0 + c : half + c0 + (c - cols);
-    out[(size_t)r * N + col] = sum * scale[col];
-  }
-}
-
-// The first design: x [8, D] float32, packed [D, half] int8, scale
-// [2 * half] float32 -> out [8, 2 * half] float32, on ``stream``.  ``cols``
-// (the byte columns a block takes) divides ``half``, is a multiple of 16
-// and, divided by 4, divides 256.  Returns the CUDA error of the launch.
-extern "C" int p1_int4_unpack_matmul_first(const void* x, const void* packed, const void* scale,
-                                           void* out, int* err, int D, int half, int cols,
-                                           int dma, void* stream) {
-  static unsigned long long smem_set[2] = {0, 0};
-  if (D < 1 || half < 16 || cols < 16 || cols > 4 * P1_THREADS || cols % 16 != 0 ||
-      half % cols != 0 || P1_THREADS % (cols / 4) != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = p1f_smem(D, cols, dma != 0);
-  if (smem > SMEM_OPTIN) return (int)cudaErrorInvalidValue;
-  const void* kernel =
-      dma ? (const void*)p1_first_kernel<true> : (const void*)p1_first_kernel<false>;
-  int rc = probe_allow_smem(kernel, &smem_set[dma ? 1 : 0]);
-  if (rc) return rc;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dma)
-    p1_first_kernel<true><<<half / cols, P1_THREADS, smem, st>>>(
-        (const float*)x, (const int8_t*)packed, (const float*)scale, (float*)out, err, D, half,
-        cols);
-  else
-    p1_first_kernel<false><<<half / cols, P1_THREADS, smem, st>>>(
-        (const float*)x, (const int8_t*)packed, (const float*)scale, (float*)out, err, D, half,
-        cols);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The redesign: tensor cores across the card
-// ---------------------------------------------------------------------------
-
+constexpr int P1_XROWS = 8;                         // rows of x and out
 constexpr int P1_WARPS = P1_THREADS / 32;
 constexpr int P1_WARP_BYTES = 128;                  // a warp's byte columns: 16 a lane group
 constexpr int P1_PS = 2 * P1_WARP_BYTES + 4;        // a row of a warp's sums in shared memory

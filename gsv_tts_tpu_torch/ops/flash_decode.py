@@ -32,13 +32,15 @@ from typing import NamedTuple
 import torch
 
 from ..utils import cuda_build
-from .fused_step import ATTN_ROWS, HEAD_DIMS  # the split attention's limits, shared with K1/K2
+from .fused_step import HEAD_DIMS  # the attention walk's head dims, shared with K1/K2
 
 #: (library name, sources) for ``cuda_build``
 LIBRARY = ("gsv_k3", ["k3_flash_decode.cu"])
 
 #: the largest cluster the kernel takes (csrc K3_MAX_CLUSTER; 8 is the portable limit)
 MAX_CLUSTER = 8
+#: the fewest cache rows :func:`cluster_plan` leaves a block of a cluster
+ATTN_ROWS = 64
 #: the largest cluster :func:`cluster_plan` picks: at B=1, H=16, S=1024 on an
 #: H100 clusters of 4 ran 0.2-0.3 us ahead of 8 in every measurement (the
 #: merge over 8 ranks costs more than halving each block's rows saves)
@@ -101,15 +103,12 @@ def load_kernels() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.k3a_flash_decode.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.k3b_flash_decode_layered.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-    lib.k3b_flash_decode_layered_split.argtypes = [vp] * 7 + [ci] * 6 + [vp]
-    for fn in (lib.k3a_flash_decode, lib.k3b_flash_decode_layered,
-               lib.k3b_flash_decode_layered_split):
+    for fn in (lib.k3a_flash_decode, lib.k3b_flash_decode_layered):
         fn.restype = ci
     return lib
 
 
 _err_words = {}  # device -> the [1] int32 word the K3 launches set ERR_KV_LEN in
-_parts = {}  # device -> the float32 partials of the first design
 
 
 def _device(dev) -> torch.device:
@@ -251,27 +250,6 @@ def flash_decode_attention_layered(q, k_cache, v_cache, kv_len, layer: int):
     out = _launch("k3b_flash_decode_layered", q, k_cache, v_cache, kv_len, int(layer))
     if q.device.type == "cuda":
         flash_decode_attention_layered.launches += 1
-    return out
-
-
-def flash_decode_attention_layered_split(q, k_cache, v_cache, kv_len, layer: int):
-    """K3b's first design on CUDA tensors: float32 partials of 64-row splits
-    to a device workspace, then a second launch that merges them.  The same
-    function as :func:`flash_decode_attention_layered`, kept to be timed
-    beside it; nothing calls it, and it counts no launch."""
-    dev = q.device
-    ptrs = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
-    p = _cuda_plan(q, k_cache, v_cache, kv_len, int(layer), ptrs)
-    n = p.B * p.H * -(-p.S // ATTN_ROWS) * (p.Dh + 2)
-    part = _parts.get(dev)
-    if part is None or part.numel() < n:
-        part = _parts[dev] = torch.empty(n, dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
-    rc = load_kernels().k3b_flash_decode_layered_split(
-        *ptrs, out.data_ptr(), part.data_ptr(), _err_word(dev).data_ptr(), int(layer), p.B, p.S,
-        p.H, p.Dh, p.q_f32, cuda_build.stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"k3b_flash_decode_layered_split launch failed: CUDA error {rc}")
     return out
 
 

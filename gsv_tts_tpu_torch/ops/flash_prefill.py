@@ -81,9 +81,8 @@ class K4Shape(ctypes.Structure):
 def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k4_flash_prefill.cu``."""
     lib = cuda_build.load_library(*LIBRARY)
-    for fn in (lib.k4_flash_prefill, lib.k4_flash_prefill_cuda_core):
-        fn.argtypes = [ctypes.c_void_p] * 9
-        fn.restype = ctypes.c_int
+    lib.k4_flash_prefill.argtypes = [ctypes.c_void_p] * 9
+    lib.k4_flash_prefill.restype = ctypes.c_int
     return lib
 
 
@@ -141,14 +140,14 @@ def launch_plan(q, k, v, x_lens, xy_lens, num_heads: int) -> Plan:
     return Plan((B, T, H * Dh), s, ctypes.addressof(s))
 
 
-def _launch(entry: str, q, k, v, x_lens, xy_lens, num_heads: int):
+def _launch(q, k, v, x_lens, xy_lens, num_heads: int):
     dev = q.device
     ptrs = q.data_ptr(), k.data_ptr(), v.data_ptr(), x_lens.data_ptr(), xy_lens.data_ptr()
     p = launch_plan(meta(q, ptrs[0]), meta(k, ptrs[1]), meta(v, ptrs[2]), meta(x_lens, ptrs[3]),
                     meta(xy_lens, ptrs[4]), num_heads)
     out = q.new_empty(p.out_shape)  # (q's dtype and device; cheaper than torch.empty)
-    rc = getattr(load_kernels(), entry)(*ptrs, out.data_ptr(), error_word(dev).data_ptr(),
-                                        p.shape_ptr, cuda_build.stream_handle(dev))
+    rc = load_kernels().k4_flash_prefill(*ptrs, out.data_ptr(), error_word(dev).data_ptr(),
+                                         p.shape_ptr, cuda_build.stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {rc}")
     return out
@@ -171,17 +170,9 @@ def flash_prefill_attention(q, k, v, x_lens, xy_lens, *, num_heads: int):
         if not bool(((x_lens >= 0) & (xy_lens >= 1) & (xy_lens <= T)).all()):
             _fail(f"lengths outside 0 <= xl, 1 <= xyl <= {T}")
         return flash_prefill_attention_ref(q, k, v, x_lens, xy_lens, num_heads=H)
-    out = _launch("k4_flash_prefill", q, k, v, x_lens, xy_lens, num_heads)
+    out = _launch(q, k, v, x_lens, xy_lens, num_heads)
     flash_prefill_attention.launches += 1
     return out
-
-
-def flash_prefill_attention_cuda_core(q, k, v, x_lens, xy_lens, *, num_heads: int):
-    """K4's first design, on the CUDA cores, in either dtype, on CUDA
-    tensors: the same function as :func:`flash_prefill_attention` (which
-    runs it for float32), kept to time the bf16 tensor-core body against;
-    nothing calls it, and it counts no launch."""
-    return _launch("k4_flash_prefill_cuda_core", q, k, v, x_lens, xy_lens, num_heads)
 
 
 #: kernel launches since the last reset; the twin never counts

@@ -13,8 +13,7 @@ the kernel's next row count, its dead rows touching nothing); on CPU tensors
 it runs the plain PyTorch twin :func:`fused_decode_layer_ref`.  There is no
 fallback between the two.  ``kv_len`` stays on the device; a value outside
 ``[0, S)`` yields NaN for that row and sets the flag ``ops.fused_step.check``
-raises on.  The first design, a chain of 10 launches, is bound as
-:func:`fused_decode_layer_chain` for timing beside it; nothing calls it.
+raises on.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ import torch
 
 from ..utils import cuda_build
 from .flash_decode import _contiguous, meta
-from .fused_step import (_LAYERS_FIELDS, HEAD_DIMS, MAX_FUSED_B, _LayerWeights, _need,
+from .fused_step import (_WAVE_ROWS, HEAD_DIMS, MAX_FUSED_B, _layers_fields, _need,
                          check_hidden_rows, decode_layers_ref, table_for)
 
 #: (library name, sources) for ``cuda_build``
@@ -44,7 +43,8 @@ def fused_decode_layer_ref(x, lp, k_cache, v_cache, kv_len, layer: int):
 
 
 class _K6Args(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in ("B", "D", "H", "M", "S", "x_f32")] + _LAYERS_FIELDS
+    _fields_ = ([(n, ctypes.c_int) for n in ("B", "D", "H", "M", "S", "x_f32")]
+                + _layers_fields(_WAVE_ROWS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,10 +52,7 @@ def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k6_decode_layer.cu``."""
     lib = cuda_build.load_library(*LIBRARY)
     lib.k6_decode_layer.argtypes = [ctypes.POINTER(_K6Args), ctypes.c_void_p]
-    lib.k6_decode_layer_chain.argtypes = [ctypes.POINTER(_K6Args),
-                                          ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
-    for fn in (lib.k6_decode_layer, lib.k6_decode_layer_chain):
-        fn.restype = ctypes.c_int
+    lib.k6_decode_layer.restype = ctypes.c_int
     return lib
 
 
@@ -92,10 +89,10 @@ def launch_plan(x, k_cache, v_cache, kv_len) -> Plan:
     return Plan(L, B, S, H, Dh, int(x_dtype == torch.float32))
 
 
-def _run_groups(x, lp, k_cache, v_cache, kv_len, layer: int, table, chain: bool):
-    """Launch K6 (or, with ``chain``, its first design) on CUDA tensors: one
-    launch per group of at most ``MAX_FUSED_B`` rows.  Returns the output
-    rows.  Messages are built only on failure."""
+def _run_groups(x, lp, k_cache, v_cache, kv_len, layer: int, table):
+    """Launch K6 on CUDA tensors: one launch per group of at most
+    ``MAX_FUSED_B`` rows.  Returns the output rows.  Messages are built only
+    on failure."""
     ptrs = x.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
     p = launch_plan(meta(x, ptrs[0]), meta(k_cache, ptrs[1]), meta(v_cache, ptrs[2]),
                     meta(kv_len, ptrs[3]))
@@ -115,7 +112,7 @@ def _run_groups(x, lp, k_cache, v_cache, kv_len, layer: int, table, chain: bool)
     a.D, a.H, a.M, a.S = D, H, table.M, S
     a.x_f32 = p.x_f32
     a.attn_scale = 1.0 / math.sqrt(Dh)
-    table.work(a, min(B, MAX_FUSED_B), S, H, Dh)
+    table.work(a)
     stream = cuda_build.stream_handle(x.device)
     row = D * x.element_size()
     slab = (layer * B) * S * D * 2  # the layer's slab: its stride is the whole cache's B
@@ -125,15 +122,11 @@ def _run_groups(x, lp, k_cache, v_cache, kv_len, layer: int, table, chain: bool)
         a.k_cache = ptrs[1] + slab + b0 * S * D * 2  # at the group's first slot
         a.v_cache = ptrs[2] + slab + b0 * S * D * 2
         a.kv_len = ptrs[3] + b0 * 4
-        if chain:
-            rc = lib.k6_decode_layer_chain(ctypes.byref(a), ctypes.byref(table.layers[at]), stream)
-        else:
-            table.persistent(a, at)
-            rc = lib.k6_decode_layer(ctypes.byref(a), stream)
+        table.persistent(a, at)
+        rc = lib.k6_decode_layer(ctypes.byref(a), stream)
         if rc != 0:
-            raise RuntimeError(f"K6{' chain' if chain else ''} launch failed: CUDA error {rc}")
-        if not chain:
-            fused_decode_layer.launches += 1
+            raise RuntimeError(f"K6 launch failed: CUDA error {rc}")
+        fused_decode_layer.launches += 1
     return out
 
 
@@ -157,17 +150,7 @@ def fused_decode_layer(x, lp, k_cache, v_cache, kv_len, layer: int, *, table=Non
     if x.device.type != "cuda":
         layer = _check(x, k_cache, v_cache, kv_len, layer)  # (raises off the CPU)
         return fused_decode_layer_ref(x, lp, k_cache, v_cache, kv_len, layer)
-    return (_run_groups(x, lp, k_cache, v_cache, kv_len, int(layer), table, False), k_cache,
-            v_cache)
-
-
-def fused_decode_layer_chain(x, lp, k_cache, v_cache, kv_len, layer: int, *, table=None):
-    """K6's first design, a chain of 10 launches per group of rows, on CUDA
-    tensors: the same arguments and effects as :func:`fused_decode_layer`.
-    Kept to time beside the persistent kernel in one process; nothing in the
-    package calls it and it counts no launch."""
-    _need(x.device.type == "cuda", "the chain runs on CUDA tensors only")
-    return _run_groups(x, lp, k_cache, v_cache, kv_len, int(layer), table, True), k_cache, v_cache
+    return _run_groups(x, lp, k_cache, v_cache, kv_len, int(layer), table), k_cache, v_cache
 
 
 #: kernel launches since the last reset (one per group of rows); the twin

@@ -12,15 +12,11 @@
   Both are two launches a step: one persistent cooperative kernel for the
   model (``csrc/decode_step_persistent.cuh``: the weights streamed through a
   shared-memory ring; between phases tagged values at one row, a grid
-  barrier for a wave) and the sampling chain.  Their first design, a chain
-  of 195 launches, stays in the sources and is bound here as ``*_chain`` for
-  timing beside them; nothing calls it.
+  barrier for a wave) and the sampling chain.
 * K5, :func:`fused_decode_step`: a given hidden row through all layers at
   B=1, no embedding, head or sampling (TPU kernel ``_kernel``), CUDA source
   ``csrc/k5_decode_layers.cu``: one launch of the same persistent kernel as
   a layer stack; ``kv_len`` is a ``[1]`` tensor that stays on the device.
-  Its first design, a chain of 194 launches, is bound as
-  :func:`fused_decode_step_chain` for timing beside it; nothing calls it.
 * The quantized weight streams of K1 and K2 (the TPU kernels' ``quant`` /
   ``quant4`` modes): :func:`pack_layer_weights_int8` / ``_int4`` quantize
   each layer's four matrices per lane (one float32 scale per output channel
@@ -66,13 +62,11 @@ from .norms import layer_norm
 NEG = -1e30
 MAX_SUPPRESSED = 8
 HEAD_DIMS = (8, 16, 32, 64, 128)  # a cache row is read by Dh/8 lanes of a warp
-ATTN_ROWS = 64  # cache rows per attention split (csrc ATTN_ROWS)
 TRACE_BYTES = 4096  # csrc PS_TRACE_BYTES
 MAX_VOCAB = 2048  # the sampling block keeps the row and its sort in shared memory
 #: slots K2 takes: row accumulators its weight-streaming GEMV keeps per warp
 #: (csrc K2_MAX_B); larger waves decode through the generic step
 MAX_FUSED_B = 8
-GEMV_SMEM = 48 * 1024  # the chain's GEMV keeps its B activation rows in static-limit shared memory
 PS_STAGE_BYTES = 16384  # a stage of the persistent kernel's weight ring (csrc PS_STAGE_BYTES)
 #: (library name, sources) for ``cuda_build``
 K1_LIBRARY = ("gsv_k1", ["k1_decode_step.cu"])
@@ -353,18 +347,29 @@ _SAMPLE_FIELDS = ([("n_suppressed", ctypes.c_int),
                    ("suppressed", ctypes.c_int * MAX_SUPPRESSED), ("use_prev", ctypes.c_int)]
                   + [(n, ctypes.c_float) for n in ("rep_penalty", "top_p", "inv_temperature")]
                   + [("top_k", ctypes.c_int)])
-_WORK_FIELDS = [(n, ctypes.c_void_p) for n in ("x", "h", "qkv", "attn", "mlp", "part",
-                                               "row_out", "tok_out", "err")]
+
+
+def _pointers(*names):
+    return [(n, ctypes.c_void_p) for n in names]
+
+
+#: the float32 rows a wave hands from phase to phase (K2, a K6 group of
+#: more than one row; one row hands over through tagged values)
+_WAVE_ROWS = ("h", "qkv", "attn", "mlp")
+#: the :class:`LayerTable` workspace an argument struct may point at
+_WORKSPACE = ("x", *_WAVE_ROWS, "trace", "err")
 # what the persistent kernels read besides: the layer table on the device;
 # K1's tagged workspace and the launch's number; K2's extra workspace rows and
 # its grid barrier's counter
-_PERSISTENT_FIELDS = ([(n, ctypes.c_void_p) for n in ("layers_dev", "tagged", "pre", "bar")]
-                      + [("epoch", ctypes.c_uint)])
-# K5's and K6's: the rows in and out, the caches, the counters, the workspace
-_LAYERS_FIELDS = ([("attn_scale", ctypes.c_float)]
-                  + [(n, ctypes.c_void_p) for n in ("x_in", "x_out", "k_cache", "v_cache", "kv_len",
-                                                    "x", "h", "qkv", "attn", "mlp", "part", "err")]
-                  + _PERSISTENT_FIELDS)
+_PERSISTENT_FIELDS = _pointers("layers_dev", "tagged", "pre", "bar") + [("epoch", ctypes.c_uint)]
+
+
+def _layers_fields(rows=()):
+    """K5's and K6's fields after their widths: the rows in and out, the
+    caches, the counters, the workspace (``rows``: a wave's)."""
+    return ([("attn_scale", ctypes.c_float)]
+            + _pointers("x_in", "x_out", "k_cache", "v_cache", "kv_len", *rows, "trace", "err")
+            + _PERSISTENT_FIELDS)
 
 
 class _K1Args(ctypes.Structure):
@@ -374,8 +379,8 @@ class _K1Args(ctypes.Structure):
         + [(n, ctypes.c_void_p) for n in ("audio_emb", "pe", "predict_w", "k_cache",
                                           "v_cache", "tok_buf", "last_tok", "gumbel")]
         + [(n, ctypes.c_int) for n in ("kv_len", "pe_idx", "buf_len", "suppress")]
-        + _SAMPLE_FIELDS + _WORK_FIELDS + [("kv_word", ctypes.c_void_p)] + _PERSISTENT_FIELDS
-        + [("scales", ctypes.c_void_p)]
+        + _SAMPLE_FIELDS + _pointers("x", "trace", "row_out", "tok_out", "err")
+        + _PERSISTENT_FIELDS + [("scales", ctypes.c_void_p)]
     )
 
 
@@ -387,12 +392,19 @@ class _K2Args(ctypes.Structure):
                                           "v_cache", "tok_buf", "kv_len", "x_len",
                                           "last_tok", "buf_len", "step_idx", "gumbel")]
         + [("suppress_until", ctypes.c_int)]
-        + _SAMPLE_FIELDS + _WORK_FIELDS + _PERSISTENT_FIELDS + [("scales", ctypes.c_void_p)]
+        + _SAMPLE_FIELDS + _pointers("x", *_WAVE_ROWS, "trace", "row_out", "tok_out", "err")
+        + _PERSISTENT_FIELDS + [("scales", ctypes.c_void_p)]
     )
 
 
 class _K5Args(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int) for n in ("L", "D", "H", "M", "S", "x_f32")] + _LAYERS_FIELDS
+    _fields_ = [(n, ctypes.c_int) for n in ("L", "D", "H", "M", "S", "x_f32")] + _layers_fields()
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_fields(struct) -> tuple:
+    """The names of :data:`_WORKSPACE` an argument struct type has."""
+    return tuple(n for n, _ in struct._fields_ if n in _WORKSPACE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,13 +412,10 @@ def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k1_decode_step.cu``."""
     lib = cuda_build.load_library(*K1_LIBRARY)
     lib.k1_decode_step.argtypes = [ctypes.POINTER(_K1Args), ctypes.c_void_p]
-    lib.k1_decode_step_chain.argtypes = [ctypes.POINTER(_K1Args),
-                                         ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
     lib.k1_decode_step_quant.argtypes = [ctypes.POINTER(_K1Args), ctypes.c_int, ctypes.c_void_p]
     lib.k1_barrier_loop.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                                     ctypes.c_void_p]
-    for fn in (lib.k1_decode_step, lib.k1_decode_step_chain, lib.k1_decode_step_quant,
-               lib.k1_barrier_loop):
+    for fn in (lib.k1_decode_step, lib.k1_decode_step_quant, lib.k1_barrier_loop):
         fn.restype = ctypes.c_int
     return lib
 
@@ -416,12 +425,9 @@ def load_batched_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k2_decode_step_batched.cu``."""
     lib = cuda_build.load_library(*K2_LIBRARY)
     lib.k2_decode_step_batched.argtypes = [ctypes.POINTER(_K2Args), ctypes.c_void_p]
-    lib.k2_decode_step_batched_chain.argtypes = [ctypes.POINTER(_K2Args),
-                                                 ctypes.POINTER(_LayerWeights), ctypes.c_void_p]
     lib.k2_decode_step_batched_quant.argtypes = [ctypes.POINTER(_K2Args), ctypes.c_int,
                                                  ctypes.c_void_p]
-    for fn in (lib.k2_decode_step_batched, lib.k2_decode_step_batched_chain,
-               lib.k2_decode_step_batched_quant):
+    for fn in (lib.k2_decode_step_batched, lib.k2_decode_step_batched_quant):
         fn.restype = ctypes.c_int
     return lib
 
@@ -431,10 +437,7 @@ def load_layers_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind ``csrc/k5_decode_layers.cu``."""
     lib = cuda_build.load_library(*K5_LIBRARY)
     lib.k5_decode_layers.argtypes = [ctypes.POINTER(_K5Args), ctypes.c_void_p]
-    lib.k5_decode_layers_chain.argtypes = [ctypes.POINTER(_K5Args), ctypes.POINTER(_LayerWeights),
-                                           ctypes.c_void_p]
-    for fn in (lib.k5_decode_layers, lib.k5_decode_layers_chain):
-        fn.restype = ctypes.c_int
+    lib.k5_decode_layers.restype = ctypes.c_int
     return lib
 
 
@@ -484,9 +487,9 @@ def _device_bytes(struct_array, dev) -> torch.Tensor:
 
 class LayerTable:
     """What the layer kernels (K1, K2, K5, K6) read besides the per-step
-    tensors: a table of the layers' weight pointers (on the host for the
-    chains, on the card for the persistent kernel), a float32 workspace on
-    the card for up to ``MAX_FUSED_B`` rows, and the persistent kernel's
+    tensors: a table of the layers' weight pointers (built on the host,
+    copied to the card), a float32 workspace on the card for up to
+    ``MAX_FUSED_B`` rows, and the persistent kernel's
     hand-over state: the tagged values of one row, the grid barrier's
     counter and the one count (``epoch``) that numbers every launch on this
     workspace, whichever kernel makes it.  ``layers`` is a list of per-layer
@@ -517,7 +520,7 @@ class LayerTable:
         self.x, self.h, self.qkv, self.attn, self.mlp, self.pre = torch.split(
             ws, [R * D, R * D, 3 * R * D, R * D, R * M, R * D])
         self.err = error_word(self.device)
-        self.part = torch.empty(0, dtype=torch.float32, device=self.device)
+        self.trace = torch.empty(TRACE_BYTES // 4, dtype=torch.float32, device=self.device)
         self.kept = layers
         # the persistent kernel's copy of the layer table; what its phases
         # hand to each other at one row: (value, tag) pairs for
@@ -540,21 +543,12 @@ class LayerTable:
               f"aligned {dtype} {tuple(shape)} on {self.device}")
         return t.data_ptr()
 
-    def attention_partials(self, B: int, S: int, H: int, Dh: int) -> torch.Tensor:
-        """Workspace for the split attention's per-split partials (max, sum,
-        Dh outputs per slot, head and 64-row split), grown to fit B slots of
-        an S-row cache."""
-        n = B * H * -(-S // ATTN_ROWS) * (Dh + 2)
-        n = max(n, TRACE_BYTES // 4)  # (a traced build of the persistent kernel marks here)
-        if self.part.numel() < n:
-            self.part = torch.empty(n, dtype=torch.float32, device=self.device)
-        return self.part
-
-    def work(self, a, B: int, S: int, H: int, Dh: int):
-        """The workspace fields every argument struct has."""
-        a.x, a.h, a.qkv = self.x.data_ptr(), self.h.data_ptr(), self.qkv.data_ptr()
-        a.attn, a.mlp, a.err = self.attn.data_ptr(), self.mlp.data_ptr(), self.err.data_ptr()
-        a.part = self.attention_partials(B, S, H, Dh).data_ptr()
+    def work(self, a):
+        """The workspace fields of the argument struct ``a``: those of
+        :data:`_WORKSPACE` its type has (``trace``: where a traced build of
+        the persistent kernel writes its clock marks)."""
+        for name in _workspace_fields(type(a)):
+            setattr(a, name, getattr(self, name).data_ptr())
 
     def check(self):
         """Raise if a launch found a device-side value out of range
@@ -612,8 +606,6 @@ class K1Table(LayerTable):
         self.P = pe.shape[0]
         self.pe = self.ptr(pe, (self.P, D), torch.float32)
         self.alpha = float(params["audio_pos_alpha"].float().reshape(-1)[0])
-        # K1's kv_len is a host int; the chain's layer kernels read it from this word
-        self.kv_word = torch.zeros(1, dtype=torch.int32, device=self.device)
         self.params = params
         self.quant = quant
         if quant is not None:
@@ -693,13 +685,13 @@ def _check_cuda_tensors(dev, table, k_cache, named):
           "the caches must be 16-byte aligned")
 
 
-def _launch(entry, what: str, a, dev, *table_layers):
-    """Call a persistent kernel's entry point (or a chain's) on ``dev``'s
-    current stream; raise on the CUDA error of a refused launch (an invalid
-    value: widths that need more shared memory than a block has; a
-    cooperative launch too large: a card that cannot hold one block per SM,
-    shared with another process)."""
-    rc = entry(ctypes.byref(a), *table_layers, torch.cuda.current_stream(dev).cuda_stream)
+def _launch(entry, what: str, a, dev, *extra):
+    """Call a persistent kernel's entry point on ``dev``'s current stream
+    with ``extra`` arguments after the struct; raise on the CUDA error of a
+    refused launch (an invalid value: widths that need more shared memory
+    than a block has; a cooperative launch too large: a card that cannot
+    hold one block per SM, shared with another process)."""
+    rc = entry(ctypes.byref(a), *extra, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
@@ -745,9 +737,8 @@ def _k1_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
     a.tok_buf, a.last_tok, a.gumbel = tok_buf.data_ptr(), last_tok.data_ptr(), gumbel.data_ptr()
     a.kv_len, a.pe_idx, a.buf_len = kv_len, kv_len - x_len, buf_len
     a.suppress = int(step_idx < suppress_until)
-    table.work(a, 1, S, H, Dh)
+    table.work(a)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
-    a.kv_word = table.kv_word.data_ptr()
     return a, table, tok_out, row_out
 
 
@@ -788,22 +779,6 @@ def fused_decode_step_sample(params, k_cache, v_cache, tok_buf, kv_len: int,
     return tok_out, row_out, k_cache, v_cache
 
 
-def fused_decode_step_sample_chain(params, k_cache, v_cache, tok_buf, kv_len: int,
-                                   x_len: int, last_tok, buf_len: int, step_idx: int,
-                                   gumbel, *, sa, suppress_until: int = 0,
-                                   suppressed=(), tok_out=None, row_out=None):
-    """K1's first design, a chain of 195 launches, on CUDA tensors: the same
-    arguments and effects as :func:`fused_decode_step_sample`.  Kept to time
-    beside the persistent kernel in one process; nothing in the package calls
-    it and it counts no launch."""
-    _need(k_cache.device.type == "cuda", "the chain runs on CUDA tensors only")
-    a, table, tok_out, row_out = _k1_args(
-        params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx, gumbel,
-        sa, suppress_until, suppressed, tok_out, row_out)
-    _launch(load_kernels().k1_decode_step_chain, "K1 chain", a, k_cache.device, table.layers)
-    return tok_out, row_out, k_cache, v_cache
-
-
 def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx,
              gumbel, sa, suppress_until, suppressed, tok_out, row_out, quant=None):
     """Check K2's arguments; on the CPU return None, else the filled argument
@@ -828,8 +803,6 @@ def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
     if table is None:
         table = K1Table(params, quant)
     table.check_quant(quant)
-    _need(2 * B * max(table.D, table.M) <= GEMV_SMEM,
-          f"{B} activation rows of {max(table.D, table.M)} bf16 exceed {GEMV_SMEM} bytes")
     table.check_persistent(tagged=False)
     if tok_out is None:
         tok_out = torch.empty(B, dtype=torch.int32, device=dev)
@@ -852,7 +825,7 @@ def _k2_args(params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len
     for name, t in counters:
         setattr(a, name, t.data_ptr())
     a.suppress_until = suppress_until
-    table.work(a, B, S, H, Dh)
+    table.work(a)
     a.row_out, a.tok_out = row_out.data_ptr(), tok_out.data_ptr()
     return a, table, tok_out, row_out
 
@@ -887,23 +860,6 @@ def fused_decode_step_sample_batched(params, k_cache, v_cache, tok_buf, kv_len, 
     else:
         _launch(lib.k2_decode_step_batched_quant, f"K2 {quant}", a, k_cache.device, _WQ[quant])
     _count(fused_decode_step_sample_batched, quant)
-    return tok_out, row_out, k_cache, v_cache
-
-
-def fused_decode_step_sample_batched_chain(params, k_cache, v_cache, tok_buf, kv_len, x_len,
-                                           last_tok, buf_len, step_idx, gumbel, *, sa,
-                                           suppress_until: int = 0, suppressed=(),
-                                           tok_out=None, row_out=None):
-    """K2's first design, a chain of 195 launches, on CUDA tensors: the same
-    arguments and effects as :func:`fused_decode_step_sample_batched`.  Kept
-    to time beside the persistent kernel in one process; nothing in the
-    package calls it and it counts no launch."""
-    _need(k_cache.device.type == "cuda", "the chain runs on CUDA tensors only")
-    a, table, tok_out, row_out = _k2_args(
-        params, k_cache, v_cache, tok_buf, kv_len, x_len, last_tok, buf_len, step_idx, gumbel,
-        sa, suppress_until, suppressed, tok_out, row_out)
-    _launch(load_batched_kernels().k2_decode_step_batched_chain, "K2 chain", a, k_cache.device,
-            table.layers)
     return tok_out, row_out, k_cache, v_cache
 
 
@@ -973,7 +929,7 @@ def _k5_args(x, layers, k_cache, v_cache, kv_len, table):
     a.attn_scale = 1.0 / math.sqrt(Dh)
     a.x_in, a.x_out = x.data_ptr(), out.data_ptr()
     a.k_cache, a.v_cache, a.kv_len = k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr()
-    table.work(a, 1, S, H, Dh)
+    table.work(a)
     return a, table, out
 
 
@@ -995,17 +951,6 @@ def fused_decode_step(x, layers, k_cache, v_cache, kv_len, *, table=None):
     table.persistent(a)
     _launch(load_layers_kernels().k5_decode_layers, "K5", a, x.device)
     fused_decode_step.launches += 1
-    return out, k_cache, v_cache
-
-
-def fused_decode_step_chain(x, layers, k_cache, v_cache, kv_len, *, table=None):
-    """K5's first design, a chain of 194 launches, on CUDA tensors: the same
-    arguments and effects as :func:`fused_decode_step`.  Kept to time beside
-    the persistent kernel in one process; nothing in the package calls it and
-    it counts no launch."""
-    _need(x.device.type == "cuda", "the chain runs on CUDA tensors only")
-    a, table, out = _k5_args(x, layers, k_cache, v_cache, kv_len, table)
-    _launch(load_layers_kernels().k5_decode_layers_chain, "K5 chain", a, x.device, table.layers)
     return out, k_cache, v_cache
 
 

@@ -9,8 +9,7 @@ one library) with a plain PyTorch twin beside its wrapper, and a command:
     python -m gsv_tts_tpu_torch.tools.stream_probe [variant ...] [--device cpu]
 
 The card is the default and a probe raises without one; ``--device cpu``
-runs the twins.  ``probe_variants`` times named edits of P1's and P2's
-sources against them (``--check`` applies the edits only).  Nothing here imports JAX or the repository's ``tools/``.
+runs the twins.  Nothing here imports JAX or the repository's ``tools/``.
 """
 from __future__ import annotations
 
@@ -39,9 +38,7 @@ def load_kernels() -> ctypes.CDLL:
     """Build (first call only) and bind the three probes' entries."""
     lib = cuda_build.load_library(*PROBES_LIBRARY)
     for fn, args in ((lib.p1_int4_unpack_matmul, [_P] * 6 + [_I] * 8 + [_P]),
-                     (lib.p1_int4_unpack_matmul_first, [_P] * 5 + [_I] * 4 + [_P]),
                      (lib.p2_mosaic_probe, [_P, _P, _I, _P]),
-                     (lib.p2_mosaic_probe_first, [_P, _P, _I, _P]),
                      (lib.probe_empty, [_P]),
                      (lib.p3_stream_ring, [_P] * 5 + [_I] * 6 + [_P]),
                      (lib.p3_stream_grid, [_P] * 4 + [_I] * 3 + [_P])):

@@ -11,9 +11,7 @@ reads its bytes from global memory into registers) and ``unpack_dma`` (the
 bytes stream through a ring of shared-memory slots filled by bulk
 asynchronous copies on mbarriers).  The kernel (``csrc/p1_int4_probe.cu``)
 unpacks in registers and multiplies on the tensor cores over the whole card;
-:func:`plan` lays its grid out.  The first design (one block per <= 256 byte
-columns, all of D, FMAs on the CUDA cores) stays bound as
-:func:`int4_unpack_matmul_first` for the smoke's turns.
+:func:`plan` lays its grid out.
 
     python -m gsv_tts_tpu_torch.tools.int4_probe              # each variant in a subprocess
     python -m gsv_tts_tpu_torch.tools.int4_probe unpack       # one, in this process
@@ -45,14 +43,11 @@ X_ROWS = 8
 #: reference sum the same exact bf16 products in float32 in other orders
 #: (~1e-7 relative), where the TPU probe allowed 1e-2
 REL_TOL = 1e-5
-#: the first design's shared memory besides its slots and x: the slices' sums
-#: (``P1F_PART_BYTES`` in ``csrc/p1_int4_probe.cu``)
-PART_BYTES = 65536
 #: the s1v3 layer stack as one int4 page: P3's [24, 512, 6144] weights,
 #: 24 x 512 rows deep (the smoke's third shape)
 STACK = (24 * 512, 6144)
 
-# The redesign's constants (``csrc/p1_int4_probe.cu``).
+# The kernel's constants (``csrc/p1_int4_probe.cu``).
 #: warps of a block
 WARPS = 8
 #: byte columns of a warp: 16 for each of its 8 lane groups
@@ -66,8 +61,7 @@ RING = 4
 #: a block's column tile by variant: the first of these warp counts whose
 #: tile (128 bytes a warp) divides N/2.  ``unpack`` one warp (the most
 #: tiles, so the fewest splits and partials).  ``unpack_dma``'s copies are a
-#: tile's row each, and their size sets the ring's rate (``probe_variants``
-#: times the other widths and a deeper ring)
+#: tile's row each, and their size sets the ring's rate
 COL_WARPS = {"unpack": (1,), "unpack_dma": (8, 4, 2, 1)}
 #: the fewest stages a split of D takes: below it a block's fixed costs (x's
 #: slice, its sums) outweigh what it streams
@@ -189,17 +183,6 @@ def int4_unpack_matmul_plain(x, packed, scale):
     return (xb @ unpack_int4(packed).float()) * scale
 
 
-def block_cols(d: int, half: int) -> int:
-    """Byte columns a block of the first design takes: the most of 256,
-    128, ... 16 that divides ``half`` and leaves two slots of ``d`` rows in
-    shared memory (the same for both variants, so that their times
-    compare).  Raises where none fits: any D above 2607."""
-    for cols in (256, 128, 64, 32, 16):
-        if half % cols == 0 and 2 * d * cols + 4 * X_ROWS * d + PART_BYTES + 16 <= MAX_SMEM:
-            return cols
-    raise ValueError(f"int4_unpack_matmul: no block width fits D={d}, N/2={half}")
-
-
 def _fail(msg: str):
     raise ValueError(f"int4_unpack_matmul: {msg}")
 
@@ -250,27 +233,6 @@ def int4_unpack_matmul(x, packed, scale, variant: str = "unpack"):
         int(variant == "unpack_dma"), cuda_build.stream_handle(dev))
     launched(rc, "P1")
     count_launch(int4_unpack_matmul)
-    return out
-
-
-def int4_unpack_matmul_first(x, packed, scale, variant: str = "unpack"):
-    """P1's first design, for the smoke's turns only (it counts no launch):
-    a block per :func:`block_cols` byte columns carrying all of D, the
-    products as float32 FMAs on the CUDA cores.  CUDA tensors only; raises
-    where no block width fits shared memory (D above 2607)."""
-    if variant not in VARIANTS:
-        _fail(f"variant {variant!r}, one of {VARIANTS}")
-    d, half = _check(x, packed, scale)
-    dev = _on_card(x, packed, scale)
-    if half % 16:
-        _fail(f"N/2 = {half} must be a multiple of 16 (whole 16-byte runs a row)")
-    cols = block_cols(d, half)
-    out = torch.empty((X_ROWS, 2 * half), dtype=torch.float32, device=dev)
-    rc = load_kernels().p1_int4_unpack_matmul_first(
-        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        error_word(dev).data_ptr(), d, half, cols, int(variant == "unpack_dma"),
-        cuda_build.stream_handle(dev))
-    launched(rc, "P1 (first design)")
     return out
 
 

@@ -20,8 +20,7 @@ x [B * BLOCK, H] = [256, 16] float32 -> [1, H]; x is also read as
 The TPU tool's ``--interpret`` has no counterpart: ``--device cpu`` runs the
 twins.  The kernel is ``csrc/p2_mosaic_probe.cu``: one block of 4 warps, warp
 ``b`` on block ``b``, x read once into registers, each block's max and sum a
-shuffle tree in a fixed order, one barrier a pass of ``combined``.  The first
-design stays bound as :func:`mosaic_reduce_first` for the smoke's turns.
+shuffle tree in a fixed order, one barrier a pass of ``combined``.
 """
 from __future__ import annotations
 
@@ -96,20 +95,6 @@ def mosaic_reduce(x: torch.Tensor, variant: str) -> torch.Tensor:
                                         cuda_build.stream_handle(dev))
     launched(rc, "P2")
     count_launch(mosaic_reduce)
-    return out
-
-
-def mosaic_reduce_first(x: torch.Tensor, variant: str) -> torch.Tensor:
-    """P2's first design, for the smoke's turns only (it counts no launch):
-    a thread per 16 rows of one (block, column), the partials merged in
-    shared memory, four barriers a pass of ``combined``.  CUDA tensors only."""
-    _checked(x, variant)
-    dev = _on_card(x)
-    out = torch.empty((1, H), dtype=torch.float32, device=dev)
-    rc = load_kernels().p2_mosaic_probe_first(x.data_ptr(), out.data_ptr(),
-                                              VARIANTS.index(variant),
-                                              cuda_build.stream_handle(dev))
-    launched(rc, "P2 (first design)")
     return out
 
 

@@ -10,7 +10,7 @@ import torch
 
 from gsv_tts_tpu_torch.ops import flash_decode as fd
 from gsv_tts_tpu_torch.ops import flash_prefill as fp
-from gsv_tts_tpu_torch.ops.fused_step import ATTN_ROWS
+from gsv_tts_tpu_torch.ops.flash_decode import ATTN_ROWS
 
 CUDA = torch.device("cuda", 0)
 BF16, F32 = torch.bfloat16, torch.float32

@@ -290,11 +290,12 @@ def test_k4_cuda_kernel_matches_twin(cuda_device, dtype, Dh):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 16, 17, 160, 1024])
 @pytest.mark.parametrize("Dh", [8, 16, 32, 64, 128])
-def test_k4_tensor_core_body_matches_twin_and_cuda_core_body(cuda_device, Dh, T):
-    """K4's bf16 tensor-core body against the twin and against the first
-    (CUDA-core) bf16 body, at every head dim of ``HEAD_DIMS``: strided views,
-    a ragged B=4 batch whose lengths fall on and beside the 16- and 64-row
-    tile edges, pad rows; two calls are bitwise equal."""
+def test_k4_tensor_core_body_matches_twin(cuda_device, Dh, T):
+    """K4's bf16 tensor-core body against the twin at every head dim of
+    ``HEAD_DIMS``: strided views, a ragged B=4 batch whose lengths fall on
+    and beside the 16- and 64-row tile edges, pad rows; two calls are
+    bitwise equal.  (The float32 CUDA-core body is held to the twin by
+    ``test_k4_cuda_kernel_matches_twin``.)"""
     from gsv_tts_tpu_torch.ops import flash_prefill as fp
     from gsv_tts_tpu_torch.ops import fused_step
 
@@ -311,16 +312,14 @@ def test_k4_tensor_core_body_matches_twin_and_cuda_core_body(cuda_device, Dh, T)
     before = fp.flash_prefill_attention.launches
     out = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
     again = fp.flash_prefill_attention(q, k, v, xl, xyl, num_heads=H)
-    first = fp.flash_prefill_attention_cuda_core(q, k, v, xl, xyl, num_heads=H)
     torch.cuda.synchronize()
     fused_step.check(cuda_device)
-    assert fp.flash_prefill_attention.launches == before + 2  # the yardstick counts none
+    assert fp.flash_prefill_attention.launches == before + 2
     assert out.shape == (B, T, D) and out.dtype == torch.bfloat16
     assert torch.equal(out, again)
     # bf16: the twin rounds the normalised probabilities, the kernel the
     # unnormalised ones; both round the output (2^-9 relative each)
     torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
-    torch.testing.assert_close(out, first, rtol=2e-2, atol=2e-2)
 
 
 def _k3_case(dev, B, S, lens, seed, L=2, H=4, Dh=32, dtype=torch.bfloat16):
@@ -372,9 +371,9 @@ def test_k3_one_launch_matches_twin(cuda_device, B, S):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_k3_every_cluster_size(cuda_device, monkeypatch, C, dtype):
     """Each cluster size forced once through ``cluster_plan`` (the one thing
-    the wrapper picks it by): against the twin and the first design's
-    split-and-merge body, with ranks whose share of the rows is empty
-    (kv_len 0); a bad ``kv_len`` gives NaN in its slot alone and the flag."""
+    the wrapper picks it by): against the twin, with ranks whose share of
+    the rows is empty (kv_len 0); a bad ``kv_len`` gives NaN in its slot
+    alone and the flag."""
     from gsv_tts_tpu_torch.ops import flash_decode as fd
 
     monkeypatch.setattr(fd, "cluster_plan", lambda B, H, S, sms: C)
@@ -388,8 +387,6 @@ def test_k3_every_cluster_size(cuda_device, monkeypatch, C, dtype):
         for layer in range(kc.shape[0]):
             out = fd.flash_decode_attention_layered(q, kc, vc, kv_len, layer)
             torch.testing.assert_close(out, refs[layer], rtol=tol, atol=tol)
-            split = fd.flash_decode_attention_layered_split(q, kc, vc, kv_len, layer)
-            torch.testing.assert_close(out, split, rtol=tol, atol=tol)
         torch.cuda.synchronize()
         fd.check(cuda_device)
         bad = kv_len.clone()
@@ -514,11 +511,10 @@ def test_k6_cuda_kernel_matches_twin(cuda_device, B):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("where", ["first", "last"])
-def test_k5_persistent_matches_twin_and_chain_at_the_flagship_width(cuda_device, dtype, where):
+def test_k5_persistent_matches_twin_at_the_flagship_width(cuda_device, dtype, where):
     """K5 at the flagship widths (24 layers, D=512, M=2048) at ``kv_len`` 0
-    and S-1: the persistent kernel against the twin and against its first
-    design, the chain (which counts no launch); only row ``kv_len`` of every
-    layer changes."""
+    and S-1: the persistent kernel against the twin, one launch; only row
+    ``kv_len`` of every layer changes."""
     from gsv_tts_tpu_torch.models import t2s
     from gsv_tts_tpu_torch.ops import fused_step
 
@@ -535,25 +531,21 @@ def test_k5_persistent_matches_twin_and_chain_at_the_flagship_width(cuda_device,
     x = torch.randn((1, cfg.hidden_dim), generator=gen, device=cuda_device).to(dtype)
     kv_len = torch.tensor([n], dtype=torch.int32, device=cuda_device)
     before = fused_step.fused_decode_step.launches
-    outs = []
-    for fn in (fused_step.fused_decode_step, fused_step.fused_decode_step_chain):
-        ka, va = kc.clone(), vc.clone()
-        h, _, _ = fn(x, params["layers"], ka, va, kv_len, table=table)
-        outs.append((h, ka, va))
+    ka, va = kc.clone(), vc.clone()
+    h, _, _ = fused_step.fused_decode_step(x, params["layers"], ka, va, kv_len, table=table)
     kb, vb = kc.clone(), vc.clone()
     rh, _, _ = fused_step.fused_decode_step_ref(x, params["layers"], kb, vb, kv_len)
     torch.cuda.synchronize()
     table.check()
     assert fused_step.fused_decode_step.launches == before + 1
-    for h, ka, va in outs:
-        assert h.dtype == dtype and h.shape == x.shape
-        # 24 bf16 layers carry a flipped rounding forward (the smoke's tolerance)
-        torch.testing.assert_close(h.float(), rh.float(), rtol=0.1, atol=0.1)
-        torch.testing.assert_close(ka[:, 0, n].float(), kb[:, 0, n].float(), rtol=0.1, atol=0.1)
-        torch.testing.assert_close(va[:, 0, n].float(), vb[:, 0, n].float(), rtol=0.1, atol=0.1)
-        for a, orig in ((ka, kc), (va, vc)):
-            assert torch.equal(a[:, 0, :n], orig[:, 0, :n])
-            assert torch.equal(a[:, 0, n + 1:], orig[:, 0, n + 1:])
+    assert h.dtype == dtype and h.shape == x.shape
+    # 24 bf16 layers carry a flipped rounding forward (the smoke's tolerance)
+    torch.testing.assert_close(h.float(), rh.float(), rtol=0.1, atol=0.1)
+    torch.testing.assert_close(ka[:, 0, n].float(), kb[:, 0, n].float(), rtol=0.1, atol=0.1)
+    torch.testing.assert_close(va[:, 0, n].float(), vb[:, 0, n].float(), rtol=0.1, atol=0.1)
+    for a, orig in ((ka, kc), (va, vc)):
+        assert torch.equal(a[:, 0, :n], orig[:, 0, :n])
+        assert torch.equal(a[:, 0, n + 1:], orig[:, 0, n + 1:])
 
 
 @pytest.mark.cuda
@@ -730,7 +722,7 @@ def test_engine_attn_impl_on_cuda_counts_its_kernels(cuda_device, impl):
 
 
 # ---------------------------------------------------------------------------
-# The persistent whole-step kernels (K1, K2) against twin and chain
+# The persistent whole-step kernels (K1, K2) against their twin
 # ---------------------------------------------------------------------------
 
 def _step_fixture(dev, width, B, S, seed=0):
@@ -784,11 +776,11 @@ def _run_step(fn_b1, fn_wave, params, kc, vc, buf, st, g, sa, sup):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,S", [("small", 200), ("flagship", 1024)])
 @pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 6, 7, 8])
-def test_persistent_step_matches_twin_and_chain(cuda_device, width, S, B):
+def test_persistent_step_matches_twin(cuda_device, width, S, B):
     """K1 (B=1) and K2 at every wave size: the persistent kernel against the
-    twin and against its first design, the chain, at a small width (a partial
-    last 64-row step, tokens 1017 and 1024) and at the flagship width; only
-    row ``kv_len[b]`` of a slot's cache changes."""
+    twin at a small width (a partial last 64-row step, tokens 1017 and 1024)
+    and at the flagship width; only row ``kv_len[b]`` of a slot's cache
+    changes."""
     from gsv_tts_tpu_torch.ops import fused_step
     from gsv_tts_tpu_torch.runtime.t2s_session import SampleArgs
 
@@ -809,28 +801,23 @@ def test_persistent_step_matches_twin_and_chain(cuda_device, width, S, B):
         after = (fused_step.fused_decode_step_sample.launches,
                  fused_step.fused_decode_step_sample_batched.launches)
         assert after == ((before[0] + 1, before[1]) if B == 1 else (before[0], before[1] + 1))
-        chain = _run_step(fused_step.fused_decode_step_sample_chain,
-                          fused_step.fused_decode_step_sample_batched_chain, params, kc, vc, buf,
-                          st, g, sa, sup)
-        assert (fused_step.fused_decode_step_sample.launches,
-                fused_step.fused_decode_step_sample_batched.launches) == after  # uncounted
         kb, vb, bb = kc.clone(), vc.clone(), buf.clone()
         rtok, rrow, _, _ = fused_step.fused_decode_step_sample_batched_ref(
             params, kb, vb, bb, st["kv"], st["x"], st["last"], st["buf"], st["step"], g, sa=sa,
             suppress_until=10, suppressed=sup)
         rhid, _ = fused_step.decode_hidden_ref(params, kc.clone(), vc.clone(), st["kv"], st["x"],
                                                st["last"])
-        for tok, row, ka, va, ba, hid in (got, chain):
-            torch.testing.assert_close(hid, rhid, rtol=tol, atol=tol)
-            keep = (row > -1e29) & (rrow > -1e29)  # (a value at the filter's cut may flip sides)
-            assert float((row - rrow)[keep].abs().max()) <= tol and bool(keep.any())
-            torch.testing.assert_close(ka.float(), kb.float(), rtol=tol, atol=tol)
-            torch.testing.assert_close(va.float(), vb.float(), rtol=tol, atol=tol)
-            for b, n in enumerate(st["kv_lens"]):
-                assert int(ba[b, int(st["buf"][b])]) == int(tok[b])
-                for a, orig in ((ka, kc), (va, vc)):
-                    assert torch.equal(a[:, b, :n], orig[:, b, :n])
-                    assert torch.equal(a[:, b, n + 1:], orig[:, b, n + 1:])
+        tok, row, ka, va, ba, hid = got
+        torch.testing.assert_close(hid, rhid, rtol=tol, atol=tol)
+        keep = (row > -1e29) & (rrow > -1e29)  # (a value at the filter's cut may flip sides)
+        assert float((row - rrow)[keep].abs().max()) <= tol and bool(keep.any())
+        torch.testing.assert_close(ka.float(), kb.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(va.float(), vb.float(), rtol=tol, atol=tol)
+        for b, n in enumerate(st["kv_lens"]):
+            assert int(ba[b, int(st["buf"][b])]) == int(tok[b])
+            for a, orig in ((ka, kc), (va, vc)):
+                assert torch.equal(a[:, b, :n], orig[:, b, :n])
+                assert torch.equal(a[:, b, n + 1:], orig[:, b, n + 1:])
         top2 = torch.topk(rrow, 2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
         assert torch.equal(got[0][clear], rtok[clear])
@@ -980,10 +967,11 @@ def test_persistent_steps_of_two_tables_interleave_on_one_stream(cuda_device):
 
 
 @pytest.mark.cuda
-def test_persistent_greedy_steps_repeat_and_follow_the_chain(cuda_device):
+def test_persistent_greedy_steps_repeat_and_follow_the_twin(cuda_device):
     """200 consecutive greedy steps through ``decode_chunk``: the same tokens
-    from run to run (no reduction's order depends on timing), and the chain's
-    tokens over a bounded prefix (two bf16 routes part at the first near-tie)."""
+    from run to run (no reduction's order depends on timing), and the twin's
+    tokens over a bounded prefix (two routes that sum in other orders part at
+    the first near-tie)."""
     from gsv_tts_tpu_torch.ops import fused_step
     from gsv_tts_tpu_torch.runtime import t2s_session as ts
 
@@ -996,17 +984,17 @@ def test_persistent_greedy_steps_repeat_and_follow_the_chain(cuda_device):
     def i32(v):
         return torch.tensor([v], dtype=torch.int32, device=cuda_device)
 
-    def run(chain):
+    def run(twin):
         state = ts.DecodeState(kc.clone(), vc.clone(), i32(30), i32(20), buf.clone(), i32(11),
                                i32(1017), i32(0))
-        if not chain:
+        if not twin:
             _, toks = ts.decode_chunk(params, cfg, state, n, sa, g, dtype=torch.bfloat16)
             out = toks[0].clone()
         else:
             out = torch.empty(n, dtype=torch.int32, device=cuda_device)
             row = torch.empty((1, V), device=cuda_device)
             for i in range(n):
-                fused_step.fused_decode_step_sample_chain(
+                fused_step.fused_decode_step_sample_ref(
                     params, state.k_cache, state.v_cache, state.tok_buf, 30 + i, 20,
                     state.last_tok, 11 + i, i, g[i], sa=sa, tok_out=out[i:i + 1], row_out=row)
                 state.last_tok = out[i:i + 1]
@@ -1015,11 +1003,11 @@ def test_persistent_greedy_steps_repeat_and_follow_the_chain(cuda_device):
         return out
 
     before = fused_step.fused_decode_step_sample.launches
-    first, second, chain = run(False), run(False), run(True)
+    first, second, twin = run(False), run(False), run(True)
     assert fused_step.fused_decode_step_sample.launches == before + 2 * n
     assert torch.equal(first, second)
-    agree = int((first == chain).int().cumprod(0).sum())
-    assert agree >= 8, f"only {agree} leading tokens equal the chain's"
+    agree = int((first == twin).int().cumprod(0).sum())
+    assert agree >= 8, f"only {agree} leading tokens equal the twin's"
 
 
 @pytest.mark.cuda
@@ -1357,46 +1345,17 @@ def test_p1_probe_kernel_matches_twin(cuda_device, variant, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["unpack", "unpack_dma"])
-def test_p1_first_design_matches_twin_and_refuses_the_stack(cuda_device, variant):
-    """The first design, kept for the smoke's turns: at the MLP-1 within
-    1e-5 of max |twin|, counting no launch; at the stack shape no block
-    width fits shared memory, so it raises before any launch."""
-    from gsv_tts_tpu_torch import tools
-    from gsv_tts_tpu_torch.tools import int4_probe
-
-    x, _, packed, scale = int4_probe.make_inputs(1, d=512, n=2048)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (x, packed, scale)]
-    before = int4_probe.int4_unpack_matmul.launches
-    got = int4_probe.int4_unpack_matmul_first(*args, variant=variant)
-    want = int4_probe.int4_unpack_matmul_plain(*args)
-    torch.cuda.synchronize()
-    tools.check(cuda_device)
-    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
-    assert int4_probe.int4_unpack_matmul.launches == before
-    d, n = int4_probe.STACK
-    x = torch.zeros((8, d), device=cuda_device)
-    with pytest.raises(ValueError, match="no block width fits"):
-        int4_probe.int4_unpack_matmul_first(
-            x, torch.zeros((d, n // 2), dtype=torch.int8, device=cuda_device),
-            torch.ones((1, n), device=cuda_device), variant=variant)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["baseline", "reduce3d", "bcastcmp", "combined"])
 def test_p2_probe_kernel_matches_twin(cuda_device, variant):
-    """P2 and its first design within 1e-5 of max(1, |twin|) (bcastcmp's
-    -5.4e10: within its float32 resolution); the redesign bit for bit its
-    own repeat."""
+    """P2 within 1e-5 of max(1, |twin|) (bcastcmp's -5.4e10: within its
+    float32 resolution), bit for bit its own repeat."""
     from gsv_tts_tpu_torch.tools import mosaic_probe
 
     x = torch.from_numpy(mosaic_probe.make_input(2)).to(cuda_device)
     got = mosaic_probe.mosaic_reduce(x, variant)
-    first = mosaic_probe.mosaic_reduce_first(x, variant)
     want = mosaic_probe.mosaic_reduce_plain(x, variant)
     torch.cuda.synchronize()
-    for out in (got, first):
-        assert ((out - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-5
+    assert ((got - want).abs() / want.abs().clamp_min(1.0)).max() <= 1e-5
     assert torch.equal(got, mosaic_probe.mosaic_reduce(x, variant))
 
 

@@ -83,18 +83,6 @@ def test_p1_unpack_and_twin_match_numpy():
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
-def test_p1_block_width_fits_shared_memory():
-    """The probe's shape is one block whose slots hold the whole 64 KB page
-    (one bulk copy); the flagship MLP-1 (D=512, N=2048) runs 128 byte
-    columns a block, its two slots of 64 KB in shared memory."""
-    assert int4_probe.block_cols(256, 256) == 256
-    assert int4_probe.block_cols(512, 1024) == 128
-    for d, half in ((256, 256), (512, 1024), (64, 48)):
-        cols = int4_probe.block_cols(d, half)
-        assert half % cols == 0 and 256 % (cols // 4) == 0
-        assert 2 * d * cols + 32 * d + int4_probe.PART_BYTES + 16 <= int4_probe.MAX_SMEM
-
-
 P1_SHAPES = {"probe": (int4_probe.D, int4_probe.N), "mlp1": (512, 2048),
              "stack": int4_probe.STACK}
 
@@ -281,9 +269,9 @@ def test_p1_twin_at_a_stacked_shape_matches_numpy():
 
 
 def test_p1_and_p2_wrappers_refuse_what_the_kernels_do_not_take():
-    """Shapes outside the plan (D not a multiple of 16, N/2 not of 128),
-    other dtypes, and the first designs on CPU tensors raise ValueError on
-    any device; no twin runs in their place."""
+    """Shapes outside the plan (D not a multiple of 16, N/2 not of 128) and
+    other dtypes raise ValueError on any device; no twin runs in their
+    place."""
     x, _, packed, scale = (torch.from_numpy(a) for a in int4_probe.make_inputs(0, d=64, n=256))
     with pytest.raises(ValueError, match="multiple of 16"):
         int4_probe.int4_unpack_matmul(x[:, :56].contiguous(), packed[:56], scale)
@@ -298,31 +286,8 @@ def test_p1_and_p2_wrappers_refuse_what_the_kernels_do_not_take():
         int4_probe.int4_unpack_matmul(x, packed.to(torch.uint8), scale)
     with pytest.raises(ValueError, match="variant"):
         int4_probe.plan(64, 128, "unpack4")
-    with pytest.raises(ValueError, match="kernel runs on CUDA"):
-        int4_probe.int4_unpack_matmul_first(x, packed, scale)
-    with pytest.raises(ValueError, match="no block width fits"):
-        int4_probe.block_cols(*int4_probe.STACK[:1], int4_probe.STACK[1] // 2)
     with pytest.raises(ValueError, match="want"):
         mosaic_probe.mosaic_reduce(torch.zeros((256, 16), dtype=torch.float64), "combined")
-    with pytest.raises(ValueError, match="kernel runs on CUDA"):
-        mosaic_probe.mosaic_reduce_first(torch.zeros((256, 16)), "combined")
-
-
-def test_probe_variants_edits_apply_to_the_sources(capsys):
-    """The variants tool's named edits of P1's and P2's sources still apply
-    (``--check``: no card, no nvcc), and each but the final one changes its
-    source."""
-    from gsv_tts_tpu_torch.tools import probe_variants as pv
-
-    assert pv.main(["--check"]) == 0
-    n = len(pv.P1_VARIANTS) + len(pv.P2_VARIANTS)
-    assert f"{n} variants apply" in capsys.readouterr().out
-    srcs = pv.sources()
-    final = srcs[("p1", "final")]
-    for (kernel, name), (a, b) in srcs.items():
-        assert (a, b) != final or name == "final", (kernel, name)
-    with pytest.raises(ValueError, match="0 places"):
-        pv.apply("int x;", [("float y;", "")])
 
 
 def test_p1_main_on_cpu_prints_pass(capsys):
